@@ -1,0 +1,146 @@
+"""Package boundary of the PyTorch/CUDA port.
+
+The port imports torch, numpy and the standard library only: never jax,
+flax or the JAX package.  Its entry points default to the card and raise
+without one, and its kernel wrappers take the plain path only for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pytorch_mnist_ddp_tpu_torch.device import resolve_device
+from pytorch_mnist_ddp_tpu_torch.models.net import Net
+from pytorch_mnist_ddp_tpu_torch.models.quant import quantize_params
+from pytorch_mnist_ddp_tpu_torch.ops import _build
+from pytorch_mnist_ddp_tpu_torch.ops import int8_head
+from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as cli_main
+from pytorch_mnist_ddp_tpu_torch.serving.engine import InferenceEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "pytorch_mnist_ddp_tpu_torch"
+FORBIDDEN_ROOTS = ("jax", "flax", "pytorch_mnist_ddp_tpu")
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _absolute_imports(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_port_file_imports_no_jax_or_reference(path):
+    bad = sorted(
+        name for name in _absolute_imports(path)
+        if name.split(".")[0] in FORBIDDEN_ROOTS
+    )
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_port_module_imports_with_jax_poisoned():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for name in {FORBIDDEN_ROOTS!r}:\n"
+        "    sys.modules[name] = None  # any import of it raises\n"
+        "import pytorch_mnist_ddp_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "print(len(mods))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15  # every module of the port
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the no-card contract is moot")
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it():
+    _no_card()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["engine", "from_seed", "cli"],
+)
+def test_entry_points_default_to_cuda(entry):
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "engine":
+            InferenceEngine(Net().state_dict())
+        elif entry == "from_seed":
+            InferenceEngine.from_seed(1)
+        else:
+            cli_main(["--warmup-only", "--buckets", "1"])
+
+
+@pytest.fixture
+def head_args():
+    q = quantize_params(Net(torch.Generator().manual_seed(3)).state_dict())
+    x = torch.rand(3, 9216, generator=torch.Generator().manual_seed(4))
+    return q["fc1"], q["fc2"], x
+
+
+def test_cpu_head_never_touches_the_build(monkeypatch, head_args):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path must not build or load a kernel")
+
+    for name in ("library", "nvcc_path"):
+        monkeypatch.setattr(_build, name, refuse)
+    before = int8_head.LAUNCHES
+    fc1, fc2, x = head_args
+    out = int8_head.fused_int8_head(fc1, fc2, x)
+    assert out.shape == (3, 10)
+    assert torch.equal(out, int8_head.int8_head_reference(fc1, fc2, x))
+    assert int8_head.LAUNCHES == before  # the plain path is not a launch
+
+
+def test_head_refuses_other_devices(head_args):
+    fc1, fc2, x = head_args
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        int8_head.fused_int8_head(fc1, fc2, x.to("meta"))
+
+
+def test_build_lists_sources_and_names_missing_nvcc(monkeypatch, tmp_path):
+    assert "int8_head" in _build.sources()
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_build_target_tracks_the_source():
+    target = _build._target("int8_head")
+    assert target.parent == _build.BUILD_DIR
+    assert target == _build._target("int8_head")  # stable for one source
+    assert target.name.startswith("int8_head-") and target.suffix == ".so"
