@@ -1,37 +1,57 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU
+and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, one JSON line each:
 
-1. env     — the card (nvidia-smi name and power limit), torch and CUDA
-             versions, TF32 off;
-2. build   — every kernel under pytorch_mnist_ddp_tpu_torch/csrc/, built and
-             loaded as the wrappers do at first use;
-3. kernel  — each kernel against its plain PyTorch version on the card, at
-             the row counts the serving ladder gives it;
-4. engine  — InferenceEngine.from_seed on the card (f32 + int8), bucketed
-             and packed: warmup, the int8 parity gate, f32 against the CPU
-             model, int8 predictions through the kernel;
-5. server  — make_server on 127.0.0.1 over the bucketed engine: JSON
-             /predict in f32 and int8 from one client, each answer held
-             against engine.predict_logits; /metrics, /healthz, /readyz;
-             drain.  Then over the packed engine with concurrent clients,
-             so requests coalesce into multi-segment batches on the card;
-6. times   — each kernel, its plain version and the nearest library call,
-             with CUDA events, beside the least time the card could take.
+1. env        — the card (nvidia-smi name and power limit), torch and CUDA
+                versions, TF32 off;
+2. build      — every kernel under pytorch_mnist_ddp_tpu_torch/csrc/, one
+                nvcc per source, all started together, loaded as the
+                wrappers do at first use;
+3. kernel     — each kernel against its plain PyTorch version on the card:
+                int8_head at the row counts the serving ladder gives it,
+                adadelta in both modes at flat lengths up to the model's;
+4. engine     — InferenceEngine.from_seed on the card (f32 + int8),
+                bucketed and packed: warmup, the int8 parity gate, f32
+                against the CPU model, int8 predictions through the kernel;
+5. server     — make_server on 127.0.0.1 over the bucketed engine: JSON
+                /predict in f32 and int8 from one client, each answer held
+                against engine.predict_logits; /metrics, /healthz, /readyz;
+                drain.  Then over the packed engine with concurrent
+                clients, so requests coalesce into multi-segment batches;
+6. train_step — 20 train steps from one set of weights on fixed batches,
+                dropout off, deterministic cuDNN, three times: the plain
+                update, the fused kernel (per-parameter state) and the
+                delta kernel (flat state); all three must agree;
+7. train      — the trainer's fit() on the synthetic 60k/10k sets at the
+                CLI defaults: two epochs with --pallas-opt (StepLR's
+                second lr reaches the kernel), then one epoch plain;
+8. times      — each kernel, its plain version and the nearest library
+                call, with CUDA events, beside the least time the card
+                could take; adadelta with the L2 flushed before each call;
+9. train_profile — where a training step's time goes: the loader alone,
+                then 100 steps, plain and --pallas-opt, under
+                torch.profiler (wall and device-busy time per step).
 
 Then the ``kernels`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Kernel launch counts are zeroed just
-before phase 4 and read just after phase 5, so they count only the main
-path.  The latencies printed are smoke readings of this script's own
-traffic, not a benchmark.  Any failure exits non-zero; so does a host without a CUDA device.
+``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
+each main path and read just after it: int8_head over phases 4-5 (the
+serving path), adadelta over phases 6-7 (the training path).  Latencies,
+seconds per epoch and images/s are smoke readings of this script's own
+work, not a benchmark.  Any failure exits non-zero; so does a host
+without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +81,22 @@ CLIENTS = 8
 PER_CLIENT = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# Adadelta: flat lengths from one element to the model's 1,199,882, and
+# one buffer offset by one element, which takes the kernel's scalar path.
+ADADELTA_N = (1, 37, 1024, 33000, 300000, 1199882)
+ADADELTA_TOL = 1e-6  # kernel vs plain: same IEEE ops in the same order
+TRAIN_STEPS = 20  # train_step phase
+PROFILE_STEPS = 100  # train_profile phase
+TRAIN_STEP_RTOL = 1e-5  # three optimizer paths, deterministic cuDNN
+EPOCH1_MIN_ACCURACY = 0.95
+L2_FLUSH_BYTES = 256 << 20  # > 5x the 50 MB L2
+# Per element: 14 flops for the delta mode, 16 with p -= lr * delta; bytes
+# read once and written once: g, sq, ac in and delta, sq, ac out (24), or
+# p, g, sq, ac in and p, sq, ac out (28).
+ADADELTA_WORK = {"adadelta_delta": (24, 14), "adadelta_fused": (28, 16)}
+ADADELTA_REPLACES = {"adadelta_delta": "pytorch_mnist_ddp_tpu/ops/pallas_adadelta.py:140",
+                     "adadelta_fused": "pytorch_mnist_ddp_tpu/ops/pallas_adadelta.py:71"}
 
 
 def emit(obj: dict) -> None:
@@ -99,6 +135,35 @@ def head_bound(n: int, k: int, h: int, o: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def cold_ms(torch, fn, restore, runs: int = 30, warm: int = 3) -> float:
+    """Median device time of ``fn`` with its inputs restored and the L2
+    cache flushed (a write of L2_FLUSH_BYTES) before each call, by CUDA
+    events around the call alone."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warm):
+        restore()
+        fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(runs)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in pairs:
+        restore()
+        flush.fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def adadelta_bound(name: str, n: int) -> tuple[float, str]:
+    """Least time (ms) for one adadelta call over n elements."""
+    nbytes, flops = ADADELTA_WORK[name]
+    t_bytes, t_ops = n * nbytes / HBM_BYTES_PER_S, n * flops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def post_json(url: str, body: dict | bytes) -> dict:
     data = body if isinstance(body, bytes) else json.dumps(body).encode()
     req = urllib.request.Request(url, data, {"Content-Type": "application/json"})
@@ -111,6 +176,299 @@ def get(url: str) -> bytes:
     with urllib.request.urlopen(url, timeout=30) as r:
         check(r.status == 200, f"{url} answered {r.status}")
         return r.read()
+
+
+def adadelta_inputs(torch, np, n: int, seed: int, offset: int = 0):
+    """p, g signed, sq and ac non-negative, on the card; ``offset`` starts
+    every buffer that many elements into its allocation."""
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(n), rng.randn(n), np.abs(rng.randn(n)), np.abs(rng.randn(n))]
+    out = []
+    for a in arrays:
+        buf = torch.empty(n + offset, dtype=torch.float32, device="cuda")
+        buf[offset:].copy_(torch.from_numpy(a.astype(np.float32)))
+        out.append(buf[offset:])
+    return out
+
+
+def adadelta_kernel_phase(torch, np) -> dict[str, float]:
+    """Both modes against the plain version at every length; returns the
+    worst error per kernel name."""
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+
+    worst = {"adadelta_delta": 0.0, "adadelta_fused": 0.0}
+    by_n = {}
+    cases = [(n, 0) for n in ADADELTA_N] + [(33000, 1)]
+    for n, offset in cases:
+        p, g, sq, ac = adadelta_inputs(torch, np, n, n, offset)
+        errs = {}
+        for name in worst:
+            kp, kg, ksq, kac = (t.clone() for t in (p, g, sq, ac))
+            rp, rg, rsq, rac = (t.clone() for t in (p, g, sq, ac))
+            if name == "adadelta_fused":
+                af.fused_adadelta_flat(kp, kg, ksq, kac, 0.7)
+                af.adadelta_flat_reference(rg, rsq, rac, 0.9, 1e-6, rp, 0.7)
+                pairs = ((kp, rp), (ksq, rsq), (kac, rac))
+            else:
+                af.adadelta_delta_flat(kg, ksq, kac)
+                af.adadelta_flat_reference(rg, rsq, rac, 0.9, 1e-6)
+                pairs = ((kg, rg), (ksq, rsq), (kac, rac))
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in pairs)
+            check(all(bool(torch.isfinite(a).all()) for a, _ in pairs),
+                  f"{name} non-finite at n={n}")
+            check(err <= ADADELTA_TOL, f"{name} off its plain version by {err} at n={n}")
+            errs[name] = err
+            worst[name] = max(worst[name], err)
+        by_n[f"{n}" + (f"+{offset}" if offset else "")] = errs
+    emit({"phase": "kernel", "name": "adadelta", "tolerance": ADADELTA_TOL,
+          "max_abs_err_by_n": by_n})
+    return worst
+
+
+def train_step_phase(torch, np) -> dict[str, int]:
+    """TRAIN_STEPS steps three ways from one set of weights; returns the
+    adadelta launches of the phase."""
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import (
+        TrainState,
+        make_train_state,
+        make_train_step,
+    )
+
+    batch = 64
+    images, labels = synthetic_mnist("train", TRAIN_STEPS * batch)
+    xs = torch.from_numpy(normalize(images)).cuda().reshape(TRAIN_STEPS, batch, 28, 28, 1)
+    ys = torch.from_numpy(labels.astype(np.int64)).cuda().reshape(TRAIN_STEPS, batch)
+    w = torch.ones(batch, device="cuda")
+    init = Net(torch.Generator().manual_seed(SEED)).state_dict()
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for run in ("plain", "fused", "delta"):
+            net = Net().cuda()
+            net.load_state_dict(init)
+            if run == "delta":
+                state = make_train_state(net, use_pallas=True)
+            else:
+                state = TrainState(opt=adadelta_init(dict(net.named_parameters())))
+            step = make_train_step(dropout=False, use_pallas=run != "plain")
+            before = dict(af.LAUNCHES)
+            t0 = time.perf_counter()
+            losses = torch.stack([step(net, state, xs[i], ys[i], w, 1.0)
+                                  for i in range(TRAIN_STEPS)])
+            torch.cuda.synchronize()
+            runs[run] = {
+                "seconds": time.perf_counter() - t0,
+                "losses": losses.cpu().numpy(),
+                "params": {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()},
+                "launches": {k: af.LAUNCHES[k] - before[k] for k in before},
+            }
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain = runs["plain"]
+    check(np.isfinite(plain["losses"]).all(), "plain train_step losses non-finite")
+    check(plain["losses"][-1] < plain["losses"][0], "plain train_step did not learn")
+    check(plain["launches"] == {"adadelta_delta": 0, "adadelta_fused": 0},
+          f"plain update launched a kernel: {plain['launches']}")
+    want = {"fused": {"adadelta_delta": 0, "adadelta_fused": TRAIN_STEPS},
+            "delta": {"adadelta_delta": TRAIN_STEPS, "adadelta_fused": 0}}
+    report = {}
+    for run in ("fused", "delta"):
+        r = runs[run]
+        check(r["launches"] == want[run], f"{run} launches {r['launches']} != {want[run]}")
+        loss_diff = float(np.abs(r["losses"] - plain["losses"]).max())
+        param_diff = max(float(np.abs(r["params"][k] - plain["params"][k]).max())
+                         for k in plain["params"])
+        for k in plain["params"]:
+            check(np.allclose(r["params"][k], plain["params"][k], rtol=TRAIN_STEP_RTOL, atol=0),
+                  f"{run} train_step {k} off the plain run")
+        check(np.allclose(r["losses"], plain["losses"], rtol=TRAIN_STEP_RTOL, atol=0),
+              f"{run} train_step losses off the plain run")
+        report[run] = {"max_abs_loss_diff": loss_diff, "max_abs_param_diff": param_diff,
+                       "launches": r["launches"], "seconds": r["seconds"]}
+    emit({"phase": "train_step", "steps": TRAIN_STEPS, "rtol": TRAIN_STEP_RTOL,
+          "plain_first_last_loss": [float(plain["losses"][0]), float(plain["losses"][-1])],
+          "plain_seconds": plain["seconds"], "vs_plain": report})
+    return {k: sum(r["launches"][k] for r in runs.values()) for k in plain["launches"]}
+
+
+TRAIN_LINE = re.compile(r"^Train Epoch: (\d+) \[(\d+)/(\d+) \((\d+)%\)\]\tLoss: (\d+\.\d{6})$")
+TEST_LINE = re.compile(r"^Test set: Average loss: (\d+\.\d{4}), Accuracy: (\d+)/(\d+) \((\d+)%\)$")
+
+
+def train_phase(torch) -> dict[str, int]:
+    """fit() on the card, --pallas-opt for two epochs then plain for one;
+    returns the adadelta launches of the phase."""
+    from pytorch_mnist_ddp_tpu_torch.mnist import build_parser
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.trainer import fit
+
+    launches = {k: 0 for k in af.LAUNCHES}
+    legs = {}
+    for leg, flags in (("pallas_opt", ["--epochs", "2", "--pallas-opt"]),
+                       ("plain", ["--epochs", "1"])):
+        args = build_parser().parse_args(flags)
+        timings: dict = {}
+        before = dict(af.LAUNCHES)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            model, state = fit(args, "cuda", timings=timings)
+        wall = time.perf_counter() - t0
+        got = {k: af.LAUNCHES[k] - before[k] for k in before}
+        for k in launches:
+            launches[k] += got[k]
+        lines = [ln for ln in out.getvalue().splitlines() if ln]
+        train = [TRAIN_LINE.match(ln) for ln in lines if ln.startswith("Train Epoch")]
+        tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
+        check(all(train) and all(tests), f"{leg}: malformed lines")
+        other = [ln for ln in lines if not ln.startswith(("Train Epoch", "Test set", "MNIST IDX"))]
+        check(not other, f"{leg}: unexpected output {other[:3]}")
+        losses = [float(m.group(5)) for m in train]
+        steps = sum(timings["epoch_steps"])
+        check(len(tests) == args.epochs, f"{leg}: {len(tests)} test summaries")
+        check(all(math.isfinite(x) for x in losses), f"{leg}: non-finite loss")
+        check(next(model.parameters()).device.type == "cuda", f"{leg}: model not on the card")
+        check(state.step == steps, f"{leg}: {state.step} optimizer steps, loader gave {steps}")
+        want = {"adadelta_delta": steps if args.pallas_opt else 0, "adadelta_fused": 0}
+        check(got == want, f"{leg}: launches {got} != {want}")
+        if leg == "pallas_opt":
+            check(losses[-1] < losses[0], f"{leg}: last logged loss {losses[-1]} not below "
+                  f"the first {losses[0]}")
+            acc1 = timings["epoch1_test_accuracy"]
+            check(acc1 >= EPOCH1_MIN_ACCURACY, f"epoch-1 test accuracy {acc1} < "
+                  f"{EPOCH1_MIN_ACCURACY}")
+        secs = timings["epoch_train_s"]
+        legs[leg] = {
+            "dataset": timings["dataset"], "train_size": timings["train_size"],
+            "epochs": args.epochs, "steps_per_epoch": timings["epoch_steps"],
+            "train_seconds_per_epoch": secs,
+            "images_per_s": [n * args.batch_size / t
+                             for n, t in zip(timings["epoch_steps"], secs)],
+            "test_accuracy_by_epoch": [int(m.group(2)) / int(m.group(3)) for m in tests],
+            "test_loss_by_epoch": [float(m.group(1)) for m in tests],
+            "first_last_logged_loss": [losses[0], losses[-1]],
+            "wall_seconds": wall, "launches": got,
+        }
+    emit({"phase": "train", "legs": legs})
+    return launches
+
+
+def adadelta_times(torch, np) -> dict[str, dict]:
+    """Both modes, their plain version and torch.optim.Adadelta at the
+    model's N: cold (L2 flushed before each call) and warm (back to
+    back)."""
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+
+    n = ADADELTA_N[-1]
+    lr = 0.7
+    src = adadelta_inputs(torch, np, n, 5)
+    work = [t.clone() for t in src]
+
+    def restore():
+        for dst, s in zip(work, src):
+            dst.copy_(s)
+
+    p, g, sq, ac = work
+    calls = {
+        "adadelta_delta": (lambda: af.adadelta_delta_flat(g, sq, ac),
+                           lambda: af.adadelta_flat_reference(g, sq, ac, 0.9, 1e-6)),
+        "adadelta_fused": (lambda: af.fused_adadelta_flat(p, g, sq, ac, lr),
+                           lambda: af.adadelta_flat_reference(g, sq, ac, 0.9, 1e-6, p, lr)),
+    }
+    # The nearest PyTorch path: torch.optim.Adadelta over one flat
+    # parameter (several foreach launches); a yardstick the port never calls.
+    param = torch.nn.Parameter(p)
+    param.grad = g
+    opt = torch.optim.Adadelta([param], lr=lr, foreach=True)
+    opt.step()
+    opt_state = opt.state[param]
+
+    def restore_library():
+        restore()
+        opt_state["square_avg"].copy_(src[2])
+        opt_state["acc_delta"].copy_(src[3])
+
+    library_ms = cold_ms(torch, opt.step, restore_library)
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        bound_ms, bound_by = adadelta_bound(name, n)
+        out[name] = {
+            "n": n, "ms": cold_ms(torch, kernel, restore),
+            "plain_ms": cold_ms(torch, plain, restore),
+            "warm_ms": median_ms(torch, kernel), "warm_plain_ms": median_ms(torch, plain),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        }
+    emit({"phase": "times", "name": "adadelta", "by_kernel": out,
+          "cold": "inputs restored and a 256 MiB buffer written before each call",
+          "library": "torch.optim.Adadelta([flat], foreach=True).step() with "
+                     "p -= lr * delta, as adadelta_fused computes"})
+    return out
+
+
+def train_profile_phase(torch, np) -> None:
+    """Where a training step's time goes, for the plain update and the
+    delta kernel: the loader alone over one epoch, then PROFILE_STEPS
+    steps on fixed batches under torch.profiler (wall per step, device
+    busy time per step, kernel launches per step, the top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
+    from pytorch_mnist_ddp_tpu_torch.utils.rng import split_streams
+
+    batch = 64
+    images, labels = synthetic_mnist("train")
+    loader = DataLoader(images, labels, batch, torch.device("cuda"), seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = list(loader.epoch(1))
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+    report = {"loader_seconds_per_epoch": loader_s, "loader_batches": len(batches)}
+    for name, pallas in (("plain", False), ("pallas_opt", True)):
+        net = Net(torch.Generator().manual_seed(SEED)).cuda()
+        state = make_train_state(net, use_pallas=pallas)
+        step = make_train_step(use_pallas=pallas, dropout_seed=split_streams(1)["dropout"])
+        for x, y, w in batches[:10]:  # warm-up
+            step(net, state, x, y, w, 1.0)
+        torch.cuda.synchronize()
+        window = batches[10:10 + PROFILE_STEPS]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for x, y, w in window:
+                step(net, state, x, y, w, 1.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device_us, kernels, top = 0.0, 0, []
+        for evt in prof.key_averages():
+            if evt.device_type.name != "CUDA":
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            device_us += us
+            kernels += evt.count
+            top.append((us, evt.key[:60], evt.count))
+        top.sort(reverse=True)
+        steps = len(window)
+        report[name] = {
+            "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+            "device_busy_ms_per_step": device_us / 1e3 / steps if device_us else None,
+            "device_idle_share": 1 - device_us / 1e6 / wall if device_us else None,
+            "device_ops_per_step": kernels / steps,
+            "top_device_ops": [{"name": k, "ms_per_step": us / 1e3 / steps, "count": c}
+                               for us, k, c in top[:6]],
+        }
+    emit({"phase": "train_profile", **report})
 
 
 def main() -> int:
@@ -131,6 +489,7 @@ def main() -> int:
         quantize_params,
     )
     from pytorch_mnist_ddp_tpu_torch.ops import _build
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
     from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
     from pytorch_mnist_ddp_tpu_torch.serving.engine import PARITY_SEED, InferenceEngine
     from pytorch_mnist_ddp_tpu_torch.serving.metrics import ServingMetrics
@@ -149,10 +508,10 @@ def main() -> int:
           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                    "matmul": torch.backends.cuda.matmul.allow_tf32}})
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    for name in _build.sources():
-        _build.library(name)
+    with ThreadPoolExecutor(len(_build.sources())) as pool:
+        list(pool.map(_build.library, _build.sources()))
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "sources": _build.sources(), "seconds": build_s})
 
@@ -178,6 +537,7 @@ def main() -> int:
         kernel_err[n] = err
     emit({"phase": "kernel", "name": "int8_head", "tolerance": KERNEL_TOL,
           "max_abs_err_by_n": kernel_err})
+    adadelta_err = adadelta_kernel_phase(torch, np)
 
     # 4 + 5. the main path; launch counts cover exactly these two phases
     ih.LAUNCHES = 0
@@ -334,7 +694,19 @@ def main() -> int:
           "completed": metrics.completed, "rounds": rounds,
           "launches_main_path": {"int8_head": launches}})
 
-    # 6. times, at the ladder's small and top buckets
+    # 6 + 7. the training path; adadelta launch counts cover these two
+    for k in af.LAUNCHES:
+        af.LAUNCHES[k] = 0
+    step_launches = train_step_phase(torch, np)
+    fit_launches = train_phase(torch)
+    train_launches = dict(af.LAUNCHES)
+    check(train_launches == {k: step_launches[k] + fit_launches[k] for k in train_launches},
+          f"adadelta launches {train_launches} outside the two training phases")
+    for k, v in train_launches.items():
+        check(v > 0, f"the training path never launched {k}")
+
+    # 8. times: int8_head at the ladder's small and top buckets, adadelta
+    # at the model's parameter count
     k, h, o = fc1["weight_q"].shape[1], fc1["weight_q"].shape[0], fc2["weight_q"].shape[0]
     by_n = {}
     for n in TIMED_ROWS:
@@ -353,8 +725,10 @@ def main() -> int:
     emit({"phase": "times", "name": "int8_head", "by_n": by_n,
           "library": "torch._int_mm on the fc1 product alone (no single "
                      "PyTorch call computes the whole head)"})
+    ada_times = adadelta_times(torch, np)
+    train_profile_phase(torch, np)
     top = by_n[str(TIMED_ROWS[-1])]
-    emit({"kernels": [{
+    kernels = [{
         "name": "int8_head", "route": "cuda",
         "source": "pytorch_mnist_ddp_tpu_torch/csrc/int8_head.cu",
         "replaces": "pytorch_mnist_ddp_tpu/ops/pallas_infer.py:61",
@@ -362,7 +736,15 @@ def main() -> int:
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "rows": TIMED_ROWS[-1], "by_n": by_n,
-    }]})
+    }]
+    for name, t in ada_times.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pytorch_mnist_ddp_tpu_torch/csrc/adadelta.cu",
+            "replaces": ADADELTA_REPLACES[name], "launches": train_launches[name],
+            "max_abs_err": adadelta_err[name], **t,
+        })
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

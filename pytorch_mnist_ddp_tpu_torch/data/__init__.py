@@ -1,1 +1,1 @@
-"""Input data helpers."""
+"""MNIST arrays, input transforms and the batch loader."""

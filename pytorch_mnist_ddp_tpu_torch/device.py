@@ -18,7 +18,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             raise RuntimeError(
                 "CUDA was requested (the default device) but "
                 "torch.cuda.is_available() is False; pass device='cpu' "
-                "(--device cpu on the CLI) to run on the CPU"
+                "(--device cpu to the server, --no-cuda to the trainer) "
+                "to run on the CPU"
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

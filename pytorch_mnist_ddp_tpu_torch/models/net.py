@@ -54,12 +54,29 @@ def torch_reset_uniform_(
                     p.uniform_(-bound, bound, generator=generator)
 
 
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator
+) -> torch.Tensor:
+    """Inverted dropout, flax's ``nn.Dropout``: keep each element with
+    probability ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``.
+    The mask comes from ``torch.rand`` on ``generator`` (which lives on
+    ``x``'s device)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    # Divide by a tensor on x's device: CUDA's tensor / python_scalar
+    # multiplies by the reciprocal, and 1 / 0.75 is not exact.
+    kept = x / torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Net(nn.Module):
     """2-conv MNIST CNN.  Input ``[n, 28, 28, 1]`` float32; output
-    ``[n, 10]`` float32 log-probabilities.  Dropout is inert in eval mode.
+    ``[n, 10]`` float32 log-probabilities.
 
     ``generator`` seeds the initial weights; construction never draws from
-    torch's global generator.
+    torch's global generator.  Dropout runs only in train mode and only
+    when ``forward`` is given a dropout generator; otherwise it is the
+    identity (eval, and the dropout-off parity runs).
     """
 
     def __init__(self, generator: torch.Generator | None = None):
@@ -70,17 +87,20 @@ class Net(nn.Module):
         self.conv2 = nn.utils.skip_init(nn.Conv2d, 32, 64, 3)
         self.fc1 = nn.utils.skip_init(nn.Linear, 9216, 128)
         self.fc2 = nn.utils.skip_init(nn.Linear, 128, NUM_CLASSES)
-        self.dropout1 = nn.Dropout(DROPOUT1_RATE)
-        self.dropout2 = nn.Dropout(DROPOUT2_RATE)
         torch_reset_uniform_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, dropout_generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        drop = self.training and dropout_generator is not None
         x = F.relu(self.conv1(to_nchw(x)))
         x = F.relu(self.conv2(x))
         x = F.max_pool2d(x, 2)
-        x = self.dropout1(x)
+        if drop:
+            x = dropout(x, DROPOUT1_RATE, dropout_generator)
         x = torch.flatten(x, 1)  # [n, 9216], C*H*W order
         x = F.relu(self.fc1(x))
-        x = self.dropout2(x)
+        if drop:
+            x = dropout(x, DROPOUT2_RATE, dropout_generator)
         x = self.fc2(x)
         return F.log_softmax(x.float(), dim=-1)

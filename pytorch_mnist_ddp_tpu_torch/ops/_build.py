@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks and _loaded
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -78,14 +79,23 @@ def _compile(name: str, target: Path) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built if needed.  Builds
+    of different sources run concurrently (one lock per source), so
+    threads calling this for every source build them in parallel."""
     with _lock:
         lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        with _lock:
+            lib = _loaded.get(name)
         if lib is not None:
             return lib
         target = _target(name)
         if not target.exists():
             _compile(name, target)
         lib = ctypes.CDLL(str(target))
-        _loaded[name] = lib
+        with _lock:
+            _loaded[name] = lib
         return lib

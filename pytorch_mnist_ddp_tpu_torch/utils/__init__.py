@@ -1,1 +1,1 @@
-"""Checkpoint loading and weight-layout conversion."""
+"""Checkpoints, weight-layout conversion, run seeds and the printed lines."""

@@ -1,4 +1,5 @@
-"""Load any trained-model artifact of the JAX package as a torch state dict.
+"""Checkpoints: load any trained-model artifact of the JAX package as a
+torch state dict, and save the port's own.
 
 Three formats, the same ones the JAX serving engine reads:
 
@@ -13,16 +14,30 @@ Three formats, the same ones the JAX serving engine reads:
 
 The npz forms go through :func:`~.convert.torch_state_from_jax`.
 BatchNorm checkpoints wait for a later slice of the port and are refused.
+
+``--save-model`` writes through :func:`save_state_dict`: a ``torch.save``
+file of the model's state dict (one device: no ``module.`` prefix), which
+the JAX package's ``load_state_dict`` and :func:`load_inference_state`
+both read.
 """
 
 from __future__ import annotations
 
+import collections
+import os
+import tempfile
 import zipfile
 
 import numpy as np
 import torch
 
 from .convert import LAYERS, torch_state_from_jax
+
+# Read once at import rather than per write: probing the umask sets it
+# process-wide for a moment, and a file another thread created inside
+# that window would be world-writable.
+_UMASK = os.umask(0)
+os.umask(_UMASK)
 
 
 def _is_torch_zip(path: str) -> bool:
@@ -90,3 +105,32 @@ def load_inference_state(path: str) -> dict[str, torch.Tensor]:
         _check_keys(_strip_prefix(k) for k in flat)
         tree = _params_tree(flat, "", {"weight": "kernel"})
     return torch_state_from_jax(tree)
+
+
+def model_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The model's parameters as CPU float32 tensors under the reference's
+    keys (``conv1.weight`` ... ``fc2.bias``), torch layout."""
+    return collections.OrderedDict(
+        (k, v.detach().to("cpu", torch.float32).contiguous())
+        for k, v in model.state_dict().items()
+    )
+
+
+def save_state_dict(state: dict[str, torch.Tensor], path: str) -> None:
+    """``torch.save`` to ``path`` atomically: a private temporary file in
+    the same directory, flushed to disk, then renamed over ``path``, so a
+    reader sees the old file or the whole new one, never a torn one."""
+    directory = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(dir=directory, prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(state, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.chmod(tmp, 0o666 & ~_UMASK)  # mkstemp made it 0600
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise

@@ -22,8 +22,11 @@ from pytorch_mnist_ddp_tpu_torch.models.net import Net
 from pytorch_mnist_ddp_tpu_torch.models.quant import quantize_params
 from pytorch_mnist_ddp_tpu_torch.ops import _build
 from pytorch_mnist_ddp_tpu_torch.ops import int8_head
+from pytorch_mnist_ddp_tpu_torch.mnist import build_parser as train_parser
+from pytorch_mnist_ddp_tpu_torch.mnist import main as train_cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.engine import InferenceEngine
+from pytorch_mnist_ddp_tpu_torch.trainer import fit
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "pytorch_mnist_ddp_tpu_torch"
@@ -90,7 +93,7 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize(
     "entry",
-    ["engine", "from_seed", "cli"],
+    ["engine", "from_seed", "cli", "trainer", "train_cli"],
 )
 def test_entry_points_default_to_cuda(entry):
     _no_card()
@@ -99,8 +102,25 @@ def test_entry_points_default_to_cuda(entry):
             InferenceEngine(Net().state_dict())
         elif entry == "from_seed":
             InferenceEngine.from_seed(1)
-        else:
+        elif entry == "cli":
             cli_main(["--warmup-only", "--buckets", "1"])
+        elif entry == "trainer":
+            fit(train_parser().parse_args(["--dry-run"]))
+        else:
+            train_cli_main(["--dry-run", "--epochs", "1"])
+
+
+@pytest.mark.parametrize(
+    "flag",
+    ["--resume=x", "--save-state=x", "--resume-state=x", "--fused", "--pregather",
+     "--conv-impl=im2col", "--bf16", "--profile=x", "--step-stats",
+     "--telemetry-dir=x", "--aot-cache=x", "--serve-prewarm",
+     "--compile-cache-dir=x", "--prefetch-depth=0", "--loss-guard",
+     "--checkpoint-every-steps=1", "--elastic", "--chaos=x"],
+)
+def test_train_cli_refuses_flags_not_ported_yet(flag):
+    with pytest.raises(SystemExit):
+        train_parser().parse_args([flag])
 
 
 @pytest.fixture
@@ -131,7 +151,7 @@ def test_head_refuses_other_devices(head_args):
 
 
 def test_build_lists_sources_and_names_missing_nvcc(monkeypatch, tmp_path):
-    assert "int8_head" in _build.sources()
+    assert {"adadelta", "int8_head"} <= set(_build.sources())
     monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
@@ -144,3 +164,42 @@ def test_build_target_tracks_the_source():
     assert target.parent == _build.BUILD_DIR
     assert target == _build._target("int8_head")  # stable for one source
     assert target.name.startswith("int8_head-") and target.suffix == ".so"
+    other = _build._target("adadelta")
+    assert other.name.startswith("adadelta-") and other != target
+
+
+def test_builds_of_different_sources_run_concurrently(monkeypatch, tmp_path):
+    """One lock per source: two sources build at once, and many threads
+    asking for one source build it once."""
+    import threading
+    import time
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_locks", {})
+    compiled, running, peak = [], [0], [0]
+    guard = threading.Lock()
+
+    def fake_compile(name, target):
+        with guard:
+            running[0] += 1
+            peak[0] = max(peak[0], running[0])
+        time.sleep(0.2)
+        target.write_bytes(b"")
+        with guard:
+            running[0] -= 1
+            compiled.append(name)
+
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    results = []
+    threads = [threading.Thread(target=lambda n=n: results.append(_build.library(n)))
+               for n in ["adadelta", "int8_head"] * 4]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(compiled) == ["adadelta", "int8_head"]  # each once
+    assert peak[0] == 2  # the two builds overlapped
+    assert len(results) == 8 and len(set(results)) == 2
