@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one GPU
-and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths (the CNN and
+the ViT) on one GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -13,7 +13,10 @@ Phases, one JSON line each:
                 wrappers do at first use;
 3. kernel     — each kernel against its plain PyTorch version on the card:
                 int8_head at the row counts the serving ladder gives it,
-                adadelta in both modes at flat lengths up to the model's;
+                adadelta in both modes at flat lengths up to the model's,
+                flash_attention in both modes (fwd; partial from the empty
+                and from a random state) at the ViT's shapes, odd shapes
+                and long ones;
 4. engine     — InferenceEngine.from_seed on the card (f32 + int8),
                 bucketed and packed: warmup, the int8 parity gate, f32
                 against the CPU model, int8 predictions through the kernel;
@@ -34,12 +37,26 @@ Phases, one JSON line each:
                 could take; adadelta with the L2 flushed before each call;
 9. train_profile — where a training step's time goes: the loader alone,
                 then 100 steps, plain and --pallas-opt, under
-                torch.profiler (wall and device-busy time per step).
+                torch.profiler (wall and device-busy time per step);
+10. vit_step  — the ViT (vit_mnist.py defaults), 20 train steps from one set
+                of weights on fixed batches, four ways: plain, --flash,
+                --sp 1 --allow-degree-1 --flash, --flash --remat; all must
+                agree and launch the kernel once per attention call;
+11. vit_train — the ViT CLI's fit() on the synthetic sets at the CLI
+                defaults: one epoch --flash, one epoch --sp 1
+                --allow-degree-1 --flash (epoch-1 accuracy floor, launches
+                equal to the attention calls);
+12. vit_profile — where a ViT step's time goes: 100 steps, plain, --flash
+                and --sp 1 --allow-degree-1 --flash, under torch.profiler;
+13. times     — flash_attention in both modes, its plain version and
+                scaled_dot_product_attention (and the backend it picks), at
+                the ViT's and long shapes.
 
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
 each main path and read just after it: int8_head over phases 4-5 (the
-serving path), adadelta over phases 6-7 (the training path).  Latencies,
+serving path), adadelta over phases 6-7 (the training path),
+flash_attention over phases 10-11 (the ViT training path).  Latencies,
 seconds per epoch and images/s are smoke readings of this script's own
 work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -97,6 +114,30 @@ L2_FLUSH_BYTES = 256 << 20  # > 5x the 50 MB L2
 ADADELTA_WORK = {"adadelta_delta": (24, 14), "adadelta_fused": (28, 16)}
 ADADELTA_REPLACES = {"adadelta_delta": "pytorch_mnist_ddp_tpu/ops/pallas_adadelta.py:140",
                      "adadelta_fused": "pytorch_mnist_ddp_tpu/ops/pallas_adadelta.py:71"}
+# Flash attention, (b, t, h, d): the ViT's train and eval batches, the odd
+# shapes of tests/test_flash.py, and the long shapes of tools/flash_bench.py.
+FLASH_MAIN = {"train": (64, 16, 4, 16), "eval": (1000, 16, 4, 16)}
+FLASH_ODD = ((2, 16, 4, 16), (1, 300, 2, 64), (2, 128, 2, 32), (1, 257, 1, 8))
+FLASH_LONG = ((4, 512, 4, 64), (2, 2048, 4, 64), (1, 8192, 2, 64))
+# Kernel vs plain, f32 both: other summation order, IEEE exp/log/div.  The
+# partial mode's accumulator a is an unnormalized sum over t keys, whose
+# rounding grows with t (its error against the plain version measured
+# 1.4e-6 at t = 16 and 1.7e-4 at t = 8192, NVIDIA H100 80GB HBM3, 700 W):
+# it is held as a / l, the output the ring finalizes to, and its raw error
+# is recorded.
+FLASH_RTOL, FLASH_ATOL = 1e-5, 1e-6
+FLASH_REPLACES = {"flash_fwd": "pytorch_mnist_ddp_tpu/ops/pallas_attention.py:154",
+                  "flash_partial": "pytorch_mnist_ddp_tpu/ops/pallas_attention.py:360"}
+VIT_STEPS = 20  # vit_step phase
+# Four ViT step paths after 20 steps: the kernel sums in another order than
+# the plain attention (measured 2.4e-7 in the loss and 1.2e-7 in the
+# parameters, NVIDIA H100 80GB HBM3, 700 W).
+VIT_STEP_RTOL, VIT_STEP_ATOL = 1e-5, 1e-5
+# Epoch-1 test accuracy of the ViT at the CLI defaults: the JAX package's
+# vit_mnist.py --no-accel --epochs 1 reads 79.18% (seed 1), 81.00% (seed 2)
+# and 79.74% (seed 3) on the CPU; the port's initial weights come from
+# another generator, so the floor sits 9 points below the lowest reading.
+VIT_EPOCH1_MIN_ACCURACY = 0.70
 
 
 def emit(obj: dict) -> None:
@@ -412,27 +453,64 @@ def adadelta_times(torch, np) -> dict[str, dict]:
     return out
 
 
+def profile_window(torch, window, step_once) -> dict:
+    """Wall and device-busy time per step of ``step_once(x, y, w)`` over the
+    batches of ``window`` under torch.profiler, with the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y, w in window:
+            step_once(x, y, w)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, kernels, top = 0.0, 0, []
+    for evt in prof.key_averages():
+        if evt.device_type.name != "CUDA":
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        device_us += us
+        kernels += evt.count
+        top.append((us, evt.key[:60], evt.count))
+    top.sort(reverse=True)
+    steps = len(window)
+    return {
+        "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+        "device_busy_ms_per_step": device_us / 1e3 / steps if device_us else None,
+        "device_idle_share": 1 - device_us / 1e6 / wall if device_us else None,
+        "device_ops_per_step": kernels / steps,
+        "top_device_ops": [{"name": k, "ms_per_step": us / 1e3 / steps, "count": c}
+                           for us, k, c in top[:6]],
+    }
+
+
+def loader_batches(torch):
+    """One epoch of the synthetic train set's batches of 64 on the card,
+    and the seconds the loader took for it."""
+    from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+
+    images, labels = synthetic_mnist("train")
+    loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = list(loader.epoch(1))
+    torch.cuda.synchronize()
+    return batches, time.perf_counter() - t0
+
+
 def train_profile_phase(torch, np) -> None:
     """Where a training step's time goes, for the plain update and the
     delta kernel: the loader alone over one epoch, then PROFILE_STEPS
     steps on fixed batches under torch.profiler (wall per step, device
     busy time per step, kernel launches per step, the top kernels)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
-    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
     from pytorch_mnist_ddp_tpu_torch.models.net import Net
     from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
     from pytorch_mnist_ddp_tpu_torch.utils.rng import split_streams
 
-    batch = 64
-    images, labels = synthetic_mnist("train")
-    loader = DataLoader(images, labels, batch, torch.device("cuda"), seed=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    batches = list(loader.epoch(1))
-    torch.cuda.synchronize()
-    loader_s = time.perf_counter() - t0
+    batches, loader_s = loader_batches(torch)
     report = {"loader_seconds_per_epoch": loader_s, "loader_batches": len(batches)}
     for name, pallas in (("plain", False), ("pallas_opt", True)):
         net = Net(torch.Generator().manual_seed(SEED)).cuda()
@@ -441,34 +519,312 @@ def train_profile_phase(torch, np) -> None:
         for x, y, w in batches[:10]:  # warm-up
             step(net, state, x, y, w, 1.0)
         torch.cuda.synchronize()
-        window = batches[10:10 + PROFILE_STEPS]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for x, y, w in window:
-                step(net, state, x, y, w, 1.0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        device_us, kernels, top = 0.0, 0, []
-        for evt in prof.key_averages():
-            if evt.device_type.name != "CUDA":
-                continue
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = evt.self_cuda_time_total
-            device_us += us
-            kernels += evt.count
-            top.append((us, evt.key[:60], evt.count))
-        top.sort(reverse=True)
-        steps = len(window)
-        report[name] = {
-            "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
-            "device_busy_ms_per_step": device_us / 1e3 / steps if device_us else None,
-            "device_idle_share": 1 - device_us / 1e6 / wall if device_us else None,
-            "device_ops_per_step": kernels / steps,
-            "top_device_ops": [{"name": k, "ms_per_step": us / 1e3 / steps, "count": c}
-                               for us, k, c in top[:6]],
-        }
+        report[name] = profile_window(torch, batches[10:10 + PROFILE_STEPS],
+                                      lambda x, y, w: step(net, state, x, y, w, 1.0))
     emit({"phase": "train_profile", **report})
+
+
+def flash_inputs(torch, np, shape, seed: int, strided: bool = True):
+    """q, k, v ``[b, t, h, d]`` on the card: by default strided views of one
+    ``[b, t, h, 3, d]`` tensor, as the ViT's head-major qkv hands them over;
+    else three contiguous tensors."""
+    b, t, h, d = shape
+    rng = np.random.RandomState(seed)
+    if strided:
+        qkv = torch.from_numpy(rng.randn(b, t, h, 3, d).astype(np.float32)).cuda()
+        return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    return tuple(torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).cuda()
+                 for _ in range(3))
+
+
+def flash_random_state(torch, np, b: int, h: int, t: int, d: int, seed: int):
+    """A ring state (m, l, a) with finite m and l > 0, except every seventh
+    row, left empty (m = -1e30, l = 0, a = 0) as after only masked keys."""
+    rng = np.random.RandomState(seed)
+    m = (2 * rng.randn(b * h * t)).astype(np.float32)
+    l = (rng.rand(b * h * t) * 3 + 0.1).astype(np.float32)
+    a = rng.randn(b * h * t, d).astype(np.float32)
+    m[::7], l[::7], a[::7] = -1e30, 0.0, 0.0
+    return tuple(torch.from_numpy(x).cuda().reshape(shape)
+                 for x, shape in ((m, (b, h, t)), (l, (b, h, t)), (a, (b, h, t, d))))
+
+
+def flash_close(torch, got, want, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails past rtol FLASH_RTOL
+    and atol FLASH_ATOL."""
+    check(bool(torch.isfinite(got).all()), f"{what} non-finite")
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=FLASH_RTOL, atol=FLASH_ATOL)),
+          f"{what} off its plain version by {err}")
+    return err
+
+
+def flash_kernel_phase(torch, np) -> dict[str, float]:
+    """Both modes against the plain version at every shape; the partial
+    mode from the empty and from a random state, and in place.  Returns the
+    worst error per kernel name."""
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+
+    worst = {"flash_fwd": 0.0, "flash_partial": 0.0}
+    cases = ([(kind, shape, True) for kind, shape in FLASH_MAIN.items()]
+             + [("odd", shape, True) for shape in FLASH_ODD]
+             + [("odd_contiguous", FLASH_ODD[-1], False)]
+             + [("long", shape, True) for shape in FLASH_LONG])
+    report = {}
+    for i, (kind, shape, strided) in enumerate(cases):
+        b, t, h, d = shape
+        where = f"{kind} {'x'.join(map(str, shape))}"
+        q, k, v = flash_inputs(torch, np, shape, i, strided)
+        out, lse = fa.flash_fwd(q, k, v)
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v)
+        torch.cuda.synchronize()
+        errs = {"fwd_out": flash_close(torch, out, ref_out, f"flash_fwd out at {where}"),
+                "fwd_lse": flash_close(torch, lse, ref_lse, f"flash_fwd lse at {where}")}
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs["fwd_out"], errs["fwd_lse"])
+        for start in ("empty", "random"):
+            state = (fa.flash_ring_state(b, h, t, d, "cuda") if start == "empty"
+                     else flash_random_state(torch, np, b, h, t, d, 1000 + i))
+            got = fa.flash_partial(*state, q, k, v)
+            want = fa.flash_partial_reference(*state, q, k, v)
+            aliased = fa.flash_partial(*state, q, k, v, inplace=True)
+            torch.cuda.synchronize()
+            check(all(x is y for x, y in zip(aliased, state)), "in-place partial returned copies")
+            check(all(torch.equal(x, y) for x, y in zip(aliased, got)),
+                  f"in-place partial differs from the fresh one at {where}")
+            what = f"flash_partial ({start}) at {where}"
+            check(bool(torch.isfinite(got.o).all()), f"{what}: a non-finite")
+            # One key at least was folded into every row, so l > 0.
+            err = max(flash_close(torch, got.m, want.m, f"{what}: m"),
+                      flash_close(torch, got.l, want.l, f"{what}: l"),
+                      flash_close(torch, got.o / got.l[..., None], want.o / want.l[..., None],
+                                  f"{what}: a / l"))
+            errs[f"partial_{start}"] = err
+            errs[f"partial_{start}_raw_a"] = float((got.o - want.o).abs().max())
+            worst["flash_partial"] = max(worst["flash_partial"], err)
+        report[where] = errs
+    emit({"phase": "kernel", "name": "flash_attention", "rtol": FLASH_RTOL, "atol": FLASH_ATOL,
+          "partial_held_as": "m, l, a / l (raw a recorded: it sums t unnormalized terms)",
+          "max_abs_err_by_shape": report})
+    return worst
+
+
+def vit_step_phase(torch, np) -> dict[str, int]:
+    """VIT_STEPS ViT steps four ways from one set of weights on fixed
+    batches; returns the flash launches of the phase."""
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
+    from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
+    from pytorch_mnist_ddp_tpu_torch.parallel import sp
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import TrainState, make_forward_train_step
+
+    batch = 64
+    images, labels = synthetic_mnist("train", VIT_STEPS * batch)
+    xs = torch.from_numpy(normalize(images)).cuda().reshape(VIT_STEPS, batch, 28, 28, 1)
+    ys = torch.from_numpy(labels.astype(np.int64)).cuda().reshape(VIT_STEPS, batch)
+    w = torch.ones(batch, device="cuda")
+    init = ViT(generator=torch.Generator().manual_seed(SEED)).state_dict()
+    calls = ViTConfig().depth * VIT_STEPS  # attention calls in the forwards
+    want = {"plain": {"flash_fwd": 0, "flash_partial": 0},
+            "flash": {"flash_fwd": calls, "flash_partial": 0},
+            "sp1_flash": {"flash_fwd": 0, "flash_partial": calls},
+            "flash_remat": {"flash_fwd": 2 * calls, "flash_partial": 0}}  # + the recompute
+    runs = {}
+    for run in want:
+        model = ViT(ViTConfig(remat=run == "flash_remat"),
+                    fa.select_attention(run != "plain")).cuda()
+        model.load_state_dict(init)
+        state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
+        if run == "sp1_flash":
+            step = sp.make_sp_train_step(model.cfg, sp.make_seq_group(1), use_flash=True)
+        else:
+            step = make_forward_train_step(lambda m, x: m(x))
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        losses = torch.stack([step(model, state, xs[i], ys[i], w, 1.0)
+                              for i in range(VIT_STEPS)])
+        torch.cuda.synchronize()
+        runs[run] = {
+            "seconds": time.perf_counter() - t0,
+            "losses": losses.cpu().numpy(),
+            "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+            "launches": {k: fa.LAUNCHES[k] - before[k] for k in before},
+        }
+    plain = runs["plain"]
+    check(np.isfinite(plain["losses"]).all(), "plain vit_step losses non-finite")
+    check(plain["losses"][-1] < plain["losses"][0], "plain vit_step did not learn")
+    report = {}
+    for run, r in runs.items():
+        check(r["launches"] == want[run], f"vit_step {run} launches {r['launches']} != {want[run]}")
+        if run == "plain":
+            continue
+        loss_diff = float(np.abs(r["losses"] - plain["losses"]).max())
+        param_diff = max(float(np.abs(r["params"][k] - plain["params"][k]).max())
+                         for k in plain["params"])
+        check(np.allclose(r["losses"], plain["losses"], rtol=VIT_STEP_RTOL, atol=0),
+              f"vit_step {run} losses off the plain run by {loss_diff}")
+        check(param_diff <= VIT_STEP_ATOL, f"vit_step {run} params off the plain run by "
+              f"{param_diff}")
+        report[run] = {"max_abs_loss_diff": loss_diff, "max_abs_param_diff": param_diff,
+                       "launches": r["launches"], "seconds": r["seconds"]}
+    remat_equal = all(np.array_equal(runs["flash_remat"]["params"][k], runs["flash"]["params"][k])
+                      for k in plain["params"])
+    emit({"phase": "vit_step", "steps": VIT_STEPS, "loss_rtol": VIT_STEP_RTOL,
+          "param_atol": VIT_STEP_ATOL,
+          "plain_first_last_loss": [float(plain["losses"][0]), float(plain["losses"][-1])],
+          "plain_seconds": plain["seconds"], "flash_remat_equals_flash": remat_equal,
+          "vs_plain": report})
+    return {k: sum(r["launches"][k] for r in runs.values()) for k in plain["launches"]}
+
+
+def vit_train_phase(torch) -> dict[str, int]:
+    """The ViT CLI's fit() on the card, one epoch --flash and one epoch
+    --sp 1 --allow-degree-1 --flash; returns the flash launches of the
+    phase."""
+    from pytorch_mnist_ddp_tpu_torch import vit_mnist
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+
+    launches = {k: 0 for k in fa.LAUNCHES}
+    legs = {}
+    for leg, mode, flags in (
+        ("flash", "flash_fwd", ["--epochs", "1", "--flash"]),
+        ("sp1_flash", "flash_partial", ["--epochs", "1", "--sp", "1", "--allow-degree-1",
+                                        "--flash"]),
+    ):
+        args = vit_mnist.build_parser().parse_args(flags)
+        timings: dict = {}
+        before = dict(fa.LAUNCHES)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            model, state = vit_mnist.fit(args, "cuda", timings=timings)
+        wall = time.perf_counter() - t0
+        got = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        for k in launches:
+            launches[k] += got[k]
+        lines = [ln for ln in out.getvalue().splitlines() if ln]
+        train = [TRAIN_LINE.match(ln) for ln in lines if ln.startswith("Train Epoch")]
+        tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
+        check(all(train) and all(tests), f"vit {leg}: malformed lines")
+        other = [ln for ln in lines if not ln.startswith(("Train Epoch", "Test set", "MNIST IDX"))]
+        check(not other, f"vit {leg}: unexpected output {other[:3]}")
+        losses = [float(m.group(5)) for m in train]
+        steps = sum(timings["epoch_steps"])
+        eval_batches = -(-timings["test_size"] // args.test_batch_size)
+        calls = model.cfg.depth * (steps + args.epochs * eval_batches)
+        want = {k: calls if k == mode else 0 for k in fa.LAUNCHES}
+        check(got == want, f"vit {leg}: launches {got} != attention calls {want}")
+        check(len(tests) == args.epochs, f"vit {leg}: {len(tests)} test summaries")
+        check(all(math.isfinite(x) for x in losses), f"vit {leg}: non-finite loss")
+        check(losses[-1] < losses[0], f"vit {leg}: last logged loss {losses[-1]} not below "
+              f"the first {losses[0]}")
+        check(next(model.parameters()).device.type == "cuda", f"vit {leg}: model not on the card")
+        check(state.step == steps, f"vit {leg}: {state.step} optimizer steps, loader gave {steps}")
+        acc1 = timings["epoch1_test_accuracy"]
+        check(acc1 >= VIT_EPOCH1_MIN_ACCURACY,
+              f"vit {leg}: epoch-1 test accuracy {acc1} < {VIT_EPOCH1_MIN_ACCURACY}")
+        secs = timings["epoch_train_s"]
+        legs[leg] = {
+            "dataset": timings["dataset"], "train_size": timings["train_size"],
+            "epochs": args.epochs, "steps_per_epoch": timings["epoch_steps"],
+            "train_seconds_per_epoch": secs,
+            "images_per_s": [n * args.batch_size / t for n, t in zip(timings["epoch_steps"], secs)],
+            "test_accuracy_by_epoch": [int(m.group(2)) / int(m.group(3)) for m in tests],
+            "test_loss_by_epoch": [float(m.group(1)) for m in tests],
+            "first_last_logged_loss": [losses[0], losses[-1]],
+            "wall_seconds": wall, "launches": got, "attention_calls": calls,
+        }
+    emit({"phase": "vit_train", "epoch1_min_accuracy": VIT_EPOCH1_MIN_ACCURACY, "legs": legs})
+    return launches
+
+
+def vit_profile_phase(torch) -> None:
+    """Where a ViT training step's time goes: PROFILE_STEPS steps on fixed
+    batches under torch.profiler, plain, --flash and --sp 1
+    --allow-degree-1 --flash."""
+    from pytorch_mnist_ddp_tpu_torch.models.vit import ViT
+    from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
+    from pytorch_mnist_ddp_tpu_torch.ops.flash_attention import select_attention
+    from pytorch_mnist_ddp_tpu_torch.parallel import sp
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import TrainState, make_forward_train_step
+
+    batches, _ = loader_batches(torch)
+    report = {}
+    for name in ("plain", "flash", "sp1_flash"):
+        model = ViT(attention_fn=select_attention(name != "plain"),
+                    generator=torch.Generator().manual_seed(SEED)).cuda()
+        state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
+        if name == "sp1_flash":
+            step = sp.make_sp_train_step(model.cfg, sp.make_seq_group(1), use_flash=True)
+        else:
+            step = make_forward_train_step(lambda m, x: m(x))
+        for x, y, w in batches[:10]:  # warm-up
+            step(model, state, x, y, w, 1.0)
+        torch.cuda.synchronize()
+        report[name] = profile_window(torch, batches[10:10 + PROFILE_STEPS],
+                                      lambda x, y, w: step(model, state, x, y, w, 1.0))
+    emit({"phase": "vit_profile", **report})
+
+
+def flash_bound(mode: str, shape) -> tuple[float, str]:
+    """Least time (ms) for one call: q, k, v read once and out + lse written
+    once (fwd), or q, k, v and the state read once and the state written
+    once (partial), against 4*b*h*t^2*d f32 operations."""
+    b, t, h, d = shape
+    n, rows = b * t * h * d, b * h * t
+    nbytes = 4 * (3 * n + (n + rows if mode == "flash_fwd" else 2 * (2 * rows + n)))
+    ops = 4 * b * h * t * t * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_backend(torch, q, k, v) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
+def flash_times(torch, np) -> dict[str, dict]:
+    """Both modes, their plain versions and scaled_dot_product_attention at
+    the ViT's shapes and the long ones, back to back (warm)."""
+    import torch.nn.functional as F
+
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+
+    out = {"flash_fwd": {}, "flash_partial": {}}
+    library_backends = {}
+    shapes = list(FLASH_MAIN.items()) + [("long", shape) for shape in FLASH_LONG]
+    for i, (kind, shape) in enumerate(shapes):
+        b, t, h, d = shape
+        where = f"{kind} {'x'.join(map(str, shape))}"
+        q, k, v = flash_inputs(torch, np, shape, 100 + i)
+        m, l, a = fa.flash_ring_state(b, h, t, d, "cuda")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        library_ms = median_ms(torch, library)
+        library_backends[where] = sdpa_backend(torch, qt, kt, vt)
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v),
+                          lambda: fa.flash_fwd_reference(q, k, v)),
+            "flash_partial": (lambda: fa.flash_partial(m, l, a, q, k, v),
+                              lambda: fa.flash_partial_reference(m, l, a, q, k, v)),
+        }
+        for mode, (kernel, plain) in calls.items():
+            bound_ms, bound_by = flash_bound(mode, shape)
+            out[mode][where] = {"ms": median_ms(torch, kernel), "plain_ms": median_ms(torch, plain),
+                                "library_ms": library_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by}
+    emit({"phase": "times", "name": "flash_attention", "by_mode": out,
+          "library": "torch.nn.functional.scaled_dot_product_attention on [b, h, t, d] views "
+                     "(the normalized output; for flash_partial the fold from the empty "
+                     "state normalized), warm",
+          "library_backends": library_backends})
+    return out
 
 
 def main() -> int:
@@ -490,6 +846,7 @@ def main() -> int:
     )
     from pytorch_mnist_ddp_tpu_torch.ops import _build
     from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
     from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
     from pytorch_mnist_ddp_tpu_torch.serving.engine import PARITY_SEED, InferenceEngine
     from pytorch_mnist_ddp_tpu_torch.serving.metrics import ServingMetrics
@@ -513,7 +870,11 @@ def main() -> int:
     with ThreadPoolExecutor(len(_build.sources())) as pool:
         list(pool.map(_build.library, _build.sources()))
     build_s = time.perf_counter() - t0
-    emit({"phase": "build", "sources": _build.sources(), "seconds": build_s})
+    registers = {name: re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
+                                  _build.ptxas_report(name), re.S)
+                 for name in _build.sources()}
+    emit({"phase": "build", "sources": _build.sources(), "seconds": build_s,
+          "registers": {name: {fn: int(n) for fn, n in found} for name, found in registers.items()}})
 
     # 3. kernel against its plain version, at the ladder's row counts
     state = Net(torch.Generator().manual_seed(SEED)).state_dict()
@@ -538,6 +899,7 @@ def main() -> int:
     emit({"phase": "kernel", "name": "int8_head", "tolerance": KERNEL_TOL,
           "max_abs_err_by_n": kernel_err})
     adadelta_err = adadelta_kernel_phase(torch, np)
+    flash_err = flash_kernel_phase(torch, np)
 
     # 4 + 5. the main path; launch counts cover exactly these two phases
     ih.LAUNCHES = 0
@@ -727,6 +1089,21 @@ def main() -> int:
                      "PyTorch call computes the whole head)"})
     ada_times = adadelta_times(torch, np)
     train_profile_phase(torch, np)
+
+    # 10 + 11. the ViT training path; flash launch counts cover these two
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    vit_step_launches = vit_step_phase(torch, np)
+    vit_fit_launches = vit_train_phase(torch)
+    vit_launches = dict(fa.LAUNCHES)
+    check(vit_launches == {k: vit_step_launches[k] + vit_fit_launches[k] for k in vit_launches},
+          f"flash launches {vit_launches} outside the two ViT training phases")
+    for k, v in vit_launches.items():
+        check(v > 0, f"the ViT training path never launched {k}")
+
+    # 12. where a ViT step's time goes; 13. flash attention times
+    vit_profile_phase(torch)
+    flash_t = flash_times(torch, np)
     top = by_n[str(TIMED_ROWS[-1])]
     kernels = [{
         "name": "int8_head", "route": "cuda",
@@ -743,6 +1120,16 @@ def main() -> int:
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/adadelta.cu",
             "replaces": ADADELTA_REPLACES[name], "launches": train_launches[name],
             "max_abs_err": adadelta_err[name], **t,
+        })
+    train_shape = FLASH_MAIN["train"]
+    for name, by_shape in flash_t.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pytorch_mnist_ddp_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name], "launches": vit_launches[name],
+            "max_abs_err": flash_err[name],
+            **by_shape[f"train {'x'.join(map(str, train_shape))}"],
+            "shape": list(train_shape), "by_shape": by_shape,
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,7 +1,8 @@
-"""PyTorch + CUDA port of the MNIST CNN serving path.
+"""PyTorch + CUDA port of the MNIST models' serving and training paths.
 
 A second package beside the JAX reference ``pytorch_mnist_ddp_tpu``: the
-same model, checkpoints and serving contract, written in PyTorch, with
+same models (the CNN and the ViT), checkpoints, serving contract and
+training CLIs, written in PyTorch, with
 the JAX package's TPU kernels replaced by kernels written by hand for
 Hopper (``csrc/``).  It imports ``torch``, ``numpy`` and the standard
 library only — never ``jax``, ``flax`` or the JAX package; what it needs

@@ -1,1 +1,1 @@
-"""The reference CNN and its int8 serving variant."""
+"""The reference CNN, its int8 serving variant, and the ViT."""

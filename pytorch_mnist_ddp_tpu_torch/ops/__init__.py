@@ -1,2 +1,2 @@
 """Kernels written by hand for Hopper with their plain PyTorch versions;
-the loss, the Adadelta update and the lr schedule."""
+attention, the loss, the Adadelta update and the lr schedule."""

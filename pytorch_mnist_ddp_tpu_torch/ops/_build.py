@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
 ``build/torch_kernels/<name>-<hash>.so`` at the root of the checkout,
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  A build writes a
+loaded with ``ctypes``; ptxas's report (registers, shared memory, spills
+per kernel) lands beside it in ``<name>-<hash>.log``.  The hash covers
+the source and the flags, so an edited source rebuilds and an unchanged
+one is reused.  A build writes a
 private temporary file and renames it into place, so concurrent builds
 never load a torn library.
 
@@ -31,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # rounding (csrc/int8_head.cu).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()  # guards _locks and _loaded
@@ -75,7 +77,16 @@ def _compile(name: str, target: Path) -> None:
     if proc.returncode != 0:
         os.remove(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
+    target.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, target)
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's output from the build of ``csrc/<name>.cu`` (ptxas's
+    per-kernel registers, shared memory and spills); empty if the library
+    was built before reports were kept."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

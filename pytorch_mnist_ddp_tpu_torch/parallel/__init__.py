@@ -1,1 +1,2 @@
-"""Sample sharding and the train/eval steps (a world of one so far)."""
+"""Sample sharding, the train/eval steps and the sequence ring (a world
+of one so far)."""

@@ -7,6 +7,11 @@ dispatch).  It returns the loss as a device tensor and never waits for the
 device: the caller reads it only on log steps.  ``eval_step(model, x, y,
 w)`` returns the summed NLL and the count of correct predictions over the
 real samples, both device tensors.
+
+``make_forward_train_step``/``make_forward_eval_step`` build the same two
+steps around any ``forward(model, x) -> log-probs`` without dropout and
+with the plain per-parameter Adadelta update: the ViT family's steps
+(``vit_mnist.py``, ``parallel/sp.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Callable
 import torch
 
 from ..models.net import Net
-from ..ops.adadelta import AdadeltaState, adadelta_init
+from ..ops.adadelta import AdadeltaState, adadelta_init, adadelta_update
 from ..ops.adadelta_flat import (
     FlatAdadeltaState,
     adadelta_init_flat,
@@ -89,16 +94,43 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step() -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+def make_forward_train_step(
+    forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
+    rho: float = 0.9,
+    eps: float = 1e-6,
+) -> Callable[..., torch.Tensor]:
+    """``train_step(model, state, x, y, w, lr) -> loss``: ``forward``, the
+    masked-mean NLL, the backward and the plain Adadelta update in place."""
+
+    def train_step(model, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
+        model.train()
+        params = dict(model.named_parameters())
+        loss = nll_loss(forward(model, x), y, w, reduction="mean")
+        grads = torch.autograd.grad(loss, list(params.values()))
+        adadelta_update(params, dict(zip(params, grads)), state.opt, lr, rho, eps)
+        state.step += 1
+        return loss.detach()
+
+    return train_step
+
+
+def make_forward_eval_step(
+    forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
+) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """``eval_step(model, x, y, w) -> (loss_sum, correct)`` over the real
     (weight-1) samples of the batch."""
 
     @torch.no_grad()
-    def eval_step(model: Net, x, y, w):
+    def eval_step(model, x, y, w):
         model.eval()
-        log_probs = model(x)
+        log_probs = forward(model, x)
         loss_sum = nll_loss(log_probs, y, w, reduction="sum")
         correct = ((log_probs.argmax(1) == y).to(w.dtype) * w).sum()
         return loss_sum, correct
 
     return eval_step
+
+
+def make_eval_step() -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+    """The CNN's eval step: ``model(x)`` in eval mode."""
+    return make_forward_eval_step(lambda model, x: model(x))

@@ -19,14 +19,20 @@ BatchNorm checkpoints wait for a later slice of the port and are refused.
 file of the model's state dict (one device: no ``module.`` prefix), which
 the JAX package's ``load_state_dict`` and :func:`load_inference_state`
 both read.
+
+The ViT family saves its JAX-layout param tree as an npz of dotted keys
+with a ``__format__`` tag (:func:`save_params_tree`, the JAX package's
+``save_params_tree`` format), so either package reads the other's file.
 """
 
 from __future__ import annotations
 
 import collections
+import io
 import os
 import tempfile
 import zipfile
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -116,16 +122,16 @@ def model_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     )
 
 
-def save_state_dict(state: dict[str, torch.Tensor], path: str) -> None:
-    """``torch.save`` to ``path`` atomically: a private temporary file in
-    the same directory, flushed to disk, then renamed over ``path``, so a
-    reader sees the old file or the whole new one, never a torn one."""
+def _atomic_write(path: str, write: Callable) -> None:
+    """``write(f)`` into a private temporary file in ``path``'s directory,
+    flushed to disk, then renamed over ``path``: a reader sees the old
+    file or the whole new one, never a torn one."""
     directory = os.path.dirname(os.path.abspath(path))
     fd, tmp = tempfile.mkstemp(dir=directory, prefix=os.path.basename(path) + ".",
                                suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            torch.save(state, f)
+            write(f)
             f.flush()
             os.fsync(f.fileno())
         os.chmod(tmp, 0o666 & ~_UMASK)  # mkstemp made it 0600
@@ -134,3 +140,65 @@ def save_state_dict(state: dict[str, torch.Tensor], path: str) -> None:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
+
+
+def save_state_dict(state: dict[str, torch.Tensor], path: str) -> None:
+    """``torch.save`` to ``path`` atomically."""
+    _atomic_write(path, lambda f: torch.save(state, f))
+
+
+# Params-tree archive format.  2 = head-major qkv (``[t, heads, 3,
+# head_dim]``); a format-1 archive's qkv kernels have the same shape with
+# every head's q/k/v scrambled, so only the tag tells them apart.
+PARAMS_TREE_FORMAT = 2
+
+
+def _flatten_raw(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dict -> flat dotted keys, no leaf renamed."""
+    out: dict[str, np.ndarray] = {}
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(_flatten_raw(value, prefix + name + "."))
+        else:
+            out[prefix + name] = np.asarray(value)
+    return out
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    for key, value in flat.items():
+        node = out
+        *parts, leaf = key.split(".")
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return out
+
+
+def save_params_tree(tree: Mapping[str, Any], path: str) -> None:
+    """A nested param tree (JAX layout) as an npz of dotted keys plus
+    ``__format__``, written atomically; :func:`load_params_tree` and the
+    JAX package's ``load_params_tree`` read it."""
+    flat = _flatten_raw(tree)
+    flat["__format__"] = np.int64(PARAMS_TREE_FORMAT)
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    _atomic_write(path, lambda f: f.write(buf.getvalue()))
+
+
+def load_params_tree(path: str) -> dict[str, Any]:
+    """Inverse of :func:`save_params_tree`.  Refuses an archive older than
+    format 2 that holds qkv weights (same shapes, scrambled heads)."""
+    try:
+        with np.load(path) as archive:
+            flat = {k: archive[k] for k in archive.files}
+    except (OSError, ValueError, zipfile.BadZipFile) as e:
+        raise ValueError(f"{path!r} is not an npz params archive: {e}") from e
+    fmt = int(flat.pop("__format__", 1))
+    if fmt < 2 and any(key.split(".")[-2:-1] == ["qkv"] for key in flat):
+        raise ValueError(
+            f"{path!r} is a format-{fmt} archive with qkv weights saved in "
+            "the pre-head-major layout; it cannot be loaded (same shapes, "
+            "scrambled heads) — re-save it from the run that produced it"
+        )
+    return _unflatten(flat)

@@ -11,11 +11,16 @@ So fc1's columns are permuted between the two, and a checkpoint crosses
 only with that permutation applied.  This module holds the port's own
 copy of the permutation; the JAX package applies the same one when it
 writes a ``.pt``, which is why such a file loads here as it is.
+
+The ViT's tree (``models/vit.py``) crosses by name alone: dense kernels
+``[in, out]`` transpose to ``weight [out, in]``, LayerNorm ``scale`` is
+``weight``, ``blocks/<i>`` is ``blocks.<i>``.  No feature is reordered:
+the qkv projection is head-major in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -64,3 +69,41 @@ def torch_state_from_jax(
             np.asarray(params[layer]["bias"], np.float32)
         )
     return out
+
+
+def torch_vit_state_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ViT param tree -> the port ``ViT``'s state dict (float32 CPU
+    tensors, contiguous)."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{name}.")
+                continue
+            a = np.asarray(value, np.float32)
+            if name == "kernel":
+                name, a = "weight", a.T
+            elif name == "scale":
+                name = "weight"
+            # torch.tensor copies: the source arrays may be read-only views.
+            out[prefix + name] = torch.tensor(np.ascontiguousarray(a))
+
+    walk(tree, "")
+    return out
+
+
+def jax_vit_tree_from_torch(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse: a ``ViT`` state dict -> the JAX package's nested tree of
+    float32 numpy arrays (``kernel [in, out]``, LayerNorm ``scale``)."""
+    tree: dict[str, Any] = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        a = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            leaf, a = ("kernel", a.T) if a.ndim == 2 else ("scale", a)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree

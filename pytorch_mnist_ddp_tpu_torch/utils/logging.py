@@ -25,3 +25,9 @@ def test_summary_lines(avg_loss: float, correct: int, dataset_len: int) -> str:
     return "\nTest set: Average loss: {:.4f}, Accuracy: {}/{} ({:.0f}%)\n".format(
         avg_loss, correct, dataset_len, pct
     )
+
+
+def total_time_line(elapsed_seconds: float) -> str:
+    """End-of-run wall clock (reference mnist_ddp.py:203).  The label reads
+    "ms" but the value is seconds, as the reference prints it."""
+    return f"Total cost time:{elapsed_seconds} ms"

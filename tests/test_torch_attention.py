@@ -1,0 +1,266 @@
+"""The port's attention (``ops/attention.py``, ``ops/flash_attention.py``)
+held against the JAX package on the CPU, on the same numpy inputs.
+
+The JAX Pallas kernels run in interpret mode, as the JAX package's own
+tests run them; the port's wrappers run their plain PyTorch versions on
+CPU tensors (the CUDA kernel is checked against them on the card by
+``chip_smoke.py``).  Tolerances are ``tests/test_flash.py``'s gates:
+forward values and logsumexp rtol 1e-5, atol 1e-6; gradients rtol 1e-4,
+atol 1e-5.  At head_dim 8 the two packages' ``1/sqrt(d)`` may differ in the
+last ulp (JAX's flash wrapper rounds a double, ``block_update`` divides in
+float32), which the same gates cover.  The raw state's accumulator ``o``
+is an unnormalized sum over up to t keys, so its absolute gate is 1e-6
+times its largest magnitude (``_assert_state_close``).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_mnist_ddp_tpu.ops import attention as jatt
+from pytorch_mnist_ddp_tpu.ops import pallas_attention as pa
+from pytorch_mnist_ddp_tpu_torch.ops import _build
+from pytorch_mnist_ddp_tpu_torch.ops import attention as att
+from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+
+SHAPES = [
+    (2, 16, 4, 16),   # the ViT's own geometry (16 tokens)
+    (1, 300, 2, 64),  # long, t not a multiple of any tile
+    (2, 128, 2, 32),  # exactly one 128-row block
+    (1, 257, 1, 8),   # several q and k blocks with a 1-row tail
+]
+IDS = ["x".join(map(str, s)) for s in SHAPES]
+FWD_TOL = dict(rtol=1e-5, atol=1e-6)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _assert_state_close(got, want):
+    """(m, l, o) states: m and l at the forward gate, o at rtol 1e-5 and an
+    absolute 1e-6 of its own scale."""
+    for name, a, w in zip("mlo", got, want):
+        a, w = np.asarray(a), np.asarray(w)
+        atol = 1e-6 * max(1.0, float(np.abs(w).max())) if name == "o" else 1e-6
+        np.testing.assert_allclose(a, w, rtol=1e-5, atol=atol, err_msg=name)
+
+
+def _qkv(shape, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randn(*shape).astype(np.float32) for _ in range(3))
+
+
+def _t(*arrays, grad=False):
+    return tuple(torch.tensor(a, requires_grad=grad) for a in arrays)
+
+
+def _j(*arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+def _mask(b, t, seed):
+    """Random keep-mask with batch row 0 fully masked (l == 0 rows)."""
+    mask = np.random.RandomState(seed).rand(b, t) > 0.3
+    mask[0] = False
+    return mask
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_block_update_and_full_attention_match_jax(shape, masked):
+    q, k, v = _qkv(shape, 1)
+    b, t, h, d = shape
+    mask = _mask(b, t, 2) if masked else None
+    rng = np.random.RandomState(3)
+    # A state that has already seen a block: finite m, positive l.
+    m0 = rng.randn(b, h, t).astype(np.float32)
+    l0 = (rng.rand(b, h, t) + 0.5).astype(np.float32)
+    o0 = rng.randn(b, h, t, d).astype(np.float32)
+    got = att.block_update(att.BlockAcc(*_t(m0, l0, o0)), *_t(q, k, v),
+                           None if mask is None else torch.tensor(mask))
+    want = jatt.block_update(jatt.BlockAcc(*_j(m0, l0, o0)), *_j(q, k, v),
+                             None if mask is None else jnp.asarray(mask))
+    _assert_state_close(got, want)
+    out = att.full_attention(*_t(q, k, v), None if mask is None else torch.tensor(mask))
+    ref = jatt.full_attention(*_j(q, k, v), None if mask is None else jnp.asarray(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FWD_TOL)
+    if masked:  # every key of batch row 0 masked: 0, not NaN
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_flash_forward_and_lse_match_jax_kernel(shape):
+    """The port's flash_attention and its (out, lse) against the JAX
+    Pallas kernel in interpret mode."""
+    q, k, v = _qkv(shape, 4)
+    b, t, h, d = shape
+    out, lse = fa.flash_fwd(*_t(q, k, v))
+    jout, jlse = pa._flash_fwd_res(*_j(q, k, v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy().reshape(b * h, t), np.asarray(jlse), **FWD_TOL)
+    got = fa.flash_attention(*_t(q, k, v))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(pa.flash_attention(*_j(q, k, v))),
+                               **FWD_TOL)
+    assert torch.equal(got, out)
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "dense"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_attention_gradients_match_jax(shape, flash):
+    """Both port paths (the blockwise flash backward, autograd through the
+    dense form) against jax.grad of the JAX flash_attention."""
+    q, k, v = _qkv(shape, 5)
+    cot = np.random.RandomState(9).randn(*shape).astype(np.float32)
+    want = jax.grad(lambda q, k, v: (pa.flash_attention(q, k, v) * cot).sum(),
+                    argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = _t(q, k, v, grad=True)
+    fn = fa.flash_attention if flash else att.full_attention
+    (fn(tq, tk, tv) * torch.tensor(cot)).sum().backward()
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def _jax_state(m, l, a, t_pad, d_pad):
+    """[b, h, t] / [b, h, t, d] state -> the Pallas kernel's padded
+    lane-broadcast layout ``[b*h, t_pad, 128]`` / ``[b*h, t_pad, d_pad]``."""
+    b, h, t, d = a.shape
+    ml = [np.pad(np.broadcast_to(x.reshape(b * h, t, 1), (b * h, t, 128)),
+                 ((0, 0), (0, t_pad - t), (0, 0))) for x in (m, l)]
+    a3 = np.pad(a.reshape(b * h, t, d), ((0, 0), (0, t_pad - t), (0, d_pad - d)))
+    return tuple(jnp.asarray(x.astype(np.float32)) for x in (*ml, a3))
+
+
+def _from_jax_state(state, b, h, t, d):
+    m, l, a = (np.asarray(x) for x in state)
+    return (m[:, :t, 0].reshape(b, h, t), l[:, :t, 0].reshape(b, h, t),
+            a[:, :t, :d].reshape(b, h, t, d))
+
+
+def _random_state(b, h, t, d, seed):
+    rng = np.random.RandomState(seed)
+    return ((2 * rng.randn(b, h, t)).astype(np.float32),
+            (rng.rand(b, h, t) * 3 + 0.1).astype(np.float32),
+            rng.randn(b, h, t, d).astype(np.float32))
+
+
+PARTIAL_SHAPES = [(2, 16, 4, 16), (1, 40, 2, 8), (1, 300, 2, 64)]
+
+
+@pytest.mark.parametrize("start", ["empty", "random"])
+@pytest.mark.parametrize("shape", PARTIAL_SHAPES, ids=["x".join(map(str, s)) for s in PARTIAL_SHAPES])
+def test_partial_update_matches_jax_kernel(shape, start):
+    """The plain partial update (the port's flash_partial on CPU) against
+    the JAX partial kernel run in interpret mode, from the empty state and
+    from a random finite state with l > 0."""
+    q, k, v = _qkv(shape, 6)
+    b, t, h, d = shape
+    if start == "empty":
+        state = tuple(x.numpy() for x in fa.flash_ring_state(b, h, t, d))
+    else:
+        state = _random_state(b, h, t, d, 7)
+    tp, dp = pa.flash_pad_len(t), pa.flash_lane_pad(d)
+    jq, jk, jv = (pa.flash_fold_pad(x, tp) for x in _j(q, k, v))
+    scale = 1.0 / float(d) ** 0.5
+    want = pa._flash_partial(*_jax_state(*state, tp, dp), jq, jk, jv, t, scale, interpret=True)
+    got = fa.flash_partial(*_t(*state), *_t(q, k, v))
+    _assert_state_close(got, _from_jax_state(want, b, h, t, d))
+
+
+def test_partial_inplace_aliases_the_state():
+    b, t, h, d = 2, 16, 4, 16
+    q, k, v = _t(*_qkv((b, t, h, d), 8))
+    state = _t(*_random_state(b, h, t, d, 9))
+    fresh = fa.flash_partial(*state, q, k, v)
+    got = fa.flash_partial(*state, q, k, v, inplace=True)
+    assert all(g is s for g, s in zip(got, state))
+    assert all(torch.equal(g, f) for g, f in zip(got, fresh))
+    with torch.no_grad():  # no autograd: the ring's hop aliases too
+        again = fa.flash_block_update(*state, q, k, v)
+    assert all(g is s for g, s in zip(again, state))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 4, 16), (1, 40, 2, 8)], ids=["2x16x4x16", "1x40x2x8"])
+def test_flash_block_update_vjp_matches_jax(shape):
+    """The recompute backward of flash_block_update against jax.vjp of the
+    JAX package's.  Cotangents sit on lane 0 of JAX's lane-broadcast m and
+    l (the port's m and l are that lane) and on the real rows and columns."""
+    q, k, v = _qkv(shape, 10)
+    b, t, h, d = shape
+    state = _random_state(b, h, t, d, 11)
+    rng = np.random.RandomState(12)
+    cots = [rng.randn(b, h, t).astype(np.float32), rng.randn(b, h, t).astype(np.float32),
+            rng.randn(b, h, t, d).astype(np.float32)]
+    tp, dp = pa.flash_pad_len(t), pa.flash_lane_pad(d)
+    jstate = _jax_state(*state, tp, dp)
+    jq, jk, jv = (pa.flash_fold_pad(x, tp) for x in _j(q, k, v))
+    scale = 1.0 / float(d) ** 0.5
+    _, vjp = jax.vjp(lambda m, l, a, q3, k3, v3: pa.flash_block_update(m, l, a, q3, k3, v3, t, scale),
+                     *jstate, jq, jk, jv)
+    jc = []
+    for c in cots[:2]:
+        lane0 = np.zeros((b * h, tp, 128), np.float32)
+        lane0[:, :t, 0] = c.reshape(b * h, t)
+        jc.append(jnp.asarray(lane0))
+    jc.append(jnp.asarray(np.pad(cots[2].reshape(b * h, t, d), ((0, 0), (0, tp - t), (0, dp - d)))))
+    jm, jl, ja, jgq, jgk, jgv = (np.asarray(g) for g in vjp(tuple(jc)))
+
+    inputs = _t(*state, q, k, v, grad=True)
+    out = fa.flash_block_update(*inputs)
+    torch.autograd.backward(out, _t(*cots))
+    want = [jm[:, :t, 0].reshape(b, h, t), jl[:, :t, 0].reshape(b, h, t),
+            ja[:, :t, :d].reshape(b, h, t, d)]
+    for g3 in (jgq, jgk, jgv):
+        want.append(g3[:, :t, :d].reshape(b, h, t, d).transpose(0, 2, 1, 3))
+    for x, w in zip(inputs, want):
+        np.testing.assert_allclose(x.grad.numpy(), w, **GRAD_TOL)
+
+
+def test_ring_finalize_gives_zero_for_empty_rows():
+    b, t, h, d = 2, 16, 4, 16
+    m, l, a = _random_state(b, h, t, d, 13)
+    l[1, 2, :5] = 0.0  # rows that saw only masked keys
+    a[1, 2, :5] = 0.0
+    got = fa.flash_ring_finalize(*_t(m, l, a)).numpy()
+    tp, dp = pa.flash_pad_len(t), pa.flash_lane_pad(d)
+    want = pa.flash_ring_finalize(*_jax_state(m, l, a, tp, dp), b, h, t, d, jnp.float32)
+    np.testing.assert_allclose(got, np.asarray(want), **FWD_TOL)
+    assert np.isfinite(got).all() and not got[1, :5, 2].any()
+
+
+def test_kv_mask_rejected():
+    q, k, v = _t(*_qkv(SHAPES[0]))
+    mask = torch.ones(q.shape[:2], dtype=torch.bool)
+    with pytest.raises(ValueError, match="kv_mask"):
+        fa.flash_attention(q, k, v, mask)
+    assert fa.select_attention(True) is fa.flash_attention
+    assert fa.select_attention(False) is att.full_attention
+
+
+def test_cpu_wrappers_never_touch_the_build(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path must not build or load a kernel")
+
+    for name in ("library", "nvcc_path"):
+        monkeypatch.setattr(_build, name, refuse)
+    before = dict(fa.LAUNCHES)
+    q, k, v = _t(*_qkv(SHAPES[0], 14), grad=True)
+    b, t, h, d = q.shape
+    fa.flash_attention(q, k, v).sum().backward()
+    fa.flash_block_update(*fa.flash_ring_state(b, h, t, d), q, k, v).o.sum().backward()
+    assert fa.LAUNCHES == before  # the plain path is not a launch
+
+
+def test_wrappers_check_their_inputs():
+    q, k, v = _t(*_qkv(SHAPES[0], 15))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_fwd(q, k[:, :, :2], v[:, :, :2])
+    b, t, h, d = q.shape
+    m, l, a = fa.flash_ring_state(b, h, t + 1, d)
+    with pytest.raises(ValueError, match="must be"):
+        fa.flash_partial(m, l, a, q, k, v)

@@ -27,6 +27,9 @@ from pytorch_mnist_ddp_tpu_torch.mnist import main as train_cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.engine import InferenceEngine
 from pytorch_mnist_ddp_tpu_torch.trainer import fit
+from pytorch_mnist_ddp_tpu_torch.vit_mnist import build_parser as vit_parser
+from pytorch_mnist_ddp_tpu_torch.vit_mnist import fit as vit_fit
+from pytorch_mnist_ddp_tpu_torch.vit_mnist import main as vit_cli_main
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "pytorch_mnist_ddp_tpu_torch"
@@ -93,7 +96,8 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize(
     "entry",
-    ["engine", "from_seed", "cli", "trainer", "train_cli"],
+    ["engine", "from_seed", "cli", "trainer", "train_cli", "vit_fit", "vit_cli",
+     "vit_sp_cli"],
 )
 def test_entry_points_default_to_cuda(entry):
     _no_card()
@@ -106,8 +110,14 @@ def test_entry_points_default_to_cuda(entry):
             cli_main(["--warmup-only", "--buckets", "1"])
         elif entry == "trainer":
             fit(train_parser().parse_args(["--dry-run"]))
-        else:
+        elif entry == "train_cli":
             train_cli_main(["--dry-run", "--epochs", "1"])
+        elif entry == "vit_fit":
+            vit_fit(vit_parser().parse_args(["--dry-run", "--flash"]))
+        elif entry == "vit_cli":
+            vit_cli_main(["--dry-run", "--epochs", "1", "--flash"])
+        else:
+            vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "1", "--allow-degree-1"])
 
 
 @pytest.mark.parametrize(
@@ -121,6 +131,17 @@ def test_entry_points_default_to_cuda(entry):
 def test_train_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
         train_parser().parse_args([flag])
+
+
+@pytest.mark.parametrize(
+    "flag",
+    ["--sp-impl=ulysses", "--tp=2", "--pp", "--pp-microbatches=2", "--pp-stages=2",
+     "--experts=8", "--zero", "--bf16", "--fused", "--pregather", "--profile=x",
+     "--step-stats", "--timings-json=x", "--save-state=x", "--resume-state=x"],
+)
+def test_vit_cli_refuses_flags_not_ported_yet(flag):
+    with pytest.raises(SystemExit):
+        vit_parser().parse_args([flag])
 
 
 @pytest.fixture
@@ -151,7 +172,7 @@ def test_head_refuses_other_devices(head_args):
 
 
 def test_build_lists_sources_and_names_missing_nvcc(monkeypatch, tmp_path):
-    assert {"adadelta", "int8_head"} <= set(_build.sources())
+    assert {"adadelta", "flash_attention", "int8_head"} <= set(_build.sources())
     monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
