@@ -10,13 +10,16 @@ Phases, one JSON line each:
                 versions, TF32 off;
 2. build      — every kernel under pytorch_mnist_ddp_tpu_torch/csrc/, one
                 nvcc per source, all started together, loaded as the
-                wrappers do at first use;
+                wrappers do at first use; ptxas's registers, spills and
+                target per kernel (each must be sm_90a);
 3. kernel     — each kernel against its plain PyTorch version on the card:
                 int8_head at the row counts the serving ladder gives it,
                 adadelta in both modes at flat lengths up to the model's,
                 flash_attention in both modes (fwd; partial from the empty
-                and from a random state) at the ViT's shapes, odd shapes
-                and long ones;
+                and from a random state) at the ViT's shapes, odd shapes,
+                q/k/v one float off alignment, d = 128, and long ones, with
+                the share of the gate each quantity uses; at the longest,
+                kernel and plain version against the fold in f64;
 4. engine     — InferenceEngine.from_seed on the card (f32 + int8),
                 bucketed and packed: warmup, the int8 parity gate, f32
                 against the CPU model, int8 predictions through the kernel;
@@ -35,6 +38,7 @@ Phases, one JSON line each:
 8. times      — each kernel, its plain version and the nearest library
                 call, with CUDA events, beside the least time the card
                 could take; adadelta with the L2 flushed before each call;
+                torch._int_mm on int8_head's rows zero-padded to 17;
 9. train_profile — where a training step's time goes: the loader alone,
                 then 100 steps, plain and --pallas-opt, under
                 torch.profiler (wall and device-busy time per step);
@@ -50,7 +54,9 @@ Phases, one JSON line each:
                 and --sp 1 --allow-degree-1 --flash, under torch.profiler;
 13. times     — flash_attention in both modes, its plain version and
                 scaled_dot_product_attention (and the backend it picks), at
-                the ViT's and long shapes.
+                the ViT's and long shapes; beside them the share of the
+                bound, the ratio to SDPA and the f32 CUDA-core bound, and a
+                one-element add_ as launch floor.
 
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
@@ -84,6 +90,7 @@ from concurrent.futures import ThreadPoolExecutor
 SEED = 12
 KERNEL_ROWS = (1, 3, 8, 64, 128, 130)
 TIMED_ROWS = (8, 128)
+INT_MM_MIN_ROWS = 17  # torch._int_mm refuses m <= 16
 KERNEL_TOL = 1e-5  # kernel vs plain: same integer arithmetic, IEEE epilogue
 F32_TOL = 1e-4  # cuDNN vs CPU f32 convs: same math, other summation order
 HTTP_TOL = 1e-5  # same rows, same bucket shape, same device as predict_logits
@@ -99,6 +106,7 @@ PER_CLIENT = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 # Adadelta: flat lengths from one element to the model's 1,199,882, and
 # one buffer offset by one element, which takes the kernel's scalar path.
 ADADELTA_N = (1, 37, 1024, 33000, 300000, 1199882)
@@ -119,6 +127,10 @@ ADADELTA_REPLACES = {"adadelta_delta": "pytorch_mnist_ddp_tpu/ops/pallas_adadelt
 FLASH_MAIN = {"train": (64, 16, 4, 16), "eval": (1000, 16, 4, 16)}
 FLASH_ODD = ((2, 16, 4, 16), (1, 300, 2, 64), (2, 128, 2, 32), (1, 257, 1, 8))
 FLASH_LONG = ((4, 512, 4, 64), (2, 2048, 4, 64), (1, 8192, 2, 64))
+# q/k/v one float into their allocation (the kernel's 4-byte copies, one
+# shape per tile path), and the widest head the wrapper admits.
+FLASH_OFFSET = ((64, 16, 4, 16), (1, 300, 2, 64))
+FLASH_WIDE = (1, 300, 2, 128)
 # Kernel vs plain, f32 both: other summation order, IEEE exp/log/div.  The
 # partial mode's accumulator a is an unnormalized sum over t keys, whose
 # rounding grows with t (its error against the plain version measured
@@ -524,17 +536,24 @@ def train_profile_phase(torch, np) -> None:
     emit({"phase": "train_profile", **report})
 
 
-def flash_inputs(torch, np, shape, seed: int, strided: bool = True):
+def flash_inputs(torch, np, shape, seed: int, strided: bool = True, offset: int = 0):
     """q, k, v ``[b, t, h, d]`` on the card: by default strided views of one
     ``[b, t, h, 3, d]`` tensor, as the ViT's head-major qkv hands them over;
-    else three contiguous tensors."""
+    else three contiguous tensors.  ``offset`` starts each allocation's data
+    that many floats in."""
     b, t, h, d = shape
     rng = np.random.RandomState(seed)
+
+    def card(shape):
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        buf = torch.empty(x.numel() + offset, dtype=torch.float32, device="cuda")
+        buf[offset:].copy_(x.reshape(-1))
+        return buf[offset:].view(shape)
+
     if strided:
-        qkv = torch.from_numpy(rng.randn(b, t, h, 3, d).astype(np.float32)).cuda()
+        qkv = card((b, t, h, 3, d))
         return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-    return tuple(torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).cuda()
-                 for _ in range(3))
+    return tuple(card((b, t, h, d)) for _ in range(3))
 
 
 def flash_random_state(torch, np, b: int, h: int, t: int, d: int, seed: int):
@@ -549,14 +568,38 @@ def flash_random_state(torch, np, b: int, h: int, t: int, d: int, seed: int):
                  for x, shape in ((m, (b, h, t)), (l, (b, h, t)), (a, (b, h, t, d))))
 
 
-def flash_close(torch, got, want, what: str) -> float:
-    """Max abs error of ``got`` against ``want``; fails past rtol FLASH_RTOL
-    and atol FLASH_ATOL."""
+def flash_close(torch, got, want, what: str) -> tuple[float, float]:
+    """Max abs error of ``got`` against ``want`` and the largest share of the
+    gate it uses, max |got - want| / (FLASH_ATOL + FLASH_RTOL |want|); fails
+    past 1."""
     check(bool(torch.isfinite(got).all()), f"{what} non-finite")
     err = float((got - want).abs().max())
+    share = float(((got - want).abs() / (FLASH_ATOL + FLASH_RTOL * want.abs())).max())
     check(bool(torch.allclose(got, want, rtol=FLASH_RTOL, atol=FLASH_ATOL)),
           f"{what} off its plain version by {err}")
-    return err
+    return err, share
+
+
+def flash_f64_errors(torch, state, q, k, v, results: dict) -> dict:
+    """Each of ``results`` (partial-mode states) against the same fold in
+    f64: m's max abs error, and l's and a / l's largest share of the gate."""
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+
+    m, l, a = (x.double() for x in state)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * fa._scale(q.shape[-1])
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    a_new = a * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v.double())
+    del s, p
+
+    def share(got, want):
+        return float(((got.double() - want).abs() / (FLASH_ATOL + FLASH_RTOL * want.abs())).max())
+
+    return {name: {"m_abs": float((r.m.double() - m_new).abs().max()), "l": share(r.l, l_new),
+                   "a/l": share(r.o / r.l[..., None], a_new / l_new[..., None])}
+            for name, r in results.items()}
 
 
 def flash_kernel_phase(torch, np) -> dict[str, float]:
@@ -566,26 +609,31 @@ def flash_kernel_phase(torch, np) -> dict[str, float]:
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
     worst = {"flash_fwd": 0.0, "flash_partial": 0.0}
-    cases = ([(kind, shape, True) for kind, shape in FLASH_MAIN.items()]
-             + [("odd", shape, True) for shape in FLASH_ODD]
-             + [("odd_contiguous", FLASH_ODD[-1], False)]
-             + [("long", shape, True) for shape in FLASH_LONG])
+    cases = ([(kind, shape, True, 0) for kind, shape in FLASH_MAIN.items()]
+             + [("odd", shape, True, 0) for shape in FLASH_ODD]
+             + [("odd_contiguous", FLASH_ODD[-1], False, 0)]
+             + [("offset", shape, True, 1) for shape in FLASH_OFFSET]
+             + [("wide", FLASH_WIDE, True, 0)]
+             + [("long", shape, True, 0) for shape in FLASH_LONG])
     report = {}
-    for i, (kind, shape, strided) in enumerate(cases):
+    for i, (kind, shape, strided, offset) in enumerate(cases):
         b, t, h, d = shape
         where = f"{kind} {'x'.join(map(str, shape))}"
-        q, k, v = flash_inputs(torch, np, shape, i, strided)
+        q, k, v = flash_inputs(torch, np, shape, i, strided, offset)
         out, lse = fa.flash_fwd(q, k, v)
         ref_out, ref_lse = fa.flash_fwd_reference(q, k, v)
         torch.cuda.synchronize()
-        errs = {"fwd_out": flash_close(torch, out, ref_out, f"flash_fwd out at {where}"),
-                "fwd_lse": flash_close(torch, lse, ref_lse, f"flash_fwd lse at {where}")}
+        errs, shares = {}, {}
+        for name, got, want in (("fwd_out", out, ref_out), ("fwd_lse", lse, ref_lse)):
+            errs[name], shares[name] = flash_close(torch, got, want, f"flash_fwd {name} at {where}")
         worst["flash_fwd"] = max(worst["flash_fwd"], errs["fwd_out"], errs["fwd_lse"])
         for start in ("empty", "random"):
             state = (fa.flash_ring_state(b, h, t, d, "cuda") if start == "empty"
                      else flash_random_state(torch, np, b, h, t, d, 1000 + i))
             got = fa.flash_partial(*state, q, k, v)
             want = fa.flash_partial_reference(*state, q, k, v)
+            if start == "random" and shape == FLASH_LONG[-1]:
+                vs_f64 = flash_f64_errors(torch, state, q, k, v, {"kernel": got, "plain": want})
             aliased = fa.flash_partial(*state, q, k, v, inplace=True)
             torch.cuda.synchronize()
             check(all(x is y for x, y in zip(aliased, state)), "in-place partial returned copies")
@@ -594,17 +642,20 @@ def flash_kernel_phase(torch, np) -> dict[str, float]:
             what = f"flash_partial ({start}) at {where}"
             check(bool(torch.isfinite(got.o).all()), f"{what}: a non-finite")
             # One key at least was folded into every row, so l > 0.
-            err = max(flash_close(torch, got.m, want.m, f"{what}: m"),
-                      flash_close(torch, got.l, want.l, f"{what}: l"),
-                      flash_close(torch, got.o / got.l[..., None], want.o / want.l[..., None],
-                                  f"{what}: a / l"))
+            err = 0.0
+            for name, g, w in (("m", got.m, want.m), ("l", got.l, want.l),
+                               ("a/l", got.o / got.l[..., None], want.o / want.l[..., None])):
+                e, sh = flash_close(torch, g, w, f"{what}: {name}")
+                err, shares[name] = max(err, e), max(shares.get(name, 0.0), sh)
             errs[f"partial_{start}"] = err
             errs[f"partial_{start}_raw_a"] = float((got.o - want.o).abs().max())
             worst["flash_partial"] = max(worst["flash_partial"], err)
-        report[where] = errs
+        report[where] = {"max_abs_err": errs, "share_of_gate": shares}
     emit({"phase": "kernel", "name": "flash_attention", "rtol": FLASH_RTOL, "atol": FLASH_ATOL,
           "partial_held_as": "m, l, a / l (raw a recorded: it sums t unnormalized terms)",
-          "max_abs_err_by_shape": report})
+          "share_of_gate": "max |kernel - plain| / (atol + rtol |plain|) per quantity; 1 fails",
+          "by_shape": report,
+          f"vs_f64 at long {'x'.join(map(str, FLASH_LONG[-1]))}, random state": vs_f64})
     return worst
 
 
@@ -767,16 +818,40 @@ def vit_profile_phase(torch) -> None:
     emit({"phase": "vit_profile", **report})
 
 
-def flash_bound(mode: str, shape) -> tuple[float, str]:
+def flash_bound(mode: str, shape) -> tuple[float, str, float]:
     """Least time (ms) for one call: q, k, v read once and out + lse written
     once (fwd), or q, k, v and the state read once and the state written
-    once (partial), against 4*b*h*t^2*d f32 operations."""
+    once (partial), against the 4*b*h*t^2*d operations of the two products
+    run as 3xTF32 (three TF32 passes per product at the tensor cores' rate):
+    the cheapest route on the card to f32-accurate products, since one TF32
+    pass misses the f32 gate.  Also returns the older bound with the
+    products on the f32 CUDA cores (ms)."""
     b, t, h, d = shape
     n, rows = b * t * h * d, b * h * t
     nbytes = 4 * (3 * n + (n + rows if mode == "flash_fwd" else 2 * (2 * rows + n)))
     ops = 4 * b * h * t * t * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S
+    f32_ms = 1e3 * max(t_bytes, ops / F32_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", f32_ms
+
+
+def ptxas_entries(report: str) -> dict[str, dict]:
+    """Per kernel in an ``nvcc -Xptxas=-v`` report: the target, registers,
+    spill stores and static shared memory (dynamic shared memory is set at
+    launch and not in the report)."""
+    entries = {}
+    for chunk in report.split("Compiling entry function ")[1:]:
+        head = re.match(r"'(\w+)' for '(\w+)'", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        if head and regs:
+            entries[head.group(1)] = {
+                "arch": head.group(2), "registers": int(regs.group(1)),
+                "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            }
+    return entries
 
 
 def sdpa_backend(torch, q, k, v) -> str:
@@ -794,6 +869,8 @@ def flash_times(torch, np) -> dict[str, dict]:
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
     out = {"flash_fwd": {}, "flash_partial": {}}
+    ratios = {"flash_fwd": {}, "flash_partial": {}}
+    f32_bounds = {"flash_fwd": {}, "flash_partial": {}}
     library_backends = {}
     shapes = list(FLASH_MAIN.items()) + [("long", shape) for shape in FLASH_LONG]
     for i, (kind, shape) in enumerate(shapes):
@@ -815,14 +892,22 @@ def flash_times(torch, np) -> dict[str, dict]:
                               lambda: fa.flash_partial_reference(m, l, a, q, k, v)),
         }
         for mode, (kernel, plain) in calls.items():
-            bound_ms, bound_by = flash_bound(mode, shape)
-            out[mode][where] = {"ms": median_ms(torch, kernel), "plain_ms": median_ms(torch, plain),
+            bound_ms, bound_by, f32_bounds[mode][where] = flash_bound(mode, shape)
+            ms = median_ms(torch, kernel)
+            out[mode][where] = {"ms": ms, "plain_ms": median_ms(torch, plain),
                                 "library_ms": library_ms, "bound_ms": bound_ms,
                                 "bound_by": bound_by}
-    emit({"phase": "times", "name": "flash_attention", "by_mode": out,
+            ratios[mode][where] = {"share_of_bound": bound_ms / ms, "vs_library": ms / library_ms}
+    one = torch.zeros(1, device="cuda")
+    floor_ms = median_ms(torch, lambda: one.add_(1.0))
+    emit({"phase": "times", "name": "flash_attention", "by_mode": out, "ratios": ratios,
+          "bound_f32_cuda_core_ms": f32_bounds,
+          "launch_floor_ms": floor_ms,
+          "launch_floor": "a one-element add_ timed the same way: the least any call reads",
           "library": "torch.nn.functional.scaled_dot_product_attention on [b, h, t, d] views "
                      "(the normalized output; for flash_partial the fold from the empty "
                      "state normalized), warm",
+          "bound": "max(bytes / 3.35 TB/s, 3 x 4bht^2d / 495 TFLOP/s TF32)",
           "library_backends": library_backends})
     return out
 
@@ -870,11 +955,10 @@ def main() -> int:
     with ThreadPoolExecutor(len(_build.sources())) as pool:
         list(pool.map(_build.library, _build.sources()))
     build_s = time.perf_counter() - t0
-    registers = {name: re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
-                                  _build.ptxas_report(name), re.S)
-                 for name in _build.sources()}
-    emit({"phase": "build", "sources": _build.sources(), "seconds": build_s,
-          "registers": {name: {fn: int(n) for fn, n in found} for name, found in registers.items()}})
+    ptxas = {name: ptxas_entries(_build.ptxas_report(name)) for name in _build.sources()}
+    check(all(found and all(e["arch"] == "sm_90a" for e in found.values())
+              for found in ptxas.values()), f"a kernel was not built for sm_90a: {ptxas}")
+    emit({"phase": "build", "sources": _build.sources(), "seconds": build_s, "ptxas": ptxas})
 
     # 3. kernel against its plain version, at the ladder's row counts
     state = Net(torch.Generator().manual_seed(SEED)).state_dict()
@@ -1075,18 +1159,18 @@ def main() -> int:
         f = feats[:n]
         kernel_ms = median_ms(torch, lambda: ih.fused_int8_head(fc1, fc2, f))
         plain_ms = median_ms(torch, lambda: ih.int8_head_reference(fc1, fc2, f))
-        library_ms = None
-        if n > 16:  # torch._int_mm takes more than 16 rows only
-            a_max = f.abs().amax(dim=-1, keepdim=True)
-            xq = torch.clamp(torch.round(f / (a_max / 127.0)), -127, 127).to(torch.int8)
-            w1t = fc1["weight_q"].t().contiguous()
-            library_ms = median_ms(torch, lambda: torch._int_mm(xq, w1t))
+        # torch._int_mm takes more than 16 rows only: fewer are zero-padded.
+        a_max = f.abs().amax(dim=-1, keepdim=True)
+        xq = torch.zeros((max(n, INT_MM_MIN_ROWS), k), dtype=torch.int8, device=dev)
+        xq[:n] = torch.clamp(torch.round(f / (a_max / 127.0)), -127, 127).to(torch.int8)
+        w1t = fc1["weight_q"].t().contiguous()
+        library_ms = median_ms(torch, lambda: torch._int_mm(xq, w1t))
         bound_ms, bound_by = head_bound(n, k, h, o)
         by_n[str(n)] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
+                        "library_rows": xq.shape[0], "bound_ms": bound_ms, "bound_by": bound_by}
     emit({"phase": "times", "name": "int8_head", "by_n": by_n,
-          "library": "torch._int_mm on the fc1 product alone (no single "
-                     "PyTorch call computes the whole head)"})
+          "library": "torch._int_mm on the fc1 product alone (no single PyTorch call "
+                     f"computes the whole head), rows zero-padded to {INT_MM_MIN_ROWS}"})
     ada_times = adadelta_times(torch, np)
     train_profile_phase(torch, np)
 

@@ -17,7 +17,18 @@ one launch of ``csrc/flash_attention.cu`` with a mode flag:
 q, k and v keep JAX's ``[b, t, h, d]`` layout and are passed by their
 (b, t, h) strides with stride 1 along d: the ViT hands in the q/k/v views
 of its head-major qkv projection, and a copy of each would cost as much
-traffic as the kernel itself at the ViT's shapes.  Nothing is padded.
+traffic as the kernel itself at the ViT's shapes.  Nothing is padded; the
+kernel copies k/v 16 bytes at a time where their bases and strides allow,
+else 4, and takes any 1 <= d <= 128.
+
+Both products run on the tensor cores as 3xTF32 (each f32 operand split
+into two TF32 halves, three ``mma.sync`` passes, the two small terms
+accumulated apart from the large one).  The kernel is checked only on the
+card: ``chip_smoke.py`` holds it to the plain versions within rtol 1e-5 /
+atol 1e-6, records the share of that gate each quantity uses, and holds
+kernel and plain version against the fold in f64 at t = 8192.
+``tests/test_torch_attention.py`` models the split in numpy on the CPU to
+show why one TF32 pass would not do; it runs no kernel.
 
 For CPU tensors the wrappers run the plain PyTorch versions
 (``ops/attention.py``); for CUDA tensors they launch the kernel or raise.

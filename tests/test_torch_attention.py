@@ -10,7 +10,11 @@ atol 1e-5.  At head_dim 8 the two packages' ``1/sqrt(d)`` may differ in the
 last ulp (JAX's flash wrapper rounds a double, ``block_update`` divides in
 float32), which the same gates cover.  The raw state's accumulator ``o``
 is an unnormalized sum over up to t keys, so its absolute gate is 1e-6
-times its largest magnitude (``_assert_state_close``).
+times its largest magnitude (``_assert_state_close``).  The 3xTF32 split
+the kernel's products use is modelled in numpy (``_fold_tf32``: operands
+rounded to TF32, accumulation in numpy's f32, not the tensor cores') and
+held to the forward gate: this fixes why the kernel splits, while the
+kernel itself is checked only on the card, by ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -120,6 +124,81 @@ def test_attention_gradients_match_jax(shape, flash):
     (fn(tq, tk, tv) * torch.tensor(cot)).sum().backward()
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it (to nearest,
+    ties away from zero, the low 13 bits cleared): the kernel's rounding."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_tf32(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+    """``a @ b`` on TF32 operands in f32: ``passes=3`` is 3xTF32 (x = hi +
+    lo; the small terms lo.hi + hi.lo summed apart from hi.hi, as the
+    kernel sums them), ``passes=1`` a single TF32 pass (hi.hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _fold_tf32(q, k, v, passes: int, tile: int = 64):
+    """The kernel's fold modelled in numpy f32: key tiles of ``tile`` rows,
+    both products on TF32 operands, each tile's P.V added to the rescaled
+    accumulator.  Returns ``(out [b, t, h, d], lse [b*h, t])``."""
+    b, t, h, d = q.shape
+    q3, k3, v3 = (x.transpose(0, 2, 1, 3).reshape(b * h, -1, d) for x in (q, k, v))
+    scale = np.float32(fa._scale(d))
+    m = np.full((b * h, t), -1e30, np.float32)
+    l = np.zeros((b * h, t), np.float32)
+    acc = np.zeros((b * h, t, d), np.float32)
+    for k0 in range(0, k3.shape[1], tile):
+        s = _mm_tf32(q3, k3[:, k0:k0 + tile].transpose(0, 2, 1), passes) * scale
+        m_new = np.maximum(m, s.max(axis=-1))
+        p = np.exp(s - m_new[..., None])
+        corr = np.exp(m - m_new)
+        l = l * corr + p.sum(axis=-1)
+        acc = acc * corr[..., None] + _mm_tf32(p, v3[:, k0:k0 + tile], passes)
+        m = m_new
+    out = (acc / l[..., None]).reshape(b, h, t, d).transpose(0, 2, 1, 3)
+    return out, m + np.log(l)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    half = np.float32(2.0 ** -11)  # half a TF32 ulp at 1
+    x = np.array([1 + half, -(1 + half), 1 + half - np.float32(2.0 ** -23), 3.0, 0.0],
+                 np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([1 + 2 * half, -(1 + 2 * half), 1.0, 3.0, 0.0], np.float32))
+    y = np.random.RandomState(17).randn(4096).astype(np.float32)
+    hi = _tf32(y)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    lo = _tf32(y - hi)
+    assert np.abs(y - hi).max() <= np.abs(y).max() * 2.0 ** -11
+    np.testing.assert_allclose(hi.astype(np.float64) + lo, y, rtol=2.0 ** -21, atol=0)
+
+
+TF32_SHAPES = SHAPES + [(1, 1024, 2, 64)]
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=["x".join(map(str, s)) for s in TF32_SHAPES])
+def test_3xtf32_fold_matches_jax_kernel(shape):
+    """The fold with its products split into TF32 halves (a model of the
+    split, not of the kernel) against the JAX Pallas kernel in interpret
+    mode at the forward gate; and why the kernel splits: one TF32 pass
+    lands at least 50x further off at t >= 1024."""
+    q, k, v = _qkv(shape, 16)
+    b, t, h, d = shape
+    jout, jlse = (np.asarray(x) for x in pa._flash_fwd_res(*_j(q, k, v)))
+    out, lse = _fold_tf32(q, k, v, passes=3)
+    np.testing.assert_allclose(out, jout, **FWD_TOL)
+    np.testing.assert_allclose(lse, jlse, **FWD_TOL)
+    if t >= 1024:
+        one, _ = _fold_tf32(q, k, v, passes=1)
+        err3, err1 = np.abs(out - jout).max(), np.abs(one - jout).max()
+        assert err1 >= 50 * err3, (err1, err3)
 
 
 def _jax_state(m, l, a, t_pad, d_pad):
