@@ -11,9 +11,15 @@ Phases, one JSON line each:
 2. build      — every kernel under pytorch_mnist_ddp_tpu_torch/csrc/, one
                 nvcc per source, all started together, loaded as the
                 wrappers do at first use; ptxas's registers, spills and
-                target per kernel (each must be sm_90a);
+                target per kernel (each must be sm_90a); int8_head's
+                cluster size at each timed n and how many such clusters
+                the card runs at once (cudaOccupancyMaxActiveClusters);
 3. kernel     — each kernel against its plain PyTorch version on the card:
-                int8_head at the row counts the serving ladder gives it,
+                int8_head equal bit for bit (torch.equal) at the row counts
+                the serving ladder gives it, a row-tile boundary (16, 17),
+                the edge cases of tests/test_torch_quant.py (a zero row,
+                ties, negative ties) and one off-model shape whose last
+                K-slice is ragged (k = 1040 at n = 5 and 130),
                 adadelta in both modes at flat lengths up to the model's,
                 flash_attention in both modes (fwd; partial from the empty
                 and from a random state) at the ViT's shapes, odd shapes,
@@ -38,7 +44,11 @@ Phases, one JSON line each:
 8. times      — each kernel, its plain version and the nearest library
                 call, with CUDA events, beside the least time the card
                 could take; adadelta with the L2 flushed before each call;
-                torch._int_mm on int8_head's rows zero-padded to 17;
+                int8_head at n = 1, 8, 128 per call and back to back (100
+                calls between one pair of events, as for a one-element
+                add_), beside torch._int_mm on its rows zero-padded to 17
+                with fc1's weight as a row-major copy and as the
+                column-major view;
 9. train_profile — where a training step's time goes: the loader alone,
                 then 100 steps, plain and --pallas-opt, under
                 torch.profiler (wall and device-busy time per step);
@@ -88,10 +98,15 @@ from concurrent.futures import ThreadPoolExecutor
 # the quantization error; seed 12's smallest top-1 margin over the 128-row
 # parity slice is ~0.1, against an int8 error of ~0.005 (CPU scan).
 SEED = 12
-KERNEL_ROWS = (1, 3, 8, 64, 128, 130)
-TIMED_ROWS = (8, 128)
+# int8_head is held to its plain version with torch.equal: the same integer
+# arithmetic and the same IEEE epilogue, whatever the split of K.
+KERNEL_ROWS = (1, 3, 8, 16, 17, 64, 128, 130)
+HEAD_EDGE_CASES = ("zero_row", "ties", "negative_ties")
+HEAD_RAGGED = (1040, 128, 10)  # k, h, o: the last K-slice ends inside a chunk
+HEAD_RAGGED_ROWS = (5, 130)
+TIMED_ROWS = (1, 8, 128)
+BACK_TO_BACK_CALLS = 100
 INT_MM_MIN_ROWS = 17  # torch._int_mm refuses m <= 16
-KERNEL_TOL = 1e-5  # kernel vs plain: same integer arithmetic, IEEE epilogue
 F32_TOL = 1e-4  # cuDNN vs CPU f32 convs: same math, other summation order
 HTTP_TOL = 1e-5  # same rows, same bucket shape, same device as predict_logits
 # Latency loop: one client, closed loop (next request after the reply),
@@ -186,6 +201,139 @@ def head_bound(n: int, k: int, h: int, o: int) -> tuple[float, str]:
     ops = 2 * n * (k * h + h * o)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def back_to_back_ms(torch, fn, calls: int = BACK_TO_BACK_CALLS, reps: int = 5,
+                    warm: int = 5) -> float:
+    """Device time per call of ``fn`` run ``calls`` times between one pair
+    of CUDA events (behind a sleep kernel, so the host's enqueue stays
+    ahead), divided by ``calls``; the median of ``reps`` such runs.  Unlike
+    :func:`median_ms` no event sits between two calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / calls)
+    return statistics.median(per_call)
+
+
+def head_layers(torch, np, k: int, h: int, o: int, seed: int) -> tuple[dict, dict]:
+    """Random int8 layers of the given widths on the card (quantize_params'
+    layout: weight_q [out, in], scale and bias [out])."""
+    rng = np.random.RandomState(seed)
+    layers = []
+    for out_w, in_w in ((h, k), (o, h)):
+        layers.append({
+            "weight_q": torch.from_numpy(rng.randint(-127, 128, (out_w, in_w)).astype(np.int8)),
+            "scale": torch.from_numpy((rng.rand(out_w) * 1e-2).astype(np.float32)),
+            "bias": torch.from_numpy(rng.randn(out_w).astype(np.float32)),
+        })
+    return tuple({key: v.cuda() for key, v in layer.items()} for layer in layers)
+
+
+def head_edge_features(np, case: str):
+    """tests/test_torch_quant.py's edge cases, built in the JAX package's
+    NHWC column order and taken to the port's NCHW order."""
+    from pytorch_mnist_ddp_tpu_torch.utils.convert import nchw_to_nhwc_feature_perm
+
+    x = np.abs(np.random.RandomState(7).randn(4, 9216)).astype(np.float32)
+    if case == "zero_row":
+        x[1] = 0.0
+    else:
+        sign = -1.0 if case == "negative_ties" else 1.0
+        x[:, 0] = 127.0
+        x[:, 1:] = sign * (np.arange(9215) % 100 + 0.5).astype(np.float32)
+    return np.ascontiguousarray(x[:, nchw_to_nhwc_feature_perm()])
+
+
+def head_kernel_phase(torch, np, fc1: dict, fc2: dict, feats) -> dict[str, float]:
+    """int8_head against its plain version with torch.equal at every case;
+    returns the largest |kernel - plain| per case (0.0 when equal)."""
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+
+    cases = [(f"n={n}", fc1, fc2, feats[:n]) for n in KERNEL_ROWS]
+    cases += [(case, fc1, fc2, torch.from_numpy(head_edge_features(np, case)).cuda())
+              for case in HEAD_EDGE_CASES]
+    k, h, o = HEAD_RAGGED
+    r1, r2 = head_layers(torch, np, k, h, o, seed=k)
+    x_ragged = torch.from_numpy(
+        np.random.RandomState(k + 1).randn(max(HEAD_RAGGED_ROWS), k).astype(np.float32)).cuda()
+    cases += [(f"k={k} n={n}", r1, r2, x_ragged[:n]) for n in HEAD_RAGGED_ROWS]
+    errs, plans = {}, {}
+    for name, l1, l2, x in cases:
+        got = ih.fused_int8_head(l1, l2, x)
+        want = ih.int8_head_reference(l1, l2, x)
+        torch.cuda.synchronize()
+        n_rows, k_in = x.shape
+        plan = ih.launch_plan(n_rows, k_in, l1["weight_q"].shape[0], l2["weight_q"].shape[0], 0)
+        plans[name] = {"cluster": plan["cluster"], "grid": list(plan["grid"])}
+        errs[name] = float((got - want).abs().max())
+        check(got.shape == want.shape, f"int8_head shape {tuple(got.shape)} at {name}")
+        check(bool(torch.isfinite(got).all()), f"int8_head non-finite at {name}")
+        check(torch.equal(got, want), f"int8_head off its plain version by {errs[name]} at {name}")
+    emit({"phase": "kernel", "name": "int8_head", "check": "torch.equal",
+          "max_abs_err_by_case": errs, "plan_by_case": plans})
+    return errs
+
+
+def head_times(torch, fc1: dict, fc2: dict, feats) -> tuple[dict, dict]:
+    """int8_head per call and back to back at TIMED_ROWS, its plain version,
+    torch._int_mm on fc1's product in both weight layouts, and the launch
+    floor; returns the per-n readings and the floor."""
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+
+    h, k = fc1["weight_q"].shape
+    o = fc2["weight_q"].shape[0]
+    layouts = {"row_major_copy": fc1["weight_q"].t().contiguous(),
+               "column_major_view": fc1["weight_q"].t()}
+    by_n = {}
+    for n in TIMED_ROWS:
+        f = feats[:n]
+        kernel = lambda: ih.fused_int8_head(fc1, fc2, f)  # noqa: E731
+        reading = {"ms": median_ms(torch, kernel),
+                   "back_to_back_ms": back_to_back_ms(torch, kernel),
+                   "plain_ms": median_ms(torch, lambda: ih.int8_head_reference(fc1, fc2, f))}
+        # torch._int_mm takes more than 16 rows only: fewer are zero-padded.
+        a_max = f.abs().amax(dim=-1, keepdim=True)
+        xq = torch.zeros((max(n, INT_MM_MIN_ROWS), k), dtype=torch.int8, device=f.device)
+        xq[:n] = torch.clamp(torch.round(f / (a_max / 127.0)), -127, 127).to(torch.int8)
+        library = {}
+        for name, w in layouts.items():
+            try:
+                library[name] = {"ms": median_ms(torch, lambda: torch._int_mm(xq, w)),
+                                 "back_to_back_ms": back_to_back_ms(
+                                     torch, lambda: torch._int_mm(xq, w))}
+            except RuntimeError as e:  # a layout the library refuses is recorded
+                library[name] = {"error": str(e).splitlines()[0]}
+        timed = {name: v["ms"] for name, v in library.items() if "ms" in v}
+        check(bool(timed), f"torch._int_mm refused both layouts at n={n}: {library}")
+        best = min(timed, key=timed.get)
+        reading["library_ms"] = timed[best]
+        reading["library_layout"] = best
+        reading["library_by_layout"] = library
+        reading["library_rows"] = xq.shape[0]
+        reading["bound_ms"], reading["bound_by"] = head_bound(n, k, h, o)
+        plan = ih.launch_plan(n, k, h, o, 0)
+        reading["cluster"], reading["grid"] = plan["cluster"], list(plan["grid"])
+        by_n[str(n)] = reading
+    one = torch.zeros(1, device="cuda")
+    floor = {"ms": median_ms(torch, lambda: one.add_(1.0)),
+             "back_to_back_ms": back_to_back_ms(torch, lambda: one.add_(1.0))}
+    emit({"phase": "times", "name": "int8_head", "by_n": by_n, "launch_floor": floor,
+          "library": "torch._int_mm on the fc1 product alone (no single PyTorch call "
+                     f"computes the whole head), rows zero-padded to {INT_MM_MIN_ROWS}; "
+                     "library_ms is the faster weight layout",
+          "back_to_back": f"{BACK_TO_BACK_CALLS} calls between one pair of events, "
+                          "divided by the count; median of 5"})
+    return by_n, floor
 
 
 def cold_ms(torch, fn, restore, runs: int = 30, warm: int = 3) -> float:
@@ -958,7 +1106,13 @@ def main() -> int:
     ptxas = {name: ptxas_entries(_build.ptxas_report(name)) for name in _build.sources()}
     check(all(found and all(e["arch"] == "sm_90a" for e in found.values())
               for found in ptxas.values()), f"a kernel was not built for sm_90a: {ptxas}")
-    emit({"phase": "build", "sources": _build.sources(), "seconds": build_s, "ptxas": ptxas})
+    k, h, o = 9216, 128, 10  # the CNN's fc1 -> fc2 head
+    head_plans = {str(n): ih.launch_plan(n, k, h, o, dev.index) for n in TIMED_ROWS}
+    emit({"phase": "build", "sources": _build.sources(), "seconds": build_s, "ptxas": ptxas,
+          "int8_head_active_clusters": ih.active_clusters(dev.index, k, h, o),
+          "int8_head_plan_by_n": {n: {key: p[key] for key in ("cluster", "grid", "smem",
+                                                             "max_clusters", "waves")}
+                                  for n, p in head_plans.items()}})
 
     # 3. kernel against its plain version, at the ladder's row counts
     state = Net(torch.Generator().manual_seed(SEED)).state_dict()
@@ -969,19 +1123,7 @@ def main() -> int:
     x_all = normalize(raw)
     with torch.inference_mode():
         feats = conv_stack(q, torch.from_numpy(x_all).to(dev))
-    kernel_err = {}
-    for n in KERNEL_ROWS:
-        f = feats[:n]
-        got = ih.fused_int8_head(fc1, fc2, f)
-        want = ih.int8_head_reference(fc1, fc2, f)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()), f"int8_head non-finite at n={n}")
-        check(err <= KERNEL_TOL, f"int8_head off its plain version by {err} at n={n}")
-        check(bool((got.argmax(1) == want.argmax(1)).all()), f"int8_head argmax at n={n}")
-        kernel_err[n] = err
-    emit({"phase": "kernel", "name": "int8_head", "tolerance": KERNEL_TOL,
-          "max_abs_err_by_n": kernel_err})
+    kernel_err = head_kernel_phase(torch, np, fc1, fc2, feats)
     adadelta_err = adadelta_kernel_phase(torch, np)
     flash_err = flash_kernel_phase(torch, np)
 
@@ -1151,26 +1293,9 @@ def main() -> int:
     for k, v in train_launches.items():
         check(v > 0, f"the training path never launched {k}")
 
-    # 8. times: int8_head at the ladder's small and top buckets, adadelta
-    # at the model's parameter count
-    k, h, o = fc1["weight_q"].shape[1], fc1["weight_q"].shape[0], fc2["weight_q"].shape[0]
-    by_n = {}
-    for n in TIMED_ROWS:
-        f = feats[:n]
-        kernel_ms = median_ms(torch, lambda: ih.fused_int8_head(fc1, fc2, f))
-        plain_ms = median_ms(torch, lambda: ih.int8_head_reference(fc1, fc2, f))
-        # torch._int_mm takes more than 16 rows only: fewer are zero-padded.
-        a_max = f.abs().amax(dim=-1, keepdim=True)
-        xq = torch.zeros((max(n, INT_MM_MIN_ROWS), k), dtype=torch.int8, device=dev)
-        xq[:n] = torch.clamp(torch.round(f / (a_max / 127.0)), -127, 127).to(torch.int8)
-        w1t = fc1["weight_q"].t().contiguous()
-        library_ms = median_ms(torch, lambda: torch._int_mm(xq, w1t))
-        bound_ms, bound_by = head_bound(n, k, h, o)
-        by_n[str(n)] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                        "library_rows": xq.shape[0], "bound_ms": bound_ms, "bound_by": bound_by}
-    emit({"phase": "times", "name": "int8_head", "by_n": by_n,
-          "library": "torch._int_mm on the fc1 product alone (no single PyTorch call "
-                     f"computes the whole head), rows zero-padded to {INT_MM_MIN_ROWS}"})
+    # 8. times: int8_head at one row and the ladder's small and top
+    # buckets, adadelta at the model's parameter count
+    by_n, _ = head_times(torch, fc1, fc2, feats)
     ada_times = adadelta_times(torch, np)
     train_profile_phase(torch, np)
 
@@ -1196,7 +1321,10 @@ def main() -> int:
         "launches": launches, "max_abs_err": max(kernel_err.values()),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-        "rows": TIMED_ROWS[-1], "by_n": by_n,
+        "rows": TIMED_ROWS[-1],
+        "by_n": {n: {key: r[key] for key in ("ms", "back_to_back_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "library_layout")}
+                 for n, r in by_n.items()},
     }]
     for name, t in ada_times.items():
         kernels.append({

@@ -5,7 +5,7 @@
 // (fused_int8_head).  Per row of x:
 //
 //     q1 <- clip(rint(x / a1), -127, 127),   a1 = max|x| / 127 (1 if 0)
-//     h  <- relu(float(q1 . W1[o]) * (a1 * s1[o]) + b1[o])       o < 128
+//     h  <- relu(float(q1 . W1[o]) * (a1 * s1[o]) + b1[o])       o < h
 //     q2 <- clip(rint(h / a2), -127, 127),   a2 = max|h| / 127 (1 if 0)
 //     y  <- float(q2 . W2[o]) * (a2 * s2[o]) + b2[o]             o < 10
 //
@@ -15,39 +15,90 @@
 // int32 -> float with __int2float_rn (|acc| reaches 127*127*9216 ~ 1.5e8, past
 // 2^24), and the epilogue as __fmul_rn/__fadd_rn in the reference's order so
 // nvcc cannot contract it into an FMA — a 1-ulp change in h can flip a code
-// of the second layer.
+// of the second layer.  The split below is exact: fmaxf is order-free, so a
+// row max assembled from K-slices is the whole row's; int32 sums of int8
+// products are exact, so partial sums over K-slices added in any order give
+// the same integer.  The output equals the plain version bit for bit.
 //
 // Layouts (torch's): x f32 [n, k]; W1 int8 [h, k] (one output per row, fc1
 // columns in NCHW order); s1, b1 f32 [h]; W2 int8 [o, h]; s2, b2 f32 [o];
 // out f32 [n, o].
 //
-// Bound on an H100 SXM (3.35 TB/s, 1,979 int8 TOP/s): memory.  At n = 128 the
-// head must read x (4.72 MB) and W1 (1.18 MB), ~5.9 MB or ~1.8 us; its 0.30 G
-// int8 operations take ~0.15 us.  At n = 1 the bound is W1 alone, ~0.36 us.
+// Bound on an H100 SXM (3.35 TB/s, 1,979 int8 TOP/s): bytes.  The head must
+// read x (4nk bytes) and W1 (hk): at n = 128 ~5.9 MB or ~1.8 us, at n = 1
+// W1 alone, ~0.36 us.  Its int8 operations (0.30 G at n = 128) take ~0.15 us
+// at the tensor cores' rate, so latency and bytes bound it, not the
+// tensor pipe.
 //
-// Design (simple first): one block of 1024 threads per ROWS = 2 rows.  The
-// block reads its rows of x twice (max, then quantize; the second read mostly
-// hits L1) and keeps the int8 codes in shared memory; W1 (1.18 MB) stays
-// resident in the 50 MB L2 across blocks, so HBM sees x and W1 about once
-// each, as the bound counts them.  The fc1 product runs on __dp4a: each of
-// the 32 warps owns OB = 4 outputs, lanes stride over k in 16-byte chunks,
-// and one chunk of W1 serves both rows.  That loop is bound by the bytes one
-// SM keeps in flight from L2, which is why the block is wide and holds few
-// rows.  The relu'd h stays in shared memory, is requantized per row, and the
-// 128 x 10 second product and its epilogue run in the same block.  What this
-// leaves on the table: every block streams all of W1 through one SM, and
-// dp4a, not the tensor cores, does the product; splitting fc1's columns
-// across blocks and mma/wgmma are later work.
+// Design.  The first version ran one block of 1024 threads per 2 rows: every
+// block streamed all of W1 (1.18 MB) through one SM on dp4a, after reading
+// its x rows twice, one phase after another — 24-25 us at every n, the
+// latency of one SM pulling W1 out of L2.  Here K is split over a thread-
+// block cluster instead, and the fetch of W1 overlaps the x phase:
+//
+//   grid (C, ceil(n/16)), cluster (C, 1, 1).  A cluster owns a tile of
+//   R = 16 rows (one mma M tile); its C blocks own K-slices of whole 32-
+//   column chunks (576 columns each for k = 9216 at C = 16), the last one
+//   ragged when k % 32 != 0.  The wrapper picks C per n from
+//   cudaOccupancyMaxActiveClusters (int8_head_max_clusters) so the grid
+//   fills the card about once; 16 is a non-portable cluster size and must
+//   fit in one GPC.  A block has 8 compute warps and 8 copy warps.
+//
+//   1. The copy warps stream the block's [h, slice] W1 slice into shared
+//      memory with 16-byte cp.async (row stride k in, pitch slice + 16
+//      bytes out: no bank conflicts on the B fragments); rank 0's also
+//      fetch W2.  A warp issues one such copy (a warp's 512 bytes) about
+//      every 250 cycles here, so the copies need warps of their own: one
+//      copy warp alone takes ~37,000 cycles for the slice, eight ~8,000
+//      (tools/int8_head_phases.py); issued by the compute warps, they held
+//      the x phase back.  One bulk copy (cp.async.bulk on an mbarrier) per
+//      W1 row was tried first and was slower still to issue.
+//   2. Meanwhile each compute warp reads its two rows of the x slice once,
+//      float4 loads into registers, and takes their max|x|, which its lanes
+//      store into every rank's shared memory (DSMEM: stores do not wait,
+//      loads would); a cluster barrier; each block forms a1 from the C
+//      partial maxima and quantizes its registers into an int8 tile laid
+//      out for the mma A fragment.  Rows >= n and the ragged tail are zero
+//      codes.
+//   3. fc1's partial product: mma.sync m16n8k32 s8 x s8 -> s32 on the
+//      tensor cores, A the codes, B W1's rows (torch's [h, k] layout is the
+//      .col operand as it is), two n-tiles a compute warp.  Not wgmma: its M
+//      of 64 would waste 75% at n <= 16, and the product is not the limit.
+//      The partials are grouped by the rank that reduces their column (rank
+//      j owns h/C columns) and sent there in 16-byte stores.
+//   4. cluster.sync(); rank j sums its columns over the C slots, applies
+//      fc1's epilogue and the relu, and writes h into rank 0's shared
+//      memory; cluster.sync().  That barrier is each rank's last: no block
+//      touches another's shared memory after it, so every block may exit
+//      once past it.
+//   5. Rank 0 takes each row's max|h|, requantizes (a row a warp), runs fc2
+//      on dp4a from the staged W2 (one thread per (row, output)) and
+//      writes out.
+//
+// Both quantizations multiply by the scale's reciprocal and take the IEEE
+// division only within 2^-14 of a rounding tie (quant4_fast), which gives
+// the division's codes at a fraction of its cost.
+//
+// Limits (the wrapper's plan raises beyond them): the x slice sits in
+// registers, at most 1152 columns at R = 16 (k <= 18432 at C = 16), and the
+// block's shared memory (W1 slice, codes, partials, h) within 227 KB.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int ROWS = 2;
-constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
-constexpr int OB = 4;
+constexpr int R = 16;             // rows per cluster: one mma M tile
+constexpr int WARPS = 8;          // compute warps: two rows of x each
+constexpr int COPY_WARPS = 8;     // warps that copy W1
+constexpr int THREADS = 32 * (WARPS + COPY_WARPS);
+constexpr int ROWS_PER_WARP = R / WARPS;
+constexpr int MAXC = 9;           // float4 per lane per row: slice <= 1152
+constexpr int MAX_CLUSTER = 16;
+constexpr int HEADER = 1152;      // per-row scalars, C x R maxima
 constexpr float QMAX = 127.0f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -56,20 +107,49 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
+// The IEEE divisions live in functions of their own: inlined at every
+// call site, their slow paths made the kernel's code several times larger.
 
 // a_max > 0 ? a_max / 127 : 1
-__device__ __forceinline__ float act_scale(float a_max) {
+__device__ __noinline__ float act_scale(float a_max) {
   return a_max > 0.0f ? __fdiv_rn(a_max, QMAX) : 1.0f;
 }
+
+__device__ __noinline__ float recip(float scale) { return __frcp_rn(scale); }
 
 // clip(rint(v / scale), -127, 127) as an integer code
 __device__ __forceinline__ int quant(float v, float scale) {
   float q = rintf(__fdiv_rn(v, scale));
   return __float2int_rn(fminf(fmaxf(q, -QMAX), QMAX));
+}
+
+__device__ __noinline__ char4 quant4(float4 f, float scale) {
+  return make_char4(quant(f.x, scale), quant(f.y, scale), quant(f.z, scale), quant(f.w, scale));
+}
+
+// The code of y rounded half to even and clipped: adding 1.5 * 2^23
+// rounds y (|y| < 2^22) to an integer in the float's last place.  Sets
+// near when y is within 2^-14 of a half-integer, or is not finite.
+__device__ __forceinline__ int round_code(float y, bool& near) {
+  constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23, bits 0x4B400000
+  const float t = __fadd_rn(y, MAGIC);
+  const float d = __fsub_rn(y, __fsub_rn(t, MAGIC));  // y - rint(y), exact
+  near |= !(fabsf(__fsub_rn(fabsf(d), 0.5f)) >= 0x1p-14f);
+  return min(max(__float_as_int(t) - 0x4B400000, -127), 127);
+}
+
+// quant() of four values of one row, without a division: rcp is
+// recip(scale) and |v| <= the row's max, so |y| = |v * rcp| <= 127.0001,
+// and y is within 1.5 * 2^-23 * 127.0001 < 2.3e-5 of the rounded quotient
+// v / scale.  Unless y lies within 2^-14 of a half-integer, where rint
+// could differ, both round to the same integer; there the caller takes
+// quant4() instead (near is set).  Division, rintf and float -> int
+// conversion each run at a fraction of the ALU rate, and a branch per
+// value kept the compiler from overlapping them: with them the quantize
+// phase was the longest of the x phase.
+__device__ __forceinline__ char4 quant4_fast(float4 f, float rcp, bool& near) {
+  return make_char4(round_code(__fmul_rn(f.x, rcp), near), round_code(__fmul_rn(f.y, rcp), near),
+                    round_code(__fmul_rn(f.z, rcp), near), round_code(__fmul_rn(f.w, rcp), near));
 }
 
 // acc * (a_scale * s) + b, rounded step by step
@@ -81,158 +161,365 @@ __device__ __forceinline__ float absmax4(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One float4 of x.  volatile: the compiler may not load it again later (it
+// would, for a read-only load, rather than keep the registers live), so x
+// is read once.
+__device__ __forceinline__ float4 load_x(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+// 16 bytes global -> shared without passing through registers (or L1).
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Copy warp cw copies rows cw, cw + COPY_WARPS, ... of `rows` rows of
+// `bytes` (a multiple of 16) at global stride `stride` into shared memory
+// at `pitch`.
+__device__ __forceinline__ void copy_rows(int8_t* dst, int pitch, const int8_t* src,
+                                          size_t stride, int rows, int bytes, int cw, int lane) {
+  for (int r = cw; r < rows; r += COPY_WARPS)
+    for (int c = 16 * lane; c < bytes; c += 16 * 32) copy16(dst + r * pitch + c, src + r * stride + c);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The compute warps alone (named barrier 1; 0 is __syncthreads).
+__device__ __forceinline__ void compute_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(32 * WARPS) : "memory");
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared-memory layout of one block, the same for every rank; mirrored by
+// ops/int8_head.py:_launch_plan.  The header holds a1 and a2 per row (0,
+// 64) and every rank's row maxima, [C][R] (128).
+struct Layout {
+  int chunks;  // 32-column chunks of k
+  int slice;   // widest K-slice, columns (a multiple of 32)
+  int pitch;   // W1 and code row pitch, bytes: slice + 16
+  int w1, xq, recv, hid, hq, w2, total;  // byte offsets, total size
+};
+
+__host__ __device__ inline Layout layout(int k, int h, int o, int cluster) {
+  Layout L;
+  L.chunks = (k + 31) / 32;
+  L.slice = 32 * ((L.chunks + cluster - 1) / cluster);
+  L.pitch = L.slice + 16;
+  L.w1 = HEADER;
+  L.xq = L.w1 + h * L.pitch;
+  L.recv = L.xq + R * L.pitch;
+  L.hid = L.recv + R * h * 4;
+  L.hq = L.hid + R * h * 4;
+  L.w2 = L.hq + R * h;
+  L.total = (L.w2 + o * h + 15) / 16 * 16;
+  return L;
+}
+
 __global__ void __launch_bounds__(THREADS)
 int8_head_kernel(const float* __restrict__ x, int n, int k,
                  const int8_t* __restrict__ w1, const float* __restrict__ s1,
                  const float* __restrict__ b1, int h,
                  const int8_t* __restrict__ w2, const float* __restrict__ s2,
                  const float* __restrict__ b2, int o, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* xq = reinterpret_cast<int8_t*>(smem);               // [ROWS][k]
-  float* hbuf = reinterpret_cast<float*>(smem + ROWS * k);   // [ROWS][h]
-  int8_t* hq = reinterpret_cast<int8_t*>(hbuf + ROWS * h);   // [ROWS][h]
-  __shared__ float partial[ROWS][WARPS];
-  __shared__ float scale1[ROWS];
-  __shared__ float scale2[ROWS];
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(gridDim.x);  // the grid is one cluster wide
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Layout L = layout(k, h, o, C);
+
+  float* scale1 = reinterpret_cast<float*>(smem);       // [R]
+  float* scale2 = reinterpret_cast<float*>(smem + 64);   // [R]
+  float* rmax = reinterpret_cast<float*>(smem + 128);    // [C][R] max|x| per slice
+  int8_t* w1s = reinterpret_cast<int8_t*>(smem + L.w1);  // [h][pitch]
+  int8_t* xq = reinterpret_cast<int8_t*>(smem + L.xq);   // [R][pitch]
+  int* recv = reinterpret_cast<int*>(smem + L.recv);     // [C][R][h/C] partials
+  float* hid = reinterpret_cast<float*>(smem + L.hid);   // [R][h], rank 0
+  int* part = reinterpret_cast<int*>(smem + L.hid);      // [C][R][h/C], before h
+  int8_t* hq = reinterpret_cast<int8_t*>(smem + L.hq);   // [R][h], rank 0
+  int8_t* w2s = reinterpret_cast<int8_t*>(smem + L.w2);  // [o][h], rank 0
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row0 = blockIdx.x * ROWS;
-  const int k4 = k / 4;
+  const int row0 = blockIdx.y * R;
+  const int rows = min(R, n - row0);
+  // This rank's K-slice: whole 32-column chunks, balanced over the ranks;
+  // only the last slice can end inside a chunk (k % 32 == 16).
+  const int c0 = 32 * (rank * L.chunks / C);
+  const int c1 = min(k, 32 * ((rank + 1) * L.chunks / C));
+  const int cols = c1 - c0;  // > 0, a multiple of 16
+  const int cols4 = cols / 4;
+  const int colsp = (cols + 31) & ~31;  // the mma's reach
+  const int share = h / C;              // fc1 columns each rank reduces
 
-  // 1. Per-row max |x| (rows past n stay zero: scale 1, codes 0).  Rows
-  // interleave inside the loop so several loads are in flight per thread.
-  const int valid = min(ROWS, n - row0);
-  const float4* xr[ROWS];
-  float m[ROWS];
+  // Every block of the cluster must have started before any writes into
+  // its shared memory: arrive now, wait once the loads are in flight.
+  cluster_arrive_relaxed();
+  if (warp >= WARPS) {
+    // 1. The copy warps: they write no remote memory before the row
+    // maxima's barrier, so they arrive there at once, then stream the W1
+    // (and, on rank 0, W2) slice in.  A warp issues a 16-byte cp.async
+    // about every 250 cycles here, so the copies take warps of their own
+    // (one alone took ~37,000 cycles for W1's slice); the compute warps
+    // run the x phase meanwhile.
+    cluster_wait();
+    cluster_arrive();
+    copy_rows(w1s, L.pitch, w1 + c0, k, h, cols, warp - WARPS, lane);
+    if (rank == 0) copy_rows(w2s, h, w2, h, o, h, warp - WARPS, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cluster_wait();
+  } else {
+    // 2. x: each compute warp loads its two rows of the slice once, into
+    // registers, and stores each row's max|x| into every rank's shared
+    // memory.
+    float4 v[ROWS_PER_WARP][MAXC];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    xr[r] = reinterpret_cast<const float4*>(x + (size_t)(row0 + min(r, valid - 1)) * k);
-    m[r] = 0.0f;
-  }
-#pragma unroll 3
-  for (int c = tid; c < k4; c += THREADS) {
+    for (int i = 0; i < ROWS_PER_WARP; ++i) {
+      const int r = warp + i * WARPS;
+      const float4* xr = reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * k + c0);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (r < valid) m[r] = fmaxf(m[r], absmax4(xr[r][c]));
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = warp_max(m[r]);
-    if (lane == 0) partial[r][warp] = m[r];
-  }
-  __syncthreads();
-  if (tid < ROWS) {
-    float a = 0.0f;
-    for (int w = 0; w < WARPS; ++w) a = fmaxf(a, partial[tid][w]);
-    scale1[tid] = act_scale(a);
-  }
-  __syncthreads();
-
-  // 2. Quantize the rows into shared memory (the second read of x mostly
-  // hits L1).
-  char4* xq_c4 = reinterpret_cast<char4*>(xq);
-#pragma unroll 3
-  for (int c = tid; c < k4; c += THREADS) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      char4 q4 = make_char4(0, 0, 0, 0);
-      if (r < valid) {
-        const float4 v = xr[r][c];
-        const float sc = scale1[r];
-        q4 = make_char4(quant(v.x, sc), quant(v.y, sc), quant(v.z, sc), quant(v.w, sc));
+      for (int j = 0; j < MAXC; ++j) {
+        const int c = lane + 32 * j;
+        v[i][j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (r < rows && c < cols4) v[i][j] = load_x(xr + c);
       }
-      xq_c4[r * k4 + c] = q4;
+    }
+    cluster_wait();
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i) {
+      const int r = warp + i * WARPS;
+      float m = 0.0f;
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) m = fmaxf(m, absmax4(v[i][j]));
+      m = warp_max(m);
+      if (lane < C) cluster.map_shared_rank(rmax, lane)[rank * R + r] = m;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (tid < R) {
+      float a = 0.0f;
+      for (int j = 0; j < C; ++j) a = fmaxf(a, rmax[j * R + tid]);
+      scale1[tid] = act_scale(a);
+    }
+    compute_sync();
+    // Quantize the registers into the A tile: rows >= n and the ragged
+    // tail are zero codes.
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i) {
+      const int r = warp + i * WARPS;
+      char4* qr = reinterpret_cast<char4*>(xq + r * L.pitch);
+      if (r >= rows) {
+        for (int c = lane; c < colsp / 4; c += 32) qr[c] = make_char4(0, 0, 0, 0);
+        continue;
+      }
+      const float sc = scale1[r];
+      const float rc = recip(sc);
+      unsigned near_tie = 0;  // float4s within 2^-14 of a tie, by j
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        const int c = lane + 32 * j;
+        bool near = false;
+        const char4 q = quant4_fast(v[i][j], rc, near);  // zero past the slice
+        if (c < colsp / 4) qr[c] = q;
+        near_tie |= static_cast<unsigned>(near && c < colsp / 4) << j;
+      }
+      if (near_tie) {
+#pragma unroll
+        for (int j = 0; j < MAXC; ++j)
+          if (near_tie >> j & 1) qr[lane + 32 * j] = quant4(v[i][j], sc);
+      }
+    }
+  }
+  __syncthreads();  // W1 has landed, the codes are written
+
+  // 3. fc1's partial product on the tensor cores, two n-tiles a warp so two
+  // accumulator chains overlap.  The partials are grouped by the rank that
+  // reduces their column, then go there in 16-byte stores: single remote
+  // 4-byte stores cost more than the product.
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ksteps = colsp / 32;
+  const int8_t* arow = xq + g * L.pitch + 4 * t;
+  for (int pair = warp; warp < WARPS && pair < h / 16; pair += WARPS) {
+    // [n-tile][k-step parity]: four independent accumulator chains
+    int acc[2][2][4] = {};
+    const int8_t* brow = w1s + (pair * 16 + g) * L.pitch + 4 * t;
+    auto step = [&](int ks, int par) {
+      const int kk = 32 * ks;
+      const uint32_t a[4] = {
+          *reinterpret_cast<const uint32_t*>(arow + kk),
+          *reinterpret_cast<const uint32_t*>(arow + 8 * L.pitch + kk),
+          *reinterpret_cast<const uint32_t*>(arow + kk + 16),
+          *reinterpret_cast<const uint32_t*>(arow + 8 * L.pitch + kk + 16)};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int8_t* b = brow + u * 8 * L.pitch + kk;
+        mma_s8(acc[u][par], a, *reinterpret_cast<const uint32_t*>(b),
+               *reinterpret_cast<const uint32_t*>(b + 16));
+      }
+    };
+    int ks = 0;
+    for (; ks + 1 < ksteps; ks += 2) {
+      step(ks, 0);
+      step(ks + 1, 1);
+    }
+    if (ks < ksteps) step(ks, 0);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = g + 8 * ((e >> 1) & 1);
+      const int col = pair * 16 + 8 * (e >> 2) + 2 * t + (e & 1);
+      part[(col / share) * R * share + r * share + col % share] =
+          acc[e >> 2][0][e & 3] + acc[e >> 2][1][e & 3];
     }
   }
   __syncthreads();
-
-  // 3. fc1: int32 dot products on dp4a, epilogue + relu into hbuf.
-  const int kc = k / 16;
-  const int4* xq4 = reinterpret_cast<const int4*>(xq);
-  for (int o0 = warp * OB; o0 < h; o0 += WARPS * OB) {
-    int acc[OB][ROWS];
-#pragma unroll
-    for (int j = 0; j < OB; ++j)
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[j][r] = 0;
-#pragma unroll 2
-    for (int c = lane; c < kc; c += 32) {
-      int4 wv[OB];
-#pragma unroll
-      for (int j = 0; j < OB; ++j)
-        wv[j] = __ldg(reinterpret_cast<const int4*>(w1 + (size_t)(o0 + j) * k) + c);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int4 xv = xq4[r * kc + c];
-#pragma unroll
-        for (int j = 0; j < OB; ++j) {
-          acc[j][r] = __dp4a(xv.x, wv[j].x, acc[j][r]);
-          acc[j][r] = __dp4a(xv.y, wv[j].y, acc[j][r]);
-          acc[j][r] = __dp4a(xv.z, wv[j].z, acc[j][r]);
-          acc[j][r] = __dp4a(xv.w, wv[j].w, acc[j][r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < OB; ++j) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int sum = warp_sum(acc[j][r]);
-        if (lane == 0) {
-          const int oo = o0 + j;
-          hbuf[r * h + oo] = fmaxf(epilogue(sum, scale1[r], s1[oo], b1[oo]), 0.0f);
-        }
-      }
-    }
+  const int per_rank4 = R * share / 4;  // int4s each rank receives from this one
+  for (int i = tid; i < R * h / 4; i += THREADS) {
+    const int owner = i / per_rank4;
+    reinterpret_cast<int4*>(cluster.map_shared_rank(recv, owner))[rank * per_rank4 + i % per_rank4] =
+        reinterpret_cast<const int4*>(part)[i];
   }
-  __syncthreads();
+  cluster.sync();
 
-  // 4. Requantize h per row: warp r owns row r.
-  if (warp < ROWS) {
-    const float* hr = hbuf + warp * h;
+  // 4. Sum this rank's columns over the C slots; h goes to rank 0.
+  float* hid0 = cluster.map_shared_rank(hid, 0);
+  for (int e = tid; e < R * share; e += THREADS) {
+    const int r = e / share;
+    const int col = rank * share + e % share;
+    int sum = 0;
+    for (int j = 0; j < C; ++j) sum += recv[j * R * share + e];
+    hid0[r * h + col] = fmaxf(epilogue(sum, scale1[r], s1[col], b1[col]), 0.0f);
+  }
+  cluster.sync();  // the last access to another block's shared memory
+  if (rank != 0) return;
+
+  // 5. Rank 0: requantize h per row, then fc2 and its epilogue.
+  for (int r = warp; r < rows; r += THREADS / 32) {  // a row a warp
+    const float* hr = hid + r * h;
     float mm = 0.0f;
     for (int c = lane; c < h; c += 32) mm = fmaxf(mm, fabsf(hr[c]));
     const float sc = act_scale(warp_max(mm));
-    if (lane == 0) scale2[warp] = sc;
-    for (int c = lane; c < h; c += 32) hq[warp * h + c] = static_cast<int8_t>(quant(hr[c], sc));
+    const float rc = recip(sc);
+    if (lane == 0) scale2[r] = sc;
+    for (int c = lane; c < h / 4; c += 32) {
+      const float4 f = reinterpret_cast<const float4*>(hr)[c];
+      bool near = false;
+      const char4 q = quant4_fast(f, rc, near);
+      reinterpret_cast<char4*>(hq + r * h)[c] = near ? quant4(f, sc) : q;
+    }
   }
   __syncthreads();
-
-  // 5. fc2: one warp per (row, output) pair, lanes over 4-byte words of h.
-  const int hw = h / 4;
-  for (int p = warp; p < ROWS * o; p += WARPS) {
+  for (int p = tid; p < rows * o; p += THREADS) {
     const int r = p / o;
     const int oo = p % o;
-    if (row0 + r >= n) continue;
-    const int* a = reinterpret_cast<const int*>(hq + r * h);
-    const int* b = reinterpret_cast<const int*>(w2 + (size_t)oo * h);
+    const int4* a = reinterpret_cast<const int4*>(hq + r * h);
+    const int4* b = reinterpret_cast<const int4*>(w2s + oo * h);
     int acc = 0;
-    for (int c = lane; c < hw; c += 32) acc = __dp4a(a[c], b[c], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[(size_t)(row0 + r) * o + oo] = epilogue(acc, scale2[r], s2[oo], b2[oo]);
+    for (int c = 0; c < h / 16; ++c) {
+      const int4 av = a[c];
+      const int4 bv = b[c];
+      acc = __dp4a(av.x, bv.x, acc);
+      acc = __dp4a(av.y, bv.y, acc);
+      acc = __dp4a(av.z, bv.z, acc);
+      acc = __dp4a(av.w, bv.w, acc);
+    }
+    out[(size_t)(row0 + r) * o + oo] = epilogue(acc, scale2[r], s2[oo], b2[oo]);
   }
+}
+
+// Raise the block's dynamic shared memory limit, and allow clusters of 16,
+// once per device for the largest size asked for.
+cudaError_t configure(int device, int cluster, int smem) {
+  static int smem_set[64];
+  static bool nonportable_set[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (smem > smem_set[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        int8_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[device] = smem;
+  }
+  if (cluster > 8 && !nonportable_set[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        int8_head_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    nonportable_set[device] = true;
+  }
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t launch_config(int cluster, int tiles, int smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, tiles, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// C entry point for ctypes.  Shapes are checked by the Python wrapper
-// (k % 16 == 0, h % 16 == 0, 16-byte aligned pointers).  Returns the CUDA
-// error code of the launch (0 = cudaSuccess).
+// How many clusters of `cluster` blocks, each with `smem` bytes of dynamic
+// shared memory, the card can run at once (cudaOccupancyMaxActiveClusters);
+// 0 in *count when none fits.  Returns the CUDA error code.
+extern "C" int int8_head_max_clusters(int device, int cluster, int smem, int* count) {
+  *count = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = configure(device, cluster, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(cluster, 1, smem, 0, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(count, int8_head_kernel, &cfg));
+}
+
+// C entry point for ctypes.  Shapes and the plan (cluster size, bytes of
+// shared memory) come from ops/int8_head.py, which checks them (k % 16 == 0,
+// h % 16 == 0, 16-byte aligned pointers, the slice and memory limits).
+// Returns the CUDA error code of the launch (0 = cudaSuccess).
 extern "C" int int8_head_launch(int device, const float* x, int n, int k,
                                 const int8_t* w1, const float* s1, const float* b1, int h,
                                 const int8_t* w2, const float* s2, const float* b2, int o,
-                                float* out, cudaStream_t stream) {
+                                float* out, int cluster, int smem, cudaStream_t stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) ||
+      layout(k, h, o, cluster).slice > 128 * MAXC || smem != layout(k, h, o, cluster).total)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = configure(device, cluster, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = (size_t)ROWS * k + (size_t)ROWS * h * sizeof(float) + (size_t)ROWS * h;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(int8_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (n + ROWS - 1) / ROWS;
-  int8_head_kernel<<<blocks, THREADS, smem, stream>>>(x, n, k, w1, s1, b1, h, w2, s2, b2, o, out);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(cluster, (n + R - 1) / R, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, int8_head_kernel, x, n, k, w1, s1, b1, h, w2, s2, b2, o, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,10 @@ from the card to the plain version: the plain version is what the tests
 and ``chip_smoke.py`` hold the kernel against, never what serves on the
 card.
 
+On the card the kernel splits fc1's inputs over a thread-block cluster
+per 16 rows; :func:`launch_plan` picks the cluster size from how many
+clusters of each size the card runs at once (:func:`active_clusters`).
+
 Layer dicts are :func:`~..models.quant.quantize_params` entries:
 ``weight_q`` int8 ``[out, in]``, ``scale`` f32 ``[out]``, ``bias`` f32
 ``[out]``.
@@ -26,6 +30,14 @@ QMAX = 127.0
 # Kernel launches made through fused_int8_head (one per launch); the
 # plain CPU path does not count.
 LAUNCHES = 0
+
+# The kernel's launch geometry (csrc/int8_head.cu): a cluster of C blocks
+# per tile of ROWS rows, each block one K-slice of whole 32-column chunks.
+ROWS = 16  # one mma M tile
+CLUSTER_SIZES = (16, 8, 4, 2, 1)  # 16 is non-portable: one GPC
+MAX_SLICE = 1152  # x columns a block holds in registers (MAXC = 9 float4 a lane)
+SMEM_LIMIT = 232448  # 227 KB: the most dynamic shared memory a block may use
+_HEADER = 1152  # a1 and a2 per row, every rank's row maxima
 
 
 def _int8_dense_reference(x: torch.Tensor, layer: dict) -> torch.Tensor:
@@ -69,13 +81,94 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device)
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _slice(k: int, cluster: int) -> int:
+    """Columns of the widest K-slice: 32-column chunks spread over the ranks."""
+    chunks = -(-k // 32)
+    return 32 * -(-chunks // cluster)
+
+
+def _k_slices(k: int, cluster: int) -> list[tuple[int, int]]:
+    """Columns ``[c0, c1)`` of each rank: whole 32-column chunks spread
+    evenly, only the last slice ending inside a chunk; as the kernel
+    computes them."""
+    chunks = -(-k // 32)
+    return [(32 * (r * chunks // cluster), min(k, 32 * ((r + 1) * chunks // cluster)))
+            for r in range(cluster)]
+
+
+def _smem_bytes(k: int, h: int, o: int, cluster: int) -> int:
+    """Dynamic shared memory of one block, the kernel's ``layout()``:
+    header, W1 slice and codes at a pitch of slice + 16 bytes, the int32
+    partials, and h, its codes and W2 on rank 0."""
+    pitch = _slice(k, cluster) + 16
+    # per row and hidden column: an int32 partial, h in f32, its int8 code
+    total = _HEADER + (h + ROWS) * pitch + ROWS * h * (4 + 4 + 1) + o * h
+    return -(-total // 16) * 16
+
+
+def _fits(k: int, h: int, o: int, cluster: int) -> bool:
+    """Every rank has columns, the slice fits the registers and the block
+    its shared memory."""
+    return (cluster <= -(-k // 32) and _slice(k, cluster) <= MAX_SLICE
+            and _smem_bytes(k, h, o, cluster) <= SMEM_LIMIT)
+
+
+def _launch_plan(n: int, k: int, h: int, o: int, max_clusters: dict[int, int]) -> dict:
+    """Cluster size and grid for ``n`` rows.  ``max_clusters[C]`` is how many
+    clusters of C blocks run at once on the card.  Each size costs waves x
+    slice (a block's bytes scale with its slice); the cheapest wins, then
+    fewer waves, then the larger cluster.  Raises ValueError for a shape no
+    cluster size fits."""
+    tiles = -(-n // ROWS)
+    best = None
+    for c in CLUSTER_SIZES:
+        active = max_clusters.get(c, 0)
+        if not _fits(k, h, o, c) or active < 1:
+            continue
+        waves = -(-tiles // active)
+        key = (waves * _slice(k, c), waves, -c)
+        if best is None or key < best[0]:
+            best = (key, {"cluster": c, "rows": ROWS, "grid": (c, tiles),
+                          "smem": _smem_bytes(k, h, o, c), "slice": _slice(k, c),
+                          "max_clusters": active, "waves": waves})
+    if best is None:
+        raise ValueError(
+            f"int8_head takes no cluster size at in={k}, hidden={h}, out={o}: a K-slice "
+            f"must fit {MAX_SLICE} columns and a block {SMEM_LIMIT} bytes of shared memory")
+    return best[1]
+
+
 @functools.cache
-def _launcher():
-    fn = _build.library("int8_head").int8_head_launch
+def _library():
+    lib = _build.library("int8_head")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, i, i, p, p, p, i, p, p, p, i, p, p]
-    fn.restype = i
-    return fn
+    lib.int8_head_launch.argtypes = [i, p, i, i, p, p, p, i, p, p, p, i, p, i, i, p]
+    lib.int8_head_launch.restype = i
+    lib.int8_head_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.int8_head_max_clusters.restype = i
+    return lib
+
+
+@functools.cache
+def active_clusters(device: int, k: int, h: int, o: int) -> dict[int, int]:
+    """Clusters of each size that fits the shape the card runs at once,
+    from cudaOccupancyMaxActiveClusters; asked once per shape."""
+    counts = {}
+    for c in CLUSTER_SIZES:
+        if not _fits(k, h, o, c):
+            continue
+        count = ctypes.c_int(0)
+        rc = _library().int8_head_max_clusters(
+            device, c, _smem_bytes(k, h, o, c), ctypes.byref(count))
+        if rc != 0:
+            raise RuntimeError(f"int8_head occupancy query failed at cluster {c}: CUDA error {rc}")
+        counts[c] = count.value
+    return counts
+
+
+def launch_plan(n: int, k: int, h: int, o: int, device: int) -> dict:
+    """The plan ``fused_int8_head`` launches with on ``cuda:device``."""
+    return _launch_plan(n, k, h, o, active_clusters(device, k, h, o))
 
 
 def fused_int8_head(fc1: dict, fc2: dict, x: torch.Tensor) -> torch.Tensor:
@@ -102,14 +195,15 @@ def fused_int8_head(fc1: dict, fc2: dict, x: torch.Tensor) -> torch.Tensor:
             _check(f"{name}.{leaf}", layer[leaf], torch.float32, (width,), dev)
     out = torch.empty((n, o), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        plan = launch_plan(n, k, h, o, dev.index)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launcher()(
+        rc = _library().int8_head_launch(
             dev.index, x.data_ptr(), n, k,
             fc1["weight_q"].data_ptr(), fc1["scale"].data_ptr(),
             fc1["bias"].data_ptr(), h,
             fc2["weight_q"].data_ptr(), fc2["scale"].data_ptr(),
             fc2["bias"].data_ptr(), o,
-            out.data_ptr(), stream,
+            out.data_ptr(), plan["cluster"], plan["smem"], stream,
         )
     if rc != 0:
         raise RuntimeError(f"int8_head kernel launch failed: CUDA error {rc}")
