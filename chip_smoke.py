@@ -18,14 +18,19 @@ Phases, one JSON line each:
                 int8_head equal bit for bit (torch.equal) at the row counts
                 the serving ladder gives it, a row-tile boundary (16, 17),
                 the edge cases of tests/test_torch_quant.py (a zero row,
-                ties, negative ties) and one off-model shape whose last
-                K-slice is ragged (k = 1040 at n = 5 and 130),
+                ties, negative ties), one off-model shape whose last
+                K-slice is ragged (k = 1040 at n = 5 and 130), and the
+                shapes past one K-pass or one h-tile the JAX kernel takes
+                (in = 100, 9215, 20000, 36864; hidden = 384, 2048 at
+                in = 9216; x one float off alignment),
                 adadelta in both modes at flat lengths up to the model's,
                 flash_attention in both modes (fwd; partial from the empty
-                and from a random state) at the ViT's shapes, odd shapes,
-                q/k/v one float off alignment, d = 128, and long ones, with
-                the share of the gate each quantity uses; at the longest,
-                kernel and plain version against the fold in f64;
+                and from a random state, and in place) at the ViT's shapes,
+                odd shapes, q/k/v one element off alignment, d = 128, and
+                long ones, with the share of the gate each quantity uses; at
+                the longest, kernel and plain version against the fold in
+                f64; in bf16 at the ViT's and the long shapes and one
+                element off; at d = 160 and 256 in both dtypes;
 4. engine     — InferenceEngine.from_seed on the card (f32 + int8),
                 bucketed and packed: warmup, the int8 parity gate, f32
                 against the CPU model, int8 predictions through the kernel;
@@ -48,25 +53,32 @@ Phases, one JSON line each:
                 calls between one pair of events, as for a one-element
                 add_), beside torch._int_mm on its rows zero-padded to 17
                 with fc1's weight as a row-major copy and as the
-                column-major view;
+                column-major view; and at n = 8 at the shapes past one
+                K-pass or h-tile;
 9. train_profile — where a training step's time goes: the loader alone,
                 then 100 steps, plain and --pallas-opt, under
                 torch.profiler (wall and device-busy time per step);
 10. vit_step  — the ViT (vit_mnist.py defaults), 20 train steps from one set
-                of weights on fixed batches, four ways: plain, --flash,
-                --sp 1 --allow-degree-1 --flash, --flash --remat; all must
-                agree and launch the kernel once per attention call;
+                of weights on fixed batches, seven ways: plain, --flash,
+                --sp 1 --allow-degree-1 --flash, --flash --remat, and with
+                --bf16 plain, --flash, --sp 1 --allow-degree-1 --flash; each
+                dtype's runs must agree and launch the kernel once per
+                attention call;
 11. vit_train — the ViT CLI's fit() on the synthetic sets at the CLI
-                defaults: one epoch --flash, one epoch --sp 1
+                defaults: one epoch each of --flash, --sp 1
+                --allow-degree-1 --flash, --bf16 --flash and --bf16 --sp 1
                 --allow-degree-1 --flash (epoch-1 accuracy floor, launches
                 equal to the attention calls);
-12. vit_profile — where a ViT step's time goes: 100 steps, plain, --flash
-                and --sp 1 --allow-degree-1 --flash, under torch.profiler;
-13. times     — flash_attention in both modes, its plain version and
-                scaled_dot_product_attention (and the backend it picks), at
-                the ViT's and long shapes; beside them the share of the
-                bound, the ratio to SDPA and the f32 CUDA-core bound, and a
-                one-element add_ as launch floor.
+12. vit_profile — where a ViT step's time goes: 100 steps, plain, --flash,
+                --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
+                torch.profiler;
+13. times     — flash_attention in both modes and both dtypes, its plain
+                version and scaled_dot_product_attention (and the backend
+                it picks) in the same dtype, at the ViT's and long shapes
+                and at d = 160 and 256;
+                beside them the share of the bound, the ratio to SDPA and
+                (f32) the CUDA-core bound, and a one-element add_ as launch
+                floor.
 
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
@@ -104,6 +116,12 @@ KERNEL_ROWS = (1, 3, 8, 16, 17, 64, 128, 130)
 HEAD_EDGE_CASES = ("zero_row", "ties", "negative_ties")
 HEAD_RAGGED = (1040, 128, 10)  # k, h, o: the last K-slice ends inside a chunk
 HEAD_RAGGED_ROWS = (5, 130)
+# (k, h): shapes the JAX kernel takes past one K-pass (k > 18432 at 16
+# ranks), with k not a multiple of 16 (or of 4), and hidden in several
+# 128-column tiles, through device memory at 2048 (rank 0's shared memory
+# would overflow).
+HEAD_SHAPES = ((100, 128), (9215, 128), (20000, 128), (4 * 9216, 128), (9216, 384), (9216, 2048))
+HEAD_SHAPES_ROWS = (5, 130)
 TIMED_ROWS = (1, 8, 128)
 BACK_TO_BACK_CALLS = 100
 INT_MM_MIN_ROWS = 17  # torch._int_mm refuses m <= 16
@@ -122,6 +140,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 # Adadelta: flat lengths from one element to the model's 1,199,882, and
 # one buffer offset by one element, which takes the kernel's scalar path.
 ADADELTA_N = (1, 37, 1024, 33000, 300000, 1199882)
@@ -153,6 +172,20 @@ FLASH_WIDE = (1, 300, 2, 128)
 # it is held as a / l, the output the ring finalizes to, and its raw error
 # is recorded.
 FLASH_RTOL, FLASH_ATOL = 1e-5, 1e-6
+# bf16 (the Pallas kernel's bf16 contract on both sides): f32 quantities
+# (lse, m, l) at the f32 gate above; the bf16 output and a / l within about
+# one bf16 ulp, 2^-7 relative and 2^-8 absolute.  Both versions round p
+# to bf16 against the running max of the key tile it is in, and they tile
+# the keys differently (the kernel 16-64 keys, the plain version one fold),
+# so some p round apart: measured at most 0.49 of this gate, max |diff| of
+# the output 2^-8 (NVIDIA H100 80GB HBM3, 700.00 W).
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 2.0 ** -8
+# head_dim past 128, the kernel's slab loop, in both dtypes.  The scores
+# sum d products, and both f32 versions round along them, so their
+# difference grows with d: past d = 128 the f32 gate is multiplied by d / 64
+# (the long shapes' d; 4 at d = 256), and kernel and plain version are held
+# against the fold in f64 beside it.
+FLASH_WIDE_D = ((2, 16, 4, 160), (1, 300, 2, 160), (2, 16, 2, 256), (1, 200, 2, 256))
 FLASH_REPLACES = {"flash_fwd": "pytorch_mnist_ddp_tpu/ops/pallas_attention.py:154",
                   "flash_partial": "pytorch_mnist_ddp_tpu/ops/pallas_attention.py:360"}
 VIT_STEPS = 20  # vit_step phase
@@ -160,10 +193,17 @@ VIT_STEPS = 20  # vit_step phase
 # the plain attention (measured 2.4e-7 in the loss and 1.2e-7 in the
 # parameters, NVIDIA H100 80GB HBM3, 700 W).
 VIT_STEP_RTOL, VIT_STEP_ATOL = 1e-5, 1e-5
+# The --bf16 runs against the bf16 plain run: the kernel's bf16 contract
+# (p rounded to bf16, f32 scores) is not the plain attention's (scores
+# rounded to bf16, p unrounded), so the steps drift apart by bf16
+# roundings: after 20 steps 5.8e-4 in the loss and 4.6e-4 in the
+# parameters (NVIDIA H100 80GB HBM3, 700.00 W).
+VIT_BF16_STEP_ATOL = 5e-3
 # Epoch-1 test accuracy of the ViT at the CLI defaults: the JAX package's
 # vit_mnist.py --no-accel --epochs 1 reads 79.18% (seed 1), 81.00% (seed 2)
-# and 79.74% (seed 3) on the CPU; the port's initial weights come from
-# another generator, so the floor sits 9 points below the lowest reading.
+# and 79.74% (seed 3) on the CPU, and with --bf16 78.82%, 84.26% and 75.91%;
+# the port's initial weights come from another generator, so the floor sits
+# 5.9 points below the lowest reading.
 VIT_EPOCH1_MIN_ACCURACY = 0.70
 
 
@@ -267,6 +307,15 @@ def head_kernel_phase(torch, np, fc1: dict, fc2: dict, feats) -> dict[str, float
     x_ragged = torch.from_numpy(
         np.random.RandomState(k + 1).randn(max(HEAD_RAGGED_ROWS), k).astype(np.float32)).cuda()
     cases += [(f"k={k} n={n}", r1, r2, x_ragged[:n]) for n in HEAD_RAGGED_ROWS]
+    for k, h in HEAD_SHAPES:
+        l1, l2 = head_layers(torch, np, k, h, o, seed=k + h)
+        rng = np.random.RandomState(k + h + 1)
+        x = torch.from_numpy(rng.randn(max(HEAD_SHAPES_ROWS), k).astype(np.float32)).cuda()
+        cases += [(f"k={k} h={h} n={n}", l1, l2, x[:n]) for n in HEAD_SHAPES_ROWS]
+    # x one float into its allocation: the kernel's element-wise x path
+    offset = torch.empty(feats[:5].numel() + 1, device="cuda")
+    offset[1:].copy_(feats[:5].reshape(-1))
+    cases.append(("x one float off, n=5", fc1, fc2, offset[1:].view(5, -1)))
     errs, plans = {}, {}
     for name, l1, l2, x in cases:
         got = ih.fused_int8_head(l1, l2, x)
@@ -274,7 +323,9 @@ def head_kernel_phase(torch, np, fc1: dict, fc2: dict, feats) -> dict[str, float
         torch.cuda.synchronize()
         n_rows, k_in = x.shape
         plan = ih.launch_plan(n_rows, k_in, l1["weight_q"].shape[0], l2["weight_q"].shape[0], 0)
-        plans[name] = {"cluster": plan["cluster"], "grid": list(plan["grid"])}
+        plans[name] = {"cluster": plan["cluster"], "grid": list(plan["grid"]),
+                       "passes": plan["passes"], "h_tiles": plan["h_tiles"],
+                       "hid_smem": plan["hid_smem"]}
         errs[name] = float((got - want).abs().max())
         check(got.shape == want.shape, f"int8_head shape {tuple(got.shape)} at {name}")
         check(bool(torch.isfinite(got).all()), f"int8_head non-finite at {name}")
@@ -334,6 +385,27 @@ def head_times(torch, fc1: dict, fc2: dict, feats) -> tuple[dict, dict]:
           "back_to_back": f"{BACK_TO_BACK_CALLS} calls between one pair of events, "
                           "divided by the count; median of 5"})
     return by_n, floor
+
+
+def head_shape_times(torch, np) -> dict:
+    """int8_head per call at HEAD_SHAPES, n = 8, beside its plain version
+    and its bound."""
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+
+    n, o = 8, HEAD_RAGGED[2]
+    by_shape = {}
+    for k, h in HEAD_SHAPES:
+        l1, l2 = head_layers(torch, np, k, h, o, seed=k + h)
+        x = torch.from_numpy(np.random.RandomState(k).randn(n, k).astype(np.float32)).cuda()
+        plan = ih.launch_plan(n, k, h, o, 0)
+        bound_ms, bound_by = head_bound(n, k, h, o)
+        by_shape[f"k={k} h={h}"] = {
+            "ms": median_ms(torch, lambda: ih.fused_int8_head(l1, l2, x)),
+            "plain_ms": median_ms(torch, lambda: ih.int8_head_reference(l1, l2, x)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **{key: plan[key] for key in ("cluster", "passes", "h_tiles", "hid_smem")}}
+    emit({"phase": "times", "name": "int8_head", "rows": n, "by_shape": by_shape})
+    return by_shape
 
 
 def cold_ms(torch, fn, restore, runs: int = 30, warm: int = 3) -> float:
@@ -684,17 +756,19 @@ def train_profile_phase(torch, np) -> None:
     emit({"phase": "train_profile", **report})
 
 
-def flash_inputs(torch, np, shape, seed: int, strided: bool = True, offset: int = 0):
-    """q, k, v ``[b, t, h, d]`` on the card: by default strided views of one
-    ``[b, t, h, 3, d]`` tensor, as the ViT's head-major qkv hands them over;
-    else three contiguous tensors.  ``offset`` starts each allocation's data
-    that many floats in."""
+def flash_inputs(torch, np, shape, seed: int, strided: bool = True, offset: int = 0,
+                 dtype=None):
+    """q, k, v ``[b, t, h, d]`` on the card, float32 unless ``dtype``: by
+    default strided views of one ``[b, t, h, 3, d]`` tensor, as the ViT's
+    head-major qkv hands them over; else three contiguous tensors.
+    ``offset`` starts each allocation's data that many elements in."""
     b, t, h, d = shape
+    dtype = dtype or torch.float32
     rng = np.random.RandomState(seed)
 
     def card(shape):
-        x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
-        buf = torch.empty(x.numel() + offset, dtype=torch.float32, device="cuda")
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype)
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")
         buf[offset:].copy_(x.reshape(-1))
         return buf[offset:].view(shape)
 
@@ -716,21 +790,23 @@ def flash_random_state(torch, np, b: int, h: int, t: int, d: int, seed: int):
                  for x, shape in ((m, (b, h, t)), (l, (b, h, t)), (a, (b, h, t, d))))
 
 
-def flash_close(torch, got, want, what: str) -> tuple[float, float]:
+def flash_close(torch, got, want, what: str, rtol: float = FLASH_RTOL,
+                atol: float = FLASH_ATOL) -> tuple[float, float]:
     """Max abs error of ``got`` against ``want`` and the largest share of the
-    gate it uses, max |got - want| / (FLASH_ATOL + FLASH_RTOL |want|); fails
-    past 1."""
+    gate it uses, max |got - want| / (atol + rtol |want|); fails past 1."""
+    got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{what} non-finite")
     err = float((got - want).abs().max())
-    share = float(((got - want).abs() / (FLASH_ATOL + FLASH_RTOL * want.abs())).max())
-    check(bool(torch.allclose(got, want, rtol=FLASH_RTOL, atol=FLASH_ATOL)),
+    share = float(((got - want).abs() / (atol + rtol * want.abs())).max())
+    check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
           f"{what} off its plain version by {err}")
     return err, share
 
 
-def flash_f64_errors(torch, state, q, k, v, results: dict) -> dict:
+def flash_f64_errors(torch, state, q, k, v, results: dict, scale: float = 1.0) -> dict:
     """Each of ``results`` (partial-mode states) against the same fold in
-    f64: m's max abs error, and l's and a / l's largest share of the gate."""
+    f64: m's max abs error, and l's and a / l's largest share of the gate
+    (the f32 gate times ``scale``)."""
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
     m, l, a = (x.double() for x in state)
@@ -743,45 +819,63 @@ def flash_f64_errors(torch, state, q, k, v, results: dict) -> dict:
     del s, p
 
     def share(got, want):
-        return float(((got.double() - want).abs() / (FLASH_ATOL + FLASH_RTOL * want.abs())).max())
+        gate = scale * (FLASH_ATOL + FLASH_RTOL * want.abs())
+        return float(((got.double() - want).abs() / gate).max())
 
     return {name: {"m_abs": float((r.m.double() - m_new).abs().max()), "l": share(r.l, l_new),
                    "a/l": share(r.o / r.l[..., None], a_new / l_new[..., None])}
             for name, r in results.items()}
 
 
-def flash_kernel_phase(torch, np) -> dict[str, float]:
-    """Both modes against the plain version at every shape; the partial
-    mode from the empty and from a random state, and in place.  Returns the
-    worst error per kernel name."""
+def flash_kernel_phase(torch, np) -> dict[str, dict[str, float]]:
+    """Both modes against the plain version at every shape, in f32 and in
+    bf16; the partial mode from the empty and from a random state, and in
+    place.  Returns the worst error per kernel name and dtype."""
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
-    worst = {"flash_fwd": 0.0, "flash_partial": 0.0}
-    cases = ([(kind, shape, True, 0) for kind, shape in FLASH_MAIN.items()]
-             + [("odd", shape, True, 0) for shape in FLASH_ODD]
-             + [("odd_contiguous", FLASH_ODD[-1], False, 0)]
-             + [("offset", shape, True, 1) for shape in FLASH_OFFSET]
-             + [("wide", FLASH_WIDE, True, 0)]
-             + [("long", shape, True, 0) for shape in FLASH_LONG])
-    report = {}
-    for i, (kind, shape, strided, offset) in enumerate(cases):
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {name: {"float32": 0.0, "bfloat16": 0.0} for name in ("flash_fwd", "flash_partial")}
+    cases = ([(kind, shape, True, 0, f32) for kind, shape in FLASH_MAIN.items()]
+             + [("odd", shape, True, 0, f32) for shape in FLASH_ODD]
+             + [("odd_contiguous", FLASH_ODD[-1], False, 0, f32)]
+             + [("offset", shape, True, 1, f32) for shape in FLASH_OFFSET]
+             + [("wide", FLASH_WIDE, True, 0, f32)]
+             + [("long", shape, True, 0, f32) for shape in FLASH_LONG]
+             + [("bf16 " + kind, shape, True, 0, bf16) for kind, shape in FLASH_MAIN.items()]
+             + [("bf16 long", shape, True, 0, bf16) for shape in FLASH_LONG]
+             + [("bf16 offset", shape, True, 1, bf16) for shape in FLASH_OFFSET]
+             + [(f"{dt_name}d={shape[3]}", shape, True, 0, dt)
+                for shape in FLASH_WIDE_D for dt_name, dt in (("", f32), ("bf16 ", bf16))])
+    report, vs_f64 = {}, {}
+    for i, (kind, shape, strided, offset, dtype) in enumerate(cases):
         b, t, h, d = shape
         where = f"{kind} {'x'.join(map(str, shape))}"
-        q, k, v = flash_inputs(torch, np, shape, i, strided, offset)
+        dt = str(dtype).split(".")[-1]
+        # bf16 outputs within about one bf16 ulp; f32 ones (and past d = 128
+        # scaled by d / 64) at the f32 gate
+        scale = d / 64 if d > 128 else 1.0
+        f32_gate = dict(rtol=scale * FLASH_RTOL, atol=scale * FLASH_ATOL)
+        out_gate = (dict(rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL) if dtype == bf16
+                    else f32_gate)
+        q, k, v = flash_inputs(torch, np, shape, i, strided, offset, dtype)
         out, lse = fa.flash_fwd(q, k, v)
         ref_out, ref_lse = fa.flash_fwd_reference(q, k, v)
         torch.cuda.synchronize()
+        check(out.dtype == dtype and lse.dtype == f32, f"flash_fwd dtypes at {where}")
         errs, shares = {}, {}
-        for name, got, want in (("fwd_out", out, ref_out), ("fwd_lse", lse, ref_lse)):
-            errs[name], shares[name] = flash_close(torch, got, want, f"flash_fwd {name} at {where}")
-        worst["flash_fwd"] = max(worst["flash_fwd"], errs["fwd_out"], errs["fwd_lse"])
+        for name, got, want, gate in (("fwd_out", out, ref_out, out_gate),
+                                      ("fwd_lse", lse, ref_lse, f32_gate)):
+            errs[name], shares[name] = flash_close(torch, got, want,
+                                                   f"flash_fwd {name} at {where}", **gate)
+        worst["flash_fwd"][dt] = max(worst["flash_fwd"][dt], errs["fwd_out"], errs["fwd_lse"])
         for start in ("empty", "random"):
             state = (fa.flash_ring_state(b, h, t, d, "cuda") if start == "empty"
                      else flash_random_state(torch, np, b, h, t, d, 1000 + i))
             got = fa.flash_partial(*state, q, k, v)
             want = fa.flash_partial_reference(*state, q, k, v)
-            if start == "random" and shape == FLASH_LONG[-1]:
-                vs_f64 = flash_f64_errors(torch, state, q, k, v, {"kernel": got, "plain": want})
+            if start == "random" and dtype == f32 and (shape == FLASH_LONG[-1] or d > 128):
+                vs_f64[where] = flash_f64_errors(torch, state, q, k, v,
+                                                 {"kernel": got, "plain": want}, scale)
             aliased = fa.flash_partial(*state, q, k, v, inplace=True)
             torch.cuda.synchronize()
             check(all(x is y for x, y in zip(aliased, state)), "in-place partial returned copies")
@@ -791,25 +885,30 @@ def flash_kernel_phase(torch, np) -> dict[str, float]:
             check(bool(torch.isfinite(got.o).all()), f"{what}: a non-finite")
             # One key at least was folded into every row, so l > 0.
             err = 0.0
-            for name, g, w in (("m", got.m, want.m), ("l", got.l, want.l),
-                               ("a/l", got.o / got.l[..., None], want.o / want.l[..., None])):
-                e, sh = flash_close(torch, g, w, f"{what}: {name}")
+            for name, g, w, gate in (("m", got.m, want.m, f32_gate), ("l", got.l, want.l, f32_gate),
+                                     ("a/l", got.o / got.l[..., None], want.o / want.l[..., None],
+                                      out_gate)):
+                e, sh = flash_close(torch, g, w, f"{what}: {name}", **gate)
                 err, shares[name] = max(err, e), max(shares.get(name, 0.0), sh)
             errs[f"partial_{start}"] = err
             errs[f"partial_{start}_raw_a"] = float((got.o - want.o).abs().max())
-            worst["flash_partial"] = max(worst["flash_partial"], err)
+            worst["flash_partial"][dt] = max(worst["flash_partial"][dt], err)
         report[where] = {"max_abs_err": errs, "share_of_gate": shares}
-    emit({"phase": "kernel", "name": "flash_attention", "rtol": FLASH_RTOL, "atol": FLASH_ATOL,
+    emit({"phase": "kernel", "name": "flash_attention",
+          "gate": {"float32": {"rtol": FLASH_RTOL, "atol": FLASH_ATOL,
+                               "past_d_128": "times d / 64"},
+                   "bfloat16": {"out, a/l": {"rtol": FLASH_BF16_RTOL, "atol": FLASH_BF16_ATOL},
+                                "lse, m, l": "the float32 gate"}},
           "partial_held_as": "m, l, a / l (raw a recorded: it sums t unnormalized terms)",
           "share_of_gate": "max |kernel - plain| / (atol + rtol |plain|) per quantity; 1 fails",
-          "by_shape": report,
-          f"vs_f64 at long {'x'.join(map(str, FLASH_LONG[-1]))}, random state": vs_f64})
+          "by_shape": report, "vs_f64 (random state; share of the case's f32 gate)": vs_f64})
     return worst
 
 
-def vit_step_phase(torch, np) -> dict[str, int]:
-    """VIT_STEPS ViT steps four ways from one set of weights on fixed
-    batches; returns the flash launches of the phase."""
+def vit_step_phase(torch, np) -> tuple[dict[str, int], dict[str, int]]:
+    """VIT_STEPS ViT steps seven ways (four f32, three --bf16) from one set
+    of weights on fixed batches; returns the flash launches of the phase,
+    all and those of the --bf16 runs."""
     from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
     from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
     from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
@@ -828,14 +927,18 @@ def vit_step_phase(torch, np) -> dict[str, int]:
     want = {"plain": {"flash_fwd": 0, "flash_partial": 0},
             "flash": {"flash_fwd": calls, "flash_partial": 0},
             "sp1_flash": {"flash_fwd": 0, "flash_partial": calls},
-            "flash_remat": {"flash_fwd": 2 * calls, "flash_partial": 0}}  # + the recompute
+            "flash_remat": {"flash_fwd": 2 * calls, "flash_partial": 0},  # + the recompute
+            "bf16_plain": {"flash_fwd": 0, "flash_partial": 0},
+            "bf16_flash": {"flash_fwd": calls, "flash_partial": 0},
+            "bf16_sp1_flash": {"flash_fwd": 0, "flash_partial": calls}}
     runs = {}
     for run in want:
-        model = ViT(ViTConfig(remat=run == "flash_remat"),
-                    fa.select_attention(run != "plain")).cuda()
+        base = run.removeprefix("bf16_")
+        model = ViT(ViTConfig(remat=base == "flash_remat", bf16=run.startswith("bf16_")),
+                    fa.select_attention(base != "plain")).cuda()
         model.load_state_dict(init)
         state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
-        if run == "sp1_flash":
+        if base == "sp1_flash":
             step = sp.make_sp_train_step(model.cfg, sp.make_seq_group(1), use_flash=True)
         else:
             step = make_forward_train_step(lambda m, x: m(x))
@@ -850,46 +953,69 @@ def vit_step_phase(torch, np) -> dict[str, int]:
             "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
             "launches": {k: fa.LAUNCHES[k] - before[k] for k in before},
         }
-    plain = runs["plain"]
-    check(np.isfinite(plain["losses"]).all(), "plain vit_step losses non-finite")
-    check(plain["losses"][-1] < plain["losses"][0], "plain vit_step did not learn")
     report = {}
     for run, r in runs.items():
         check(r["launches"] == want[run], f"vit_step {run} launches {r['launches']} != {want[run]}")
-        if run == "plain":
+        check(all(p.dtype == np.float32 for p in r["params"].values()),
+              f"vit_step {run}: parameters not float32")
+        # each run against the plain run of its dtype
+        plain = runs["bf16_plain" if run.startswith("bf16_") else "plain"]
+        if r is plain:
+            check(np.isfinite(r["losses"]).all(), f"{run} vit_step losses non-finite")
+            check(r["losses"][-1] < r["losses"][0], f"{run} vit_step did not learn")
             continue
         loss_diff = float(np.abs(r["losses"] - plain["losses"]).max())
         param_diff = max(float(np.abs(r["params"][k] - plain["params"][k]).max())
                          for k in plain["params"])
-        check(np.allclose(r["losses"], plain["losses"], rtol=VIT_STEP_RTOL, atol=0),
-              f"vit_step {run} losses off the plain run by {loss_diff}")
-        check(param_diff <= VIT_STEP_ATOL, f"vit_step {run} params off the plain run by "
-              f"{param_diff}")
+        if plain is runs["plain"]:
+            check(np.allclose(r["losses"], plain["losses"], rtol=VIT_STEP_RTOL, atol=0),
+                  f"vit_step {run} losses off the plain run by {loss_diff}")
+            check(param_diff <= VIT_STEP_ATOL, f"vit_step {run} params off the plain run by "
+                  f"{param_diff}")
+        else:
+            check(loss_diff <= VIT_BF16_STEP_ATOL and param_diff <= VIT_BF16_STEP_ATOL,
+                  f"vit_step {run} off the bf16 plain run: loss {loss_diff}, params {param_diff}")
         report[run] = {"max_abs_loss_diff": loss_diff, "max_abs_param_diff": param_diff,
                        "launches": r["launches"], "seconds": r["seconds"]}
+    plain = runs["plain"]
     remat_equal = all(np.array_equal(runs["flash_remat"]["params"][k], runs["flash"]["params"][k])
                       for k in plain["params"])
+    bf16_plain = runs["bf16_plain"]
     emit({"phase": "vit_step", "steps": VIT_STEPS, "loss_rtol": VIT_STEP_RTOL,
-          "param_atol": VIT_STEP_ATOL,
+          "param_atol": VIT_STEP_ATOL, "bf16_loss_and_param_atol": VIT_BF16_STEP_ATOL,
           "plain_first_last_loss": [float(plain["losses"][0]), float(plain["losses"][-1])],
-          "plain_seconds": plain["seconds"], "flash_remat_equals_flash": remat_equal,
-          "vs_plain": report})
-    return {k: sum(r["launches"][k] for r in runs.values()) for k in plain["launches"]}
+          "bf16_plain_first_last_loss": [float(bf16_plain["losses"][0]),
+                                         float(bf16_plain["losses"][-1])],
+          "bf16_plain_vs_plain": {
+              "max_abs_loss_diff": float(np.abs(bf16_plain["losses"] - plain["losses"]).max()),
+              "max_abs_param_diff": max(float(np.abs(bf16_plain["params"][k]
+                                                     - plain["params"][k]).max())
+                                        for k in plain["params"])},
+          "plain_seconds": plain["seconds"], "bf16_plain_seconds": bf16_plain["seconds"],
+          "flash_remat_equals_flash": remat_equal,
+          "vs_plain_of_its_dtype": report})
+    return ({k: sum(r["launches"][k] for r in runs.values()) for k in plain["launches"]},
+            {k: sum(r["launches"][k] for run, r in runs.items() if run.startswith("bf16_"))
+             for k in plain["launches"]})
 
 
-def vit_train_phase(torch) -> dict[str, int]:
-    """The ViT CLI's fit() on the card, one epoch --flash and one epoch
-    --sp 1 --allow-degree-1 --flash; returns the flash launches of the
-    phase."""
+def vit_train_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+    """The ViT CLI's fit() on the card, one epoch each of --flash, --sp 1
+    --allow-degree-1 --flash, and both with --bf16; returns the flash
+    launches of the phase, all and those of the --bf16 legs."""
     from pytorch_mnist_ddp_tpu_torch import vit_mnist
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
     launches = {k: 0 for k in fa.LAUNCHES}
+    bf16_launches = dict(launches)
     legs = {}
     for leg, mode, flags in (
         ("flash", "flash_fwd", ["--epochs", "1", "--flash"]),
         ("sp1_flash", "flash_partial", ["--epochs", "1", "--sp", "1", "--allow-degree-1",
                                         "--flash"]),
+        ("bf16_flash", "flash_fwd", ["--epochs", "1", "--bf16", "--flash"]),
+        ("bf16_sp1_flash", "flash_partial", ["--epochs", "1", "--bf16", "--sp", "1",
+                                             "--allow-degree-1", "--flash"]),
     ):
         args = vit_mnist.build_parser().parse_args(flags)
         timings: dict = {}
@@ -902,6 +1028,7 @@ def vit_train_phase(torch) -> dict[str, int]:
         got = {k: fa.LAUNCHES[k] - before[k] for k in before}
         for k in launches:
             launches[k] += got[k]
+            bf16_launches[k] += got[k] if "--bf16" in flags else 0
         lines = [ln for ln in out.getvalue().splitlines() if ln]
         train = [TRAIN_LINE.match(ln) for ln in lines if ln.startswith("Train Epoch")]
         tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
@@ -919,6 +1046,7 @@ def vit_train_phase(torch) -> dict[str, int]:
         check(losses[-1] < losses[0], f"vit {leg}: last logged loss {losses[-1]} not below "
               f"the first {losses[0]}")
         check(next(model.parameters()).device.type == "cuda", f"vit {leg}: model not on the card")
+        check(model.cfg.bf16 == ("--bf16" in flags), f"vit {leg}: bf16 {model.cfg.bf16}")
         check(state.step == steps, f"vit {leg}: {state.step} optimizer steps, loader gave {steps}")
         acc1 = timings["epoch1_test_accuracy"]
         check(acc1 >= VIT_EPOCH1_MIN_ACCURACY,
@@ -934,15 +1062,18 @@ def vit_train_phase(torch) -> dict[str, int]:
             "first_last_logged_loss": [losses[0], losses[-1]],
             "wall_seconds": wall, "launches": got, "attention_calls": calls,
         }
-    emit({"phase": "vit_train", "epoch1_min_accuracy": VIT_EPOCH1_MIN_ACCURACY, "legs": legs})
-    return launches
+    emit({"phase": "vit_train", "epoch1_min_accuracy": VIT_EPOCH1_MIN_ACCURACY,
+          "jax_cpu_epoch1_accuracy": {"f32": [0.7918, 0.8100, 0.7974], "bf16": [0.7882, 0.8426, 0.7591],
+                                      "seeds": [1, 2, 3]},
+          "legs": legs})
+    return launches, bf16_launches
 
 
 def vit_profile_phase(torch) -> None:
     """Where a ViT training step's time goes: PROFILE_STEPS steps on fixed
-    batches under torch.profiler, plain, --flash and --sp 1
-    --allow-degree-1 --flash."""
-    from pytorch_mnist_ddp_tpu_torch.models.vit import ViT
+    batches under torch.profiler, plain, --flash, --sp 1 --allow-degree-1
+    --flash and --bf16 --flash."""
+    from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
     from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
     from pytorch_mnist_ddp_tpu_torch.ops.flash_attention import select_attention
     from pytorch_mnist_ddp_tpu_torch.parallel import sp
@@ -950,8 +1081,8 @@ def vit_profile_phase(torch) -> None:
 
     batches, _ = loader_batches(torch)
     report = {}
-    for name in ("plain", "flash", "sp1_flash"):
-        model = ViT(attention_fn=select_attention(name != "plain"),
+    for name in ("plain", "flash", "sp1_flash", "bf16_flash"):
+        model = ViT(ViTConfig(bf16=name == "bf16_flash"), select_attention(name != "plain"),
                     generator=torch.Generator().manual_seed(SEED)).cuda()
         state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
         if name == "sp1_flash":
@@ -966,19 +1097,24 @@ def vit_profile_phase(torch) -> None:
     emit({"phase": "vit_profile", **report})
 
 
-def flash_bound(mode: str, shape) -> tuple[float, str, float]:
+def flash_bound(mode: str, shape, bf16: bool = False) -> tuple[float, str, float]:
     """Least time (ms) for one call: q, k, v read once and out + lse written
-    once (fwd), or q, k, v and the state read once and the state written
-    once (partial), against the 4*b*h*t^2*d operations of the two products
-    run as 3xTF32 (three TF32 passes per product at the tensor cores' rate):
-    the cheapest route on the card to f32-accurate products, since one TF32
-    pass misses the f32 gate.  Also returns the older bound with the
-    products on the f32 CUDA cores (ms)."""
+    once (fwd), or q, k, v and the f32 state read once and the state written
+    once (partial), against the 4*b*h*t^2*d operations of the two products.
+    f32 inputs: the products run as 3xTF32 (three TF32 passes per product at
+    the tensor cores' rate), the cheapest route on the card to f32-accurate
+    products, since one TF32 pass misses the f32 gate.  bf16 inputs (2
+    bytes an element; lse and the state stay f32): one bf16 pass at 989
+    TFLOP/s.  Also returns the bound with the products on the f32 CUDA
+    cores (ms)."""
     b, t, h, d = shape
     n, rows = b * t * h * d, b * h * t
-    nbytes = 4 * (3 * n + (n + rows if mode == "flash_fwd" else 2 * (2 * rows + n)))
+    elem = 2 if bf16 else 4
+    out = elem * n + 4 * rows if mode == "flash_fwd" else 4 * 2 * (2 * rows + n)
+    nbytes = elem * 3 * n + out
     ops = 4 * b * h * t * t * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / BF16_OPS_PER_S if bf16 else 3 * ops / TF32_OPS_PER_S
     f32_ms = 1e3 * max(t_bytes, ops / F32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", f32_ms
 
@@ -1011,7 +1147,8 @@ def sdpa_backend(torch, q, k, v) -> str:
 
 def flash_times(torch, np) -> dict[str, dict]:
     """Both modes, their plain versions and scaled_dot_product_attention at
-    the ViT's shapes and the long ones, back to back (warm)."""
+    the ViT's shapes and the long ones, in f32 and in bf16 (rows named
+    "bf16 ..."), back to back (warm)."""
     import torch.nn.functional as F
 
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
@@ -1020,11 +1157,15 @@ def flash_times(torch, np) -> dict[str, dict]:
     ratios = {"flash_fwd": {}, "flash_partial": {}}
     f32_bounds = {"flash_fwd": {}, "flash_partial": {}}
     library_backends = {}
-    shapes = list(FLASH_MAIN.items()) + [("long", shape) for shape in FLASH_LONG]
-    for i, (kind, shape) in enumerate(shapes):
+    shapes = (list(FLASH_MAIN.items()) + [("long", shape) for shape in FLASH_LONG]
+              + [(f"d={shape[3]}", shape) for shape in FLASH_WIDE_D])
+    shapes = [(kind, shape, False) for kind, shape in shapes] + [
+        ("bf16 " + kind, shape, True) for kind, shape in shapes]
+    for i, (kind, shape, bf16) in enumerate(shapes):
         b, t, h, d = shape
         where = f"{kind} {'x'.join(map(str, shape))}"
-        q, k, v = flash_inputs(torch, np, shape, 100 + i)
+        q, k, v = flash_inputs(torch, np, shape, 100 + i,
+                               dtype=torch.bfloat16 if bf16 else torch.float32)
         m, l, a = fa.flash_ring_state(b, h, t, d, "cuda")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -1040,7 +1181,7 @@ def flash_times(torch, np) -> dict[str, dict]:
                               lambda: fa.flash_partial_reference(m, l, a, q, k, v)),
         }
         for mode, (kernel, plain) in calls.items():
-            bound_ms, bound_by, f32_bounds[mode][where] = flash_bound(mode, shape)
+            bound_ms, bound_by, f32_bounds[mode][where] = flash_bound(mode, shape, bf16)
             ms = median_ms(torch, kernel)
             out[mode][where] = {"ms": ms, "plain_ms": median_ms(torch, plain),
                                 "library_ms": library_ms, "bound_ms": bound_ms,
@@ -1053,9 +1194,10 @@ def flash_times(torch, np) -> dict[str, dict]:
           "launch_floor_ms": floor_ms,
           "launch_floor": "a one-element add_ timed the same way: the least any call reads",
           "library": "torch.nn.functional.scaled_dot_product_attention on [b, h, t, d] views "
-                     "(the normalized output; for flash_partial the fold from the empty "
-                     "state normalized), warm",
-          "bound": "max(bytes / 3.35 TB/s, 3 x 4bht^2d / 495 TFLOP/s TF32)",
+                     "in the inputs' dtype (the normalized output; for flash_partial the fold "
+                     "from the empty state normalized), warm",
+          "bound": "max(bytes / 3.35 TB/s, 3 x 4bht^2d / 495 TFLOP/s TF32); "
+                   "bf16: max(bytes / 3.35 TB/s, 4bht^2d / 989 TFLOP/s)",
           "library_backends": library_backends})
     return out
 
@@ -1296,19 +1438,22 @@ def main() -> int:
     # 8. times: int8_head at one row and the ladder's small and top
     # buckets, adadelta at the model's parameter count
     by_n, _ = head_times(torch, fc1, fc2, feats)
+    head_shapes = head_shape_times(torch, np)
     ada_times = adadelta_times(torch, np)
     train_profile_phase(torch, np)
 
     # 10 + 11. the ViT training path; flash launch counts cover these two
     for k in fa.LAUNCHES:
         fa.LAUNCHES[k] = 0
-    vit_step_launches = vit_step_phase(torch, np)
-    vit_fit_launches = vit_train_phase(torch)
+    vit_step_launches, vit_step_bf16 = vit_step_phase(torch, np)
+    vit_fit_launches, vit_fit_bf16 = vit_train_phase(torch)
+    vit_bf16_launches = {k: vit_step_bf16[k] + vit_fit_bf16[k] for k in vit_step_bf16}
     vit_launches = dict(fa.LAUNCHES)
     check(vit_launches == {k: vit_step_launches[k] + vit_fit_launches[k] for k in vit_launches},
           f"flash launches {vit_launches} outside the two ViT training phases")
     for k, v in vit_launches.items():
         check(v > 0, f"the ViT training path never launched {k}")
+        check(vit_bf16_launches[k] > 0, f"the --bf16 ViT path never launched {k}")
 
     # 12. where a ViT step's time goes; 13. flash attention times
     vit_profile_phase(torch)
@@ -1325,6 +1470,7 @@ def main() -> int:
         "by_n": {n: {key: r[key] for key in ("ms", "back_to_back_ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "library_layout")}
                  for n, r in by_n.items()},
+        "by_shape_n8": head_shapes,
     }]
     for name, t in ada_times.items():
         kernels.append({
@@ -1339,7 +1485,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name], "launches": vit_launches[name],
-            "max_abs_err": flash_err[name],
+            "launches_bf16": vit_bf16_launches[name],
+            "max_abs_err": max(flash_err[name].values()),
+            "max_abs_err_by_dtype": flash_err[name],
             **by_shape[f"train {'x'.join(map(str, train_shape))}"],
             "shape": list(train_shape), "by_shape": by_shape,
         })

@@ -11,7 +11,12 @@ The numerics follow the JAX module where torch's defaults differ:
 LayerNorm eps 1e-6 with float32 statistics, GELU in its tanh form
 (``jax.nn.gelu``'s default), the head-major qkv split (the projection
 reshaped to ``[b, t, heads, 3, head_dim]``), float32 mean-pool and
-log_softmax.  The functional pieces (``patchify``, ``apply_block``,
+log_softmax.  ``ViTConfig(bf16=True)`` (``--bf16``) runs the trunk in
+bfloat16 as the JAX module does: patches and ``pos_embed`` are cast to
+bf16, every ``dense`` casts its float32 weight and bias to the activation
+dtype at use, LayerNorm keeps float32 statistics and returns bf16, and the
+attention gets bf16 q/k/v; parameters, optimizer state, the pool, the head
+and ``log_softmax`` stay float32.  The functional pieces (``patchify``, ``apply_block``,
 ``tokens_to_logp``) are public so ``parallel/sp.py`` composes them over a
 token slice, as the JAX package does.
 
@@ -47,8 +52,9 @@ class ViTConfig(NamedTuple):
     heads: int = 4
     mlp_dim: int = 128
     num_classes: int = 10
-    # The JAX package's MoE and bf16 variants; not ported yet (ROADMAP).
+    # The JAX package's MoE variant; not ported yet (ROADMAP).
     num_experts: int = 0
+    # bfloat16 activations and matmuls; parameters and the tail stay float32.
     bf16: bool = False
     # Recompute each block's activations in backward (one more forward).
     remat: bool = False
@@ -99,7 +105,9 @@ class LayerNorm(nn.Module):
 
 
 def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    return F.linear(x, layer.weight, layer.bias)
+    """A matmul in the activation dtype: the float32 weight and bias are
+    cast to ``x.dtype`` at use."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
 class Block(nn.Module):
@@ -149,6 +157,13 @@ def run_blocks(blocks: nn.ModuleList, tokens: torch.Tensor, cfg: ViTConfig,
     return tokens
 
 
+def embed_tokens(model: "ViT", patches: torch.Tensor, pos_embed: torch.Tensor) -> torch.Tensor:
+    """Patches ``[b, t, patch_dim]`` and their ``pos_embed`` rows -> tokens
+    in the activation dtype (bf16 under ``cfg.bf16``)."""
+    dt = torch.bfloat16 if model.cfg.bf16 else patches.dtype
+    return dense(patches.to(dt), model.embed) + pos_embed.to(dt)
+
+
 def tokens_to_logp(model: "ViT", pooled: torch.Tensor) -> torch.Tensor:
     """Mean-pooled features -> float32 log-probs."""
     return F.log_softmax(dense(pooled, model.head).float(), dim=-1)
@@ -169,9 +184,6 @@ class ViT(nn.Module):
         if cfg.num_experts > 0:
             raise NotImplementedError(
                 "the MoE ViT (--experts) is not ported yet (ROADMAP queue 1, slice 3)")
-        if cfg.bf16:
-            raise NotImplementedError(
-                "the bf16 ViT (--bf16) is not ported yet (ROADMAP queue 1, slice 3)")
         self.cfg = cfg
         self.attention_fn = attention_fn
         self.embed = nn.utils.skip_init(nn.Linear, cfg.patch_dim, cfg.dim)
@@ -189,7 +201,7 @@ class ViT(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        tokens = dense(patchify(x, cfg), self.embed) + self.pos_embed
+        tokens = embed_tokens(self, patchify(x, cfg), self.pos_embed)
         tokens = self.ln_f(run_blocks(self.blocks, tokens, cfg, self.attention_fn))
         # Pool in float32, the head's numeric contract.
         return tokens_to_logp(self, tokens.float().mean(dim=1))

@@ -14,29 +14,43 @@ one launch of ``csrc/flash_attention.cu`` with a mode flag:
   kernel aliases them.  Reached from :func:`flash_block_update`, the
   ``--sp --flash`` ring (``parallel/sp.py``).
 
-q, k and v keep JAX's ``[b, t, h, d]`` layout and are passed by their
-(b, t, h) strides with stride 1 along d: the ViT hands in the q/k/v views
-of its head-major qkv projection, and a copy of each would cost as much
-traffic as the kernel itself at the ViT's shapes.  Nothing is padded; the
-kernel copies k/v 16 bytes at a time where their bases and strides allow,
-else 4, and takes any 1 <= d <= 128.
+q, k and v keep JAX's ``[b, t, h, d]`` layout, share one dtype (float32
+or bfloat16) and are passed by their (b, t, h) strides with stride 1 along
+d: the ViT hands in the q/k/v views of its head-major qkv projection, and a
+copy of each would cost as much traffic as the kernel itself at the ViT's
+shapes.  Nothing is padded; the kernel copies k/v 16 bytes at a time where
+their bases and strides allow, else one element at a time, and takes any
+d >= 1 (past 128 columns it loops over the output in 128-column slabs).
+The softmax state (m, l, a) and lse are float32 in both dtypes; the output
+takes the input dtype.  float16 is refused: the JAX package's kernel would
+take it, but no path of the repo runs it (ROADMAP queue 3).
 
-Both products run on the tensor cores as 3xTF32 (each f32 operand split
-into two TF32 halves, three ``mma.sync`` passes, the two small terms
-accumulated apart from the large one).  The kernel is checked only on the
-card: ``chip_smoke.py`` holds it to the plain versions within rtol 1e-5 /
-atol 1e-6, records the share of that gate each quantity uses, and holds
+The kernel follows the Pallas kernel's ``_fold_block``, which for bf16
+inputs is not ``ops/attention.py``'s ``block_update``: scores accumulate in
+float32 from the bf16 inputs, ``l`` sums the unrounded float32 ``p``, and
+``p`` is rounded to bf16 (to nearest even) only for P·V; the output is
+``acc / l`` cast to bf16.  The plain versions :func:`flash_fwd_reference`
+and :func:`flash_partial_reference` are written to that contract
+(:func:`kernel_fold`); for float32 it coincides with ``block_update``.
+f32 products run on the tensor cores as 3xTF32 (each operand split into
+two TF32 halves, three ``mma.sync`` passes, the two small terms accumulated
+apart from the large one); bf16 ones as one bf16 ``mma.sync`` pass.  The
+kernel is checked only on the card: ``chip_smoke.py`` holds it to the plain
+versions (f32 quantities within rtol 1e-5 / atol 1e-6, bf16 outputs within
+a bf16 ulp), records the share of the gate each quantity uses, and holds
 kernel and plain version against the fold in f64 at t = 8192.
 ``tests/test_torch_attention.py`` models the split in numpy on the CPU to
 show why one TF32 pass would not do; it runs no kernel.
 
-For CPU tensors the wrappers run the plain PyTorch versions
-(``ops/attention.py``); for CUDA tensors they launch the kernel or raise.
-Nothing falls back from the card.  JAX has no backward kernel, so none is
-written here: :func:`flash_attention`'s backward is a torch port of the JAX
-package's blockwise backward (``_bwd_blockwise``), and
-:func:`flash_block_update`'s recomputes through the plain
-``block_update``.
+For CPU tensors the wrappers run the plain PyTorch versions; for CUDA
+tensors they launch the kernel or raise.  Nothing falls back from the card.
+JAX has no backward kernel, so none is written here:
+:func:`flash_attention`'s backward is a torch port of the JAX package's
+blockwise backward (``_bwd_blockwise``, in float32 from upcast inputs), and
+:func:`flash_block_update`'s recomputes through :func:`partial_twin`, the
+port of JAX's ``_partial_ref``: the fold in float32 from upcast q/k/v, p
+unrounded, so both backwards take the gradient of the unrounded function,
+as JAX's do.
 """
 
 from __future__ import annotations
@@ -50,7 +64,6 @@ from . import _build
 from .attention import (
     BlockAcc,
     block_lse,
-    block_update,
     finalize_block_acc,
     full_attention,
     init_block_acc,
@@ -59,14 +72,14 @@ from .attention import (
 
 # Kernel launches by mode (one per launch; the CPU path does not count).
 LAUNCHES = {"flash_fwd": 0, "flash_partial": 0}
-MAX_HEAD_DIM = 128  # every configuration of the repo has head_dim 8..64
 _MODES = {"flash_fwd": 0, "flash_partial": 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
 _MAX_BLOCK = 128  # key block rows of the blockwise backward (JAX's _block)
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """q ``[b, tq, h, d]``, k and v ``[b, tk, h, d]``, float32, one cuda or
-    cpu device; on cuda, stride 1 along d and d <= MAX_HEAD_DIM.  Returns
+    """q ``[b, tq, h, d]``, k and v ``[b, tk, h, d]``, all float32 or all
+    bfloat16, one cuda or cpu device; on cuda, stride 1 along d.  Returns
     the device type."""
     device = q.device
     if device.type not in ("cuda", "cpu"):
@@ -74,8 +87,13 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype == torch.float16:
+            raise ValueError(f"{name} is float16, which is not ported: flash attention takes "
+                             "float32 or bfloat16")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}: q, k and v share one dtype")
         if t.dim() != 4:
             raise ValueError(f"{name} must be [b, t, h, d], got {tuple(t.shape)}")
     b, tq, h, d = q.shape
@@ -85,9 +103,6 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if min(tq, k.shape[1], d) < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if device.type == "cuda":
-        if d > MAX_HEAD_DIM:
-            raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}: the kernel keeps one row of "
-                             "output columns in registers")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(3) != 1:
                 raise ValueError(f"{name} needs stride 1 along head_dim, got {t.stride()}")
@@ -110,7 +125,7 @@ def _check_state(m: torch.Tensor, l: torch.Tensor, a: torch.Tensor, q: torch.Ten
 def _launcher():
     fn = _build.library("flash_attention").flash_attention_launch
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = ([i32, i32, ptr, ptr, ptr] + [i64] * 9 + [i32] * 5 + [ctypes.c_float]
+    fn.argtypes = ([i32, i32, i32, ptr, ptr, ptr] + [i64] * 9 + [i32] * 5 + [ctypes.c_float]
                    + [ptr] * 8 + [ptr])
     fn.restype = i32
     return fn
@@ -131,7 +146,8 @@ def _launch(mode: str, q, k, v, out=None, lse=None, state_in=(None,) * 3,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _launcher()(
-            dev.index, _MODES[mode], q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides,
+            dev.index, _MODES[mode], _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), *strides,
             b, h, tq, k.shape[1], d, _scale(d), ptr(out), ptr(lse),
             *map(ptr, state_in), *map(ptr, state_out), stream,
         )
@@ -140,28 +156,54 @@ def _launch(mode: str, q, k, v, out=None, lse=None, state_in=(None,) * 3,
     LAUNCHES[mode] += 1
 
 
+def kernel_fold(acc: BlockAcc, q, k, v, round_p: bool = True) -> BlockAcc:
+    """One unmasked fold of ``(k, v)`` into ``acc`` in the Pallas kernel's
+    contract (``_fold_block``): scores in float32 from the inputs (products
+    of bf16 values are exact in float32), ``l`` from the unrounded float32
+    ``p``, and ``p`` rounded to the inputs' dtype only for P·V
+    (``round_p``; without it, JAX's ``_partial_ref``).  For float32 inputs
+    this is ``block_update`` op for op."""
+    scale = softmax_scale(q.shape[-1], q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    m_new = torch.maximum(acc.m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(acc.m - m_new)
+    l_new = acc.l * corr + p.sum(dim=-1)
+    pv = p.to(v.dtype).float() if round_p else p
+    o_new = acc.o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", pv, v.float())
+    return BlockAcc(m=m_new, l=l_new, o=o_new)
+
+
+def partial_twin(m, l, a, q, k, v) -> BlockAcc:
+    """The JAX package's ``_partial_ref``: the fold with p unrounded, the
+    recompute target of :func:`flash_block_update`'s backward."""
+    return kernel_fold(BlockAcc(m, l, a), q, k, v, round_p=False)
+
+
 @torch.no_grad()
 def flash_fwd_reference(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of mode ``fwd``: ``full_attention`` and its
-    logsumexp, ``(out [b, t, h, d], lse [b, h, t])``."""
+    """Plain version of mode ``fwd``: the fold from the empty state,
+    normalized into the inputs' dtype, and its logsumexp, ``(out [b, t, h,
+    d], lse [b, h, t])``."""
     b, tq, h, d = q.shape
-    acc = block_update(init_block_acc(b, h, tq, d, q.device), q, k, v)
+    acc = kernel_fold(init_block_acc(b, h, tq, d, q.device), q, k, v)
     return finalize_block_acc(acc, q.dtype), block_lse(acc)
 
 
 @torch.no_grad()
 def flash_partial_reference(m, l, a, q, k, v) -> BlockAcc:
-    """Plain version of mode ``partial``: one unmasked ``block_update``."""
-    return block_update(BlockAcc(m, l, a), q, k, v)
+    """Plain version of mode ``partial``: one :func:`kernel_fold`."""
+    return kernel_fold(BlockAcc(m, l, a), q, k, v)
 
 
 @torch.no_grad()
 def flash_fwd(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
-    """The whole-forward kernel: ``(out [b, t, h, d], lse [b, h, t])``."""
+    """The whole-forward kernel: ``(out [b, t, h, d]`` in the inputs' dtype,
+    ``lse [b, h, t]`` float32)."""
     if _check_qkv(q, k, v) == "cpu":
         return flash_fwd_reference(q, k, v)
     b, tq, h, d = q.shape
-    out = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, v, out=out, lse=lse)
     return out, lse
@@ -262,13 +304,14 @@ class _FlashBlockUpdate(torch.autograd.Function):
     def backward(ctx, gm, gl, ga):
         inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            new = block_update(BlockAcc(*inputs[:3]), *inputs[3:])
+            new = partial_twin(*inputs)
         return torch.autograd.grad(new, inputs, (gm, gl, ga), allow_unused=True)
 
 
 def flash_block_update(m, l, a, q, k, v) -> BlockAcc:
     """One fused ring hop, differentiable: the backward recomputes through
-    the plain ``block_update`` (no residual score tensors).  Without
+    :func:`partial_twin` (no residual score tensors); q/k/v gradients come
+    back in their dtype.  Without
     autograd (no grad mode, or no input that needs a grad) the state is
     updated in place and returned, as the TPU kernel aliases it."""
     tensors = (m, l, a, q, k, v)

@@ -10,6 +10,11 @@ card.
 On the card the kernel splits fc1's inputs over a thread-block cluster
 per 16 rows; :func:`launch_plan` picks the cluster size from how many
 clusters of each size the card runs at once (:func:`active_clusters`).
+It takes every shape the JAX kernel takes (JAX asks hidden % 128 == 0;
+this wrapper hidden % 16 == 0): a K-slice wider than a block's registers
+runs in several K-passes, fc1's hidden columns in tiles of 128, and where
+the hidden activations would overflow rank 0's shared memory they go
+through a scratch buffer in device memory.
 
 Layer dicts are :func:`~..models.quant.quantize_params` entries:
 ``weight_q`` int8 ``[out, in]``, ``scale`` f32 ``[out]``, ``bias`` f32
@@ -32,10 +37,13 @@ QMAX = 127.0
 LAUNCHES = 0
 
 # The kernel's launch geometry (csrc/int8_head.cu): a cluster of C blocks
-# per tile of ROWS rows, each block one K-slice of whole 32-column chunks.
+# per tile of ROWS rows, each block one K-slice of whole 32-column chunks,
+# taken in K-passes of at most MAX_PASS columns, fc1's columns in tiles of
+# at most H_TILE.
 ROWS = 16  # one mma M tile
 CLUSTER_SIZES = (16, 8, 4, 2, 1)  # 16 is non-portable: one GPC
-MAX_SLICE = 1152  # x columns a block holds in registers (MAXC = 9 float4 a lane)
+MAX_PASS = 1152  # x columns a block holds in registers (MAXC = 9 float4 a lane)
+H_TILE = 128  # fc1 columns per step: a pair of n-tiles for each of 8 warps
 SMEM_LIMIT = 232448  # 227 KB: the most dynamic shared memory a block may use
 _HEADER = 1152  # a1 and a2 per row, every rank's row maxima
 
@@ -70,15 +78,18 @@ def int8_head_reference(fc1: dict, fc2: dict, x: torch.Tensor) -> torch.Tensor:
     return _int8_dense_reference(h, fc2)
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device,
+           aligned: bool = True) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _slice(k: int, cluster: int) -> int:
@@ -96,29 +107,63 @@ def _k_slices(k: int, cluster: int) -> list[tuple[int, int]]:
             for r in range(cluster)]
 
 
-def _smem_bytes(k: int, h: int, o: int, cluster: int) -> int:
+def _passes(k: int, cluster: int) -> int:
+    """K-passes per slice: as many as the widest slice needs."""
+    return -(-_slice(k, cluster) // MAX_PASS)
+
+
+def _pass_width(k: int, cluster: int) -> int:
+    """Columns of a K-pass: the slice's chunks spread evenly over the passes."""
+    return 32 * -(-(_slice(k, cluster) // 32) // _passes(k, cluster))
+
+
+def _k_passes(k: int, cluster: int) -> list[list[tuple[int, int]]]:
+    """Per rank, the columns ``[p0, p1)`` of each K-pass of its slice (the
+    last passes of a short slice may be empty); as the kernel computes them."""
+    width = _pass_width(k, cluster)
+    return [[(min(c1, c0 + p * width), min(c1, c0 + (p + 1) * width))
+             for p in range(_passes(k, cluster))] for c0, c1 in _k_slices(k, cluster)]
+
+
+def _h_tiles(h: int) -> list[tuple[int, int]]:
+    """fc1's columns ``[h0, h1)`` of each step's h-tile."""
+    tile = min(h, H_TILE)
+    return [(h0, min(h, h0 + tile)) for h0 in range(0, h, tile)]
+
+
+def _smem_bytes(k: int, h: int, o: int, cluster: int, hid_smem: bool = True) -> int:
     """Dynamic shared memory of one block, the kernel's ``layout()``:
-    header, W1 slice and codes at a pitch of slice + 16 bytes, the int32
-    partials, and h, its codes and W2 on rank 0."""
-    pitch = _slice(k, cluster) + 16
-    # per row and hidden column: an int32 partial, h in f32, its int8 code
-    total = _HEADER + (h + ROWS) * pitch + ROWS * h * (4 + 4 + 1) + o * h
+    header, one step's W1 tile and codes at a pitch of the pass width + 16
+    bytes, the int32 partials sent and received, and (``hid_smem``) h, its
+    codes and W2 on rank 0.  With one h-tile h overwrites the partials."""
+    pitch = _pass_width(k, cluster) + 16
+    tile = min(h, H_TILE)
+    total = _HEADER + (tile + ROWS) * pitch + 2 * ROWS * tile * 4
+    if hid_smem:
+        if len(_h_tiles(h)) == 1:
+            total -= ROWS * tile * 4
+        # per row and hidden column: h in f32 and its int8 code; W2
+        total += ROWS * h * (4 + 1) + o * h
     return -(-total // 16) * 16
 
 
+def _hid_smem(k: int, h: int, o: int, cluster: int) -> bool:
+    """Whether h, its codes and W2 fit in rank 0's shared memory (else they
+    go through device memory)."""
+    return _smem_bytes(k, h, o, cluster) <= SMEM_LIMIT
+
+
 def _fits(k: int, h: int, o: int, cluster: int) -> bool:
-    """Every rank has columns, the slice fits the registers and the block
-    its shared memory."""
-    return (cluster <= -(-k // 32) and _slice(k, cluster) <= MAX_SLICE
-            and _smem_bytes(k, h, o, cluster) <= SMEM_LIMIT)
+    """Every rank has columns."""
+    return cluster <= -(-k // 32)
 
 
 def _launch_plan(n: int, k: int, h: int, o: int, max_clusters: dict[int, int]) -> dict:
     """Cluster size and grid for ``n`` rows.  ``max_clusters[C]`` is how many
     clusters of C blocks run at once on the card.  Each size costs waves x
     slice (a block's bytes scale with its slice); the cheapest wins, then
-    fewer waves, then the larger cluster.  Raises ValueError for a shape no
-    cluster size fits."""
+    fewer waves, then the larger cluster.  Raises ValueError where the card
+    runs no cluster of any size that fits."""
     tiles = -(-n // ROWS)
     best = None
     for c in CLUSTER_SIZES:
@@ -128,13 +173,15 @@ def _launch_plan(n: int, k: int, h: int, o: int, max_clusters: dict[int, int]) -
         waves = -(-tiles // active)
         key = (waves * _slice(k, c), waves, -c)
         if best is None or key < best[0]:
+            hid_smem = _hid_smem(k, h, o, c)
             best = (key, {"cluster": c, "rows": ROWS, "grid": (c, tiles),
-                          "smem": _smem_bytes(k, h, o, c), "slice": _slice(k, c),
+                          "smem": _smem_bytes(k, h, o, c, hid_smem), "slice": _slice(k, c),
+                          "passes": _passes(k, c), "pass_width": _pass_width(k, c),
+                          "h_tiles": len(_h_tiles(h)), "hid_smem": hid_smem,
                           "max_clusters": active, "waves": waves})
     if best is None:
-        raise ValueError(
-            f"int8_head takes no cluster size at in={k}, hidden={h}, out={o}: a K-slice "
-            f"must fit {MAX_SLICE} columns and a block {SMEM_LIMIT} bytes of shared memory")
+        raise ValueError(f"int8_head: the card runs no cluster at in={k}, hidden={h}, "
+                         f"out={o} ({max_clusters})")
     return best[1]
 
 
@@ -142,7 +189,7 @@ def _launch_plan(n: int, k: int, h: int, o: int, max_clusters: dict[int, int]) -
 def _library():
     lib = _build.library("int8_head")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int8_head_launch.argtypes = [i, p, i, i, p, p, p, i, p, p, p, i, p, i, i, p]
+    lib.int8_head_launch.argtypes = [i, p, i, i, p, p, p, i, p, p, p, i, p, i, i, p, p, p]
     lib.int8_head_launch.restype = i
     lib.int8_head_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.int8_head_max_clusters.restype = i
@@ -159,7 +206,7 @@ def active_clusters(device: int, k: int, h: int, o: int) -> dict[int, int]:
             continue
         count = ctypes.c_int(0)
         rc = _library().int8_head_max_clusters(
-            device, c, _smem_bytes(k, h, o, c), ctypes.byref(count))
+            device, c, _smem_bytes(k, h, o, c, _hid_smem(k, h, o, c)), ctypes.byref(count))
         if rc != 0:
             raise RuntimeError(f"int8_head occupancy query failed at cluster {c}: CUDA error {rc}")
         counts[c] = count.value
@@ -184,11 +231,12 @@ def fused_int8_head(fc1: dict, fc2: dict, x: torch.Tensor) -> torch.Tensor:
     n, k = x.shape
     h = fc1["weight_q"].shape[0]
     o = fc2["weight_q"].shape[0]
-    if k % 16 or h % 16:
-        raise ValueError(f"need in % 16 == 0 and hidden % 16 == 0, got {k}, {h}")
+    if h % 16:  # JAX's kernel asks hidden % 128 == 0
+        raise ValueError(f"need hidden % 16 == 0, got {h}")
     dev = x.device
-    _check("x", x, torch.float32, (n, k), dev)
-    _check("fc1.weight_q", fc1["weight_q"], torch.int8, (h, k), dev)
+    # x and W1 may sit at any offset: the kernel reads them element-wise then.
+    _check("x", x, torch.float32, (n, k), dev, aligned=False)
+    _check("fc1.weight_q", fc1["weight_q"], torch.int8, (h, k), dev, aligned=False)
     _check("fc2.weight_q", fc2["weight_q"], torch.int8, (o, h), dev)
     for layer, name, width in ((fc1, "fc1", h), (fc2, "fc2", o)):
         for leaf in ("scale", "bias"):
@@ -196,6 +244,11 @@ def fused_int8_head(fc1: dict, fc2: dict, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, o), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         plan = launch_plan(n, k, h, o, dev.index)
+        scratch = (None, None)
+        if not plan["hid_smem"]:  # h and its codes, a row tile's rows at a time
+            rows = plan["grid"][1] * ROWS
+            scratch = (torch.empty((rows, h), dtype=torch.float32, device=dev),
+                       torch.empty((rows, h), dtype=torch.int8, device=dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().int8_head_launch(
             dev.index, x.data_ptr(), n, k,
@@ -203,7 +256,8 @@ def fused_int8_head(fc1: dict, fc2: dict, x: torch.Tensor) -> torch.Tensor:
             fc1["bias"].data_ptr(), h,
             fc2["weight_q"].data_ptr(), fc2["scale"].data_ptr(),
             fc2["bias"].data_ptr(), o,
-            out.data_ptr(), plan["cluster"], plan["smem"], stream,
+            out.data_ptr(), plan["cluster"], plan["smem"],
+            *(None if t is None else t.data_ptr() for t in scratch), stream,
         )
     if rc != 0:
         raise RuntimeError(f"int8_head kernel launch failed: CUDA error {rc}")

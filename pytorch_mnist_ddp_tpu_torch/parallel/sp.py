@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.vit import ViT, ViTConfig, dense, patchify, run_blocks, tokens_to_logp
+from ..models.vit import ViT, ViTConfig, embed_tokens, patchify, run_blocks, tokens_to_logp
 from ..ops.attention import block_update, finalize_block_acc, init_block_acc
 from ..ops.flash_attention import flash_block_update, flash_ring_finalize, flash_ring_state
 from .ddp import make_forward_eval_step, make_forward_train_step
@@ -99,13 +99,14 @@ def check_token_divisibility(cfg: ViTConfig, num_seq: int) -> None:
 def sp_vit_forward(model: ViT, x: torch.Tensor, group: SeqGroup = SeqGroup(),
                    use_flash: bool = False) -> torch.Tensor:
     """The ViT forward over this member's token slice: embed the slice
-    (patch rows and pos-embed rows by rank), run every block with the ring
-    as attention, pool by a group sum over tokens."""
+    (patch rows and pos-embed rows by rank, in the activation dtype), run
+    every block with the ring as attention, pool in float32 by a group sum
+    over tokens."""
     cfg = model.cfg
     t_local = cfg.num_tokens // group.size
     start = group.rank * t_local
     patches = patchify(x, cfg)[:, start:start + t_local]
-    tokens = dense(patches, model.embed) + model.pos_embed[start:start + t_local]
+    tokens = embed_tokens(model, patches, model.pos_embed[start:start + t_local])
     ring = ring_attention_flash if use_flash else ring_attention
     tokens = run_blocks(model.blocks, tokens, cfg, lambda q, k, v: ring(q, k, v, group))
     tokens = model.ln_f(tokens)

@@ -4,12 +4,14 @@
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist [flags]
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --flash            # attention kernel
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --sp 1 --allow-degree-1 --flash
+    python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --bf16 --flash     # bf16 trunk
 
 It runs on the card (``cuda``) unless ``--no-cuda``/``--no-accel`` asks for
 the CPU, and raises without a card otherwise.  Two branches: the single
 device (``--flash``: the whole-forward kernel in every block), and the
 sequence-parallel ring at degree 1 (``parallel/sp.py``; ``--flash``: one
-partial-mode kernel launch per attention call).  The flags are a subset of
+partial-mode kernel launch per attention call); ``--bf16`` runs either in
+bfloat16 (the kernel's bf16 mode under ``--flash``).  The flags are a subset of
 ``vit_mnist.py``'s with the same names and defaults; argparse refuses the
 others.  The printed lines are the JAX CLI's, and ``--save-model`` writes
 ``vit_mnist.npz`` in the JAX package's params-tree format.
@@ -71,6 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="transformer blocks (default: 2)")
     p.add_argument("--dim", type=int, default=64, metavar="D",
                    help="token embedding width (default: 64)")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 activations/matmuls (params, routing, "
+                        "attention accumulation, and log_softmax stay fp32)")
     p.add_argument("--remat", action="store_true", default=False,
                    help="recompute each transformer block in backward "
                         "(torch.utils.checkpoint): one live block's "
@@ -132,7 +137,7 @@ def fit(
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    cfg = ViTConfig(depth=args.depth, dim=args.dim, remat=args.remat)
+    cfg = ViTConfig(depth=args.depth, dim=args.dim, bf16=args.bf16, remat=args.remat)
     seeds = split_streams(args.seed)
     model = ViT(cfg, select_attention(args.flash), torch.Generator().manual_seed(seeds["init"]))
     if args.resume:

@@ -136,12 +136,25 @@ def test_train_cli_refuses_flags_not_ported_yet(flag):
 @pytest.mark.parametrize(
     "flag",
     ["--sp-impl=ulysses", "--tp=2", "--pp", "--pp-microbatches=2", "--pp-stages=2",
-     "--experts=8", "--zero", "--bf16", "--fused", "--pregather", "--profile=x",
+     "--experts=8", "--zero", "--fused", "--pregather", "--profile=x",
      "--step-stats", "--timings-json=x", "--save-state=x", "--resume-state=x"],
 )
 def test_vit_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
         vit_parser().parse_args([flag])
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--bf16"], ["--bf16", "--flash"], ["--bf16", "--sp", "1", "--allow-degree-1", "--flash"],
+     ["--bf16", "--flash", "--remat"]],
+    ids=["bf16", "bf16_flash", "bf16_sp1_flash", "bf16_flash_remat"],
+)
+def test_vit_cli_accepts_ported_flags(flags):
+    """--bf16 is ported (the flash kernel's bf16 mode) and composes with
+    --flash, --remat and the degree-1 ring; the CNN CLI still refuses it."""
+    args = vit_parser().parse_args(flags)
+    assert args.bf16 is True
 
 
 @pytest.fixture

@@ -1,17 +1,22 @@
 """The int8 head kernel's split of K over a thread-block cluster, on the CPU.
 
 The kernel (``csrc/int8_head.cu``) gives each block of a cluster one
-K-slice of fc1: it forms each row's max|x| from the slices' maxima,
-quantizes its slice, takes an int32 partial product, and the partials are
-summed across the cluster before fc1's epilogue.  No kernel runs here:
+K-slice of fc1, taken in K-passes of at most 1152 columns: it forms each
+row's max|x| from the passes' and slices' maxima, quantizes each pass,
+takes int32 partial products per h-tile of at most 128 fc1 columns, and
+the partials are summed over the passes and across the cluster before
+fc1's epilogue.  No kernel runs here:
 
 - (a) the launch plan (``_launch_plan``) covers every row and every K
-  column exactly once, with clusters of at most 16 blocks and every K-slice
-  but a ragged last one a whole number of 32-column chunks;
+  column exactly once, with clusters of at most 16 blocks, every K-slice
+  but a ragged last one a whole number of 32-column chunks, every K-pass
+  within the registers and every block within its shared memory, at every
+  shape the JAX kernel takes (it asks hidden % 128 == 0 and nothing of in);
 - (b) a numpy model of the split, driven by the plan, is bit-equal to the
   plain version and to JAX's ``_int8_dense`` -> relu -> ``_int8_dense``,
-  with the partials summed in rank order and in reverse.  ``fmaxf`` is
-  order-free and int32 sums of int8 products are exact, which is why.
+  with the partials summed in rank-and-pass order and in reverse.
+  ``fmaxf`` is order-free and int32 sums of int8 products are exact, which
+  is why.
 
 The kernel itself is held to the plain version bit for bit by
 ``chip_smoke.py`` on the card.
@@ -67,7 +72,7 @@ def port_q(jax_params):
 
 
 @pytest.mark.parametrize("occupancy", sorted(OCCUPANCY))
-@pytest.mark.parametrize("k", [9216, 1040])
+@pytest.mark.parametrize("k", [9216, 1040, 100, 9215, 20000])
 @pytest.mark.parametrize("n", [1, 2, 8, 16, 17, 64, 128, 130, 300])
 def test_launch_plan_covers_rows_and_columns_once(n, k, occupancy):
     plan = ih._launch_plan(n, k, 128, 10, OCCUPANCY[occupancy])
@@ -81,8 +86,14 @@ def test_launch_plan_covers_rows_and_columns_once(n, k, occupancy):
     for c0, c1 in slices[:-1]:
         assert c0 % 32 == 0 and (c1 - c0) % 32 == 0 and c1 > c0
     c0, c1 = slices[-1]
-    assert c0 % 32 == 0 and (c1 - c0) % 16 == 0 and c1 > c0
-    assert max(c1 - c0 for c0, c1 in slices) <= plan["slice"] <= ih.MAX_SLICE
+    assert c0 % 32 == 0 and c1 > c0 and (c1 - c0) % 16 == k % 16
+    assert max(c1 - c0 for c0, c1 in slices) <= plan["slice"]
+    # Each slice's K-passes cover it once, in order, within the registers.
+    for (c0, c1), passes in zip(slices, ih._k_passes(k, c)):
+        assert len(passes) == plan["passes"]
+        assert np.array_equal(np.concatenate([np.arange(*p) for p in passes]), np.arange(c0, c1))
+        assert all(p0 % 32 == 0 and p1 - p0 <= plan["pass_width"] <= ih.MAX_PASS
+                   for p0, p1 in passes if p1 > p0)
     assert plan["smem"] == ih._smem_bytes(k, 128, 10, c) <= ih.SMEM_LIMIT
 
 
@@ -100,10 +111,33 @@ def test_launch_plan_model_shape_fills_the_card_once():
 
 @pytest.mark.parametrize("k, h", [(4 * 9216, 128), (9216, 2048)])
 def test_launch_plan_raises_beyond_the_kernel(k, h):
-    """A K-slice must fit the registers (1152 columns at 16 rows) and a
-    block its 227 KB of shared memory; beyond that the wrapper raises."""
-    with pytest.raises(ValueError, match="no cluster size"):
-        ih._launch_plan(8, k, h, 10, OCCUPANCY["h100"])
+    """These shapes once had no cluster size (a K-slice past the 1152
+    register columns, h past rank 0's shared memory) and now plan: k in
+    K-passes, h through device memory.  The plan raises only where the
+    card runs no cluster at all; the JAX kernel's own refusal (hidden %
+    128) is the wrapper's (hidden % 16)."""
+    plan = ih._launch_plan(8, k, h, 10, OCCUPANCY["h100"])
+    assert plan["cluster"] == 16 and plan["smem"] <= ih.SMEM_LIMIT
+    assert plan["passes"] == (2 if k > 18432 else 1)
+    assert plan["hid_smem"] is (h <= 1024) and plan["h_tiles"] == -(-h // ih.H_TILE)
+    with pytest.raises(ValueError, match="runs no cluster"):
+        ih._launch_plan(8, k, h, 10, {c: 0 for c in ih.CLUSTER_SIZES})
+
+
+@pytest.mark.parametrize("k, h, passes, h_tiles, hid_smem", [
+    (100, 128, 1, 1, True), (9215, 128, 1, 1, True), (20000, 128, 2, 1, True),
+    (9216, 384, 1, 3, True), (9216, 144, 1, 2, True), (9216, 4096, 1, 32, False),
+    (200000, 256, 11, 2, True),
+])
+def test_launch_plan_takes_every_shape(k, h, passes, h_tiles, hid_smem):
+    """in needs no multiple of 16 and has no upper limit; hidden none but
+    a multiple of 16.  The shared memory always fits: one step's W1 tile,
+    the partials, and h only while it fits."""
+    plan = ih._launch_plan(8, k, h, 10, OCCUPANCY["h100"])
+    assert (plan["passes"], plan["h_tiles"], plan["hid_smem"]) == (passes, h_tiles, hid_smem)
+    for n in (1, 8, 130):  # other row counts take other cluster sizes
+        plan = ih._launch_plan(n, k, h, 10, OCCUPANCY["h100"])
+        assert plan["smem"] <= ih.SMEM_LIMIT and plan["cluster"] <= -(-k // 32)
 
 
 def test_plan_constants_match_the_kernel_source():
@@ -113,7 +147,8 @@ def test_plan_constants_match_the_kernel_source():
     assert const["R"] == ih.ROWS
     assert const["HEADER"] == ih._HEADER
     assert const["MAX_CLUSTER"] == max(ih.CLUSTER_SIZES)
-    assert 4 * 32 * const["MAXC"] == ih.MAX_SLICE
+    assert 4 * 32 * const["MAXC"] == ih.MAX_PASS
+    assert const["H_TILE"] == ih.H_TILE
 
 
 # ------------------------------------------------------- (b) split model
@@ -129,26 +164,31 @@ def _quant(x: np.ndarray, scale: np.ndarray) -> np.ndarray:
 
 def _split_head(fc1: dict, fc2: dict, x: np.ndarray, reverse: bool) -> np.ndarray:
     """The kernel's arithmetic in numpy, f32 step by step: per row tile, per
-    K-slice row maxima and codes and int32 partials, summed over the ranks
-    (in reverse when asked); rank 0's fc2 on the whole hidden row."""
+    K-pass of each rank's K-slice the row maxima; per h-tile, per pass the
+    codes and int32 partials, summed over the ranks and passes (in reverse
+    when asked); rank 0's fc2 on the whole hidden row."""
     w1, s1, b1 = (np.asarray(fc1[key]) for key in ("weight_q", "scale", "bias"))
     w2, s2, b2 = (np.asarray(fc2[key]) for key in ("weight_q", "scale", "bias"))
     n, k = x.shape
-    plan = ih._launch_plan(n, k, w1.shape[0], w2.shape[0], OCCUPANCY["h100"])
-    slices = ih._k_slices(k, plan["cluster"])
+    h = w1.shape[0]
+    plan = ih._launch_plan(n, k, h, w2.shape[0], OCCUPANCY["h100"])
+    passes = [p for rank in ih._k_passes(k, plan["cluster"]) for p in rank]
+    order = passes[::-1] if reverse else passes
     out = np.empty((n, w2.shape[0]), np.float32)
     for t in range(plan["grid"][1]):
         tile = np.zeros((ih.ROWS, k), np.float32)  # rows past n are zero
         rows = x[t * ih.ROWS:(t + 1) * ih.ROWS]
         tile[:len(rows)] = rows
-        maxima = [np.abs(tile[:, c0:c1]).max(axis=1) for c0, c1 in slices]
-        a1 = _act_scale(np.maximum.reduce(maxima[::-1] if reverse else maxima))[:, None]
-        partials = [_quant(tile[:, c0:c1], a1).astype(np.int32)
-                    @ w1[:, c0:c1].astype(np.int32).T for c0, c1 in slices]
-        acc = np.zeros_like(partials[0])
-        for p in partials[::-1] if reverse else partials:
-            acc += p
-        hid = np.maximum(acc.astype(np.float32) * (a1 * s1) + b1, np.float32(0.0))
+        maxima = [np.abs(tile[:, p0:p1]).max(axis=1, initial=0.0) for p0, p1 in order]
+        a1 = _act_scale(np.maximum.reduce(maxima))[:, None]
+        hid = np.empty((ih.ROWS, h), np.float32)
+        for h0, h1 in ih._h_tiles(h):
+            acc = np.zeros((ih.ROWS, h1 - h0), np.int32)
+            for p0, p1 in order:
+                acc += (_quant(tile[:, p0:p1], a1).astype(np.int32)
+                        @ w1[h0:h1, p0:p1].astype(np.int32).T)
+            hid[:, h0:h1] = np.maximum(acc.astype(np.float32) * (a1 * s1[h0:h1]) + b1[h0:h1],
+                                       np.float32(0.0))
         a2 = _act_scale(np.abs(hid).max(axis=1))[:, None]
         acc2 = _quant(hid, a2).astype(np.int32) @ w2.astype(np.int32).T
         y = acc2.astype(np.float32) * (a2 * s2) + b2
@@ -195,12 +235,7 @@ def test_split_model_edge_cases_bit_equal(jax_q, port_q, case):
     _check_split(jax_q, port_q, _edge_case(case))
 
 
-@pytest.mark.parametrize("n", [5, 130])
-def test_split_model_ragged_last_slice(n):
-    """k = 1040 ends inside a 32-column chunk: the last rank's slice is 80
-    columns.  Random int8 weights; JAX's _int8_dense on the same layers."""
-    rng = np.random.RandomState(n)
-    k, h, o = 1040, 128, 10
+def _random_layers(rng, k: int, h: int, o: int) -> tuple[dict, dict]:
     layers = []
     for out_w, in_w in ((h, k), (o, h)):
         layers.append({
@@ -208,16 +243,65 @@ def test_split_model_ragged_last_slice(n):
             "scale": torch.from_numpy((rng.rand(out_w) * 1e-2).astype(np.float32)),
             "bias": torch.from_numpy(rng.randn(out_w).astype(np.float32)),
         })
-    fc1, fc2 = layers
-    assert ih._k_slices(k, 16)[-1] == (960, 1040)
+    return tuple(layers)
+
+
+def _jax_layers(layers) -> list[dict]:
+    return [{"kernel_q": np.asarray(layer["weight_q"]).T, "scale": np.asarray(layer["scale"]),
+             "bias": np.asarray(layer["bias"])} for layer in layers]
+
+
+def _check_random_split(k: int, h: int, n: int, seed: int) -> None:
+    """Random int8 layers and x: plain == JAX's _int8_dense chain == the
+    split model, partials summed in order and reversed."""
+    rng = np.random.RandomState(seed)
+    fc1, fc2 = _random_layers(rng, k, h, 10)
     x = rng.randn(n, k).astype(np.float32)
     plain = ih.int8_head_reference(fc1, fc2, torch.from_numpy(x)).numpy()
-    jl = [{"kernel_q": np.asarray(layer["weight_q"]).T, "scale": np.asarray(layer["scale"]),
-           "bias": np.asarray(layer["bias"])} for layer in layers]
+    jl = _jax_layers((fc1, fc2))
     want = np.asarray(jq._int8_dense(jax.nn.relu(jq._int8_dense(x, jl[0])), jl[1]))
     assert plain.tobytes() == want.tobytes()
     for reverse in (False, True):
         assert _split_head(fc1, fc2, x, reverse).tobytes() == plain.tobytes()
+
+
+@pytest.mark.parametrize("n", [5, 130])
+def test_split_model_ragged_last_slice(n):
+    """k = 1040 ends inside a 32-column chunk: the last rank's slice is 80
+    columns.  Random int8 weights; JAX's _int8_dense on the same layers."""
+    assert ih._k_slices(1040, 16)[-1] == (960, 1040)
+    _check_random_split(1040, 128, n, seed=n)
+
+
+@pytest.mark.parametrize("k, h", [(100, 128), (9215, 128), (20000, 128), (9216, 384),
+                                  (9216, 2048), (40000, 256)],
+                         ids=["k100", "k9215", "k20000", "h384", "h2048", "k40000_h256"])
+@pytest.mark.parametrize("n", [3, 17])
+def test_split_model_passes_and_h_tiles_bit_equal(k, h, n):
+    """Shapes past one pass and one h-tile: in not a multiple of 16 (or of
+    32), slices in two or more K-passes, hidden in several 128-column
+    tiles (through device memory at 2048)."""
+    _check_random_split(k, h, n, seed=k + h + n)
+
+
+@pytest.mark.parametrize("k, h", [(100, 128), (9216, 384)], ids=["k100", "h384"])
+def test_plain_head_equals_jax_fused_kernel(k, h):
+    """The port's plain head (the kernel's yardstick on the card) against
+    JAX's fused_int8_head in interpret mode at shapes the JAX kernel takes
+    and the port's kernel took only from this slice on."""
+    from pytorch_mnist_ddp_tpu.ops.pallas_infer import fused_int8_head
+
+    rng = np.random.RandomState(k + h)
+    fc1, fc2 = _random_layers(rng, k, h, 10)
+    x = rng.randn(9, k).astype(np.float32)
+    plain = ih.int8_head_reference(fc1, fc2, torch.from_numpy(x)).numpy()
+    jl1, jl2 = _jax_layers((fc1, fc2))
+    want = np.asarray(fused_int8_head(jl1, jl2, jax.numpy.asarray(x), interpret=True))
+    # The JAX kernel's f32 epilogue may fuse into an FMA: the last ulp, as
+    # tests/test_torch_quant.py holds it (atol 1e-6 at the model's logits
+    # of ~1; these random layers' reach ~10, hence rtol 1e-6 too).
+    np.testing.assert_allclose(plain, want, rtol=1e-6, atol=1e-6)
+    assert (plain.argmax(1) == want.argmax(1)).all()
 
 
 def _quant_fast(v: np.ndarray, scale: np.float32) -> np.ndarray:

@@ -50,23 +50,26 @@ __device__ unsigned long long g_stamps[1 << 16];
 
 # (text in the source, the same text with a stamp added); each must occur once.
 MARKS = (
-    ("  const int share = h / C;              // fc1 columns each rank reduces\n",
-     "  const int share = h / C;              // fc1 columns each rank reduces\n  STAMP(0)\n"),
-    ("    cluster_wait();\n#pragma unroll\n", "    cluster_wait();\n    STAMP(1)\n#pragma unroll\n"),
-    ("    cluster_arrive();\n    cluster_wait();\n    if (tid < R) {",
-     "    cluster_arrive();\n    cluster_wait();\n    STAMP(2)\n    if (tid < R) {"),
-    ("      scale1[tid] = act_scale(a);\n    }\n    compute_sync();\n",
-     "      scale1[tid] = act_scale(a);\n    }\n    compute_sync();\n    STAMP(3)\n"),
-    ('    asm volatile("cp.async.wait_all;\\n" ::: "memory");\n    cluster_wait();\n',
-     '    asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
-     "    STAMP_IF(5, threadIdx.x == 32 * WARPS)\n    cluster_wait();\n"),
-    ("  }\n  __syncthreads();  // W1 has landed, the codes are written\n",
-     "    STAMP(4)\n  }\n  __syncthreads();  // W1 has landed, the codes are written\n  STAMP(6)\n"),
-    ("  }\n  __syncthreads();\n  const int per_rank4", "  }\n  STAMP(7)\n  __syncthreads();\n  const int per_rank4"),
-    ("  cluster.sync();\n\n  // 4.", "  cluster.sync();\n  STAMP(8)\n\n  // 4."),
-    ("  cluster.sync();  // the last access", "  STAMP(9)\n  cluster.sync();  // the last access"),
-    ("    out[(size_t)(row0 + r) * o + oo] = epilogue(acc, scale2[r], s2[oo], b2[oo]);\n  }\n",
-     "    out[(size_t)(row0 + r) * o + oo] = epilogue(acc, scale2[r], s2[oo], b2[oo]);\n  }\n"
+    ("  const int8_t* arow = xq + g * L.pitch + 4 * t;\n",
+     "  const int8_t* arow = xq + g * L.pitch + 4 * t;\n  STAMP(0)\n"),
+    ("        cluster_wait();\n#pragma unroll\n", "        cluster_wait();\n        STAMP(1)\n#pragma unroll\n"),
+    ("        cluster_arrive();\n        cluster_wait();\n        if (tid < R) {",
+     "        cluster_arrive();\n        cluster_wait();\n        STAMP(2)\n        if (tid < R) {"),
+    ("          scale1[tid] = act_scale(a);\n        }\n        compute_sync();\n",
+     "          scale1[tid] = act_scale(a);\n        }\n        compute_sync();\n        STAMP(3)\n"),
+    ('      asm volatile("cp.async.wait_all;\\n" ::: "memory");\n      if (step == 0) cluster_wait();\n',
+     '      asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
+     "      STAMP_IF(5, threadIdx.x == 32 * WARPS)\n      if (step == 0) cluster_wait();\n"),
+    ("    }\n    __syncthreads();  // the step's W1 has landed, the codes are written\n",
+     "      STAMP(4)\n    }\n    __syncthreads();  // the step's W1 has landed, the codes are written\n"
+     "    STAMP(6)\n"),
+    ("    __syncthreads();  // W1's buffer and the codes are free for the next step\n",
+     "    STAMP(7)\n    __syncthreads();  // W1's buffer and the codes are free for the next step\n"),
+    ("    cluster.sync();\n\n    // 4.", "    cluster.sync();\n    STAMP(8)\n\n    // 4."),
+    ("    if constexpr (!HID_SMEM) __threadfence();\n",
+     "    STAMP(9)\n    if constexpr (!HID_SMEM) __threadfence();\n"),
+    ("    out[(size_t)(row0 + r) * o + oo] = epilogue(acc2, scale2[r], s2[oo], b2[oo]);\n  }\n",
+     "    out[(size_t)(row0 + r) * o + oo] = epilogue(acc2, scale2[r], s2[oo], b2[oo]);\n  }\n"
      "  STAMP(10)\n"),
 )
 
@@ -96,7 +99,7 @@ def build(copy_warps: int) -> ctypes.CDLL:
         raise SystemExit(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
     so = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
-    so.int8_head_launch.argtypes = [i, p, i, i, p, p, p, i, p, p, p, i, p, i, i, p]
+    so.int8_head_launch.argtypes = [i, p, i, i, p, p, p, i, p, p, p, i, p, i, i, p, p, p]
     so.int8_head_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
     so.int8_head_read_stamps.argtypes = [p, i]
     return so
@@ -151,7 +154,7 @@ def main() -> int:
                         0, x.data_ptr(), n, K, fc1["weight_q"].data_ptr(), fc1["scale"].data_ptr(),
                         fc1["bias"].data_ptr(), H, fc2["weight_q"].data_ptr(),
                         fc2["scale"].data_ptr(), fc2["bias"].data_ptr(), O, out.data_ptr(), c, smem,
-                        stream)
+                        None, None, stream)
                     if rc:
                         raise SystemExit(f"launch failed: CUDA error {rc}")
 
