@@ -42,11 +42,25 @@ Phases, one JSON line each:
 6. train_step — 20 train steps from one set of weights on fixed batches,
                 dropout off, deterministic cuDNN, three times: the plain
                 update, the fused kernel (per-parameter state) and the
-                delta kernel (flat state); all three must agree;
+                delta kernel (flat state); all three must agree; then the
+                delta kernel's twice without deterministic cuDNN (whether
+                they repeat bit for bit);
 7. train      — the trainer's fit() on the synthetic 60k/10k sets at the
                 CLI defaults: two epochs with --pallas-opt (StepLR's
                 second lr reaches the kernel), then one epoch plain;
-8. times      — each kernel, its plain version and the nearest library
+8. resume     — fit() with --pallas-opt: two epochs, against one epoch
+                with --save-state and one with --resume-state (params,
+                both accumulators and step torch.equal, the resumed log
+                the uninterrupted run's epoch 2); at --train-limit, a
+                per-leaf archive resumed with --pallas-opt (the delta
+                kernel on restored state, once per step) and a flat one
+                without; --resume of a --save-model file at --epochs 0;
+                seconds per epoch and archive bytes;
+9. cnn_variants — 20 steps of --conv-impl im2col_c1 and im2col against
+                conv (dropout off, deterministic cuDNN, TF32 off), and two
+                epochs of --bf16 --pallas-opt (epoch-1 accuracy floor)
+                beside resume's two f32 epochs;
+10. times     — each kernel, its plain version and the nearest library
                 call, with CUDA events, beside the least time the card
                 could take; adadelta with the L2 flushed before each call;
                 int8_head at n = 1, 8, 128 per call and back to back (100
@@ -55,24 +69,27 @@ Phases, one JSON line each:
                 with fc1's weight as a row-major copy and as the
                 column-major view; and at n = 8 at the shapes past one
                 K-pass or h-tile;
-9. train_profile — where a training step's time goes: the loader alone,
+11. train_profile — where a training step's time goes: the loader alone,
                 then 100 steps, plain and --pallas-opt, under
-                torch.profiler (wall and device-busy time per step);
-10. vit_step  — the ViT (vit_mnist.py defaults), 20 train steps from one set
+                torch.profiler (wall and device-busy time per step), and
+                --pallas-opt again without deterministic cuDNN and under
+                --bf16 with and without it; seconds per epoch of the
+                --pallas-opt steps with and without it, in turns;
+12. vit_step  — the ViT (vit_mnist.py defaults), 20 train steps from one set
                 of weights on fixed batches, seven ways: plain, --flash,
                 --sp 1 --allow-degree-1 --flash, --flash --remat, and with
                 --bf16 plain, --flash, --sp 1 --allow-degree-1 --flash; each
                 dtype's runs must agree and launch the kernel once per
                 attention call;
-11. vit_train — the ViT CLI's fit() on the synthetic sets at the CLI
+13. vit_train — the ViT CLI's fit() on the synthetic sets at the CLI
                 defaults: one epoch each of --flash, --sp 1
                 --allow-degree-1 --flash, --bf16 --flash and --bf16 --sp 1
                 --allow-degree-1 --flash (epoch-1 accuracy floor, launches
                 equal to the attention calls);
-12. vit_profile — where a ViT step's time goes: 100 steps, plain, --flash,
+14. vit_profile — where a ViT step's time goes: 100 steps, plain, --flash,
                 --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
                 torch.profiler;
-13. times     — flash_attention in both modes and both dtypes, its plain
+15. times     — flash_attention in both modes and both dtypes, its plain
                 version and scaled_dot_product_attention (and the backend
                 it picks) in the same dtype, at the ViT's and long shapes
                 and at d = 160 and 256;
@@ -83,8 +100,9 @@ Phases, one JSON line each:
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
 each main path and read just after it: int8_head over phases 4-5 (the
-serving path), adadelta over phases 6-7 (the training path),
-flash_attention over phases 10-11 (the ViT training path).  Latencies,
+serving path), adadelta over phases 6-9 (the CNN training path, resumed
+runs included), flash_attention over phases 12-13 (the ViT training
+path).  Latencies,
 seconds per epoch and images/s are smoke readings of this script's own
 work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -100,6 +118,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -149,6 +168,16 @@ TRAIN_STEPS = 20  # train_step phase
 PROFILE_STEPS = 100  # train_profile phase
 TRAIN_STEP_RTOL = 1e-5  # three optimizer paths, deterministic cuDNN
 EPOCH1_MIN_ACCURACY = 0.95
+# resume phase, legs (c) and (d): 100 steps an epoch at batch 64.
+RESUME_LIMIT = 6400
+# cnn_variants phase: the im2col lowerings against cuDNN's conv after
+# TRAIN_STEPS steps at lr 1.0, dropout off, TF32 off, deterministic cuDNN.
+# The same products summed in another order, and Adadelta amplifies the
+# last-ulp differences step by step: on the CPU the port's im2col reads
+# 1.8e-4 relative in the loss and 1.0e-3 in the parameters after 20 steps
+# (the 8-step gate of tests/test_torch_net_variants.py is rtol 2e-4).  A
+# wrong patch order is off by more than 1e-1.
+VARIANT_LOSS_RTOL, VARIANT_LOSS_ATOL, VARIANT_PARAM_ATOL = 1e-3, 2e-5, 5e-3
 L2_FLUSH_BYTES = 256 << 20  # > 5x the 50 MB L2
 # Per element: 14 flops for the delta mode, 16 with p -= lr * delta; bytes
 # read once and written once: g, sq, ac in and delta, sq, ac out (24), or
@@ -521,12 +550,14 @@ def train_step_phase(torch, np) -> dict[str, int]:
     init = Net(torch.Generator().manual_seed(SEED)).state_dict()
     runs = {}
     deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     try:
-        for run in ("plain", "fused", "delta"):
+        # The delta kernel's steps twice more with cuDNN free to pick a
+        # non-deterministic algorithm: whether they repeat bit for bit.
+        for run in ("plain", "fused", "delta", "delta_free", "delta_free_again"):
+            torch.backends.cudnn.deterministic = not run.startswith("delta_free")
             net = Net().cuda()
             net.load_state_dict(init)
-            if run == "delta":
+            if run.startswith("delta"):
                 state = make_train_state(net, use_pallas=True)
             else:
                 state = TrainState(opt=adadelta_init(dict(net.named_parameters())))
@@ -549,12 +580,16 @@ def train_step_phase(torch, np) -> dict[str, int]:
     check(plain["losses"][-1] < plain["losses"][0], "plain train_step did not learn")
     check(plain["launches"] == {"adadelta_delta": 0, "adadelta_fused": 0},
           f"plain update launched a kernel: {plain['launches']}")
-    want = {"fused": {"adadelta_delta": 0, "adadelta_fused": TRAIN_STEPS},
-            "delta": {"adadelta_delta": TRAIN_STEPS, "adadelta_fused": 0}}
+    delta = {"adadelta_delta": TRAIN_STEPS, "adadelta_fused": 0}
+    want = {"fused": {"adadelta_delta": 0, "adadelta_fused": TRAIN_STEPS}, "delta": delta,
+            "delta_free": delta, "delta_free_again": delta}
+    for run, w in want.items():
+        check(runs[run]["launches"] == w, f"{run} launches {runs[run]['launches']} != {w}")
+    free, again = runs["delta_free"]["params"], runs["delta_free_again"]["params"]
+    free_repeats = all(np.array_equal(free[k], again[k]) for k in free)
     report = {}
     for run in ("fused", "delta"):
         r = runs[run]
-        check(r["launches"] == want[run], f"{run} launches {r['launches']} != {want[run]}")
         loss_diff = float(np.abs(r["losses"] - plain["losses"]).max())
         param_diff = max(float(np.abs(r["params"][k] - plain["params"][k]).max())
                          for k in plain["params"])
@@ -567,7 +602,8 @@ def train_step_phase(torch, np) -> dict[str, int]:
                        "launches": r["launches"], "seconds": r["seconds"]}
     emit({"phase": "train_step", "steps": TRAIN_STEPS, "rtol": TRAIN_STEP_RTOL,
           "plain_first_last_loss": [float(plain["losses"][0]), float(plain["losses"][-1])],
-          "plain_seconds": plain["seconds"], "vs_plain": report})
+          "plain_seconds": plain["seconds"], "vs_plain": report,
+          "delta_without_deterministic_cudnn_repeats_bit_for_bit": free_repeats})
     return {k: sum(r["launches"][k] for r in runs.values()) for k in plain["launches"]}
 
 
@@ -575,29 +611,41 @@ TRAIN_LINE = re.compile(r"^Train Epoch: (\d+) \[(\d+)/(\d+) \((\d+)%\)\]\tLoss: 
 TEST_LINE = re.compile(r"^Test set: Average loss: (\d+\.\d{4}), Accuracy: (\d+)/(\d+) \((\d+)%\)$")
 
 
-def train_phase(torch) -> dict[str, int]:
-    """fit() on the card, --pallas-opt for two epochs then plain for one;
-    returns the adadelta launches of the phase."""
+def fit_run(flags: list[str], save_path: str | None = None) -> dict:
+    """The trainer's fit() on the card with mnist.py's ``flags``: the
+    model, its state, the printed lines, fit's timings, the wall seconds
+    and the adadelta launches of the run."""
     from pytorch_mnist_ddp_tpu_torch.mnist import build_parser
     from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
     from pytorch_mnist_ddp_tpu_torch.trainer import fit
+
+    args = build_parser().parse_args(flags)
+    timings: dict = {}
+    before = dict(af.LAUNCHES)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model, state = fit(args, "cuda", save_path=save_path, timings=timings)
+    return {"args": args, "model": model, "state": state, "timings": timings,
+            "lines": [ln for ln in out.getvalue().splitlines() if ln],
+            "wall": time.perf_counter() - t0,
+            "launches": {k: af.LAUNCHES[k] - before[k] for k in before}}
+
+
+def train_phase(torch) -> dict[str, int]:
+    """fit() on the card, --pallas-opt for two epochs then plain for one;
+    returns the adadelta launches of the phase."""
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
 
     launches = {k: 0 for k in af.LAUNCHES}
     legs = {}
     for leg, flags in (("pallas_opt", ["--epochs", "2", "--pallas-opt"]),
                        ("plain", ["--epochs", "1"])):
-        args = build_parser().parse_args(flags)
-        timings: dict = {}
-        before = dict(af.LAUNCHES)
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            model, state = fit(args, "cuda", timings=timings)
-        wall = time.perf_counter() - t0
-        got = {k: af.LAUNCHES[k] - before[k] for k in before}
+        run = fit_run(flags)
+        args, model, state, timings = run["args"], run["model"], run["state"], run["timings"]
+        wall, got, lines = run["wall"], run["launches"], run["lines"]
         for k in launches:
             launches[k] += got[k]
-        lines = [ln for ln in out.getvalue().splitlines() if ln]
         train = [TRAIN_LINE.match(ln) for ln in lines if ln.startswith("Train Epoch")]
         tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
         check(all(train) and all(tests), f"{leg}: malformed lines")
@@ -630,6 +678,181 @@ def train_phase(torch) -> dict[str, int]:
             "wall_seconds": wall, "launches": got,
         }
     emit({"phase": "train", "legs": legs})
+    return launches
+
+
+def same_run(torch, a: dict, b: dict) -> dict[str, bool]:
+    """torch.equal of two fit() runs' parameters, each accumulator and step."""
+    pa, pb = dict(a["model"].named_parameters()), dict(b["model"].named_parameters())
+    sa, sb = a["state"], b["state"]
+    return {"params": list(pa) == list(pb) and all(torch.equal(pa[k], pb[k]) for k in pa),
+            "square_avg": torch.equal(sa.opt.square_avg, sb.opt.square_avg),
+            "acc_delta": torch.equal(sa.opt.acc_delta, sb.opt.acc_delta),
+            "step": sa.step == sb.step}
+
+
+def resume_phase(torch, workdir: str) -> tuple[dict[str, int], list[float]]:
+    """--save-state / --resume-state / --resume through fit() on the card,
+    CNN at the CLI defaults with --pallas-opt on the synthetic 60k set:
+    (a) two epochs; (b) one epoch with --save-state, then --resume-state
+    for one, equal to (a) bit for bit; (c) a per-leaf archive resumed with
+    --pallas-opt (the delta kernel on the restored accumulators) and that
+    run's flat archive resumed without; (d) --resume from a --save-model
+    file at --epochs 0.  Returns the adadelta launches of the phase and
+    (a)'s seconds per epoch."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import load_inference_state
+
+    path = os.path.join(workdir, "state.npz")
+    full = fit_run(["--epochs", "2", "--pallas-opt"])
+    first = fit_run(["--epochs", "1", "--pallas-opt", "--save-state", path])
+    archive_bytes = os.path.getsize(path)
+    resumed = fit_run(["--epochs", "1", "--pallas-opt", "--resume-state", path])
+    equal = same_run(torch, full, resumed)
+    epoch2 = [ln for ln in full["lines"] if ln.startswith(("Train Epoch: 2 ", "Test set"))][1:]
+    report = {
+        "equal_to_uninterrupted": equal,
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
+        "archive_bytes": archive_bytes,
+        "seconds_per_epoch": {"uninterrupted": full["timings"]["epoch_train_s"],
+                              "first": first["timings"]["epoch_train_s"],
+                              "resumed": resumed["timings"]["epoch_train_s"]},
+        "wall_seconds": {"uninterrupted": full["wall"], "first": first["wall"],
+                         "resumed": resumed["wall"]},
+        "steps": {"uninterrupted": full["state"].step, "resumed": resumed["state"].step},
+    }
+    # (c) and (d), cut to RESUME_LIMIT samples
+    limit = ["--epochs", "1", "--train-limit", str(RESUME_LIMIT)]
+    leaf, flat, model_pt = (os.path.join(workdir, n) for n in ("leaf.npz", "flat.npz", "m.pt"))
+    saved = fit_run(limit + ["--save-state", leaf, "--save-model"], save_path=model_pt)
+    to_flat = fit_run(limit + ["--pallas-opt", "--resume-state", leaf, "--save-state", flat])
+    to_leaf = fit_run(limit + ["--resume-state", flat])
+    loaded = fit_run(["--epochs", "0", "--resume", model_pt])
+    want = load_inference_state(model_pt)
+    got = {k: v.cpu() for k, v in loaded["model"].state_dict().items()}
+    resumed_steps = sum(to_flat["timings"]["epoch_steps"])
+    report["layouts"] = {
+        "per_leaf_archive_bytes": os.path.getsize(leaf),
+        "per_leaf_to_pallas_opt": {"steps": resumed_steps, "launches": to_flat["launches"]},
+        "flat_to_plain": {"steps": sum(to_leaf["timings"]["epoch_steps"]),
+                          "launches": to_leaf["launches"]},
+    }
+    report["resume_model_equal"] = sorted(got) == sorted(want) and all(
+        torch.equal(got[k], want[k]) for k in want)
+    emit({"phase": "resume", **report})
+
+    check(all(equal.values()), f"--resume-state run off the uninterrupted one: {equal}")
+    check(any(ln.startswith("Train Epoch: 2 ") for ln in resumed["lines"])
+          and not any(ln.startswith("Train Epoch: 1 ") for ln in resumed["lines"]),
+          "the resumed run does not log epoch 2")
+    check([ln for ln in resumed["lines"] if not ln.startswith("MNIST IDX")] == epoch2,
+          "the resumed run's lines are not the uninterrupted run's epoch 2")
+    check(to_flat["launches"] == {"adadelta_delta": resumed_steps, "adadelta_fused": 0},
+          f"per-leaf archive under --pallas-opt: launches {to_flat['launches']} for "
+          f"{resumed_steps} resumed steps")
+    check(to_flat["state"].step == saved["state"].step + resumed_steps,
+          "the per-leaf archive's step counter did not continue")
+    check(to_leaf["launches"] == {"adadelta_delta": 0, "adadelta_fused": 0},
+          f"flat archive without --pallas-opt launched {to_leaf['launches']}")
+    for run in (to_flat, to_leaf):
+        check(all(bool(torch.isfinite(p).all()) for p in run["model"].parameters()),
+              "a resumed layout leg's parameters are non-finite")
+    check(report["resume_model_equal"], "--resume at --epochs 0 off the file's parameters")
+    check(loaded["state"].step == 0 and loaded["launches"]["adadelta_delta"] == 0,
+          "--resume at --epochs 0 took steps")
+    launches = {}
+    for run in (full, first, resumed, saved, to_flat, to_leaf, loaded):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    steps = full["state"].step + first["state"].step + resumed_steps + (
+        resumed["state"].step - first["state"].step)
+    check(launches == {"adadelta_delta": steps, "adadelta_fused": 0},
+          f"resume phase launches {launches}, --pallas-opt steps {steps}")
+    return launches, full["timings"]["epoch_train_s"]
+
+
+def cnn_variants_phase(torch, np, f32_epoch_s: list[float]) -> dict[str, int]:
+    """--conv-impl and --bf16 on the card: TRAIN_STEPS steps of each
+    conv_impl from one set of weights on fixed batches (dropout off,
+    deterministic cuDNN, the delta kernel), the im2col ones held to cuDNN's
+    conv; then two epochs of --bf16 --pallas-opt through fit() with the
+    f32 accuracy floor after the first (the first epoch is the process's
+    first bf16 convolution work), beside resume's two f32 --pallas-opt
+    epochs.  Returns the adadelta launches of the phase."""
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
+    from pytorch_mnist_ddp_tpu_torch.models.net import CONV_IMPLS, Net
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
+
+    batch = 64
+    images, labels = synthetic_mnist("train", TRAIN_STEPS * batch)
+    xs = torch.from_numpy(normalize(images)).cuda().reshape(TRAIN_STEPS, batch, 28, 28, 1)
+    ys = torch.from_numpy(labels.astype(np.int64)).cuda().reshape(TRAIN_STEPS, batch)
+    w = torch.ones(batch, device="cuda")
+    init = Net(torch.Generator().manual_seed(SEED)).state_dict()
+    runs = {}
+    launches = {k: 0 for k in af.LAUNCHES}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for impl in CONV_IMPLS:
+            net = Net().cuda()
+            net.load_state_dict(init)
+            state = make_train_state(net, use_pallas=True)
+            step = make_train_step(dropout=False, use_pallas=True, conv_impl=impl)
+            before = dict(af.LAUNCHES)
+            t0 = time.perf_counter()
+            losses = torch.stack([step(net, state, xs[i], ys[i], w, 1.0)
+                                  for i in range(TRAIN_STEPS)])
+            torch.cuda.synchronize()
+            got = {k: af.LAUNCHES[k] - before[k] for k in before}
+            check(got == {"adadelta_delta": TRAIN_STEPS, "adadelta_fused": 0},
+                  f"conv_impl {impl} launches {got}")
+            for k in launches:
+                launches[k] += got[k]
+            runs[impl] = {"seconds": time.perf_counter() - t0, "losses": losses.cpu().numpy(),
+                          "params": {k: v.detach().cpu().numpy()
+                                     for k, v in net.state_dict().items()}}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    conv = runs["conv"]
+    check(np.isfinite(conv["losses"]).all() and conv["losses"][-1] < conv["losses"][0],
+          "conv steps did not learn")
+    report = {}
+    for impl in CONV_IMPLS[1:]:
+        r = runs[impl]
+        ok_loss = np.allclose(r["losses"], conv["losses"], rtol=VARIANT_LOSS_RTOL,
+                              atol=VARIANT_LOSS_ATOL)
+        ok_params = all(np.allclose(r["params"][k], conv["params"][k], rtol=0,
+                                    atol=VARIANT_PARAM_ATOL) for k in conv["params"])
+        report[impl] = {
+            "max_abs_loss_diff": float(np.abs(r["losses"] - conv["losses"]).max()),
+            "max_rel_loss_diff": float((np.abs(r["losses"] - conv["losses"])
+                                        / np.abs(conv["losses"])).max()),
+            "max_abs_param_diff": max(float(np.abs(r["params"][k] - conv["params"][k]).max())
+                                      for k in conv["params"]),
+            "seconds": r["seconds"], "within_gate": ok_loss and ok_params}
+    bf16 = fit_run(["--epochs", "2", "--bf16", "--pallas-opt"])
+    steps = sum(bf16["timings"]["epoch_steps"])
+    acc1 = bf16["timings"]["epoch1_test_accuracy"]
+    emit({"phase": "cnn_variants", "steps": TRAIN_STEPS,
+          "gate": {"loss_rtol": VARIANT_LOSS_RTOL, "loss_atol": VARIANT_LOSS_ATOL,
+                   "param_atol": VARIANT_PARAM_ATOL},
+          "conv_seconds": conv["seconds"], "vs_conv": report,
+          "bf16": {"epoch1_test_accuracy": acc1,
+                   "seconds_per_epoch": bf16["timings"]["epoch_train_s"],
+                   "f32_seconds_per_epoch": f32_epoch_s,
+                   "launches": bf16["launches"], "steps": steps}})
+    for impl, r in report.items():
+        check(r["within_gate"], f"conv_impl {impl} off cuDNN's conv: {r}")
+    check(bf16["launches"] == {"adadelta_delta": steps, "adadelta_fused": 0},
+          f"--bf16 --pallas-opt launches {bf16['launches']} for {steps} steps")
+    check(acc1 >= EPOCH1_MIN_ACCURACY, f"--bf16 epoch-1 test accuracy {acc1} < "
+          f"{EPOCH1_MIN_ACCURACY}")
+    for k in launches:
+        launches[k] += bf16["launches"][k]
     return launches
 
 
@@ -737,22 +960,54 @@ def train_profile_phase(torch, np) -> None:
     """Where a training step's time goes, for the plain update and the
     delta kernel: the loader alone over one epoch, then PROFILE_STEPS
     steps on fixed batches under torch.profiler (wall per step, device
-    busy time per step, kernel launches per step, the top kernels)."""
+    busy time per step, kernel launches per step, the top kernels), with
+    deterministic cuDNN as the trainer sets it; the delta kernel's steps
+    once more with cuDNN free to pick a non-deterministic algorithm, and
+    under --bf16, with and without it; then whole epochs of the delta
+    kernel's steps with and without it, in turns: what determinism
+    costs."""
     from pytorch_mnist_ddp_tpu_torch.models.net import Net
     from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
     from pytorch_mnist_ddp_tpu_torch.utils.rng import split_streams
 
     batches, loader_s = loader_batches(torch)
     report = {"loader_seconds_per_epoch": loader_s, "loader_batches": len(batches)}
-    for name, pallas in (("plain", False), ("pallas_opt", True)):
-        net = Net(torch.Generator().manual_seed(SEED)).cuda()
-        state = make_train_state(net, use_pallas=pallas)
-        step = make_train_step(use_pallas=pallas, dropout_seed=split_streams(1)["dropout"])
-        for x, y, w in batches[:10]:  # warm-up
-            step(net, state, x, y, w, 1.0)
-        torch.cuda.synchronize()
-        report[name] = profile_window(torch, batches[10:10 + PROFILE_STEPS],
-                                      lambda x, y, w: step(net, state, x, y, w, 1.0))
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for name, pallas, det, dtype in (
+                ("plain", False, True, torch.float32), ("pallas_opt", True, True, torch.float32),
+                ("pallas_opt_nondeterministic", True, False, torch.float32),
+                ("pallas_opt_bf16", True, True, torch.bfloat16),
+                ("pallas_opt_bf16_nondeterministic", True, False, torch.bfloat16)):
+            torch.backends.cudnn.deterministic = det
+            net = Net(torch.Generator().manual_seed(SEED)).cuda()
+            state = make_train_state(net, use_pallas=pallas)
+            step = make_train_step(use_pallas=pallas, dropout_seed=split_streams(1)["dropout"],
+                                   compute_dtype=dtype)
+            for x, y, w in batches[:10]:  # warm-up
+                step(net, state, x, y, w, 1.0)
+            torch.cuda.synchronize()
+            report[name] = profile_window(torch, batches[10:10 + PROFILE_STEPS],
+                                          lambda x, y, w: step(net, state, x, y, w, 1.0))
+        # Seconds per epoch of the delta kernel's steps over the epoch's
+        # batches with and without deterministic cuDNN, in turns (ABBA),
+        # each from fresh weights: what determinism costs end to end.
+        epoch_s: dict[bool, list[float]] = {True: [], False: []}
+        for det in (True, False, False, True):
+            torch.backends.cudnn.deterministic = det
+            net = Net(torch.Generator().manual_seed(SEED)).cuda()
+            state = make_train_state(net, use_pallas=True)
+            step = make_train_step(use_pallas=True, dropout_seed=split_streams(1)["dropout"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x, y, w in batches:
+                step(net, state, x, y, w, 1.0)
+            torch.cuda.synchronize()
+            epoch_s[det].append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    report["pallas_opt_seconds_per_epoch"] = {"deterministic": epoch_s[True],
+                                              "nondeterministic": epoch_s[False]}
     emit({"phase": "train_profile", **report})
 
 
@@ -1424,25 +1679,28 @@ def main() -> int:
           "completed": metrics.completed, "rounds": rounds,
           "launches_main_path": {"int8_head": launches}})
 
-    # 6 + 7. the training path; adadelta launch counts cover these two
+    # 6-9. the training path; adadelta launch counts cover these four
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
-    step_launches = train_step_phase(torch, np)
-    fit_launches = train_phase(torch)
+    by_phase = {"train_step": train_step_phase(torch, np), "train": train_phase(torch)}
+    with tempfile.TemporaryDirectory() as workdir:
+        by_phase["resume"], f32_epoch_s = resume_phase(torch, workdir)
+    by_phase["cnn_variants"] = cnn_variants_phase(torch, np, f32_epoch_s)
     train_launches = dict(af.LAUNCHES)
-    check(train_launches == {k: step_launches[k] + fit_launches[k] for k in train_launches},
-          f"adadelta launches {train_launches} outside the two training phases")
+    check(train_launches == {k: sum(p[k] for p in by_phase.values()) for k in train_launches},
+          f"adadelta launches {train_launches} outside the four training phases")
     for k, v in train_launches.items():
         check(v > 0, f"the training path never launched {k}")
+    check(by_phase["resume"]["adadelta_delta"] > 0, "no delta kernel launch on restored state")
 
-    # 8. times: int8_head at one row and the ladder's small and top
-    # buckets, adadelta at the model's parameter count
+    # 10. times: int8_head at one row and the ladder's small and top
+    # buckets, adadelta at the model's parameter count; 11. train_profile
     by_n, _ = head_times(torch, fc1, fc2, feats)
     head_shapes = head_shape_times(torch, np)
     ada_times = adadelta_times(torch, np)
     train_profile_phase(torch, np)
 
-    # 10 + 11. the ViT training path; flash launch counts cover these two
+    # 12 + 13. the ViT training path; flash launch counts cover these two
     for k in fa.LAUNCHES:
         fa.LAUNCHES[k] = 0
     vit_step_launches, vit_step_bf16 = vit_step_phase(torch, np)
@@ -1455,7 +1713,7 @@ def main() -> int:
         check(v > 0, f"the ViT training path never launched {k}")
         check(vit_bf16_launches[k] > 0, f"the --bf16 ViT path never launched {k}")
 
-    # 12. where a ViT step's time goes; 13. flash attention times
+    # 14. where a ViT step's time goes; 15. flash attention times
     vit_profile_phase(torch)
     flash_t = flash_times(torch, np)
     top = by_n[str(TIMED_ROWS[-1])]
@@ -1477,6 +1735,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/adadelta.cu",
             "replaces": ADADELTA_REPLACES[name], "launches": train_launches[name],
+            "launches_by_phase": {phase: n[name] for phase, n in by_phase.items()},
             "max_abs_err": adadelta_err[name], **t,
         })
     train_shape = FLASH_MAIN["train"]

@@ -23,8 +23,8 @@ Batch = tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, y, weight)
 
 
 class DataLoader:
-    """``epoch(e)`` yields ``(x f32 [b, 28, 28, 1], y int64 [b], w f32
-    [b])`` on ``device``."""
+    """``epoch(e[, start_batch])`` yields ``(x f32 [b, 28, 28, 1], y int64
+    [b], w f32 [b])`` on ``device``."""
 
     def __init__(
         self,
@@ -67,12 +67,12 @@ class DataLoader:
         return x, y, w
 
     def _host_batches(
-        self, epoch: int
+        self, epoch: int, start_batch: int = 0
     ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         idx = epoch_indices(
             len(self.labels), epoch=epoch, seed=self.seed, shuffle=self.shuffle
         )
-        for b in range(len(self)):
+        for b in range(start_batch, len(self)):
             yield self._assemble(idx, b)
 
     def _place(self, a: np.ndarray) -> torch.Tensor:
@@ -83,6 +83,9 @@ class DataLoader:
         # the block until the asynchronous copy that reads it has finished.
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def epoch(self, epoch: int) -> Iterator[Batch]:
-        for host_batch in self._host_batches(epoch):
+    def epoch(self, epoch: int, start_batch: int = 0) -> Iterator[Batch]:
+        """The batches of ``epoch`` from batch ``start_batch`` on: a
+        resumed run skips the first ones without assembling them and
+        consumes exactly the rest of the epoch's permutation."""
+        for host_batch in self._host_batches(epoch, start_batch):
             yield tuple(self._place(a) for a in host_batch)  # type: ignore[misc]

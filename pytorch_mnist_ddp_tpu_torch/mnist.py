@@ -8,7 +8,8 @@ the CPU, and raises without a card otherwise.  The flags it takes are a
 subset of ``mnist.py``'s, with the same names, defaults and meaning;
 argparse refuses the others.  The printed lines are ``mnist.py``'s, byte
 for byte, and ``--save-model`` writes ``mnist_cnn.pt``.  Training always
-shuffles, as the JAX package does.
+shuffles, as the JAX package does.  ``--save-state`` archives are the
+JAX package's format: either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -44,9 +45,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batches between train log lines (default: 10)")
     p.add_argument("--save-model", action="store_true", default=False,
                    help="save the final model checkpoint")
+    p.add_argument("--resume", type=str, default=None, metavar="PATH",
+                   help="load model parameters from a saved checkpoint (.pt "
+                        "or .npz) and continue training; the optimizer "
+                        "starts fresh (the checkpoint format stores only the "
+                        "model, like the reference's); BatchNorm checkpoints "
+                        "are refused")
+    p.add_argument("--save-state", type=str, default=None, metavar="PATH",
+                   help="save the FULL training state (params, Adadelta "
+                        "accumulators, step/epoch counters) at the end of "
+                        "the run, in the JAX package's archive format; "
+                        "--resume-state continues from it bit-identically")
+    p.add_argument("--resume-state", type=str, default=None, metavar="PATH",
+                   help="restore a --save-state archive (of either package) "
+                        "and train --epochs MORE epochs, continuing the LR "
+                        "schedule, shuffle stream, and epoch numbering "
+                        "exactly where the saved run stopped")
+    p.add_argument("--conv-impl", type=str, default="conv",
+                   choices=["conv", "im2col_c1", "im2col"],
+                   help="convolution lowering (models/net.py): cuDNN's "
+                        "native conv (default), or GEMM-lowered via im2col "
+                        "for conv1 only / both convs; same params, same "
+                        "math, different reduction tree")
     p.add_argument("--pallas-opt", action="store_true", default=False,
                    help="use the fused Adadelta kernel for the optimizer "
                         "update (ops/adadelta_flat.py, csrc/adadelta.cu)")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 activations/matmuls (params, optimizer "
+                        "state, and log_softmax/NLL stay fp32)")
     p.add_argument("--data-root", type=str, default="./data",
                    help="MNIST IDX directory")
     p.add_argument("--train-limit", type=int, default=0, metavar="N",

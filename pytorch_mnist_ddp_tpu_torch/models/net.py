@@ -10,6 +10,19 @@ fc1 columns in NCHW flatten order), so a ``.pt`` written by the JAX
 package's ``--save-model`` loads with ``load_state_dict`` as it is.  The
 public input contract stays the JAX one — ``[n, 28, 28, 1]`` float32,
 channels last — and the forward moves the (size-1) channel axis itself.
+
+The forward takes the JAX ``Net``'s two run options (``--conv-impl``,
+``--bf16``) as arguments; the parameters are the same under all of them:
+
+- ``conv_impl``: ``"conv"`` (cuDNN's convolution), ``"im2col_c1"`` (conv1
+  as patch extraction plus one matmul) or ``"im2col"`` (both convs so);
+  the same products summed in another order.  The patch features are
+  ordered (C, kh, kw), the order of an OIHW weight's flatten (JAX's
+  ``Im2colConv`` orders (kh, kw, C) for its HWIO kernel).
+- ``compute_dtype``: with ``torch.bfloat16`` the input is cast to bf16,
+  each float32 weight and bias is cast at use, convs, dropout and linears
+  run in bf16 with the bias added after the product (flax adds it apart),
+  and ``log_softmax`` runs in float32; parameters stay float32.
 """
 
 from __future__ import annotations
@@ -26,6 +39,9 @@ NUM_CLASSES = 10
 
 DROPOUT1_RATE = 0.25
 DROPOUT2_RATE = 0.5
+
+# Net's conv_impl values (the JAX package's CONV_IMPLS).
+CONV_IMPLS = ("conv", "im2col_c1", "im2col")
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +85,30 @@ def dropout(
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _conv(layer: nn.Conv2d, x: torch.Tensor, im2col: bool) -> torch.Tensor:
+    """``layer`` (VALID, stride 1) on ``x`` in ``x``'s dtype: the module's
+    own call for float32 cuDNN, else the product and then the bias."""
+    if not im2col and x.dtype == layer.weight.dtype:
+        return layer(x)
+    w, b = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
+    if im2col:
+        n, _, h, wd = x.shape
+        out, _, kh, kw = w.shape
+        cols = F.unfold(x, (kh, kw))  # [n, C*kh*kw, L], features (C, kh, kw)
+        y = torch.matmul(w.reshape(out, -1), cols).view(n, out, h - kh + 1, wd - kw + 1)
+    else:
+        y = F.conv2d(x, w)
+    return y + b.view(-1, 1, 1)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on ``x`` in ``x``'s dtype, the bias added after the
+    product when the weight is cast."""
+    if x.dtype == layer.weight.dtype:
+        return layer(x)
+    return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
+
+
 class Net(nn.Module):
     """2-conv MNIST CNN.  Input ``[n, 28, 28, 1]`` float32; output
     ``[n, 10]`` float32 log-probabilities.
@@ -90,17 +130,24 @@ class Net(nn.Module):
         torch_reset_uniform_(self, generator)
 
     def forward(
-        self, x: torch.Tensor, dropout_generator: torch.Generator | None = None
+        self,
+        x: torch.Tensor,
+        dropout_generator: torch.Generator | None = None,
+        conv_impl: str = "conv",
+        compute_dtype: torch.dtype = torch.float32,
     ) -> torch.Tensor:
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl {conv_impl!r} not in {CONV_IMPLS}")
         drop = self.training and dropout_generator is not None
-        x = F.relu(self.conv1(to_nchw(x)))
-        x = F.relu(self.conv2(x))
+        x = to_nchw(x).to(compute_dtype)
+        x = F.relu(_conv(self.conv1, x, conv_impl in ("im2col_c1", "im2col")))
+        x = F.relu(_conv(self.conv2, x, conv_impl == "im2col"))
         x = F.max_pool2d(x, 2)
         if drop:
             x = dropout(x, DROPOUT1_RATE, dropout_generator)
         x = torch.flatten(x, 1)  # [n, 9216], C*H*W order
-        x = F.relu(self.fc1(x))
+        x = F.relu(_linear(self.fc1, x))
         if drop:
             x = dropout(x, DROPOUT2_RATE, dropout_generator)
-        x = self.fc2(x)
+        x = _linear(self.fc2, x)
         return F.log_softmax(x.float(), dim=-1)

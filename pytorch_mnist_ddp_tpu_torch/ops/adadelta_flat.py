@@ -16,7 +16,9 @@ one launch of ``csrc/adadelta.cu`` with an ``apply_lr`` flag:
 
 The flat order is ``named_parameters()`` order (OIHW convs), one 1-D f32
 buffer of N elements with no lane padding; it is the port's own and is not
-the JAX package's ``ravel_pytree`` order.
+the JAX package's ``ravel_pytree`` order (``utils/convert.py`` maps an
+archive's buffer between the two).  :func:`ensure_opt_layout` converts
+between the flat and per-parameter layouts to match what a run executes.
 
 For CPU tensors the wrappers run :func:`adadelta_flat_reference`, the
 plain PyTorch version (``ops/adadelta.py``'s op order); for CUDA tensors
@@ -220,6 +222,27 @@ def adadelta_update_pallas(
                           (params, state.square_avg, state.acc_delta)):
         _unravel_into(flat, tree)
     return params, state
+
+
+def ensure_opt_layout(
+    opt: AdadeltaState | FlatAdadeltaState, params: Params, use_pallas: bool
+) -> AdadeltaState | FlatAdadeltaState:
+    """Accumulators in the layout this run executes: flat with
+    ``use_pallas`` (the delta kernel on the card, its plain version on the
+    CPU), per parameter without; the JAX package's ``ensure_opt_layout``.
+    Both layouts hold the same values in the port's order; an archive
+    saved under one flag resumes under the other."""
+    if is_flat_state(opt) == bool(use_pallas):
+        return opt
+    if use_pallas:
+        return FlatAdadeltaState(square_avg=_ravel(opt.square_avg),
+                                 acc_delta=_ravel(opt.acc_delta))
+    trees = []
+    for flat in (opt.square_avg, opt.acc_delta):
+        tree = {k: torch.empty_like(p) for k, p in params.items()}
+        _unravel_into(flat, tree)
+        trees.append(tree)
+    return AdadeltaState(*trees)
 
 
 def adadelta_update_best(

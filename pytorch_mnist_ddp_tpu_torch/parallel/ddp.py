@@ -56,9 +56,13 @@ def forward_loss(
     y: torch.Tensor,
     w: torch.Tensor,
     dropout_generator: torch.Generator | None,
+    compute_dtype: torch.dtype = torch.float32,
+    conv_impl: str = "conv",
 ) -> torch.Tensor:
-    """Train-mode forward and the masked-mean NLL."""
-    return nll_loss(model(x, dropout_generator), y, w, reduction="mean")
+    """Train-mode forward and the masked-mean NLL (float32 log-probs
+    whatever ``compute_dtype``)."""
+    log_probs = model(x, dropout_generator, conv_impl, compute_dtype)
+    return nll_loss(log_probs, y, w, reduction="mean")
 
 
 def make_train_step(
@@ -67,10 +71,13 @@ def make_train_step(
     dropout_seed: int = 0,
     rho: float = 0.9,
     eps: float = 1e-6,
+    compute_dtype: torch.dtype = torch.float32,
+    conv_impl: str = "conv",
 ) -> Callable[..., torch.Tensor]:
     """``train_step(model, state, x, y, w, lr) -> loss``.  With
     ``dropout``, step ``state.step`` draws its masks from a generator on
-    x's device seeded with ``fold_step(dropout_seed, state.step)``."""
+    x's device seeded with ``fold_step(dropout_seed, state.step)``.
+    ``compute_dtype`` and ``conv_impl`` are the forward's (``models/net.py``)."""
     generators: dict[torch.device, torch.Generator] = {}
 
     def train_step(model: Net, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
@@ -82,7 +89,7 @@ def make_train_step(
             gen.manual_seed(fold_step(dropout_seed, state.step))
         model.train()
         params = dict(model.named_parameters())
-        loss = forward_loss(model, x, y, w, gen)
+        loss = forward_loss(model, x, y, w, gen, compute_dtype, conv_impl)
         grads = torch.autograd.grad(loss, list(params.values()))
         adadelta_update_best(
             params, dict(zip(params, grads)), state.opt, lr, rho, eps,
@@ -131,6 +138,10 @@ def make_forward_eval_step(
     return eval_step
 
 
-def make_eval_step() -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
-    """The CNN's eval step: ``model(x)`` in eval mode."""
-    return make_forward_eval_step(lambda model, x: model(x))
+def make_eval_step(
+    compute_dtype: torch.dtype = torch.float32, conv_impl: str = "conv"
+) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+    """The CNN's eval step: ``model(x)`` in eval mode, with the forward's
+    ``compute_dtype`` and ``conv_impl``."""
+    return make_forward_eval_step(
+        lambda model, x: model(x, None, conv_impl, compute_dtype))

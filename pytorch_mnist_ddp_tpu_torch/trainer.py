@@ -2,10 +2,14 @@
 
 The body of the reference's ``mnist.py`` ``main()``: data, model,
 Adadelta, StepLR once per epoch, evaluation after every epoch, and
-``--save-model``.  The data and the epoch loop are shared with the ViT
-CLI (``vit_mnist.py``).  The printed lines are the JAX package's (and so
-the reference's), byte for byte.  The JAX package's other paths (resume,
-fused, DDP, telemetry, the resilient runtime) are not ported yet.
+``--save-model``; with the JAX package's ``--resume`` (parameters from a
+model checkpoint, a fresh optimizer), ``--save-state``/``--resume-state``
+(the whole training state, continued bit for bit, from a final or a
+mid-epoch archive of either package), ``--conv-impl`` and ``--bf16``.
+The data and the epoch loop are shared with the ViT CLI
+(``vit_mnist.py``).  The printed lines are the JAX package's (and so the
+reference's), byte for byte.  The JAX package's other paths (fused, DDP,
+telemetry, the resilient runtime) are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,9 +22,17 @@ from .data.loader import DataLoader
 from .data.mnist import MNIST
 from .device import resolve_device
 from .models.net import Net
+from .ops.adadelta import AdadeltaState
+from .ops.adadelta_flat import FlatAdadeltaState, ensure_opt_layout, is_flat_state
 from .ops.schedule import step_lr
 from .parallel.ddp import TrainState, make_eval_step, make_train_state, make_train_step
-from .utils.checkpoint import model_state_dict, save_state_dict
+from .utils.checkpoint import (
+    load_inference_state,
+    load_latest_train_state,
+    model_state_dict,
+    save_state_dict,
+    save_train_state,
+)
 from .utils.logging import test_summary_lines, train_log_line
 from .utils.rng import split_streams
 
@@ -34,12 +46,16 @@ def train_one_epoch(
     lr: float,
     log_interval: int = 10,
     dry_run: bool = False,
+    start_batch: int = 0,
 ) -> int:
     """One training epoch (reference ``train()``); returns the steps taken.
-    The loss is read from the device only on log steps."""
+    The loss is read from the device only on log steps.  ``start_batch``
+    resumes a mid-epoch archive at its batch cursor: batch numbering and
+    log lines go on as if the run had never stopped."""
     num_batches = len(loader)
     steps = 0
-    for batch_idx, (x, y, w) in enumerate(loader.epoch(epoch)):
+    for batch_idx, (x, y, w) in enumerate(loader.epoch(epoch, start_batch),
+                                          start=start_batch):
         loss = step_fn(model, state, x, y, w, lr)
         steps += 1
         if batch_idx % log_interval == 0:
@@ -105,18 +121,23 @@ def run_epochs(
     loaders: tuple[DataLoader, DataLoader],
     timings: dict | None = None,
     dry_run_eval: bool = False,
+    epoch0: int = 0,
+    start_batch: int = 0,
 ) -> None:
-    """``--epochs`` epochs of training, each followed by evaluation, with
-    StepLR (``--lr``, ``--gamma``) once per epoch.  With ``timings`` (a
+    """``--epochs`` epochs of training after ``epoch0`` completed ones, each
+    followed by evaluation, with StepLR (``--lr``, ``--gamma``) once per
+    epoch; the first starts at batch ``start_batch``.  With ``timings`` (a
     dict from :func:`make_loaders`) the run records per-epoch training
     seconds (``epoch_train_s``, the device synchronized at each end),
-    ``epoch_steps``, ``epoch1_test_accuracy`` and ``final_test_accuracy``."""
+    ``epoch_steps``, ``epoch1_test_accuracy`` (of the run's first epoch)
+    and ``final_test_accuracy``."""
     train_loader, test_loader = loaders
     lr_fn = step_lr(args.lr, args.gamma, step_size=1)
-    for epoch in range(1, args.epochs + 1):
+    for epoch in range(epoch0 + 1, epoch0 + args.epochs + 1):
         t0 = time.perf_counter()
         steps = train_one_epoch(step_fn, model, state, train_loader, epoch,
-                                lr_fn(epoch), args.log_interval, args.dry_run)
+                                lr_fn(epoch), args.log_interval, args.dry_run,
+                                start_batch if epoch == epoch0 + 1 else 0)
         if timings is not None:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -130,6 +151,52 @@ def run_epochs(
         # scheduler.step() is implicit: lr_fn(epoch + 1) next iteration.
 
 
+def _resume_cursor(path: str, extras: dict[str, int], epoch0: int, args) -> int:
+    """The batch cursor of a mid-epoch archive (0 for a final one), after
+    the JAX trainer's checks that this run can continue it: the epoch in
+    progress follows the completed ones, and the seed, the global batch
+    and the world size (one device here) are the saved run's."""
+    in_progress = extras.get("epoch_in_progress", 0)
+    if not in_progress:
+        return 0
+    if in_progress != epoch0 + 1:
+        raise ValueError(
+            f"--resume-state {path!r} is inconsistent: "
+            f"epoch_in_progress={in_progress} but epochs_completed={epoch0}"
+        )
+    saved_seed = extras.get("seed")
+    if saved_seed is not None and saved_seed != args.seed:
+        raise ValueError(
+            f"--resume-state {path!r} was saved mid-epoch under --seed "
+            f"{saved_seed}; resuming with --seed {args.seed} would replay a "
+            "DIFFERENT permutation from the saved batch cursor — pass the "
+            "original seed"
+        )
+    saved_gb = extras.get("global_batch")
+    if saved_gb is not None and saved_gb != args.batch_size:
+        raise ValueError(
+            f"--resume-state {path!r} was saved mid-epoch at global batch "
+            f"{saved_gb}; this run's {args.batch_size} re-chunks the epoch and "
+            "the saved batch cursor no longer addresses the same samples — "
+            "match --batch-size and the device count"
+        )
+    saved_ws = extras.get("world_size")
+    if saved_ws is not None and saved_ws != 1:
+        raise ValueError(
+            f"--resume-state {path!r} was saved mid-epoch at world size "
+            f"{saved_ws}; this run's world size is 1.  Re-sharding a "
+            "mid-epoch archive (the JAX package's --resume-reshard) is not "
+            "ported; resume it at the original world size"
+        )
+    return extras.get("batch_cursor", 0)
+
+
+def _opt_to(opt: AdadeltaState | FlatAdadeltaState, device: torch.device):
+    if is_flat_state(opt):
+        return FlatAdadeltaState(*(t.to(device) for t in opt))
+    return AdadeltaState(*({k: v.to(device) for k, v in tree.items()} for tree in opt))
+
+
 def fit(
     args,
     device: str | torch.device | None = None,
@@ -140,20 +207,64 @@ def fit(
     ``None`` means the card, and raises without one (``resolve_device``).
 
     TF32 is switched off for the f32 path, in convolutions and matmuls
-    alike (cuDNN would otherwise run the convs in TF32 by default); the
-    switches are process-wide.  ``timings`` is :func:`run_epochs`'s.
+    alike (cuDNN would otherwise run the convs in TF32 by default), and
+    cuDNN is made deterministic: ``--resume-state`` promises the
+    uninterrupted run's bits, and cuDNN's own choice of a conv backward on
+    the H100 sums with atomics (``wgrad_alg0_engine``), so two runs of the
+    same steps differ.  The switches are process-wide.  ``timings`` is
+    :func:`run_epochs`'s.
+
+    ``--resume-state`` continues the archive's run: epoch numbering, the
+    lr schedule and the shuffle from its completed epochs (and batch
+    cursor), the dropout seeds from its step counter, its accumulators in
+    the layout this run's ``--pallas-opt`` executes.  ``--save-state``
+    writes the final archive after the last epoch.
     """
+    resume_path, resume_state_path = args.resume, args.resume_state
+    if resume_path and resume_state_path:
+        raise ValueError(
+            "--resume (model-only checkpoint) and --resume-state (full "
+            "training state) are mutually exclusive"
+        )
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    use_pallas, conv_impl = args.pallas_opt, args.conv_impl
+    compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
+
+    # Checkpoints load before any data or device work, so a wrong file
+    # fails fast.
+    epoch0, start_batch, archive, params = 0, 0, None, None
+    if resume_state_path:
+        archive, epoch0, extras, _ = load_latest_train_state(resume_state_path)
+        start_batch = _resume_cursor(resume_state_path, extras, epoch0, args)
+        params = archive.params
+    elif resume_path:
+        params = load_inference_state(resume_path, bn_message=(
+            f"--resume checkpoint {resume_path!r} carries BatchNorm "
+            "parameters; add --syncbn (a mnist_ddp.py flag) to resume it"))
 
     loaders = make_loaders(args, device, timings)
     seeds = split_streams(args.seed)
     model = Net(torch.Generator().manual_seed(seeds["init"])).to(device)
-    state = make_train_state(model, use_pallas=args.pallas_opt)
-    step_fn = make_train_step(use_pallas=args.pallas_opt, dropout_seed=seeds["dropout"])
-    run_epochs(args, device, model, state, step_fn, make_eval_step(), loaders, timings)
+    if params is not None:
+        model.load_state_dict(params)
+    state = make_train_state(model, use_pallas=use_pallas)
+    if archive is not None:
+        opt = ensure_opt_layout(archive.opt, dict(model.named_parameters()), use_pallas)
+        state = TrainState(opt=_opt_to(opt, device), step=archive.step)
+    step_fn = make_train_step(use_pallas=use_pallas, dropout_seed=seeds["dropout"],
+                              compute_dtype=compute_dtype, conv_impl=conv_impl)
+    run_epochs(args, device, model, state, step_fn,
+               make_eval_step(compute_dtype, conv_impl), loaders, timings,
+               epoch0=epoch0, start_batch=start_batch)
 
     if args.save_model and save_path:
         save_state_dict(model_state_dict(model), save_path)
+    if args.save_state:
+        # Epochs completed: where a continuation picks up the schedule,
+        # the shuffle and the numbering.
+        save_train_state(dict(model.named_parameters()), state.opt, state.step,
+                         args.save_state, epoch=epoch0 + args.epochs)
     return model, state

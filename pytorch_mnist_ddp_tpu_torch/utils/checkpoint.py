@@ -23,6 +23,17 @@ both read.
 The ViT family saves its JAX-layout param tree as an npz of dotted keys
 with a ``__format__`` tag (:func:`save_params_tree`, the JAX package's
 ``save_params_tree`` format), so either package reads the other's file.
+
+``--save-state`` archives (:func:`save_train_state`,
+:func:`load_train_state_full`) use the JAX package's on-disk format, so
+an archive written by either package resumes in the other and no reader
+asks which package wrote it: ``params.<layer>.<kernel|bias>`` in JAX
+layout; the accumulators as ``opt_flat.square_avg``/``opt_flat.acc_delta``
+(JAX's padded ``[rows, 128]`` ``ravel_pytree`` buffers) or per leaf as
+``opt.square_avg.<layer>.<leaf>``/``opt.acc_delta.<layer>.<leaf>``;
+``step`` (int32), ``epoch`` (epochs completed, int64) and, in a mid-epoch
+archive, integer ``meta.*`` extras.  In memory they are the port's:
+torch layouts, ``named_parameters`` order (``utils/convert.py``).
 """
 
 from __future__ import annotations
@@ -32,12 +43,20 @@ import io
 import os
 import tempfile
 import zipfile
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
 
-from .convert import LAYERS, torch_state_from_jax
+from ..ops.adadelta import AdadeltaState
+from ..ops.adadelta_flat import FlatAdadeltaState, is_flat_state
+from .convert import (
+    LAYERS,
+    jax_flat_from_torch,
+    jax_state_from_torch,
+    torch_flat_from_jax,
+    torch_state_from_jax,
+)
 
 # Read once at import rather than per write: probing the umask sets it
 # process-wide for a moment, and a file another thread created inside
@@ -59,23 +78,26 @@ def _strip_prefix(key: str) -> str:
     return key[len("module."):] if key.startswith("module.") else key
 
 
-def _check_keys(keys) -> None:
+_SERVING_BN_MESSAGE = (
+    "BatchNorm checkpoints are not served by this port yet; serve a "
+    "checkpoint without --syncbn"
+)
+
+
+def _check_keys(keys, bn_message: str = _SERVING_BN_MESSAGE) -> None:
     keys = set(keys)
     if any(k.split(".")[0].startswith("bn") for k in keys):
-        raise ValueError(
-            "BatchNorm checkpoints are not served by this port yet; serve a "
-            "checkpoint without --syncbn"
-        )
+        raise ValueError(bn_message)
     want = {f"{layer}.{leaf}" for layer in LAYERS for leaf in ("weight", "bias")}
     missing = sorted(want - keys)
     if missing:
         raise ValueError(f"checkpoint is missing {missing}")
 
 
-def _from_torch_file(path: str) -> dict[str, torch.Tensor]:
+def _from_torch_file(path: str, bn_message: str) -> dict[str, torch.Tensor]:
     raw = torch.load(path, map_location="cpu", weights_only=True)
     state = {_strip_prefix(k): v for k, v in raw.items()}
-    _check_keys(state)
+    _check_keys(state, bn_message)
     return {
         k: state[k].detach().to(torch.float32).contiguous()
         for k in sorted(state)
@@ -94,21 +116,26 @@ def _params_tree(flat: dict[str, np.ndarray], prefix: str, leaf_names) -> dict:
     return tree
 
 
-def load_inference_state(path: str) -> dict[str, torch.Tensor]:
+def load_inference_state(
+    path: str, bn_message: str = _SERVING_BN_MESSAGE
+) -> dict[str, torch.Tensor]:
     """Any supported checkpoint -> float32 CPU state dict in torch layout
-    (``conv1.weight`` OIHW ... ``fc1.weight`` with NCHW-ordered columns)."""
+    (``conv1.weight`` OIHW ... ``fc1.weight`` with NCHW-ordered columns).
+    A BatchNorm checkpoint raises ``ValueError(bn_message)``."""
     if _is_torch_zip(path):
-        return _from_torch_file(path)
+        return _from_torch_file(path, bn_message)
     try:
         with np.load(path) as archive:
             flat = {k: archive[k] for k in archive.files}
     except ValueError:
         # Not an npz at all: a legacy (pre-zip) torch.save pickle.
-        return _from_torch_file(path)
+        return _from_torch_file(path, bn_message)
     if "step" in flat and any(k.startswith("params.") for k in flat):
         tree = _params_tree(flat, "params.", {})
+        if any(layer.startswith("bn") for layer in tree):
+            raise ValueError(bn_message)
     else:
-        _check_keys(_strip_prefix(k) for k in flat)
+        _check_keys((_strip_prefix(k) for k in flat), bn_message)
         tree = _params_tree(flat, "", {"weight": "kernel"})
     return torch_state_from_jax(tree)
 
@@ -147,6 +174,12 @@ def save_state_dict(state: dict[str, torch.Tensor], path: str) -> None:
     _atomic_write(path, lambda f: torch.save(state, f))
 
 
+def _atomic_npz_write(flat: Mapping[str, np.ndarray], path: str) -> None:
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    _atomic_write(path, lambda f: f.write(buf.getvalue()))
+
+
 # Params-tree archive format.  2 = head-major qkv (``[t, heads, 3,
 # head_dim]``); a format-1 archive's qkv kernels have the same shape with
 # every head's q/k/v scrambled, so only the tag tells them apart.
@@ -181,9 +214,7 @@ def save_params_tree(tree: Mapping[str, Any], path: str) -> None:
     JAX package's ``load_params_tree`` read it."""
     flat = _flatten_raw(tree)
     flat["__format__"] = np.int64(PARAMS_TREE_FORMAT)
-    buf = io.BytesIO()
-    np.savez(buf, **flat)
-    _atomic_write(path, lambda f: f.write(buf.getvalue()))
+    _atomic_npz_write(flat, path)
 
 
 def load_params_tree(path: str) -> dict[str, Any]:
@@ -202,3 +233,130 @@ def load_params_tree(path: str) -> dict[str, Any]:
             "scrambled heads) — re-save it from the run that produced it"
         )
     return _unflatten(flat)
+
+
+class CorruptCheckpointError(ValueError):
+    """A checkpoint file that exists but does not parse (truncated or torn).
+
+    Apart from plain ValueError so that :func:`load_latest_train_state`
+    falls back to the previous rotation for a damaged file, and never for
+    the wrong kind of file (a model-only checkpoint given to
+    ``--resume-state``), which must reach the operator."""
+
+
+# Suffix of the previous rotation of a mid-epoch archive: the writer puts
+# the new archive in a temporary file, renames <path> to <path> +
+# PREV_SUFFIX, then renames the temporary file onto <path>, so a kill at
+# any point leaves one whole archive where load_latest_train_state looks.
+PREV_SUFFIX = ".prev"
+
+
+class TrainArchive(NamedTuple):
+    """A ``--save-state`` archive in the port's layouts, CPU tensors:
+    parameters keyed ``conv1.weight`` ..., the Adadelta accumulators as
+    saved (flat or per parameter), and the optimizer-step counter."""
+
+    params: dict[str, torch.Tensor]
+    opt: AdadeltaState | FlatAdadeltaState
+    step: int
+
+
+def save_train_state(
+    params: Mapping[str, torch.Tensor],
+    opt: AdadeltaState | FlatAdadeltaState,
+    step: int,
+    path: str,
+    epoch: int = 0,
+    extras: Mapping[str, int] | None = None,
+) -> None:
+    """Write the whole training state (parameters, both accumulators in
+    their layout, the step counter, ``epoch`` epochs completed) as one npz
+    archive in the JAX package's format, atomically.  ``extras`` (a
+    mid-epoch archive's position) are stored as int64 ``meta.<key>``; a
+    final archive has none.  Restoring it continues training bit for bit:
+    the accumulators travel, the schedule and shuffle follow ``epoch``,
+    and the dropout seeds follow ``step``."""
+    flat = _flatten_raw(jax_state_from_torch(params), "params.")
+    if is_flat_state(opt):
+        flat["opt_flat.square_avg"] = jax_flat_from_torch(opt.square_avg)
+        flat["opt_flat.acc_delta"] = jax_flat_from_torch(opt.acc_delta)
+    else:
+        for name in ("square_avg", "acc_delta"):
+            flat.update(_flatten_raw(jax_state_from_torch(getattr(opt, name)),
+                                     f"opt.{name}."))
+    flat["step"] = np.asarray(step, np.int32)
+    flat["epoch"] = np.asarray(int(epoch))
+    for key, value in (extras or {}).items():
+        flat[f"meta.{key}"] = np.asarray(int(value), np.int64)
+    _atomic_npz_write(flat, path)
+
+
+def load_train_state_full(path: str) -> tuple[TrainArchive, int, dict[str, int]]:
+    """The inverse of :func:`save_train_state`, for an archive written by
+    either package: ``(TrainArchive, epochs completed, extras)``, the
+    extras a ``{key: int}`` dict (empty for a final archive).  A missing
+    file raises FileNotFoundError, a torn one
+    :class:`CorruptCheckpointError`, a model-only checkpoint a ValueError
+    naming ``--resume``, and a BatchNorm archive the JAX trainer's
+    ``--syncbn`` message."""
+    try:
+        with np.load(path) as archive:
+            flat = {k: archive[k] for k in archive.files}
+    except FileNotFoundError:
+        raise
+    except zipfile.BadZipFile as e:
+        raise CorruptCheckpointError(
+            f"{path!r} is corrupt or truncated ({e}); a checkpoint this "
+            "package wrote cannot be torn (mkstemp + fsync + atomic replace), "
+            "so this file was likely produced by a killed non-atomic writer "
+            "or damaged in transit — re-save it from the run that produced it"
+        ) from e
+    except (OSError, ValueError) as e:
+        raise ValueError(f"{path!r} is not a --save-state archive (npz): {e}") from e
+    if "step" not in flat or not any(k.startswith("params.") for k in flat):
+        raise ValueError(
+            f"{path!r} is not a --save-state archive (missing 'step'/"
+            "'params.*' entries) — model-only checkpoints (--save-model) "
+            "resume via --resume instead"
+        )
+    if any(k.startswith("batch_stats.") for k in flat):
+        raise ValueError(
+            f"--resume-state {path!r} was saved with BatchNorm state; add "
+            "--syncbn to match"
+        )
+    params = torch_state_from_jax(_params_tree(flat, "params.", {}))
+    opt: AdadeltaState | FlatAdadeltaState
+    if "opt_flat.square_avg" in flat:
+        opt = FlatAdadeltaState(
+            square_avg=torch_flat_from_jax(flat["opt_flat.square_avg"]),
+            acc_delta=torch_flat_from_jax(flat["opt_flat.acc_delta"]),
+        )
+    else:
+        opt = AdadeltaState(*(
+            torch_state_from_jax(_params_tree(flat, f"opt.{name}.", {}))
+            for name in ("square_avg", "acc_delta")
+        ))
+    extras = {k[len("meta."):]: int(np.asarray(v).ravel()[0])
+              for k, v in flat.items() if k.startswith("meta.")}
+    state = TrainArchive(params=params, opt=opt, step=int(flat["step"]))
+    return state, int(flat.get("epoch", 0)), extras
+
+
+def load_latest_train_state(
+    path: str,
+) -> tuple[TrainArchive, int, dict[str, int], str]:
+    """:func:`load_train_state_full` of ``path`` or, when ``path`` is
+    missing or torn, of ``path + PREV_SUFFIX`` (a writer killed between its
+    two renames leaves only that).  Returns the three results and the path
+    read.  Any other error surfaces: an older rotation must never hide an
+    operator's mistake."""
+    try:
+        return (*load_train_state_full(path), path)
+    except (FileNotFoundError, CorruptCheckpointError) as main_err:
+        prev = path + PREV_SUFFIX
+        if not os.path.exists(prev):
+            raise
+        try:
+            return (*load_train_state_full(prev), prev)
+        except Exception:
+            raise main_err

@@ -12,6 +12,17 @@ only with that permutation applied.  This module holds the port's own
 copy of the permutation; the JAX package applies the same one when it
 writes a ``.pt``, which is why such a file loads here as it is.
 
+Adadelta is elementwise, so each accumulator crosses exactly as its
+parameter does: a per-leaf accumulator tree converts with the parameter
+converters.  The JAX package's ``--pallas-opt`` accumulators are one
+``[rows, 128]`` f32 buffer, ``ravel_pytree`` of the tree (sorted keys, so
+``conv1.bias`` before ``conv1.kernel``, JAX layouts) zero-padded to
+``_pad_rows``' rows; the port's are one unpadded buffer in
+``named_parameters`` order (weight before bias, torch layouts).
+:func:`torch_flat_from_jax` and :func:`jax_flat_from_torch` map between
+the two: drop or restore the pad, split by leaf, convert each leaf,
+concatenate in the other order.
+
 The ViT's tree (``models/vit.py``) crosses by name alone: dense kernels
 ``[in, out]`` transpose to ``weight [out, in]``, LayerNorm ``scale`` is
 ``weight``, ``blocks/<i>`` is ``blocks.<i>``.  No feature is reordered:
@@ -31,6 +42,16 @@ _POOL_C = 64
 _FLAT = _POOL_H * _POOL_W * _POOL_C
 
 LAYERS = ("conv1", "conv2", "fc1", "fc2")
+# The CNN's parameters in named_parameters order, torch shapes.
+TORCH_SHAPES = {
+    "conv1.weight": (32, 1, 3, 3), "conv1.bias": (32,),
+    "conv2.weight": (64, 32, 3, 3), "conv2.bias": (64,),
+    "fc1.weight": (128, _FLAT), "fc1.bias": (128,),
+    "fc2.weight": (10, 128), "fc2.bias": (10,),
+}
+# The JAX package's flat-accumulator tiling (ops/pallas_adadelta.py).
+_LANES = 128
+_BLOCK_ROWS = 256
 
 
 def nchw_to_nhwc_feature_perm() -> np.ndarray:
@@ -38,6 +59,33 @@ def nchw_to_nhwc_feature_perm() -> np.ndarray:
     activation: maps a torch flatten position to the JAX one."""
     nhwc = np.arange(_FLAT).reshape(_POOL_H, _POOL_W, _POOL_C)
     return nhwc.transpose(2, 0, 1).reshape(-1)
+
+
+def pad_rows(n: int) -> tuple[int, int]:
+    """The JAX package's ``_pad_rows``: rows of ``_LANES`` after lane
+    packing, and the block height.  Small tensors use one sublane-aligned
+    block; large ones tile in ``_BLOCK_ROWS`` chunks."""
+    rows = -(-n // _LANES)
+    if rows <= _BLOCK_ROWS:
+        rows = -(-rows // 8) * 8
+        return rows, rows
+    return -(-rows // _BLOCK_ROWS) * _BLOCK_ROWS, _BLOCK_ROWS
+
+
+def _jax_shape(name: str) -> tuple[int, ...]:
+    """The JAX leaf shape of a torch parameter: OIHW -> HWIO, [out, in] ->
+    [in, out]."""
+    shape = TORCH_SHAPES[name]
+    if len(shape) == 4:
+        return shape[2], shape[3], shape[1], shape[0]
+    return shape[::-1]
+
+
+def _jax_leaves() -> list[tuple[str, str, tuple[int, ...]]]:
+    """``(layer, leaf, JAX shape)`` in ``ravel_pytree`` order: sorted
+    layers, and ``bias`` before ``kernel`` within each."""
+    return [(layer, leaf, _jax_shape(f"{layer}.{'weight' if leaf == 'kernel' else 'bias'}"))
+            for layer in sorted(LAYERS) for leaf in ("bias", "kernel")]
 
 
 def torch_state_from_jax(
@@ -69,6 +117,67 @@ def torch_state_from_jax(
             np.asarray(params[layer]["bias"], np.float32)
         )
     return out
+
+
+def jax_state_from_torch(
+    state: Mapping[str, torch.Tensor],
+) -> dict[str, dict[str, np.ndarray]]:
+    """The inverse of :func:`torch_state_from_jax`: a CNN state dict in
+    torch layout -> the JAX param tree ``{layer: {"bias", "kernel"}}`` of
+    contiguous float32 numpy arrays (HWIO convs, ``[in, out]`` dense, fc1's
+    rows in NHWC feature order), keys in sorted order as the JAX package's
+    trees come out of a training step."""
+    inv = np.argsort(nchw_to_nhwc_feature_perm())
+    tree: dict[str, dict[str, np.ndarray]] = {}
+    for layer in LAYERS:
+        weight = state[f"{layer}.weight"].detach().to("cpu", torch.float32).numpy()
+        if weight.ndim == 4:  # OIHW -> HWIO
+            kernel = weight.transpose(2, 3, 1, 0)
+        else:
+            if layer == "fc1":
+                weight = weight[:, inv]
+            kernel = weight.T  # [out, in] -> [in, out]
+        bias = state[f"{layer}.bias"].detach().to("cpu", torch.float32).numpy()
+        tree[layer] = {"bias": np.ascontiguousarray(bias),
+                       "kernel": np.ascontiguousarray(kernel)}
+    return tree
+
+
+def torch_flat_from_jax(buf: np.ndarray) -> torch.Tensor:
+    """A JAX ``--pallas-opt`` accumulator (``[rows, 128]``, or its ravel)
+    -> the port's flat accumulator: 1-D float32, unpadded,
+    ``named_parameters`` order, torch layouts."""
+    flat = np.asarray(buf, np.float32).reshape(-1)
+    tree: dict[str, dict[str, np.ndarray]] = {}
+    off = 0
+    for layer, leaf, shape in _jax_leaves():
+        size = int(np.prod(shape))
+        tree.setdefault(layer, {})[leaf] = flat[off:off + size].reshape(shape)
+        off += size
+    rows, _ = pad_rows(off)
+    if flat.size != rows * _LANES:
+        raise ValueError(
+            f"flat accumulator has {flat.size} elements; the CNN's "
+            f"{off} parameters pad to {rows} x {_LANES}")
+    state = torch_state_from_jax(tree)
+    return torch.cat([state[name].reshape(-1) for name in TORCH_SHAPES])
+
+
+def jax_flat_from_torch(flat: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`torch_flat_from_jax`: the port's flat
+    accumulator -> the JAX package's ``[rows, 128]`` float32 buffer, zeros
+    in the pad as JAX's state holds there."""
+    flat = flat.detach().to("cpu", torch.float32).reshape(-1)
+    n = sum(int(np.prod(shape)) for shape in TORCH_SHAPES.values())
+    if flat.numel() != n:
+        raise ValueError(f"flat accumulator has {flat.numel()} elements, the CNN {n}")
+    state = dict(zip(TORCH_SHAPES, flat.split([int(np.prod(s)) for s in TORCH_SHAPES.values()])))
+    tree = jax_state_from_torch({k: v.view(TORCH_SHAPES[k]) for k, v in state.items()})
+    rows, _ = pad_rows(n)
+    out = np.zeros(rows * _LANES, np.float32)
+    out[:n] = np.concatenate([tree[layer][leaf].reshape(-1)
+                              for layer, leaf, _ in _jax_leaves()])
+    return out.reshape(rows, _LANES)
 
 
 def torch_vit_state_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -122,15 +122,33 @@ def test_entry_points_default_to_cuda(entry):
 
 @pytest.mark.parametrize(
     "flag",
-    ["--resume=x", "--save-state=x", "--resume-state=x", "--fused", "--pregather",
-     "--conv-impl=im2col", "--bf16", "--profile=x", "--step-stats",
+    ["--fused", "--pregather", "--profile=x", "--step-stats",
      "--telemetry-dir=x", "--aot-cache=x", "--serve-prewarm",
      "--compile-cache-dir=x", "--prefetch-depth=0", "--loss-guard",
-     "--checkpoint-every-steps=1", "--elastic", "--chaos=x"],
+     "--checkpoint-every-steps=1", "--elastic", "--chaos=x", "--preempt-grace-s=1",
+     "--spike-factor=2", "--anomaly-budget=1", "--step-timeout-s=1", "--resume-reshard"],
 )
 def test_train_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
         train_parser().parse_args([flag])
+
+
+@pytest.mark.parametrize(
+    "flags,dest,value",
+    [(["--resume=m.pt"], "resume", "m.pt"), (["--save-state=s.npz"], "save_state", "s.npz"),
+     (["--resume-state=s.npz"], "resume_state", "s.npz"),
+     (["--conv-impl=im2col_c1"], "conv_impl", "im2col_c1"),
+     (["--conv-impl=im2col"], "conv_impl", "im2col"), (["--bf16"], "bf16", True)],
+    ids=["resume", "save_state", "resume_state", "conv_impl_im2col_c1", "conv_impl_im2col",
+         "bf16"],
+)
+def test_train_cli_accepts_ported_flags(flags, dest, value):
+    """mnist.py's --resume, --save-state, --resume-state, --conv-impl and
+    --bf16 are ported, with the JAX CLI's defaults."""
+    assert getattr(train_parser().parse_args(flags), dest) == value
+    defaults = train_parser().parse_args([])
+    assert (defaults.resume, defaults.save_state, defaults.resume_state,
+            defaults.conv_impl, defaults.bf16) == (None, None, None, "conv", False)
 
 
 @pytest.mark.parametrize(
@@ -152,7 +170,7 @@ def test_vit_cli_refuses_flags_not_ported_yet(flag):
 )
 def test_vit_cli_accepts_ported_flags(flags):
     """--bf16 is ported (the flash kernel's bf16 mode) and composes with
-    --flash, --remat and the degree-1 ring; the CNN CLI still refuses it."""
+    --flash, --remat and the degree-1 ring."""
     args = vit_parser().parse_args(flags)
     assert args.bf16 is True
 
