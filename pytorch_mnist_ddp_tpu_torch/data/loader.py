@@ -1,10 +1,15 @@
-"""Epoch-based batch loader over in-memory uint8 arrays, for one device.
+"""Epoch-based batch loader over in-memory uint8 arrays, for one rank.
 
 The batches, their order and their 0/1 pad weights are the JAX package's
-``DataLoader`` ones for every (seed, epoch) in a world of one: the same
-sampler (``parallel/sampler.py``), the same slicing, and the final partial
-batch padded to the static batch shape with zero rows of weight 0 (so
-shapes never change; the loss divides by the real count).  Each batch is
+``DataLoader`` ones for every (seed, epoch), and rank r of N draws what the
+JAX package's process r of N draws: the same sampler
+(``parallel/sampler.py``: cyclic padding to a multiple of N, then a stride
+of N), the same slicing, and the final partial batch padded to the static
+batch shape with zero rows of weight 0 (so shapes never change; the loss
+divides by the real count).  ``batch_size`` is per rank.  The sampler's
+padding duplicates keep weight 1 by default, as torch's
+``DistributedSampler`` trains on them; ``mask_padding`` gives them weight
+0, so that an evaluation counts each sample once.  Each batch is
 normalized on the host with numpy, copied into pinned memory and sent to
 the device with a ``non_blocking`` copy.  No prefetch thread yet.
 """
@@ -16,7 +21,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from ..parallel.sampler import epoch_indices
+from ..parallel.sampler import epoch_indices, per_rank_count
 from .transforms import normalize
 
 Batch = tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, y, weight)
@@ -34,6 +39,9 @@ class DataLoader:
         device: torch.device,
         shuffle: bool = True,
         seed: int = 0,
+        rank: int = 0,
+        world_size: int = 1,
+        mask_padding: bool = False,
     ) -> None:
         self.images = images
         self.labels = labels.astype(np.int64)
@@ -41,24 +49,32 @@ class DataLoader:
         self.device = torch.device(device)
         self.shuffle = shuffle
         self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
+        self.mask_padding = mask_padding
 
     def __len__(self) -> int:
-        """Batches per epoch, the final partial one included."""
-        return -(-len(self.labels) // self.batch_size)
+        """Batches per epoch on this rank, the final partial one included."""
+        return -(-per_rank_count(len(self.labels), self.world_size) // self.batch_size)
 
     @property
     def dataset_len(self) -> int:
+        """The whole set's size, over every rank."""
         return len(self.labels)
 
     def _assemble(
-        self, idx: np.ndarray, b: int
+        self, idx: np.ndarray, valid: np.ndarray, b: int
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host batch ``b`` of the epoch permutation ``idx``."""
+        """Host batch ``b`` of this rank's epoch indices ``idx``; ``valid``
+        is False on the sampler's padding duplicates."""
         bs = self.batch_size
         take = idx[b * bs : (b + 1) * bs]
         x = normalize(self.images[take])
         y = self.labels[take]
-        w = np.ones(len(take), np.float32)
+        if self.mask_padding:
+            w = valid[b * bs : (b + 1) * bs].astype(np.float32)
+        else:
+            w = np.ones(len(take), np.float32)
         if len(take) < bs:  # pad the final partial batch, weight 0
             pad = bs - len(take)
             x = np.concatenate([x, np.zeros((pad, *x.shape[1:]), x.dtype)])
@@ -69,11 +85,12 @@ class DataLoader:
     def _host_batches(
         self, epoch: int, start_batch: int = 0
     ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        idx = epoch_indices(
-            len(self.labels), epoch=epoch, seed=self.seed, shuffle=self.shuffle
+        idx, valid = epoch_indices(
+            len(self.labels), self.world_size, self.rank, epoch, self.seed,
+            self.shuffle, return_valid=True,
         )
         for b in range(start_batch, len(self)):
-            yield self._assemble(idx, b)
+            yield self._assemble(idx, valid, b)
 
     def _place(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)

@@ -46,14 +46,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-model", action="store_true", default=False,
                    help="save the final model checkpoint")
     p.add_argument("--resume", type=str, default=None, metavar="PATH",
-                   help="load model parameters from a saved checkpoint (.pt "
-                        "or .npz) and continue training; the optimizer "
-                        "starts fresh (the checkpoint format stores only the "
-                        "model, like the reference's); BatchNorm checkpoints "
-                        "are refused")
+                   help="load model parameters (and BN running statistics, "
+                        "if present) from a saved checkpoint (.pt or .npz) "
+                        "and continue training; the optimizer starts fresh "
+                        "(the checkpoint format stores only the model, "
+                        "like the reference's)")
     p.add_argument("--save-state", type=str, default=None, metavar="PATH",
                    help="save the FULL training state (params, Adadelta "
-                        "accumulators, step/epoch counters) at the end of "
+                        "accumulators, step/epoch counters, BN stats) at the end of "
                         "the run, in the JAX package's archive format; "
                         "--resume-state continues from it bit-identically")
     p.add_argument("--resume-state", type=str, default=None, metavar="PATH",

@@ -12,7 +12,9 @@ one launch of ``csrc/adadelta.cu`` with an ``apply_lr`` flag:
   delta over g's buffer (the TPU kernel's ``input_output_aliases={0: 0}``)
   and the accumulators in place.  Reached from ``adadelta_update_flat``,
   the trainer's ``--pallas-opt`` step, whose accumulators persist as
-  :class:`FlatAdadeltaState` across steps.
+  :class:`FlatAdadeltaState` across steps, and from
+  ``adadelta_step_flat`` with the data-parallel step's all-reduced flat
+  gradient.
 
 The flat order is ``named_parameters()`` order (OIHW convs), one 1-D f32
 buffer of N elements with no lane padding; it is the port's own and is not
@@ -184,6 +186,27 @@ def _unravel_into(flat: torch.Tensor, tree: Params) -> None:
 
 
 @torch.no_grad()
+def adadelta_step_flat(
+    params: Params,
+    flat_g: torch.Tensor,
+    state: FlatAdadeltaState,
+    lr: float,
+    rho: float = 0.9,
+    eps: float = 1e-6,
+) -> tuple[Params, FlatAdadeltaState]:
+    """The ``--pallas-opt`` step from a gradient that is already one flat
+    buffer in ``named_parameters`` order (the data-parallel step's
+    all-reduced one): one kernel launch writing delta over it, then
+    ``p - lr * delta`` per parameter (a multiply, then a subtract), in
+    place.  Returns ``(params, state)``, the same objects."""
+    delta, _, _ = adadelta_delta_flat(flat_g, state.square_avg, state.acc_delta, rho, eps)
+    off = 0
+    for p in params.values():
+        p.sub_(delta[off:off + p.numel()].view_as(p).mul(lr))
+        off += p.numel()
+    return params, state
+
+
 def adadelta_update_flat(
     params: Params,
     grads: Params,
@@ -193,16 +216,8 @@ def adadelta_update_flat(
     eps: float = 1e-6,
 ) -> tuple[Params, FlatAdadeltaState]:
     """The ``--pallas-opt`` step over persistent flat accumulators: one
-    concat of the grads, one kernel launch writing delta over it, then
-    ``p - lr * delta`` per parameter (a multiply, then a subtract), in
-    place.  Returns ``(params, state)``, the same objects."""
-    delta, _, _ = adadelta_delta_flat(_ravel(grads), state.square_avg,
-                                      state.acc_delta, rho, eps)
-    off = 0
-    for p in params.values():
-        p.sub_(delta[off:off + p.numel()].view_as(p).mul(lr))
-        off += p.numel()
-    return params, state
+    concat of the grads, then :func:`adadelta_step_flat`."""
+    return adadelta_step_flat(params, _ravel(grads), state, lr, rho, eps)
 
 
 @torch.no_grad()

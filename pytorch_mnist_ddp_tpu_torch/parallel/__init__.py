@@ -1,2 +1,2 @@
-"""Sample sharding, the train/eval steps and the sequence ring (a world
-of one so far)."""
+"""World formation and the launcher, sample sharding, the train/eval steps
+(one device or N data-parallel ranks) and the sequence ring (degree 1)."""

@@ -1,12 +1,26 @@
-"""The train and eval steps, for a world of one device (no collectives yet).
+"""The train and eval steps, for a world of one device or of N ranks.
 
 ``train_step(model, state, x, y, w, lr)`` is one optimizer step: the
-train-mode forward with dropout, the masked-mean NLL, the backward, and
-the Adadelta update through ``adadelta_update_best`` (the JAX package's
-dispatch).  It returns the loss as a device tensor and never waits for the
-device: the caller reads it only on log steps.  ``eval_step(model, x, y,
-w)`` returns the summed NLL and the count of correct predictions over the
+train-mode forward with dropout, the masked-mean NLL, the backward, the
+gradients concatenated into one flat buffer (``named_parameters`` order,
+the delta kernel's), and the Adadelta update: flat accumulators take that
+buffer into the delta kernel as it is, per-leaf ones take views of it
+through ``adadelta_update_best`` (the JAX package's dispatch).  It
+returns the loss as a device tensor and never waits for the device: the
+caller reads it only on log steps.  ``eval_step(model, x, y, w)``
+returns the summed NLL and the count of correct predictions over the
 real samples, both device tensors.
+
+Given a distributed :class:`~.distributed.DistState`, both are the JAX
+package's data-parallel steps (its ``parallel/ddp.py``) over the default
+process group, one rank a process: each rank takes the masked mean over
+its own batch and its gradients, then one ``all_reduce(SUM)`` of the flat
+gradient buffer divided by the world size (``lax.pmean``) before the
+update, and a ``use_bn`` model sums its BatchNorm statistics over the
+ranks.  The eval step all-reduces its two sums.  The returned loss is
+the rank's own, not all-reduced: the reference logs rank 0's.  The
+model is not wrapped in ``DistributedDataParallel``: its reducer hooks
+run from ``AccumulateGrad``, which ``torch.autograd.grad`` never reaches.
 
 ``make_forward_train_step``/``make_forward_eval_step`` build the same two
 steps around any ``forward(model, x) -> log-probs`` without dropout and
@@ -20,16 +34,20 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..models.net import Net
 from ..ops.adadelta import AdadeltaState, adadelta_init, adadelta_update
 from ..ops.adadelta_flat import (
     FlatAdadeltaState,
     adadelta_init_flat,
+    adadelta_step_flat,
     adadelta_update_best,
+    is_flat_state,
 )
 from ..ops.loss import nll_loss
-from ..utils.rng import fold_step
+from ..utils.rng import fold_replica_step
+from .distributed import DistState
 
 
 @dataclass
@@ -58,11 +76,29 @@ def forward_loss(
     dropout_generator: torch.Generator | None,
     compute_dtype: torch.dtype = torch.float32,
     conv_impl: str = "conv",
+    sync_bn: bool = False,
 ) -> torch.Tensor:
     """Train-mode forward and the masked-mean NLL (float32 log-probs
-    whatever ``compute_dtype``)."""
-    log_probs = model(x, dropout_generator, conv_impl, compute_dtype)
+    whatever ``compute_dtype``).  ``w`` also keeps the padding rows out of
+    the BatchNorm statistics of a ``use_bn`` model; ``sync_bn`` sums those
+    statistics over the default process group."""
+    log_probs = model(x, dropout_generator, conv_impl, compute_dtype, mask=w, sync_bn=sync_bn)
     return nll_loss(log_probs, y, w, reduction="mean")
+
+
+def broadcast_from_chief(tensors) -> None:
+    """Rank 0's values into every rank's ``tensors``, in place, as
+    ``DistributedDataParallel``'s constructor broadcasts the module."""
+    for t in tensors:
+        dist.broadcast(t.data, src=0)
+
+
+def _mean_over_ranks(flat: torch.Tensor, world_size: int) -> torch.Tensor:
+    """``flat`` summed over the ranks and divided by their number, in
+    place.  The divisor is a tensor: CUDA's ``tensor / python_scalar``
+    multiplies by the reciprocal."""
+    dist.all_reduce(flat)
+    return flat.div_(torch.full((), world_size, dtype=flat.dtype, device=flat.device))
 
 
 def make_train_step(
@@ -73,11 +109,15 @@ def make_train_step(
     eps: float = 1e-6,
     compute_dtype: torch.dtype = torch.float32,
     conv_impl: str = "conv",
+    world: DistState | None = None,
 ) -> Callable[..., torch.Tensor]:
     """``train_step(model, state, x, y, w, lr) -> loss``.  With
     ``dropout``, step ``state.step`` draws its masks from a generator on
-    x's device seeded with ``fold_step(dropout_seed, state.step)``.
-    ``compute_dtype`` and ``conv_impl`` are the forward's (``models/net.py``)."""
+    x's device seeded with ``fold_replica_step(dropout_seed, state.step,
+    rank, world_size)``, one stream per (step, rank).  ``compute_dtype``
+    and ``conv_impl`` are the forward's (``models/net.py``).  A
+    distributed ``world`` all-reduces the gradients (module docstring)."""
+    world = world or DistState()
     generators: dict[torch.device, torch.Generator] = {}
 
     def train_step(model: Net, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
@@ -86,15 +126,22 @@ def make_train_step(
             gen = generators.get(x.device)
             if gen is None:
                 gen = generators[x.device] = torch.Generator(device=x.device)
-            gen.manual_seed(fold_step(dropout_seed, state.step))
+            gen.manual_seed(fold_replica_step(dropout_seed, state.step, world.rank,
+                                              world.world_size))
         model.train()
         params = dict(model.named_parameters())
-        loss = forward_loss(model, x, y, w, gen, compute_dtype, conv_impl)
+        loss = forward_loss(model, x, y, w, gen, compute_dtype, conv_impl,
+                            sync_bn=world.distributed)
         grads = torch.autograd.grad(loss, list(params.values()))
-        adadelta_update_best(
-            params, dict(zip(params, grads)), state.opt, lr, rho, eps,
-            use_pallas=use_pallas,
-        )
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        if world.distributed:
+            _mean_over_ranks(flat, world.world_size)
+        if is_flat_state(state.opt):
+            adadelta_step_flat(params, flat, state.opt, lr, rho, eps)
+        else:
+            views = dict(zip(params, (v.view_as(p) for v, p in zip(
+                flat.split([p.numel() for p in params.values()]), params.values()))))
+            adadelta_update_best(params, views, state.opt, lr, rho, eps, use_pallas=use_pallas)
         state.step += 1
         return loss.detach()
 
@@ -139,9 +186,22 @@ def make_forward_eval_step(
 
 
 def make_eval_step(
-    compute_dtype: torch.dtype = torch.float32, conv_impl: str = "conv"
+    compute_dtype: torch.dtype = torch.float32,
+    conv_impl: str = "conv",
+    world: DistState | None = None,
 ) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """The CNN's eval step: ``model(x)`` in eval mode, with the forward's
-    ``compute_dtype`` and ``conv_impl``."""
-    return make_forward_eval_step(
-        lambda model, x: model(x, None, conv_impl, compute_dtype))
+    ``compute_dtype`` and ``conv_impl``.  A distributed ``world`` sums
+    both totals over the ranks with one all-reduce, so every rank holds
+    the whole batch's (the JAX package's ``psum``)."""
+    local = make_forward_eval_step(lambda model, x: model(x, None, conv_impl, compute_dtype))
+    if world is None or not world.distributed:
+        return local
+
+    @torch.no_grad()
+    def eval_step(model, x, y, w):
+        totals = torch.stack(local(model, x, y, w))
+        dist.all_reduce(totals)
+        return totals[0], totals[1]
+
+    return eval_step

@@ -1,15 +1,21 @@
-"""The training run on one device: train loop, eval loop, final save.
+"""The training run: train loop, eval loop, final save, on one device or
+as one rank of a data-parallel world.
 
-The body of the reference's ``mnist.py`` ``main()``: data, model,
-Adadelta, StepLR once per epoch, evaluation after every epoch, and
-``--save-model``; with the JAX package's ``--resume`` (parameters from a
-model checkpoint, a fresh optimizer), ``--save-state``/``--resume-state``
-(the whole training state, continued bit for bit, from a final or a
-mid-epoch archive of either package), ``--conv-impl`` and ``--bf16``.
-The data and the epoch loop are shared with the ViT CLI
-(``vit_mnist.py``).  The printed lines are the JAX package's (and so the
-reference's), byte for byte.  The JAX package's other paths (fused, DDP,
-telemetry, the resilient runtime) are not ported yet.
+The body of the reference's ``mnist.py`` and ``mnist_ddp.py`` ``main()``:
+data, model, Adadelta, StepLR once per epoch, evaluation after every
+epoch, and ``--save-model``; with the JAX package's ``--resume``
+(parameters from a model checkpoint, a fresh optimizer),
+``--save-state``/``--resume-state`` (the whole training state, continued
+bit for bit, from a final or a mid-epoch archive of either package),
+``--conv-impl``, ``--bf16`` and ``--syncbn``.  Given a distributed
+``DistState`` (``parallel/distributed.py``) each rank trains on its shard
+of every epoch, the gradients are all-reduced (``parallel/ddp.py``),
+every rank evaluates its shard of the test set and the totals are
+summed; only rank 0 prints and saves.  The data and the epoch loop are
+shared with the ViT CLI (``vit_mnist.py``).  The printed lines are the
+JAX package's (and so the reference's), byte for byte.  The JAX
+package's other paths (fused, ZeRO, TP/PP, telemetry, the resilient and
+elastic runtimes) are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,10 +31,17 @@ from .models.net import Net
 from .ops.adadelta import AdadeltaState
 from .ops.adadelta_flat import FlatAdadeltaState, ensure_opt_layout, is_flat_state
 from .ops.schedule import step_lr
-from .parallel.ddp import TrainState, make_eval_step, make_train_state, make_train_step
+from .parallel.ddp import (
+    TrainState,
+    broadcast_from_chief,
+    make_eval_step,
+    make_train_state,
+    make_train_step,
+)
+from .parallel.distributed import DistState, destroy_distributed
 from .utils.checkpoint import (
-    load_inference_state,
     load_latest_train_state,
+    load_resume_state,
     model_state_dict,
     save_state_dict,
     save_train_state,
@@ -47,33 +60,40 @@ def train_one_epoch(
     log_interval: int = 10,
     dry_run: bool = False,
     start_batch: int = 0,
+    dist: DistState = DistState(),
 ) -> int:
     """One training epoch (reference ``train()``); returns the steps taken.
-    The loss is read from the device only on log steps.  ``start_batch``
-    resumes a mid-epoch archive at its batch cursor: batch numbering and
-    log lines go on as if the run had never stopped."""
+    The loss is read from the device only on log steps, by rank 0 alone:
+    its own loss, and in distributed mode the global sample counter
+    ``world_size * batch_idx * batch_size`` (mnist_ddp.py:78).
+    ``start_batch`` resumes a mid-epoch archive at its batch cursor: batch
+    numbering and log lines go on as if the run had never stopped."""
     num_batches = len(loader)
     steps = 0
     for batch_idx, (x, y, w) in enumerate(loader.epoch(epoch, start_batch),
                                           start=start_batch):
         loss = step_fn(model, state, x, y, w, lr)
         steps += 1
-        if batch_idx % log_interval == 0:
+        if dist.is_chief and batch_idx % log_interval == 0:
             print(train_log_line(
-                epoch, batch_idx * loader.batch_size, loader.dataset_len,
-                batch_idx, num_batches, loss.item(),
+                epoch, dist.world_size * batch_idx * loader.batch_size,
+                loader.dataset_len, batch_idx, num_batches, loss.item(),
             ))
         if dry_run:
             break
     return steps
 
 
-def evaluate(eval_fn, model: Net, loader: DataLoader, dry_run: bool = False) -> tuple[float, int]:
-    """Whole-test-set NLL and accuracy (reference ``test()``); prints the
-    summary and returns ``(avg_loss, correct)``.  Per batch it reads two
-    numbers and sums them in Python floats, as the JAX package does.  With
-    ``dry_run`` only the first batch is evaluated (the ViT CLI's dry run);
-    the average still divides by the whole set."""
+def evaluate(
+    eval_fn, model: Net, loader: DataLoader, dry_run: bool = False,
+    dist: DistState = DistState(),
+) -> tuple[float, int]:
+    """Whole-test-set NLL and accuracy (reference ``test()``); rank 0
+    prints the summary, and every rank returns ``(avg_loss, correct)``.
+    Per batch it reads two numbers (the all-reduced totals of every rank's
+    shard, in distributed mode) and sums them in Python floats, as the JAX
+    package does.  With ``dry_run`` only the first batch is evaluated (the
+    ViT CLI's dry run); the average still divides by the whole set."""
     loss_sum = 0.0
     correct = 0.0
     for x, y, w in loader.epoch(0):
@@ -84,16 +104,22 @@ def evaluate(eval_fn, model: Net, loader: DataLoader, dry_run: bool = False) -> 
             break
     n = loader.dataset_len
     avg = loss_sum / n
-    print(test_summary_lines(avg, int(correct), n))
+    if dist.is_chief:
+        print(test_summary_lines(avg, int(correct), n))
     return avg, int(correct)
 
 
 def make_loaders(
-    args, device: torch.device, timings: dict | None = None
+    args, device: torch.device, timings: dict | None = None,
+    dist: DistState = DistState(),
 ) -> tuple[DataLoader, DataLoader]:
     """Both splits of MNIST (the synthetic set without IDX files), cut to
     ``--train-limit`` where the CLI has that flag, as shuffled train and
-    ordered test loaders on ``device``.  Records the sizes in ``timings``."""
+    ordered test loaders on ``device`` for rank ``dist.rank`` of
+    ``dist.world_size``: ``--batch-size`` samples a step on every rank,
+    ``ceil(--test-batch-size / world_size)`` an eval batch (the JAX
+    trainer's split), the test loader's padding duplicates at weight 0.
+    Records the sizes in ``timings``."""
     train_set = MNIST(root=args.data_root, train=True)
     test_set = MNIST(root=args.data_root, train=False)
     limit = getattr(args, "train_limit", 0)
@@ -104,10 +130,12 @@ def make_loaders(
     if timings is not None:
         timings.update(dataset=train_set.source, train_size=len(train_set),
                        test_size=len(test_set), epoch_train_s=[], epoch_steps=[])
+    world = {"rank": dist.rank, "world_size": dist.world_size}
     train_loader = DataLoader(train_set.images, train_set.labels, args.batch_size,
-                              device, shuffle=True, seed=args.seed)
-    test_loader = DataLoader(test_set.images, test_set.labels, args.test_batch_size,
-                             device, shuffle=False)
+                              device, shuffle=True, seed=args.seed, **world)
+    test_loader = DataLoader(test_set.images, test_set.labels,
+                             -(-args.test_batch_size // dist.world_size), device,
+                             shuffle=False, mask_padding=True, **world)
     return train_loader, test_loader
 
 
@@ -123,6 +151,7 @@ def run_epochs(
     dry_run_eval: bool = False,
     epoch0: int = 0,
     start_batch: int = 0,
+    dist: DistState = DistState(),
 ) -> None:
     """``--epochs`` epochs of training after ``epoch0`` completed ones, each
     followed by evaluation, with StepLR (``--lr``, ``--gamma``) once per
@@ -137,13 +166,13 @@ def run_epochs(
         t0 = time.perf_counter()
         steps = train_one_epoch(step_fn, model, state, train_loader, epoch,
                                 lr_fn(epoch), args.log_interval, args.dry_run,
-                                start_batch if epoch == epoch0 + 1 else 0)
+                                start_batch if epoch == epoch0 + 1 else 0, dist)
         if timings is not None:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             timings["epoch_train_s"].append(time.perf_counter() - t0)
             timings["epoch_steps"].append(steps)
-        _, correct = evaluate(eval_fn, model, test_loader, dry_run=dry_run_eval)
+        _, correct = evaluate(eval_fn, model, test_loader, dry_run_eval, dist)
         if timings is not None:
             n_test = test_loader.dataset_len
             timings.setdefault("epoch1_test_accuracy", correct / n_test)
@@ -151,11 +180,14 @@ def run_epochs(
         # scheduler.step() is implicit: lr_fn(epoch + 1) next iteration.
 
 
-def _resume_cursor(path: str, extras: dict[str, int], epoch0: int, args) -> int:
+def _resume_cursor(
+    path: str, extras: dict[str, int], epoch0: int, args, world_size: int
+) -> int:
     """The batch cursor of a mid-epoch archive (0 for a final one), after
     the JAX trainer's checks that this run can continue it: the epoch in
     progress follows the completed ones, and the seed, the global batch
-    and the world size (one device here) are the saved run's."""
+    (``--batch-size`` times the world size) and the world size are the
+    saved run's."""
     in_progress = extras.get("epoch_in_progress", 0)
     if not in_progress:
         return 0
@@ -172,21 +204,22 @@ def _resume_cursor(path: str, extras: dict[str, int], epoch0: int, args) -> int:
             "DIFFERENT permutation from the saved batch cursor — pass the "
             "original seed"
         )
+    global_batch = args.batch_size * world_size
     saved_gb = extras.get("global_batch")
-    if saved_gb is not None and saved_gb != args.batch_size:
+    if saved_gb is not None and saved_gb != global_batch:
         raise ValueError(
             f"--resume-state {path!r} was saved mid-epoch at global batch "
-            f"{saved_gb}; this run's {args.batch_size} re-chunks the epoch and "
+            f"{saved_gb}; this run's {global_batch} re-chunks the epoch and "
             "the saved batch cursor no longer addresses the same samples — "
             "match --batch-size and the device count"
         )
     saved_ws = extras.get("world_size")
-    if saved_ws is not None and saved_ws != 1:
+    if saved_ws is not None and saved_ws != world_size:
         raise ValueError(
             f"--resume-state {path!r} was saved mid-epoch at world size "
-            f"{saved_ws}; this run's world size is 1.  Re-sharding a "
-            "mid-epoch archive (the JAX package's --resume-reshard) is not "
-            "ported; resume it at the original world size"
+            f"{saved_ws}; this run's world size is {world_size}.  Re-sharding "
+            "a mid-epoch archive is not ported: relaunch at the original "
+            "world size"
         )
     return extras.get("batch_cursor", 0)
 
@@ -197,14 +230,24 @@ def _opt_to(opt: AdadeltaState | FlatAdadeltaState, device: torch.device):
     return AdadeltaState(*({k: v.to(device) for k, v in tree.items()} for tree in opt))
 
 
+def _opt_tensors(opt: AdadeltaState | FlatAdadeltaState) -> list[torch.Tensor]:
+    if is_flat_state(opt):
+        return list(opt)
+    return [t for tree in opt for t in tree.values()]
+
+
 def fit(
     args,
     device: str | torch.device | None = None,
     save_path: str | None = None,
     timings: dict | None = None,
+    dist: DistState | None = None,
 ) -> tuple[Net, TrainState]:
     """The full run; returns the trained model and its state.  ``device``
     ``None`` means the card, and raises without one (``resolve_device``).
+    ``dist`` is this process's place in the world (``DistState()``, a world
+    of one, by default); a distributed world's group is torn down at the
+    end.
 
     TF32 is switched off for the f32 path, in convolutions and matmuls
     alike (cuDNN would otherwise run the convs in TF32 by default), and
@@ -218,8 +261,20 @@ def fit(
     lr schedule and the shuffle from its completed epochs (and batch
     cursor), the dropout seeds from its step counter, its accumulators in
     the layout this run's ``--pallas-opt`` executes.  ``--save-state``
-    writes the final archive after the last epoch.
+    writes the final archive after the last epoch.  Before the first
+    step every rank takes rank 0's parameters and BatchNorm averages (and,
+    resumed from an archive, its accumulators and step), as
+    ``DistributedDataParallel``'s constructor broadcasts them.
     """
+    world = dist or DistState()
+    try:
+        return _fit(args, device, save_path, timings, world)
+    finally:
+        if world.distributed:
+            destroy_distributed()
+
+
+def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, TrainState]:
     resume_path, resume_state_path = args.resume, args.resume_state
     if resume_path and resume_state_path:
         raise ValueError(
@@ -231,40 +286,51 @@ def fit(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     use_pallas, conv_impl = args.pallas_opt, args.conv_impl
+    syncbn = bool(getattr(args, "syncbn", False))
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     # Checkpoints load before any data or device work, so a wrong file
     # fails fast.
-    epoch0, start_batch, archive, params = 0, 0, None, None
+    epoch0, start_batch, archive, params, step0 = 0, 0, None, None, 0
     if resume_state_path:
-        archive, epoch0, extras, _ = load_latest_train_state(resume_state_path)
-        start_batch = _resume_cursor(resume_state_path, extras, epoch0, args)
-        params = archive.params
+        archive, epoch0, extras, _ = load_latest_train_state(resume_state_path, syncbn)
+        start_batch = _resume_cursor(resume_state_path, extras, epoch0, args,
+                                     world.world_size)
+        params = {**archive.params, **archive.batch_stats}
     elif resume_path:
-        params = load_inference_state(resume_path, bn_message=(
-            f"--resume checkpoint {resume_path!r} carries BatchNorm "
-            "parameters; add --syncbn (a mnist_ddp.py flag) to resume it"))
+        params, step0 = load_resume_state(resume_path, syncbn)
 
-    loaders = make_loaders(args, device, timings)
+    loaders = make_loaders(args, device, timings, world)
     seeds = split_streams(args.seed)
-    model = Net(torch.Generator().manual_seed(seeds["init"])).to(device)
+    model = Net(torch.Generator().manual_seed(seeds["init"]), use_bn=syncbn).to(device)
     if params is not None:
         model.load_state_dict(params)
     state = make_train_state(model, use_pallas=use_pallas)
+    state.step = step0
     if archive is not None:
         opt = ensure_opt_layout(archive.opt, dict(model.named_parameters()), use_pallas)
         state = TrainState(opt=_opt_to(opt, device), step=archive.step)
+    if world.distributed:
+        broadcast_from_chief([*model.parameters(), *model.buffers()])
+        if archive is not None:
+            step = torch.tensor([state.step], dtype=torch.int64, device=device)
+            broadcast_from_chief([*_opt_tensors(state.opt), step])
+            state.step = int(step.item())
     step_fn = make_train_step(use_pallas=use_pallas, dropout_seed=seeds["dropout"],
-                              compute_dtype=compute_dtype, conv_impl=conv_impl)
+                              compute_dtype=compute_dtype, conv_impl=conv_impl, world=world)
     run_epochs(args, device, model, state, step_fn,
-               make_eval_step(compute_dtype, conv_impl), loaders, timings,
-               epoch0=epoch0, start_batch=start_batch)
+               make_eval_step(compute_dtype, conv_impl, world), loaders, timings,
+               epoch0=epoch0, start_batch=start_batch, dist=world)
 
-    if args.save_model and save_path:
-        save_state_dict(model_state_dict(model), save_path)
-    if args.save_state:
+    if args.save_model and save_path and world.is_chief:
+        save_state_dict(model_state_dict(model, ddp_prefix=world.distributed,
+                                         num_batches=state.step if syncbn else None),
+                        save_path)
+    if args.save_state and world.is_chief:
         # Epochs completed: where a continuation picks up the schedule,
         # the shuffle and the numbering.
+        stats = {k: v for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
         save_train_state(dict(model.named_parameters()), state.opt, state.step,
-                         args.save_state, epoch=epoch0 + args.epochs)
+                         args.save_state, epoch=epoch0 + args.epochs, batch_stats=stats)
     return model, state

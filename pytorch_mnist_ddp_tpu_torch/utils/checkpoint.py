@@ -13,12 +13,15 @@ Three formats, the same ones the JAX serving engine reads:
   JAX layout beside optimizer state, of which only the params are kept.
 
 The npz forms go through :func:`~.convert.torch_state_from_jax`.
-BatchNorm checkpoints wait for a later slice of the port and are refused.
+BatchNorm checkpoints (``mnist_ddp.py --syncbn``) carry
+``bnN.weight/bias/running_mean/running_var/num_batches_tracked`` in the
+JAX package's naming; :func:`load_resume_state` reads them, and serving
+refuses them.
 
 ``--save-model`` writes through :func:`save_state_dict`: a ``torch.save``
-file of the model's state dict (one device: no ``module.`` prefix), which
-the JAX package's ``load_state_dict`` and :func:`load_inference_state`
-both read.
+file of the model's state dict (``module.`` prefixed in distributed mode,
+as the reference's DDP wrapper saves it), which the JAX package's
+``load_state_dict`` and :func:`load_inference_state` both read.
 
 The ViT family saves its JAX-layout param tree as an npz of dotted keys
 with a ``__format__`` tag (:func:`save_params_tree`, the JAX package's
@@ -31,8 +34,9 @@ asks which package wrote it: ``params.<layer>.<kernel|bias>`` in JAX
 layout; the accumulators as ``opt_flat.square_avg``/``opt_flat.acc_delta``
 (JAX's padded ``[rows, 128]`` ``ravel_pytree`` buffers) or per leaf as
 ``opt.square_avg.<layer>.<leaf>``/``opt.acc_delta.<layer>.<leaf>``;
-``step`` (int32), ``epoch`` (epochs completed, int64) and, in a mid-epoch
-archive, integer ``meta.*`` extras.  In memory they are the port's:
+``step`` (int32), ``epoch`` (epochs completed, int64), BatchNorm running
+averages as ``batch_stats.<bnN>.mean|var`` and, in a mid-epoch archive,
+integer ``meta.*`` extras.  In memory they are the port's:
 torch layouts, ``named_parameters`` order (``utils/convert.py``).
 """
 
@@ -51,7 +55,9 @@ import torch
 from ..ops.adadelta import AdadeltaState
 from ..ops.adadelta_flat import FlatAdadeltaState, is_flat_state
 from .convert import (
+    BN_LAYERS,
     LAYERS,
+    has_bn,
     jax_flat_from_torch,
     jax_state_from_torch,
     torch_flat_from_jax,
@@ -82,27 +88,37 @@ _SERVING_BN_MESSAGE = (
     "BatchNorm checkpoints are not served by this port yet; serve a "
     "checkpoint without --syncbn"
 )
+# BatchNorm running averages: the JAX package's batch_stats leaves -> torch.
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
-def _check_keys(keys, bn_message: str = _SERVING_BN_MESSAGE) -> None:
+def _check_keys(keys, check_bn: Callable[[bool], None]) -> None:
     keys = set(keys)
-    if any(k.split(".")[0].startswith("bn") for k in keys):
-        raise ValueError(bn_message)
-    want = {f"{layer}.{leaf}" for layer in LAYERS for leaf in ("weight", "bias")}
+    bn = has_bn(keys)
+    check_bn(bn)
+    layers = LAYERS + (tuple(BN_LAYERS) if bn else ())
+    want = {f"{layer}.{leaf}" for layer in layers for leaf in ("weight", "bias")}
     missing = sorted(want - keys)
     if missing:
         raise ValueError(f"checkpoint is missing {missing}")
 
 
-def _from_torch_file(path: str, bn_message: str) -> dict[str, torch.Tensor]:
+def _batches_tracked(state: Mapping[str, Any]) -> int:
+    """The largest ``num_batches_tracked`` (a BN checkpoint's step count)."""
+    return max((int(np.asarray(v).ravel()[0]) for k, v in state.items()
+                if k.endswith(".num_batches_tracked")), default=0)
+
+
+def _from_torch_file(path: str, check_bn) -> tuple[dict[str, torch.Tensor], int]:
     raw = torch.load(path, map_location="cpu", weights_only=True)
     state = {_strip_prefix(k): v for k, v in raw.items()}
-    _check_keys(state, bn_message)
+    _check_keys(state, check_bn)
+    layers = LAYERS + tuple(BN_LAYERS)
     return {
         k: state[k].detach().to(torch.float32).contiguous()
         for k in sorted(state)
-        if k.split(".")[0] in LAYERS
-    }
+        if k.split(".")[0] in layers and not k.endswith(".num_batches_tracked")
+    }, _batches_tracked(state)
 
 
 def _params_tree(flat: dict[str, np.ndarray], prefix: str, leaf_names) -> dict:
@@ -116,37 +132,117 @@ def _params_tree(flat: dict[str, np.ndarray], prefix: str, leaf_names) -> dict:
     return tree
 
 
-def load_inference_state(
-    path: str, bn_message: str = _SERVING_BN_MESSAGE
-) -> dict[str, torch.Tensor]:
-    """Any supported checkpoint -> float32 CPU state dict in torch layout
-    (``conv1.weight`` OIHW ... ``fc1.weight`` with NCHW-ordered columns).
-    A BatchNorm checkpoint raises ``ValueError(bn_message)``."""
+def _torch_stats(stats: Mapping[str, Mapping[str, np.ndarray]]) -> dict[str, torch.Tensor]:
+    """JAX ``batch_stats`` ``{bnN: {"mean", "var"}}`` -> ``bnN.running_mean``
+    / ``bnN.running_var`` float32 CPU tensors."""
+    return {f"{layer}.{_STATS[leaf]}": torch.tensor(np.asarray(v, np.float32))
+            for layer in sorted(stats) for leaf, v in stats[layer].items()}
+
+
+def jax_stats_from_torch(state: Mapping[str, torch.Tensor]) -> dict[str, dict[str, np.ndarray]]:
+    """The inverse of :func:`_torch_stats`: a state dict's BN running
+    averages as the JAX package's ``batch_stats`` tree (empty without BN)."""
+    inv = {v: k for k, v in _STATS.items()}
+    tree: dict[str, dict[str, np.ndarray]] = {}
+    for key in sorted(state):
+        layer, leaf = key.split(".", 1)
+        if leaf in inv:
+            tree.setdefault(layer, {})[inv[leaf]] = state[key].detach().to(
+                "cpu", torch.float32).numpy()
+    return {layer: dict(sorted(leaves.items())) for layer, leaves in tree.items()}
+
+
+def _load_model_file(path: str, check_bn) -> tuple[dict[str, torch.Tensor], int]:
+    """Any trained-model artifact -> float32 CPU state dict in torch
+    layout (parameters, and BatchNorm running averages where saved) and
+    its ``num_batches_tracked`` (0 without).  ``check_bn(has_bn)`` runs on
+    the file's keys before any conversion."""
     if _is_torch_zip(path):
-        return _from_torch_file(path, bn_message)
+        return _from_torch_file(path, check_bn)
     try:
         with np.load(path) as archive:
             flat = {k: archive[k] for k in archive.files}
     except ValueError:
         # Not an npz at all: a legacy (pre-zip) torch.save pickle.
-        return _from_torch_file(path, bn_message)
+        return _from_torch_file(path, check_bn)
     if "step" in flat and any(k.startswith("params.") for k in flat):
         tree = _params_tree(flat, "params.", {})
-        if any(layer.startswith("bn") for layer in tree):
-            raise ValueError(bn_message)
-    else:
-        _check_keys((_strip_prefix(k) for k in flat), bn_message)
-        tree = _params_tree(flat, "", {"weight": "kernel"})
-    return torch_state_from_jax(tree)
+        check_bn(has_bn(tree))
+        return {**torch_state_from_jax(tree),
+                **_torch_stats(_params_tree(flat, "batch_stats.", {}))}, 0
+    # A model-only npz: torch names, JAX layouts.
+    flat = {_strip_prefix(k): v for k, v in flat.items()}
+    _check_keys(flat, check_bn)
+    tree: dict[str, dict[str, np.ndarray]] = {}
+    stats: dict[str, torch.Tensor] = {}
+    for key, value in sorted(flat.items()):
+        layer, leaf = key.split(".", 1)
+        if leaf in _STATS.values():
+            stats[key] = torch.tensor(np.asarray(value, np.float32))
+        elif leaf in ("weight", "bias"):
+            if leaf == "weight":
+                leaf = "scale" if layer in BN_LAYERS else "kernel"
+            tree.setdefault(layer, {})[leaf] = value
+    return {**torch_state_from_jax(tree), **stats}, _batches_tracked(flat)
 
 
-def model_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
-    """The model's parameters as CPU float32 tensors under the reference's
-    keys (``conv1.weight`` ... ``fc2.bias``), torch layout."""
-    return collections.OrderedDict(
-        (k, v.detach().to("cpu", torch.float32).contiguous())
-        for k, v in model.state_dict().items()
-    )
+def load_inference_state(path: str) -> dict[str, torch.Tensor]:
+    """Any supported checkpoint -> float32 CPU state dict in torch layout
+    (``conv1.weight`` OIHW ... ``fc1.weight`` with NCHW-ordered columns),
+    for serving, which refuses a BatchNorm checkpoint."""
+
+    def refuse(bn: bool) -> None:
+        if bn:
+            raise ValueError(_SERVING_BN_MESSAGE)
+
+    return _load_model_file(path, refuse)[0]
+
+
+def load_resume_state(path: str, syncbn: bool) -> tuple[dict[str, torch.Tensor], int]:
+    """A ``--resume`` checkpoint for a model with (``syncbn``) or without
+    BatchNorm: ``(state dict, step)``, the JAX trainer's
+    ``_load_resume_variables``.  The step is the checkpoint's
+    ``num_batches_tracked`` (0 without BN), so a resumed ``--syncbn`` run
+    keeps torch's cumulative batch counter; BN running averages missing
+    from the file start from their init.  A checkpoint whose BatchNorm
+    does not match ``syncbn`` raises with the JAX trainer's text."""
+
+    def check(bn: bool) -> None:
+        if syncbn and not bn:
+            raise ValueError(
+                f"--resume checkpoint {path!r} has no BatchNorm parameters; "
+                "drop --syncbn or resume a checkpoint saved by a --syncbn run"
+            )
+        if bn and not syncbn:
+            raise ValueError(
+                f"--resume checkpoint {path!r} carries BatchNorm parameters; "
+                "add --syncbn (a mnist_ddp.py flag) to resume it"
+            )
+
+    state, step = _load_model_file(path, check)
+    for layer, features in BN_LAYERS.items() if syncbn else ():
+        state.setdefault(f"{layer}.running_mean", torch.zeros(features))
+        state.setdefault(f"{layer}.running_var", torch.ones(features))
+    return state, step
+
+
+def model_state_dict(
+    model: torch.nn.Module, ddp_prefix: bool = False, num_batches: int | None = None
+) -> dict[str, torch.Tensor]:
+    """The model's state as CPU float32 tensors under the reference's keys
+    (``conv1.weight`` ... ``fc2.bias``), torch layout.  ``ddp_prefix``
+    prefixes ``module.`` (the reference's distributed-mode save);
+    ``num_batches`` adds each BatchNorm's int64 ``num_batches_tracked``
+    after its running averages, as ``torch.nn.BatchNorm2d`` keeps it."""
+    out: dict[str, torch.Tensor] = collections.OrderedDict()
+    for k, v in model.state_dict().items():
+        out[k] = v.detach().to("cpu", torch.float32).contiguous()
+        if num_batches is not None and k.endswith(".running_var"):
+            out[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(
+                num_batches, dtype=torch.int64)
+    if ddp_prefix:
+        out = collections.OrderedDict(("module." + k, v) for k, v in out.items())
+    return out
 
 
 def _atomic_write(path: str, write: Callable) -> None:
@@ -254,11 +350,14 @@ PREV_SUFFIX = ".prev"
 class TrainArchive(NamedTuple):
     """A ``--save-state`` archive in the port's layouts, CPU tensors:
     parameters keyed ``conv1.weight`` ..., the Adadelta accumulators as
-    saved (flat or per parameter), and the optimizer-step counter."""
+    saved (flat or per parameter), the optimizer-step counter, and the
+    BatchNorm running averages (``bn1.running_mean`` ...; empty without
+    BN)."""
 
     params: dict[str, torch.Tensor]
     opt: AdadeltaState | FlatAdadeltaState
     step: int
+    batch_stats: dict[str, torch.Tensor] = {}
 
 
 def save_train_state(
@@ -268,9 +367,11 @@ def save_train_state(
     path: str,
     epoch: int = 0,
     extras: Mapping[str, int] | None = None,
+    batch_stats: Mapping[str, torch.Tensor] | None = None,
 ) -> None:
     """Write the whole training state (parameters, both accumulators in
-    their layout, the step counter, ``epoch`` epochs completed) as one npz
+    their layout, the step counter, ``epoch`` epochs completed, a
+    ``--syncbn`` model's running averages from ``batch_stats``) as one npz
     archive in the JAX package's format, atomically.  ``extras`` (a
     mid-epoch archive's position) are stored as int64 ``meta.<key>``; a
     final archive has none.  Restoring it continues training bit for bit:
@@ -278,27 +379,31 @@ def save_train_state(
     and the dropout seeds follow ``step``."""
     flat = _flatten_raw(jax_state_from_torch(params), "params.")
     if is_flat_state(opt):
-        flat["opt_flat.square_avg"] = jax_flat_from_torch(opt.square_avg)
-        flat["opt_flat.acc_delta"] = jax_flat_from_torch(opt.acc_delta)
+        bn = has_bn(params)
+        flat["opt_flat.square_avg"] = jax_flat_from_torch(opt.square_avg, bn)
+        flat["opt_flat.acc_delta"] = jax_flat_from_torch(opt.acc_delta, bn)
     else:
         for name in ("square_avg", "acc_delta"):
             flat.update(_flatten_raw(jax_state_from_torch(getattr(opt, name)),
                                      f"opt.{name}."))
     flat["step"] = np.asarray(step, np.int32)
     flat["epoch"] = np.asarray(int(epoch))
+    flat.update(_flatten_raw(jax_stats_from_torch(batch_stats or {}), "batch_stats."))
     for key, value in (extras or {}).items():
         flat[f"meta.{key}"] = np.asarray(int(value), np.int64)
     _atomic_npz_write(flat, path)
 
 
-def load_train_state_full(path: str) -> tuple[TrainArchive, int, dict[str, int]]:
+def load_train_state_full(
+    path: str, syncbn: bool = False
+) -> tuple[TrainArchive, int, dict[str, int]]:
     """The inverse of :func:`save_train_state`, for an archive written by
     either package: ``(TrainArchive, epochs completed, extras)``, the
     extras a ``{key: int}`` dict (empty for a final archive).  A missing
     file raises FileNotFoundError, a torn one
     :class:`CorruptCheckpointError`, a model-only checkpoint a ValueError
-    naming ``--resume``, and a BatchNorm archive the JAX trainer's
-    ``--syncbn`` message."""
+    naming ``--resume``, and an archive whose BatchNorm state does not
+    match ``syncbn`` the JAX trainer's ``--syncbn`` message."""
     try:
         with np.load(path) as archive:
             flat = {k: archive[k] for k in archive.files}
@@ -319,17 +424,19 @@ def load_train_state_full(path: str) -> tuple[TrainArchive, int, dict[str, int]]
             "'params.*' entries) — model-only checkpoints (--save-model) "
             "resume via --resume instead"
         )
-    if any(k.startswith("batch_stats.") for k in flat):
+    saved_bn = any(k.startswith("batch_stats.") for k in flat)
+    if saved_bn != syncbn:
         raise ValueError(
-            f"--resume-state {path!r} was saved with BatchNorm state; add "
-            "--syncbn to match"
+            f"--resume-state {path!r} was saved "
+            f"{'with' if saved_bn else 'without'} BatchNorm state; "
+            + ("add" if saved_bn else "drop") + " --syncbn to match"
         )
     params = torch_state_from_jax(_params_tree(flat, "params.", {}))
     opt: AdadeltaState | FlatAdadeltaState
     if "opt_flat.square_avg" in flat:
         opt = FlatAdadeltaState(
-            square_avg=torch_flat_from_jax(flat["opt_flat.square_avg"]),
-            acc_delta=torch_flat_from_jax(flat["opt_flat.acc_delta"]),
+            square_avg=torch_flat_from_jax(flat["opt_flat.square_avg"], syncbn),
+            acc_delta=torch_flat_from_jax(flat["opt_flat.acc_delta"], syncbn),
         )
     else:
         opt = AdadeltaState(*(
@@ -338,12 +445,13 @@ def load_train_state_full(path: str) -> tuple[TrainArchive, int, dict[str, int]]
         ))
     extras = {k[len("meta."):]: int(np.asarray(v).ravel()[0])
               for k, v in flat.items() if k.startswith("meta.")}
-    state = TrainArchive(params=params, opt=opt, step=int(flat["step"]))
+    state = TrainArchive(params=params, opt=opt, step=int(flat["step"]),
+                         batch_stats=_torch_stats(_params_tree(flat, "batch_stats.", {})))
     return state, int(flat.get("epoch", 0)), extras
 
 
 def load_latest_train_state(
-    path: str,
+    path: str, syncbn: bool = False
 ) -> tuple[TrainArchive, int, dict[str, int], str]:
     """:func:`load_train_state_full` of ``path`` or, when ``path`` is
     missing or torn, of ``path + PREV_SUFFIX`` (a writer killed between its
@@ -351,12 +459,12 @@ def load_latest_train_state(
     read.  Any other error surfaces: an older rotation must never hide an
     operator's mistake."""
     try:
-        return (*load_train_state_full(path), path)
+        return (*load_train_state_full(path, syncbn), path)
     except (FileNotFoundError, CorruptCheckpointError) as main_err:
         prev = path + PREV_SUFFIX
         if not os.path.exists(prev):
             raise
         try:
-            return (*load_train_state_full(prev), prev)
+            return (*load_train_state_full(prev, syncbn), prev)
         except Exception:
             raise main_err

@@ -23,6 +23,11 @@ converters.  The JAX package's ``--pallas-opt`` accumulators are one
 the two: drop or restore the pad, split by leaf, convert each leaf,
 concatenate in the other order.
 
+BatchNorm layers (``--syncbn``: ``bn1``, ``bn2``) cross by name: flax's
+``scale`` is torch's ``weight``; vectors need no layout change.  They sit
+after their conv in ``named_parameters`` order and first in the sorted
+JAX order.
+
 The ViT's tree (``models/vit.py``) crosses by name alone: dense kernels
 ``[in, out]`` transpose to ``weight [out, in]``, LayerNorm ``scale`` is
 ``weight``, ``blocks/<i>`` is ``blocks.<i>``.  No feature is reordered:
@@ -42,6 +47,7 @@ _POOL_C = 64
 _FLAT = _POOL_H * _POOL_W * _POOL_C
 
 LAYERS = ("conv1", "conv2", "fc1", "fc2")
+BN_LAYERS = {"bn1": 32, "bn2": 64}  # --syncbn's, with their channel counts
 # The CNN's parameters in named_parameters order, torch shapes.
 TORCH_SHAPES = {
     "conv1.weight": (32, 1, 3, 3), "conv1.bias": (32,),
@@ -49,6 +55,25 @@ TORCH_SHAPES = {
     "fc1.weight": (128, _FLAT), "fc1.bias": (128,),
     "fc2.weight": (10, 128), "fc2.bias": (10,),
 }
+
+
+def torch_shapes(use_bn: bool = False) -> dict[str, tuple[int, ...]]:
+    """The CNN's parameters in ``named_parameters`` order, torch shapes;
+    with ``use_bn`` each BatchNorm's weight and bias follow its conv."""
+    if not use_bn:
+        return dict(TORCH_SHAPES)
+    out: dict[str, tuple[int, ...]] = {}
+    for name, shape in TORCH_SHAPES.items():
+        out[name] = shape
+        if name in ("conv1.bias", "conv2.bias"):
+            bn = "bn" + name[4]
+            out[f"{bn}.weight"] = out[f"{bn}.bias"] = (BN_LAYERS[bn],)
+    return out
+
+
+def has_bn(names) -> bool:
+    """Whether any key names a BatchNorm layer (``bn1.weight``, ``bn2``...)."""
+    return any(str(k).split(".")[0].startswith("bn") for k in names)
 # The JAX package's flat-accumulator tiling (ops/pallas_adadelta.py).
 _LANES = 128
 _BLOCK_ROWS = 256
@@ -72,20 +97,22 @@ def pad_rows(n: int) -> tuple[int, int]:
     return -(-rows // _BLOCK_ROWS) * _BLOCK_ROWS, _BLOCK_ROWS
 
 
-def _jax_shape(name: str) -> tuple[int, ...]:
-    """The JAX leaf shape of a torch parameter: OIHW -> HWIO, [out, in] ->
-    [in, out]."""
-    shape = TORCH_SHAPES[name]
+def _jax_shape(shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The JAX leaf shape of a torch parameter's: OIHW -> HWIO, [out, in]
+    -> [in, out]."""
     if len(shape) == 4:
         return shape[2], shape[3], shape[1], shape[0]
     return shape[::-1]
 
 
-def _jax_leaves() -> list[tuple[str, str, tuple[int, ...]]]:
+def _jax_leaves(use_bn: bool = False) -> list[tuple[str, str, tuple[int, ...]]]:
     """``(layer, leaf, JAX shape)`` in ``ravel_pytree`` order: sorted
-    layers, and ``bias`` before ``kernel`` within each."""
-    return [(layer, leaf, _jax_shape(f"{layer}.{'weight' if leaf == 'kernel' else 'bias'}"))
-            for layer in sorted(LAYERS) for leaf in ("bias", "kernel")]
+    layers, and ``bias`` before ``kernel``/``scale`` within each."""
+    shapes = torch_shapes(use_bn)
+    layers = sorted({name.split(".")[0] for name in shapes})
+    return [(layer, leaf, _jax_shape(shapes[f"{layer}.{'bias' if leaf == 'bias' else 'weight'}"]))
+            for layer in layers
+            for leaf in ("bias", "scale" if layer in BN_LAYERS else "kernel")]
 
 
 def torch_state_from_jax(
@@ -93,29 +120,29 @@ def torch_state_from_jax(
 ) -> dict[str, torch.Tensor]:
     """JAX param tree ``{layer: {"kernel", "bias"}}`` -> torch state dict
     (``conv1.weight`` ...) in torch's native layout, fc1 columns in NCHW
-    order.  Float32 CPU tensors, contiguous."""
-    if "bn1" in params:
-        raise ValueError(
-            "BatchNorm checkpoints are not served by this port yet; serve a "
-            "checkpoint without --syncbn"
-        )
+    order, in ``named_parameters`` order; BatchNorm layers (``{"scale",
+    "bias"}``) become ``bnN.weight``/``bnN.bias``.  Float32 CPU tensors,
+    contiguous."""
     perm = nchw_to_nhwc_feature_perm()
     out: dict[str, torch.Tensor] = {}
-    for layer in LAYERS:
+    for name in torch_shapes(has_bn(params)):
+        layer, leaf = name.split(".")
         if layer not in params:
             raise ValueError(f"param tree has no layer {layer!r}")
-        kernel = np.asarray(params[layer]["kernel"], np.float32)
-        if kernel.ndim == 4:  # HWIO -> OIHW
-            weight = kernel.transpose(3, 2, 0, 1)
-        else:  # [in, out] -> [out, in]
-            weight = kernel.T
-            if layer == "fc1":
-                weight = weight[:, perm]
+        if leaf == "bias":
+            a = np.asarray(params[layer]["bias"], np.float32)
+        elif layer in BN_LAYERS:
+            a = np.asarray(params[layer]["scale"], np.float32)
+        else:
+            a = np.asarray(params[layer]["kernel"], np.float32)
+            if a.ndim == 4:  # HWIO -> OIHW
+                a = a.transpose(3, 2, 0, 1)
+            else:  # [in, out] -> [out, in]
+                a = a.T
+                if layer == "fc1":
+                    a = a[:, perm]
         # torch.tensor copies: the source arrays may be read-only views.
-        out[f"{layer}.weight"] = torch.tensor(np.ascontiguousarray(weight))
-        out[f"{layer}.bias"] = torch.tensor(
-            np.asarray(params[layer]["bias"], np.float32)
-        )
+        out[name] = torch.tensor(np.ascontiguousarray(a))
     return out
 
 
@@ -125,32 +152,34 @@ def jax_state_from_torch(
     """The inverse of :func:`torch_state_from_jax`: a CNN state dict in
     torch layout -> the JAX param tree ``{layer: {"bias", "kernel"}}`` of
     contiguous float32 numpy arrays (HWIO convs, ``[in, out]`` dense, fc1's
-    rows in NHWC feature order), keys in sorted order as the JAX package's
-    trees come out of a training step."""
+    rows in NHWC feature order; ``{"bias", "scale"}`` for BatchNorm), keys
+    in sorted order as the JAX package's trees come out of a training
+    step.  Keys other than parameters (running statistics) are ignored."""
     inv = np.argsort(nchw_to_nhwc_feature_perm())
     tree: dict[str, dict[str, np.ndarray]] = {}
-    for layer in LAYERS:
-        weight = state[f"{layer}.weight"].detach().to("cpu", torch.float32).numpy()
-        if weight.ndim == 4:  # OIHW -> HWIO
-            kernel = weight.transpose(2, 3, 1, 0)
-        else:
-            if layer == "fc1":
-                weight = weight[:, inv]
-            kernel = weight.T  # [out, in] -> [in, out]
-        bias = state[f"{layer}.bias"].detach().to("cpu", torch.float32).numpy()
-        tree[layer] = {"bias": np.ascontiguousarray(bias),
-                       "kernel": np.ascontiguousarray(kernel)}
+    for layer, leaf, _ in _jax_leaves(has_bn(state)):
+        a = state[f"{layer}.{'bias' if leaf == 'bias' else 'weight'}"]
+        a = a.detach().to("cpu", torch.float32).numpy()
+        if leaf == "kernel":
+            if a.ndim == 4:  # OIHW -> HWIO
+                a = a.transpose(2, 3, 1, 0)
+            else:
+                if layer == "fc1":
+                    a = a[:, inv]
+                a = a.T  # [out, in] -> [in, out]
+        tree.setdefault(layer, {})[leaf] = np.ascontiguousarray(a)
     return tree
 
 
-def torch_flat_from_jax(buf: np.ndarray) -> torch.Tensor:
+def torch_flat_from_jax(buf: np.ndarray, use_bn: bool = False) -> torch.Tensor:
     """A JAX ``--pallas-opt`` accumulator (``[rows, 128]``, or its ravel)
     -> the port's flat accumulator: 1-D float32, unpadded,
-    ``named_parameters`` order, torch layouts."""
+    ``named_parameters`` order, torch layouts.  ``use_bn``: the model has
+    ``--syncbn``'s BatchNorm layers (the padded size does not tell)."""
     flat = np.asarray(buf, np.float32).reshape(-1)
     tree: dict[str, dict[str, np.ndarray]] = {}
     off = 0
-    for layer, leaf, shape in _jax_leaves():
+    for layer, leaf, shape in _jax_leaves(use_bn):
         size = int(np.prod(shape))
         tree.setdefault(layer, {})[leaf] = flat[off:off + size].reshape(shape)
         off += size
@@ -160,23 +189,25 @@ def torch_flat_from_jax(buf: np.ndarray) -> torch.Tensor:
             f"flat accumulator has {flat.size} elements; the CNN's "
             f"{off} parameters pad to {rows} x {_LANES}")
     state = torch_state_from_jax(tree)
-    return torch.cat([state[name].reshape(-1) for name in TORCH_SHAPES])
+    return torch.cat([state[name].reshape(-1) for name in torch_shapes(use_bn)])
 
 
-def jax_flat_from_torch(flat: torch.Tensor) -> np.ndarray:
+def jax_flat_from_torch(flat: torch.Tensor, use_bn: bool = False) -> np.ndarray:
     """The inverse of :func:`torch_flat_from_jax`: the port's flat
     accumulator -> the JAX package's ``[rows, 128]`` float32 buffer, zeros
     in the pad as JAX's state holds there."""
+    shapes = torch_shapes(use_bn)
     flat = flat.detach().to("cpu", torch.float32).reshape(-1)
-    n = sum(int(np.prod(shape)) for shape in TORCH_SHAPES.values())
+    sizes = [int(np.prod(s)) for s in shapes.values()]
+    n = sum(sizes)
     if flat.numel() != n:
         raise ValueError(f"flat accumulator has {flat.numel()} elements, the CNN {n}")
-    state = dict(zip(TORCH_SHAPES, flat.split([int(np.prod(s)) for s in TORCH_SHAPES.values()])))
-    tree = jax_state_from_torch({k: v.view(TORCH_SHAPES[k]) for k, v in state.items()})
+    state = {k: v.view(shapes[k]) for k, v in zip(shapes, flat.split(sizes))}
+    tree = jax_state_from_torch(state)
     rows, _ = pad_rows(n)
     out = np.zeros(rows * _LANES, np.float32)
     out[:n] = np.concatenate([tree[layer][leaf].reshape(-1)
-                              for layer, leaf, _ in _jax_leaves()])
+                              for layer, leaf, _ in _jax_leaves(use_bn)])
     return out.reshape(rows, _LANES)
 
 

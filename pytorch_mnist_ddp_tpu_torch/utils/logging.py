@@ -27,6 +27,20 @@ def test_summary_lines(avg_loss: float, correct: int, dataset_len: int) -> str:
     )
 
 
+def distributed_init_banner(
+    rank: int, dist_url: str, local_rank: int, world_size: int
+) -> str:
+    """Distributed init banner (reference mnist_ddp.py:34), printed by
+    every rank."""
+    return (
+        f"| distributed init (rank {rank}): {dist_url}, "
+        f"local rank:{local_rank}, world size:{world_size}"
+    )
+
+
+NOT_DISTRIBUTED_NOTICE = "Not using distributed mode"
+
+
 def total_time_line(elapsed_seconds: float) -> str:
     """End-of-run wall clock (reference mnist_ddp.py:203).  The label reads
     "ms" but the value is seconds, as the reference prints it."""

@@ -24,6 +24,8 @@ from pytorch_mnist_ddp_tpu_torch.ops import _build
 from pytorch_mnist_ddp_tpu_torch.ops import int8_head
 from pytorch_mnist_ddp_tpu_torch.mnist import build_parser as train_parser
 from pytorch_mnist_ddp_tpu_torch.mnist import main as train_cli_main
+from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser as ddp_parser
+from pytorch_mnist_ddp_tpu_torch.mnist_ddp import main as ddp_cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.engine import InferenceEngine
 from pytorch_mnist_ddp_tpu_torch.trainer import fit
@@ -97,10 +99,12 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize(
     "entry",
     ["engine", "from_seed", "cli", "trainer", "train_cli", "vit_fit", "vit_cli",
-     "vit_sp_cli"],
+     "vit_sp_cli", "ddp_cli"],
 )
-def test_entry_points_default_to_cuda(entry):
+def test_entry_points_default_to_cuda(entry, monkeypatch):
     _no_card()
+    for name in ("RANK", "WORLD_SIZE", "SLURM_PROCID"):
+        monkeypatch.delenv(name, raising=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "engine":
             InferenceEngine(Net().state_dict())
@@ -116,6 +120,8 @@ def test_entry_points_default_to_cuda(entry):
             vit_fit(vit_parser().parse_args(["--dry-run", "--flash"]))
         elif entry == "vit_cli":
             vit_cli_main(["--dry-run", "--epochs", "1", "--flash"])
+        elif entry == "ddp_cli":
+            ddp_cli_main(["--dry-run", "--epochs", "1", "--syncbn"])
         else:
             vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "1", "--allow-degree-1"])
 
@@ -149,6 +155,32 @@ def test_train_cli_accepts_ported_flags(flags, dest, value):
     defaults = train_parser().parse_args([])
     assert (defaults.resume, defaults.save_state, defaults.resume_state,
             defaults.conv_impl, defaults.bf16) == (None, None, None, "conv", False)
+
+
+@pytest.mark.parametrize(
+    "flag",
+    ["--zero", "--tp=2", "--pp", "--pp-microbatches=2", "--fused", "--telemetry-dir=x",
+     "--elastic", "--resume-reshard", "--checkpoint-every-steps=1", "--chaos=x"],
+)
+def test_ddp_cli_refuses_flags_not_ported_yet(flag):
+    with pytest.raises(SystemExit):
+        ddp_parser().parse_args([flag])
+
+
+def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
+    """mnist_ddp.py's flags with the JAX CLI's defaults, on top of every
+    flag of the port's mnist.py."""
+    args = ddp_parser().parse_args([])
+    assert (args.local_rank, args.world_size, args.dist_url, args.rdzv_timeout_s,
+            args.rdzv_attempts, args.syncbn) == (0, 1, "env://", None, None, False)
+    mnist_dests = {a.dest for a in train_parser()._actions}
+    assert mnist_dests <= {a.dest for a in ddp_parser()._actions}
+    args = ddp_parser().parse_args(["--syncbn", "--local_rank=3", "--world-size=4",
+                                    "--dist-url=tcp://h:1", "--rdzv-timeout-s=9",
+                                    "--rdzv-attempts=3", "--pallas-opt", "--batch-size=200"])
+    assert (args.syncbn, args.local_rank, args.world_size, args.dist_url,
+            args.rdzv_timeout_s, args.rdzv_attempts, args.pallas_opt, args.batch_size) == (
+        True, 3, 4, "tcp://h:1", 9.0, 3, True, 200)
 
 
 @pytest.mark.parametrize(
