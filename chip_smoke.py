@@ -111,7 +111,32 @@ Phases, one JSON line each:
                 and at d = 160 and 256;
                 beside them the share of the bound, the ratio to SDPA and
                 (f32) the CUDA-core bound, and a one-element add_ as launch
-                floor.
+                floor;
+17. vit_parallel — the ViT's --sp, --sp-impl ulysses, --tp and --sp --tp:
+                (a) the ring over S token shards of one sequence in this
+                process (the shards' k/v rotated as the ring passes them),
+                S = 2 and 4 at the ViT's train shape, 2 at its eval shape,
+                4 at (1, 8192, 2, 64), f32 and bf16, with and without
+                autograd (the state in place from hop to hop), held to the
+                plain ring and to the whole-forward kernel on the whole
+                sequence, and row 5's time per hop; (b) an NCCL world of
+                one through the launcher (this script is the rank program):
+                20 fixed steps of --sp 1 --tp 1 --allow-degree-1 --flash and
+                of --sp 1 --allow-degree-1 --flash, the latter torch.equal to
+                the same steps through vit_mnist's builder without a
+                launcher, and the same flags through vit_mnist's CLI under
+                the launcher for one 20-step epoch on an IDX data root,
+                line for line and byte for byte in the saved archive the
+                same as vit_mnist.fit() without a launcher; (c) two gloo
+                ranks sharing the card (the ring passes staged through the
+                host, counted), 20 steps of --sp 2, --sp 2 --sp-impl ulysses and
+                --tp 2, each with --flash and also --bf16, and (d) four, of
+                --sp 2 --tp 2 --flash, each held to the single-device
+                --flash steps of its dtype with the ranks' replicated
+                leaves bit-equal after every step and the flash launches
+                at their formula; (e) one epoch of --sp 2 --flash on the two
+                ranks through vit_mnist.fit (epoch-1 accuracy floor, ms a
+                step, host µs a ring pass).
 
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
@@ -119,7 +144,10 @@ each main path and read just after it: int8_head over phases 4-5 (the
 serving path), adadelta over phases 6-9 (the CNN training path, resumed
 runs included) and again over phase 10 (the data-parallel step, the
 ranks' processes included; the references it is held to are counted
-apart), flash_attention over phases 13-14 (the ViT training path).
+apart), flash_attention over phases 13-14 (the ViT training path) and
+again over 17 (b)-(e) (the parallel modes, counted by the ranks'
+processes; the single-device references apart; (a)'s launches compare
+and are not counted).
 Latencies, seconds per epoch and images/s are smoke readings of this
 script's own work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -290,6 +318,43 @@ VIT_BF16_STEP_ATOL = 5e-3
 # the port's initial weights come from another generator, so the floor sits
 # 5.9 points below the lowest reading.
 VIT_EPOCH1_MIN_ACCURACY = 0.70
+# vit_parallel phase.  (a) The ring over S token shards of one sequence in
+# this process, k/v rotated between the shards as the ring passes them:
+# (S, (b, T, h, d)) at the ViT's train and eval shapes and one long one.
+VIT_RING_CASES = ((2, (64, 16, 4, 16)), (4, (64, 16, 4, 16)), (2, (1000, 16, 4, 16)),
+                  (4, (1, 8192, 2, 64)))
+# The kernels' new shapes on the parallel paths, held to their plain
+# versions in the kernel phase: per-rank q/k/v of the ring (t = 8, 4), of
+# Ulysses and --tp (h = 2, 1), of --sp 2 --tp 2, and the long ring's hop.
+FLASH_PARALLEL = ((64, 8, 4, 16), (64, 4, 4, 16), (1000, 8, 4, 16), (64, 16, 2, 16),
+                  (64, 16, 1, 16), (1000, 16, 2, 16), (64, 8, 2, 16), (1, 2048, 2, 64))
+# (b)-(e): the parallel modes through vit_mnist's builder, VIT_PAR_STEPS
+# fixed steps at the CLI's batch (one data shard: every leg's global batch
+# is the single device's) against the single-device --flash steps, at the
+# trajectory gates the ddp phase uses for f32 (loss rtol 2e-4 / atol 2e-5,
+# params atol 5e-3), and for --bf16 at VIT_BF16_STEP_ATOL against the bf16
+# single device: the ring folds p rounded per key tile of each shard, the
+# whole-forward kernel per tile of the sequence.
+VIT_PAR_STEPS = 20
+VIT_PAR_LEGS = {
+    "flash": ["--flash"],
+    "bf16_flash": ["--bf16", "--flash"],
+    "sp1_flash": ["--sp", "1", "--allow-degree-1", "--flash"],
+    "sp1tp1_flash": ["--sp", "1", "--tp", "1", "--allow-degree-1", "--flash"],
+    "sp2_flash": ["--sp", "2", "--flash"],
+    "ulysses2_flash": ["--sp", "2", "--sp-impl", "ulysses", "--flash"],
+    "tp2_flash": ["--tp", "2", "--flash"],
+    "bf16_sp2_flash": ["--bf16", "--sp", "2", "--flash"],
+    "bf16_ulysses2_flash": ["--bf16", "--sp", "2", "--sp-impl", "ulysses", "--flash"],
+    "bf16_tp2_flash": ["--bf16", "--tp", "2", "--flash"],
+    "sp2tp2_flash": ["--sp", "2", "--tp", "2", "--flash"],
+}
+VIT_PAR_NCCL = ("sp1tp1_flash", "sp1_flash")  # (b) an NCCL world of one
+VIT_PAR_TWO = ("sp2_flash", "ulysses2_flash", "tp2_flash", "bf16_sp2_flash",
+               "bf16_ulysses2_flash", "bf16_tp2_flash")  # (c) two gloo ranks
+VIT_PAR_FOUR = ("sp2tp2_flash",)  # (d) four gloo ranks
+VIT_PAR_EPOCH = ["--epochs", "1", "--sp", "2", "--flash"]  # (e) on the two ranks
+VIT_PAR_LOSS_RTOL, VIT_PAR_LOSS_ATOL, VIT_PAR_PARAM_ATOL = 2e-4, 2e-5, 5e-3
 
 
 def emit(obj: dict) -> None:
@@ -1559,7 +1624,9 @@ def flash_kernel_phase(torch, np) -> dict[str, dict[str, float]]:
              + [("bf16 long", shape, True, 0, bf16) for shape in FLASH_LONG]
              + [("bf16 offset", shape, True, 1, bf16) for shape in FLASH_OFFSET]
              + [(f"{dt_name}d={shape[3]}", shape, True, 0, dt)
-                for shape in FLASH_WIDE_D for dt_name, dt in (("", f32), ("bf16 ", bf16))])
+                for shape in FLASH_WIDE_D for dt_name, dt in (("", f32), ("bf16 ", bf16))]
+             + [(f"{dt_name}parallel", shape, True, 0, dt)
+                for shape in FLASH_PARALLEL for dt_name, dt in (("", f32), ("bf16 ", bf16))])
     report, vs_f64 = {}, {}
     for i, (kind, shape, strided, offset, dtype) in enumerate(cases):
         b, t, h, d = shape
@@ -1653,7 +1720,7 @@ def vit_step_phase(torch, np) -> tuple[dict[str, int], dict[str, int]]:
         model.load_state_dict(init)
         state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
         if base == "sp1_flash":
-            step = sp.make_sp_train_step(model.cfg, sp.make_seq_group(1), use_flash=True)
+            step = sp.make_sp_train_step(model.cfg, use_flash=True)
         else:
             step = make_forward_train_step(lambda m, x: m(x))
         before = dict(fa.LAUNCHES)
@@ -1737,7 +1804,8 @@ def vit_train_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            model, state = vit_mnist.fit(args, "cuda", timings=timings)
+            model, state = vit_mnist.fit(args, vit_mnist.resolve_mode_flags(args), "cuda",
+                                         timings=timings)
         wall = time.perf_counter() - t0
         got = {k: fa.LAUNCHES[k] - before[k] for k in before}
         for k in launches:
@@ -1800,7 +1868,7 @@ def vit_profile_phase(torch) -> None:
                     generator=torch.Generator().manual_seed(SEED)).cuda()
         state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
         if name == "sp1_flash":
-            step = sp.make_sp_train_step(model.cfg, sp.make_seq_group(1), use_flash=True)
+            step = sp.make_sp_train_step(model.cfg, use_flash=True)
         else:
             step = make_forward_train_step(lambda m, x: m(x))
         for x, y, w in batches[:10]:  # warm-up
@@ -1914,6 +1982,518 @@ def flash_times(torch, np) -> dict[str, dict]:
                    "bf16: max(bytes / 3.35 TB/s, 4bht^2d / 989 TFLOP/s)",
           "library_backends": library_backends})
     return out
+
+
+def shard_ring(torch, fa, q, k, v, num_seq: int, fold):
+    """The ring over ``num_seq`` token shards of one sequence in this
+    process: shard s folds its own k/v block, then the block of shard s - i
+    at hop i, as the ring passes them (``parallel/sp.py``); the shards'
+    outputs in order.  ``fold(m, l, a, q, k, v)`` is the kernel
+    (``flash_block_update``) or a plain version.  Returns the output and
+    the state buffers of every fold, by shard."""
+    b, t, h, d = q.shape
+    tl = t // num_seq
+    block = lambda x, j: x[:, j * tl:(j + 1) * tl]  # noqa: E731
+    outs, states = [], []
+    for s in range(num_seq):
+        m, l, a = fa.flash_ring_state(b, h, tl, d, q.device)
+        seen = []
+        for hop in range(num_seq):
+            j = (s - hop) % num_seq
+            m, l, a = fold(m, l, a, block(q, s), block(k, j), block(v, j))
+            seen.append((m, l, a))
+        outs.append(fa.flash_ring_finalize(m, l, a, q.dtype))
+        states.append(seen)
+    return torch.cat(outs, dim=1), states
+
+
+def ring_hops_phase(torch, np) -> dict:
+    """(a) Row 5 with real hops, in one process: the ring over S shards
+    (:func:`shard_ring`) with every fold in the kernel, in f32 and bf16,
+    without autograd (the state updated in place from hop to hop) and with
+    it (new state a hop; q/k/v gradients through the kernel's recompute),
+    held to the plain ring (the same folds in the plain version) and to
+    row 4 on the whole sequence at the flash gates; f32 gradients to the
+    plain ring's at the gradient gate of tests/test_flash.py.  Then the
+    kernel's time per hop at each shard shape beside its bound, its plain
+    version and SDPA on the same block."""
+    import torch.nn.functional as F
+
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+
+    plain_fold = lambda m, l, a, q, k, v: tuple(fa.flash_partial_reference(m, l, a, q, k, v))  # noqa: E731
+    twin_fold = lambda m, l, a, q, k, v: tuple(fa.partial_twin(m, l, a, q, k, v))  # noqa: E731
+    kernel_fold = lambda m, l, a, q, k, v: tuple(fa.flash_block_update(m, l, a, q, k, v))  # noqa: E731
+    report, per_hop = {}, {}
+    before = dict(fa.LAUNCHES)
+    worst = 0.0
+    for i, (num_seq, shape) in enumerate(VIT_RING_CASES):
+        b, t, h, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            where = f"S={num_seq} {'bf16 ' if bf16 else ''}{'x'.join(map(str, shape))}"
+            out_gate = (dict(rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL) if bf16
+                        else dict(rtol=FLASH_RTOL, atol=FLASH_ATOL))
+            q, k, v = flash_inputs(torch, np, shape, 2000 + i, dtype=dtype)
+            errs = {}
+            with torch.no_grad():
+                got, states = shard_ring(torch, fa, q, k, v, num_seq, kernel_fold)
+                want, _ = shard_ring(torch, fa, q, k, v, num_seq, plain_fold)
+                whole, _ = fa.flash_fwd(q, k, v)
+            torch.cuda.synchronize()
+            in_place = all(all(x is y for x, y in zip(seen[0], hop)) for seen in states
+                           for hop in seen)
+            check(in_place, f"ring {where}: the no-grad state was not updated in place")
+            errs["no_grad_vs_plain_ring"], _ = flash_close(torch, got, want,
+                                                           f"ring {where} vs plain", **out_gate)
+            errs["no_grad_vs_whole_fwd"], _ = flash_close(torch, got, whole,
+                                                          f"ring {where} vs row 4", **out_gate)
+            qkv = q._base.detach().view(b, t, h, 3, d).clone().requires_grad_()
+            qg, kg, vg = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+            got_g, _ = shard_ring(torch, fa, qg, kg, vg, num_seq, kernel_fold)
+            cot = torch.from_numpy(np.random.RandomState(i).randn(*shape).astype(np.float32))
+            cot = cot.to("cuda", dtype)
+            (got_g.float() * cot.float()).sum().backward()
+            errs["grad_out_vs_plain_ring"], _ = flash_close(torch, got_g.detach(), want,
+                                                            f"ring {where} (grad) vs plain",
+                                                            **out_gate)
+            if not bf16 and t <= 1024:
+                ref = q._base.detach().view(b, t, h, 3, d).clone().requires_grad_()
+                want_g, _ = shard_ring(torch, fa, ref[..., 0, :], ref[..., 1, :],
+                                       ref[..., 2, :], num_seq, twin_fold)
+                (want_g * cot).sum().backward()
+                errs["grad_qkv_vs_plain_ring"], _ = flash_close(
+                    torch, qkv.grad, ref.grad, f"ring {where} q/k/v gradients", rtol=1e-4,
+                    atol=1e-5)
+            worst = max([worst, *errs.values()])
+            report[where] = errs
+            # one hop: a k/v block folded into a shard's state
+            tl = t // num_seq
+            hop = tuple(x[:, :tl] for x in (q, k, v))
+            m, l, a = fa.flash_ring_state(b, h, tl, d, "cuda")
+            bound_ms, bound_by, _ = flash_bound("flash_partial", (b, tl, h, d), bf16)
+            qt, kt, vt = (x.transpose(1, 2) for x in hop)
+            per_hop[where] = {
+                "shard": [b, tl, h, d], "hops_per_call": num_seq,
+                "ms": median_ms(torch, lambda: fa.flash_partial(m, l, a, *hop)),
+                "plain_ms": median_ms(torch, lambda: fa.flash_partial_reference(m, l, a, *hop)),
+                "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+    launches = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    emit({"phase": "vit_parallel", "part": "a_ring_hops_one_process",
+          "gates": {"out": "flash gates (f32 rtol 1e-5 / atol 1e-6; bf16 2^-7 / 2^-8)",
+                    "f32 q/k/v gradients": "rtol 1e-4 / atol 1e-5"},
+          "max_abs_err": report, "per_hop": per_hop, "comparison_launches": launches})
+    return {"max_abs_err": worst, "per_hop": per_hop}
+
+
+def vit_leg_launches(flags: list[str], ranks: int, steps: int) -> tuple[dict, str, int]:
+    """The flash launches ``ranks`` ranks' ``steps`` train steps of a leg
+    make, and the formula: row 5 S times an attention call on the ring
+    (the resident block and S - 1 hops; the backward recomputes through
+    plain torch and launches none), row 4 once a call otherwise.  Also
+    the ring passes a rank makes: S - 1 an attention call forward and as
+    many backward, none off the ring."""
+    from pytorch_mnist_ddp_tpu_torch import vit_mnist
+    from pytorch_mnist_ddp_tpu_torch.models.vit import ViTConfig
+
+    args = vit_mnist.build_parser().parse_args(flags)
+    sp_on, tp_on = vit_mnist.resolve_mode_flags(args)
+    ring = sp_on and args.sp_impl == "ring"
+    depth = ViTConfig().depth
+    n = ranks * steps * depth * (args.sp if ring else 1)
+    mode = "flash_partial" if ring else "flash_fwd"
+    formula = (f"{ranks} ranks x {steps} steps x depth {depth}"
+               + (f" x S={args.sp} (fwd only)" if ring else " (fwd only)"))
+    passes = steps * depth * 2 * (args.sp - 1) if ring else 0
+    return {"flash_fwd": 0, "flash_partial": 0, mode: n}, formula, passes
+
+
+def vit_par_batches(np, workdir: str) -> str:
+    """VIT_PAR_STEPS fixed batches of the CLI's 64 rows, in a file the
+    rank processes read."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
+
+    images, labels = synthetic_mnist("train", VIT_PAR_STEPS * 64)
+    path = os.path.join(workdir, "vit_batches.npz")
+    np.savez(path, xs=normalize(images).reshape(VIT_PAR_STEPS, 64, 28, 28, 1),
+             ys=labels.astype(np.int64).reshape(VIT_PAR_STEPS, 64))
+    return path
+
+
+def vit_idx_root(np, workdir: str) -> str:
+    """A data root of MNIST IDX files on which one epoch of vit_mnist is
+    VIT_PAR_STEPS steps: that many batches of 64 training rows and 1000
+    test rows of the synthetic set."""
+    import os
+    import struct
+
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import _FILES, synthetic_mnist
+
+    root = os.path.join(workdir, "vit_idx")
+    os.makedirs(root, exist_ok=True)
+    for split, n in (("train", VIT_PAR_STEPS * 64), ("test", 1000)):
+        images, labels = synthetic_mnist(split, n)
+        with open(os.path.join(root, _FILES[(split, "images")]), "wb") as f:
+            f.write(struct.pack(">iiii", 2051, n, 28, 28) + images.astype(np.uint8).tobytes())
+        with open(os.path.join(root, _FILES[(split, "labels")]), "wb") as f:
+            f.write(struct.pack(">ii", 2049, n) + labels.astype(np.uint8).tobytes())
+    return root
+
+
+def vit_cli_against_fit(torch, np, workdir: str, env: dict) -> dict:
+    """(b)'s --sp 1 --allow-degree-1 --flash leg as a user runs it, the
+    launcher starting vit_mnist's CLI in an NCCL world of one, against
+    the same flags through vit_mnist.fit() in this process without a
+    launcher: one epoch of VIT_PAR_STEPS steps on an IDX data root (fit's
+    loader, run_epochs and --save-model), the logged lines and the saved
+    params archive equal."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch import vit_mnist
+
+    root = vit_idx_root(np, workdir)
+    flags = [*VIT_PAR_LEGS["sp1_flash"], "--epochs", "1", "--log-interval", "1",
+             "--save-model", "--data-root", root]
+    args = vit_mnist.build_parser().parse_args(flags)
+    fit_path = os.path.join(workdir, "vit_fit.npz")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        vit_mnist.fit(args, vit_mnist.resolve_mode_flags(args), "cuda", save_path=fit_path)
+    cli_dir = os.path.join(workdir, "vit_cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
+         "--nproc_per_node=1", f"--master_port={free_port()}", "-m",
+         "pytorch_mnist_ddp_tpu_torch.vit_mnist", *flags],
+        cwd=cli_dir, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"vit CLI launcher leg exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+
+    def logged(text):
+        return [ln for ln in text.splitlines() if ln.startswith(("Train Epoch", "Test set"))]
+
+    with np.load(fit_path) as want, np.load(os.path.join(cli_dir, vit_mnist.SAVE_PATH)) as got:
+        archive_equal = (list(got.keys()) == list(want.keys())
+                         and all(got[k].tobytes() == want[k].tobytes() for k in want.keys()))
+    lines = logged(proc.stdout)
+    return {"ok": {"logged_lines_equal": lines == logged(out.getvalue()),
+                   "saved_archive_equal": archive_equal,
+                   "steps": sum(ln.startswith("Train Epoch") for ln in lines) == VIT_PAR_STEPS},
+            "lines": len(lines), "cli_wall_seconds": cli_s}
+
+
+def run_vit_legs(world, legs, batches: str) -> dict:
+    """Each leg of ``legs`` (VIT_PAR_LEGS) on this rank: vit_mnist's
+    builder (the model from --seed, sharded under --tp; the branch's
+    step), VIT_PAR_STEPS steps on this rank's data shard of the fixed
+    batches at lr 1.0; the losses, a digest of the replicated leaves after
+    every step, the final state (gathered under --tp), and the flash
+    launches and host-staged ring passes of the leg."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pytorch_mnist_ddp_tpu_torch import vit_mnist
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.parallel import mesh, tp_vit
+    from pytorch_mnist_ddp_tpu_torch.utils.convert import tp_split_dim
+
+    data = np.load(batches)
+    out = {}
+    for leg in legs:
+        args = vit_mnist.build_parser().parse_args(VIT_PAR_LEGS[leg])
+        modes = vit_mnist.resolve_mode_flags(args)
+        device = torch.device("cuda", torch.cuda.current_device())
+        model, state, step, _, grid = vit_mnist.build(args, device, modes, world)
+        rows = data["xs"].shape[1] // grid.num_data
+        cut = slice(grid.coords[0] * rows, (grid.coords[0] + 1) * rows)
+        xs = torch.from_numpy(data["xs"][:, cut]).to(device)
+        ys = torch.from_numpy(data["ys"][:, cut]).to(device)
+        w = torch.ones(rows, device=device)
+        before, staged = dict(fa.LAUNCHES), mesh.STAGED["calls"]
+        losses, digests = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(VIT_PAR_STEPS):
+            losses.append(step(model, state, xs[i], ys[i], w, 1.0))
+            h = hashlib.sha256()
+            for name, p in model.named_parameters():
+                if tp_split_dim(name) is None:
+                    h.update(p.detach().cpu().numpy().tobytes())
+            digests.append(h.hexdigest())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        full = (tp_vit.gather_vit_tp_state(model, grid.model) if modes[1]
+                else model.state_dict())
+        out[leg] = {"losses": torch.stack(losses).cpu(), "digests": digests,
+                    "state": {k: v.detach().cpu() for k, v in full.items()},
+                    "launches": {k: fa.LAUNCHES[k] - before[k] for k in before},
+                    "staged_ring_passes": mesh.STAGED["calls"] - staged,
+                    "coords": grid.coords, "shape": grid.shape, "seconds": seconds}
+    return out
+
+
+def vit_rank_program(argv: list[str]) -> int:
+    """``chip_smoke.py --vit-rank OUT BATCHES LEG...``: the rank program the
+    launcher runs in the vit_parallel phase's NCCL world: the world from
+    the launcher's environment (NCCL on cuda:LOCAL_RANK), fit()'s
+    switches, the legs; writes the results and the backend to OUT."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_mnist_ddp_tpu_torch.parallel.distributed import destroy_distributed, form_world
+
+    out, batches, legs = argv[0], argv[1], argv[2:]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = form_world()
+    try:
+        result = {"backend": dist.get_backend(), "legs": run_vit_legs(world, legs, batches)}
+    finally:
+        destroy_distributed()
+    torch.save(result, f"{out}.rank{os.environ['RANK']}")
+    return 0
+
+
+def vit_gloo_rank(rank: int, world_size: int, init_file: str, workdir: str, batches: str,
+                  legs: tuple, epoch: bool) -> None:
+    """Rank ``rank`` of ``world_size`` gloo ranks sharing cuda:0: the legs,
+    then with ``epoch`` one epoch of VIT_PAR_EPOCH through vit_mnist.fit
+    (rank 0's lines kept; the host time of every ring pass recorded)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_mnist_ddp_tpu_torch import vit_mnist
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.parallel import mesh
+    from pytorch_mnist_ddp_tpu_torch.parallel.distributed import destroy_distributed, form_world
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK="0")
+    world = form_world(f"file://{init_file}", rdzv_timeout_s=120, backend="gloo")
+    result = {"backend": dist.get_backend(), "device": torch.cuda.current_device()}
+    try:
+        result["legs"] = run_vit_legs(world, legs, batches)
+        if epoch:
+            exchange, pass_s = mesh._exchange, []
+
+            def timed_exchange(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return exchange(*a, **kw)
+                finally:
+                    pass_s.append(time.perf_counter() - t0)
+
+            mesh._exchange = timed_exchange
+            args = vit_mnist.build_parser().parse_args(VIT_PAR_EPOCH)
+            timings: dict = {}
+            before, staged = dict(fa.LAUNCHES), mesh.STAGED["calls"]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                vit_mnist.fit(args, vit_mnist.resolve_mode_flags(args), None,
+                              timings=timings, world=world)
+            result["epoch"] = {
+                "lines": [ln for ln in out.getvalue().splitlines()
+                          if ln and not ln.startswith("MNIST IDX")],
+                "timings": timings,
+                "launches": {k: fa.LAUNCHES[k] - before[k] for k in before},
+                "staged_ring_passes": mesh.STAGED["calls"] - staged,
+                "ring_passes": len(pass_s), "ring_pass_us_median": 1e6 * statistics.median(pass_s),
+                "ring_pass_us_mean": 1e6 * statistics.fmean(pass_s)}
+    finally:
+        destroy_distributed()
+    torch.save(result, os.path.join(workdir, f"vit_gloo{world_size}_rank{rank}.pt"))
+
+
+def gloo_world(ranks: int, workdir: str, batches: str, legs: tuple, epoch: bool,
+               timeout: float = 600.0) -> tuple[list, float]:
+    """``ranks`` spawned gloo ranks sharing cuda:0 (:func:`vit_gloo_rank`);
+    their results in rank order and the wall seconds."""
+    import multiprocessing
+    import os
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    init_file = os.path.join(workdir, f"vit_gloo{ranks}_rdzv")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=vit_gloo_rank,
+                         args=(r, ranks, init_file, workdir, batches, legs, epoch))
+             for r in range(ranks)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(timeout=10)
+    wall = time.perf_counter() - t0
+    check(not alive and [p.exitcode for p in procs] == [0] * ranks,
+          f"{ranks} gloo ranks exited {[p.exitcode for p in procs]}")
+    return [torch.load(os.path.join(workdir, f"vit_gloo{ranks}_rank{r}.pt"), weights_only=False)
+            for r in range(ranks)], wall
+
+
+def hold_leg(torch, leg: str, ranks: list, refs: dict) -> dict:
+    """One leg's ranks against each other (the replicated leaves after
+    every step, the losses, the final state) and against the single-device
+    run of its dtype, and its launches against the formula."""
+    got = [r["legs"][leg] for r in ranks]
+    bf16 = leg.startswith("bf16_")
+    ref = refs["bf16_flash" if bf16 else "flash"]
+    a = got[0]
+    want, formula, passes = vit_leg_launches(VIT_PAR_LEGS[leg], len(ranks), VIT_PAR_STEPS)
+    # gloo's send and receive stage every ring pass of a CUDA tensor
+    staged = passes if ranks[0]["backend"] == "gloo" else 0
+    launches = {k: sum(g["launches"][k] for g in got) for k in want}
+    loss_diff = float((a["losses"] - ref["losses"]).abs().max())
+    param_diff = max(float((a["state"][k] - ref["state"][k]).abs().max()) for k in ref["state"])
+    if bf16:
+        within = loss_diff <= VIT_BF16_STEP_ATOL and param_diff <= VIT_BF16_STEP_ATOL
+    else:
+        within = (torch.allclose(a["losses"], ref["losses"], rtol=VIT_PAR_LOSS_RTOL,
+                                 atol=VIT_PAR_LOSS_ATOL) and param_diff <= VIT_PAR_PARAM_ATOL)
+    ok = {"replicated_leaves_equal_every_step": all(g["digests"] == a["digests"] for g in got),
+          "ranks_losses_equal": all(torch.equal(g["losses"], a["losses"]) for g in got),
+          "final_state_equal": all(all(torch.equal(g["state"][k], a["state"][k])
+                                       for k in a["state"]) for g in got),
+          "vs_single_device": within, "launches": launches == want,
+          "staged_ring_passes": all(g["staged_ring_passes"] == staged for g in got),
+          "finite": bool(torch.isfinite(a["losses"]).all())}
+    return {"grid": list(a["shape"]), "ranks": len(ranks), "ok": ok,
+            "max_abs_loss_diff": loss_diff, "max_abs_param_diff": param_diff,
+            "launches": launches, "launch_formula": formula,
+            "staged_ring_passes_per_rank": [g["staged_ring_passes"] for g in got],
+            "staged_ring_passes_formula": f"{VIT_PAR_STEPS} steps x depth 2 x (fwd + bwd) x "
+                                          f"(S - 1) on the ring over gloo, else 0",
+            "ms_per_step_rank0": 1e3 * a["seconds"] / VIT_PAR_STEPS,
+            "first_last_loss": [float(a["losses"][0]), float(a["losses"][-1])]}
+
+
+def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
+    """(b)-(e) of the vit_parallel phase: the parallel modes' main path.
+    Returns its flash launches (the ranks' processes') and the launches of
+    the references (the single-device steps and the in-process sp1 leg),
+    counted apart; the caller zeroes the counters first."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.parallel.distributed import DistState
+
+    t_phase = time.perf_counter()
+    batches = vit_par_batches(np, workdir)
+    # the references, in this process: single device and sp1 without a world
+    start = dict(fa.LAUNCHES)
+    refs = run_vit_legs(DistState(), ("flash", "bf16_flash", "sp1_flash"), batches)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    # (b) the CLI under the launcher against fit(), whose launches count
+    # with the references (the CLI's are in its own process)
+    cli = vit_cli_against_fit(torch, np, workdir, env)
+    references = {k: fa.LAUNCHES[k] - start[k] for k in start}
+    main0 = dict(fa.LAUNCHES)
+    legs, launches = {}, {k: 0 for k in fa.LAUNCHES}
+
+    # (b) an NCCL world of one through the launcher
+    counts = os.path.join(workdir, "vit_counts")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
+         "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
+         "--vit-rank", counts, batches, *VIT_PAR_NCCL],
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
+    nccl_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"vit launcher leg exited {proc.returncode}: {proc.stderr[-2000:]}")
+    nccl = torch.load(counts + ".rank0", weights_only=False)
+    check(nccl["backend"] == "nccl", f"vit launcher leg formed {nccl['backend']}")
+    for leg in VIT_PAR_NCCL:
+        legs[leg] = hold_leg(torch, leg, [nccl], refs)
+    alone = refs["sp1_flash"]
+    got = nccl["legs"]["sp1_flash"]
+    legs["sp1_flash"]["ok"].update(cli_equal_to_fit_without_launcher=all(cli["ok"].values()))
+    legs["sp1_flash"]["cli_against_fit"] = cli
+    legs["sp1_flash"]["ok"]["equal_to_builder_without_launcher"] = (
+        torch.equal(got["losses"], alone["losses"])
+        and all(torch.equal(got["state"][k], alone["state"][k]) for k in alone["state"]))
+
+    # (c) + (e) two gloo ranks sharing the card; (d) four
+    two, two_s = gloo_world(2, workdir, batches, VIT_PAR_TWO, epoch=True)
+    four, four_s = gloo_world(4, workdir, batches, VIT_PAR_FOUR, epoch=False)
+    check(all(r["backend"] == "gloo" and r["device"] == 0 for r in two + four),
+          "vit gloo ranks not gloo on cuda:0")
+    for leg in VIT_PAR_TWO:
+        legs[leg] = hold_leg(torch, leg, two, refs)
+    for leg in VIT_PAR_FOUR:
+        legs[leg] = hold_leg(torch, leg, four, refs)
+    for leg, r in legs.items():
+        for k in launches:
+            launches[k] += r["launches"][k]
+
+    # (e) one epoch of --sp 2 --flash on the two ranks
+    ep = [r["epoch"] for r in two]
+    lines = ep[0]["lines"]
+    tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
+    train = [TRAIN_LINE.match(ln) for ln in lines if ln.startswith("Train Epoch")]
+    check(len(tests) == 1 and all(tests) and all(train), "vit epoch leg: malformed lines")
+    check(not any(r["epoch"]["lines"] for r in two[1:]), "vit epoch leg: rank 1 printed")
+    timings = ep[0]["timings"]
+    steps = sum(timings["epoch_steps"])
+    eval_batches = -(-timings["test_size"] // 1000)
+    depth = 2
+    want_epoch = 2 * depth * 2 * (steps + eval_batches)
+    # a rank's ring passes: S - 1 = 1 an attention call, forward and backward
+    # in training, forward in eval; every one staged over gloo
+    want_passes = depth * (2 * steps + eval_batches)
+    epoch_launches = {k: sum(e["launches"][k] for e in ep) for k in fa.LAUNCHES}
+    acc1 = timings["epoch1_test_accuracy"]
+    for k in launches:
+        launches[k] += epoch_launches[k]
+    epoch = {"epoch1_test_accuracy": acc1, "steps": steps,
+             "ms_per_step": 1e3 * timings["epoch_train_s"][0] / steps,
+             "train_seconds": timings["epoch_train_s"][0],
+             "ring_passes_rank0": ep[0]["ring_passes"],
+             "host_us_per_ring_pass_median": ep[0]["ring_pass_us_median"],
+             "host_us_per_ring_pass_mean": ep[0]["ring_pass_us_mean"],
+             "staged_ring_passes_rank0": ep[0]["staged_ring_passes"],
+             "staged_ring_passes_formula": f"depth {depth} x (2 x {steps} steps + "
+                                           f"{eval_batches} eval batches) a rank",
+             "launches": epoch_launches,
+             "launch_formula": f"2 ranks x depth {depth} x S=2 x ({steps} steps + "
+                               f"{eval_batches} eval batches)",
+             "logged_losses": [float(m.group(5)) for m in train]}
+    local = {k: fa.LAUNCHES[k] - main0[k] for k in main0}
+    emit({"phase": "vit_parallel", "part": "b_to_e_worlds",
+          "steps": VIT_PAR_STEPS, "f32_gates": {"loss_rtol": VIT_PAR_LOSS_RTOL,
+                                                "loss_atol": VIT_PAR_LOSS_ATOL,
+                                                "param_atol": VIT_PAR_PARAM_ATOL},
+          "bf16_gate_atol": VIT_BF16_STEP_ATOL, "legs": legs, "epoch_sp2_flash_two_gloo": epoch,
+          "nccl_launcher_wall_seconds": nccl_s, "gloo2_wall_seconds": two_s,
+          "gloo4_wall_seconds": four_s, "seconds": time.perf_counter() - t_phase,
+          "launches": launches, "reference_launches": references})
+    for leg, r in legs.items():
+        check(all(r["ok"].values()), f"vit_parallel {leg}: {r['ok']}")
+    check(epoch_launches == {"flash_fwd": 0, "flash_partial": want_epoch},
+          f"vit epoch leg launches {epoch_launches} != {want_epoch}")
+    check(acc1 >= VIT_EPOCH1_MIN_ACCURACY, f"vit --sp 2 epoch-1 accuracy {acc1}")
+    check(all(e["staged_ring_passes"] == e["ring_passes"] == want_passes for e in ep),
+          f"vit epoch leg ring passes {[(e['staged_ring_passes'], e['ring_passes']) for e in ep]}"
+          f" != {want_passes}")
+    check(local == {k: 0 for k in local}, f"vit_parallel launched {local} in this process")
+    return launches, references
 
 
 def main() -> int:
@@ -2185,6 +2765,17 @@ def main() -> int:
     # 15. where a ViT step's time goes; 16. flash attention times
     vit_profile_phase(torch)
     flash_t = flash_times(torch, np)
+
+    # 17. vit_parallel: (a) the ring's hops in one process (comparison
+    # launches, not counted), then the parallel modes' path (b)-(e), whose
+    # flash launches the ranks count; the references apart
+    ring = ring_hops_phase(torch, np)
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        par_launches, par_references = vit_parallel_phase(torch, np, workdir)
+    for k, v in par_launches.items():
+        check(v > 0, f"the ViT's parallel path never launched {k}")
     top = by_n[str(TIMED_ROWS[-1])]
     kernels = [{
         "name": "int8_head", "route": "cuda",
@@ -2215,10 +2806,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/flash_attention.cu",
-            "replaces": FLASH_REPLACES[name], "launches": vit_launches[name],
+            "replaces": FLASH_REPLACES[name],
+            "launches": vit_launches[name] + par_launches[name],
+            "launches_by_path": {"vit": vit_launches[name], "vit_parallel": par_launches[name]},
+            "vit_parallel_reference_launches": par_references[name],
             "launches_bf16": vit_bf16_launches[name],
-            "max_abs_err": max(flash_err[name].values()),
+            "max_abs_err": max([*flash_err[name].values()]
+                               + ([ring["max_abs_err"]] if name == "flash_partial" else [])),
             "max_abs_err_by_dtype": flash_err[name],
+            **({"ring_max_abs_err": ring["max_abs_err"], "ring_per_hop": ring["per_hop"]}
+               if name == "flash_partial" else {}),
             **by_shape[f"train {'x'.join(map(str, train_shape))}"],
             "shape": list(train_shape), "by_shape": by_shape,
         })
@@ -2232,4 +2829,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_program(sys.argv[2:]))
+    if sys.argv[1:2] == ["--vit-rank"]:
+        sys.exit(vit_rank_program(sys.argv[2:]))
     sys.exit(main())

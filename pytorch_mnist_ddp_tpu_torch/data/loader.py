@@ -12,6 +12,13 @@ padding duplicates keep weight 1 by default, as torch's
 0, so that an evaluation counts each sample once.  Each batch is
 normalized on the host with numpy, copied into pinned memory and sent to
 the device with a ``non_blocking`` copy.  No prefetch thread yet.
+
+``shard``/``num_shards`` cut each batch the other way, as the JAX
+package's in-process mesh shards a global batch over its data axis: the
+epoch goes in global batches of ``batch_size * num_shards`` (the last one
+padded at its end), and this loader yields rows ``shard * batch_size``
+onward of each, so a shard may hold padding alone.  The ViT's parallel
+modes use it, one shard per data coordinate.
 """
 
 from __future__ import annotations
@@ -42,7 +49,11 @@ class DataLoader:
         rank: int = 0,
         world_size: int = 1,
         mask_padding: bool = False,
+        shard: int = 0,
+        num_shards: int = 1,
     ) -> None:
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} out of range for {num_shards} shards")
         self.images = images
         self.labels = labels.astype(np.int64)
         self.batch_size = batch_size
@@ -52,10 +63,19 @@ class DataLoader:
         self.rank = rank
         self.world_size = world_size
         self.mask_padding = mask_padding
+        self.shard = shard
+        self.num_shards = num_shards
 
     def __len__(self) -> int:
         """Batches per epoch on this rank, the final partial one included."""
-        return -(-per_rank_count(len(self.labels), self.world_size) // self.batch_size)
+        per_step = self.batch_size * self.num_shards
+        return -(-per_rank_count(len(self.labels), self.world_size) // per_step)
+
+    @property
+    def global_batch(self) -> int:
+        """Samples a step over every rank and shard (the log lines' counter
+        step)."""
+        return self.batch_size * self.world_size * self.num_shards
 
     @property
     def dataset_len(self) -> int:
@@ -68,11 +88,12 @@ class DataLoader:
         """Host batch ``b`` of this rank's epoch indices ``idx``; ``valid``
         is False on the sampler's padding duplicates."""
         bs = self.batch_size
-        take = idx[b * bs : (b + 1) * bs]
+        start = (b * self.num_shards + self.shard) * bs
+        take = idx[start : start + bs]
         x = normalize(self.images[take])
         y = self.labels[take]
         if self.mask_padding:
-            w = valid[b * bs : (b + 1) * bs].astype(np.float32)
+            w = valid[start : start + bs].astype(np.float32)
         else:
             w = np.ones(len(take), np.float32)
         if len(take) < bs:  # pad the final partial batch, weight 0

@@ -25,7 +25,8 @@ run from ``AccumulateGrad``, which ``torch.autograd.grad`` never reaches.
 ``make_forward_train_step``/``make_forward_eval_step`` build the same two
 steps around any ``forward(model, x) -> log-probs`` without dropout and
 with the plain per-parameter Adadelta update: the ViT family's steps
-(``vit_mnist.py``, ``parallel/sp.py``).
+(``vit_mnist.py``, ``parallel/sp.py``, ``tp_vit.py``, ``sp3.py``), on
+one device or one rank of a ``(data, seq, model)`` grid.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ..ops.adadelta_flat import (
 from ..ops.loss import nll_loss
 from ..utils.rng import fold_replica_step
 from .distributed import DistState
+from .mesh import Group, RankGrid, all_reduce_
 
 
 @dataclass
@@ -148,31 +150,65 @@ def make_train_step(
     return train_step
 
 
-def make_forward_train_step(
+def make_forward_grads(
     forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
-    rho: float = 0.9,
-    eps: float = 1e-6,
-) -> Callable[..., torch.Tensor]:
-    """``train_step(model, state, x, y, w, lr) -> loss``: ``forward``, the
-    masked-mean NLL, the backward and the plain Adadelta update in place."""
+    grid: RankGrid = RankGrid(),
+) -> Callable[..., tuple[torch.Tensor, dict[str, torch.Tensor]]]:
+    """``grads(model, x, y, w) -> (loss, {name: gradient})``: ``forward``
+    in train mode, the masked-mean NLL and its backward.
 
-    def train_step(model, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
+    On a rank ``grid`` (``parallel/mesh.py``) the gradients are the JAX
+    sp/tp steps': every leaf into one flat buffer, one ``all_reduce(SUM)``
+    over the ranks that share this rank's model coordinate (data x seq),
+    divided by the data degree as a tensor: the data-axis sum of
+    local-mean gradients over the data degree.  ``forward`` makes each
+    rank's leaves its share of that sum (``parallel/sp.py``,
+    ``tp_vit.py``).  Sharded leaves (``--tp``) are this rank's own, and
+    summed only with the same shard of the other data and seq ranks."""
+
+    def grads_of(model, x, y, w):
         model.train()
         params = dict(model.named_parameters())
         loss = nll_loss(forward(model, x), y, w, reduction="mean")
         grads = torch.autograd.grad(loss, list(params.values()))
-        adadelta_update(params, dict(zip(params, grads)), state.opt, lr, rho, eps)
+        if grid.grad.size > 1:
+            flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), grid.grad)
+            flat.div_(torch.full((), grid.num_data, dtype=flat.dtype, device=flat.device))
+            grads = [v.view_as(p) for v, p in zip(
+                flat.split([p.numel() for p in params.values()]), params.values())]
+        return loss.detach(), dict(zip(params, grads))
+
+    return grads_of
+
+
+def make_forward_train_step(
+    forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
+    rho: float = 0.9,
+    eps: float = 1e-6,
+    grid: RankGrid = RankGrid(),
+) -> Callable[..., torch.Tensor]:
+    """``train_step(model, state, x, y, w, lr) -> loss``:
+    :func:`make_forward_grads`' gradients and the plain Adadelta update in
+    place."""
+    grads_of = make_forward_grads(forward, grid)
+
+    def train_step(model, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
+        loss, grads = grads_of(model, x, y, w)
+        adadelta_update(dict(model.named_parameters()), grads, state.opt, lr, rho, eps)
         state.step += 1
-        return loss.detach()
+        return loss
 
     return train_step
 
 
 def make_forward_eval_step(
     forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
+    data_group: Group = Group(),
 ) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """``eval_step(model, x, y, w) -> (loss_sum, correct)`` over the real
-    (weight-1) samples of the batch."""
+    (weight-1) samples of the batch, summed over ``data_group`` (the
+    data shards of one seq and model coordinate: JAX's ``psum`` over the
+    data axis; its seq and model members hold the same totals)."""
 
     @torch.no_grad()
     def eval_step(model, x, y, w):
@@ -180,7 +216,10 @@ def make_forward_eval_step(
         log_probs = forward(model, x)
         loss_sum = nll_loss(log_probs, y, w, reduction="sum")
         correct = ((log_probs.argmax(1) == y).to(w.dtype) * w).sum()
-        return loss_sum, correct
+        if data_group.size == 1:
+            return loss_sum, correct
+        totals = all_reduce_(torch.stack((loss_sum, correct)), data_group)
+        return totals[0], totals[1]
 
     return eval_step
 

@@ -140,15 +140,36 @@ def init_distributed_mode(
     device: str | torch.device | None = None,
 ) -> DistState:
     """Resolve the world from the environment (reference mnist_ddp.py:13-37)
-    and form it.
+    and form it: :func:`form_world`, with the reference's lines.  A world
+    of one prints "Not using distributed mode"; every rank of a larger one
+    prints the reference's banner."""
+    state = form_world(dist_url, rdzv_timeout_s, rdzv_attempts, backend, device)
+    if state.distributed:
+        print(distributed_init_banner(state.rank, dist_url, state.local_rank,
+                                      state.world_size), flush=True)
+    else:
+        print(NOT_DISTRIBUTED_NOTICE)
+    return state
 
-    ``device`` ``None`` is the card (``resolve_device``): rank r takes
-    ``cuda:LOCAL_RANK`` and the group is NCCL; ``"cpu"`` forms a gloo
-    group.  ``backend`` overrides that choice (gloo between ranks that
-    share one card, which NCCL refuses).  ``rdzv_timeout_s`` and
-    ``rdzv_attempts`` bound the rendezvous; ``None`` reads the launcher's
-    ``RDZV_TIMEOUT_S``/``RDZV_ATTEMPTS``, else 60 s over 2 attempts.
-    Every rank prints the reference's banner.
+
+def form_world(
+    dist_url: str = "env://",
+    rdzv_timeout_s: float | None = None,
+    rdzv_attempts: int | None = None,
+    backend: str | None = None,
+    device: str | torch.device | None = None,
+) -> DistState:
+    """The world of the environment, formed, printing nothing.
+
+    ``RANK``/``WORLD_SIZE`` (``LOCAL_RANK``), else ``SLURM_PROCID``/
+    ``SLURM_NTASKS``, make this process one rank; with neither it is a
+    world of one.  ``device`` ``None`` is the card (``resolve_device``):
+    rank r takes ``cuda:LOCAL_RANK`` and the group is NCCL; ``"cpu"``
+    forms a gloo group.  ``backend`` overrides that choice (gloo between
+    ranks that share one card, which NCCL refuses).  ``rdzv_timeout_s``
+    and ``rdzv_attempts`` bound the rendezvous; ``None`` reads the
+    launcher's ``RDZV_TIMEOUT_S``/``RDZV_ATTEMPTS``, else 60 s over 2
+    attempts.
     """
     env = os.environ
     if "RANK" in env and "WORLD_SIZE" in env:
@@ -158,7 +179,6 @@ def init_distributed_mode(
         rank, world_size = int(env["SLURM_PROCID"]), int(env.get("SLURM_NTASKS", 1))
         local_rank = int(env.get("SLURM_LOCALID", 0))
     else:
-        print(NOT_DISTRIBUTED_NOTICE)
         return DistState(dist_url=dist_url)
 
     dev = resolve_device(device)
@@ -180,10 +200,8 @@ def init_distributed_mode(
         backend or ("nccl" if dev.type == "cuda" else "gloo"),
         timeout_s=rdzv_timeout_s, attempts=rdzv_attempts,
     )
-    state = DistState(distributed=True, rank=rank, world_size=world_size,
-                      local_rank=local_rank, dist_url=dist_url)
-    print(distributed_init_banner(rank, dist_url, local_rank, world_size), flush=True)
-    return state
+    return DistState(distributed=True, rank=rank, world_size=world_size,
+                     local_rank=local_rank, dist_url=dist_url)
 
 
 def destroy_distributed() -> None:

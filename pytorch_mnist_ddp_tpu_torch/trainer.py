@@ -64,8 +64,9 @@ def train_one_epoch(
 ) -> int:
     """One training epoch (reference ``train()``); returns the steps taken.
     The loss is read from the device only on log steps, by rank 0 alone:
-    its own loss, and in distributed mode the global sample counter
-    ``world_size * batch_idx * batch_size`` (mnist_ddp.py:78).
+    its own loss, and the global sample counter ``batch_idx`` times the
+    loader's global batch (``world_size * batch_size`` in distributed mode,
+    mnist_ddp.py:78; ``num_data * batch_size`` for the ViT's grids).
     ``start_batch`` resumes a mid-epoch archive at its batch cursor: batch
     numbering and log lines go on as if the run had never stopped."""
     num_batches = len(loader)
@@ -76,7 +77,7 @@ def train_one_epoch(
         steps += 1
         if dist.is_chief and batch_idx % log_interval == 0:
             print(train_log_line(
-                epoch, dist.world_size * batch_idx * loader.batch_size,
+                epoch, batch_idx * loader.global_batch,
                 loader.dataset_len, batch_idx, num_batches, loss.item(),
             ))
         if dry_run:
@@ -109,17 +110,10 @@ def evaluate(
     return avg, int(correct)
 
 
-def make_loaders(
-    args, device: torch.device, timings: dict | None = None,
-    dist: DistState = DistState(),
-) -> tuple[DataLoader, DataLoader]:
+def _datasets(args, timings: dict | None) -> tuple[MNIST, MNIST]:
     """Both splits of MNIST (the synthetic set without IDX files), cut to
-    ``--train-limit`` where the CLI has that flag, as shuffled train and
-    ordered test loaders on ``device`` for rank ``dist.rank`` of
-    ``dist.world_size``: ``--batch-size`` samples a step on every rank,
-    ``ceil(--test-batch-size / world_size)`` an eval batch (the JAX
-    trainer's split), the test loader's padding duplicates at weight 0.
-    Records the sizes in ``timings``."""
+    ``--train-limit`` where the CLI has that flag; records the sizes in
+    ``timings``."""
     train_set = MNIST(root=args.data_root, train=True)
     test_set = MNIST(root=args.data_root, train=False)
     limit = getattr(args, "train_limit", 0)
@@ -130,12 +124,43 @@ def make_loaders(
     if timings is not None:
         timings.update(dataset=train_set.source, train_size=len(train_set),
                        test_size=len(test_set), epoch_train_s=[], epoch_steps=[])
+    return train_set, test_set
+
+
+def make_loaders(
+    args, device: torch.device, timings: dict | None = None,
+    dist: DistState = DistState(),
+) -> tuple[DataLoader, DataLoader]:
+    """Shuffled train and ordered test loaders on ``device`` for rank
+    ``dist.rank`` of ``dist.world_size``: ``--batch-size`` samples a step
+    on every rank, ``ceil(--test-batch-size / world_size)`` an eval batch
+    (the JAX trainer's split), the test loader's padding duplicates at
+    weight 0 (:func:`_datasets`' sets)."""
+    train_set, test_set = _datasets(args, timings)
     world = {"rank": dist.rank, "world_size": dist.world_size}
     train_loader = DataLoader(train_set.images, train_set.labels, args.batch_size,
                               device, shuffle=True, seed=args.seed, **world)
     test_loader = DataLoader(test_set.images, test_set.labels,
                              -(-args.test_batch_size // dist.world_size), device,
                              shuffle=False, mask_padding=True, **world)
+    return train_loader, test_loader
+
+
+def make_shard_loaders(
+    args, device: torch.device, shard: int = 0, num_shards: int = 1,
+    timings: dict | None = None,
+) -> tuple[DataLoader, DataLoader]:
+    """The loaders of data shard ``shard`` of ``num_shards``, as the JAX
+    ViT CLI shards its global batches over the mesh's data axis
+    (vit_mnist.py:594-606): ``--batch-size`` and ``--test-batch-size``
+    rows a shard, global batches ``num_shards`` times those."""
+    train_set, test_set = _datasets(args, timings)
+    train_loader = DataLoader(train_set.images, train_set.labels, args.batch_size, device,
+                              shuffle=True, seed=args.seed, shard=shard,
+                              num_shards=num_shards)
+    test_loader = DataLoader(test_set.images, test_set.labels, args.test_batch_size, device,
+                             shuffle=False, mask_padding=True, shard=shard,
+                             num_shards=num_shards)
     return train_loader, test_loader
 
 
@@ -156,8 +181,9 @@ def run_epochs(
     """``--epochs`` epochs of training after ``epoch0`` completed ones, each
     followed by evaluation, with StepLR (``--lr``, ``--gamma``) once per
     epoch; the first starts at batch ``start_batch``.  With ``timings`` (a
-    dict from :func:`make_loaders`) the run records per-epoch training
-    seconds (``epoch_train_s``, the device synchronized at each end),
+    dict from :func:`make_loaders` or :func:`make_shard_loaders`) the run
+    records per-epoch training seconds (``epoch_train_s``, the device
+    synchronized at each end),
     ``epoch_steps``, ``epoch1_test_accuracy`` (of the run's first epoch)
     and ``final_test_accuracy``."""
     train_loader, test_loader = loaders

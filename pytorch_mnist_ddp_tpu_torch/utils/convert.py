@@ -235,7 +235,9 @@ def torch_vit_state_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]
 
 def jax_vit_tree_from_torch(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     """The inverse: a ``ViT`` state dict -> the JAX package's nested tree of
-    float32 numpy arrays (``kernel [in, out]``, LayerNorm ``scale``)."""
+    float32 numpy arrays (``kernel [in, out]``, LayerNorm ``scale``), every
+    level in sorted key order, as a JAX pytree comes back from a jitted step
+    (so a saved archive lists its arrays in the JAX CLI's order)."""
     tree: dict[str, Any] = {}
     for key, value in state.items():
         *path, leaf = key.split(".")
@@ -246,4 +248,47 @@ def jax_vit_tree_from_torch(state: Mapping[str, torch.Tensor]) -> dict[str, Any]
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(a)
-    return tree
+
+    def ordered(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: ordered(node[k]) for k in sorted(node)}
+
+    return ordered(tree)
+
+
+# Megatron shards of a ViT block (the JAX package's tp_vit.py
+# vit_tp_param_specs): the leaf's split dim in torch's [out, in] layout.
+# qkv and mlp_in are column-parallel (JAX kernel axis 1, torch dim 0; qkv's
+# head-major features split into whole heads), proj and mlp_out
+# row-parallel (JAX axis 0, torch dim 1) with their biases replicated;
+# every other leaf is replicated.
+TP_SPLIT_DIM = {"qkv.weight": 0, "qkv.bias": 0, "mlp_in.weight": 0, "mlp_in.bias": 0,
+                "proj.weight": 1, "mlp_out.weight": 1}
+
+
+def tp_split_dim(name: str) -> int | None:
+    """The dim a ViT state leaf splits on over the model axis, or None
+    (replicated)."""
+    if not name.startswith("blocks."):
+        return None
+    return TP_SPLIT_DIM.get(name.split(".", 2)[2])
+
+
+def shard_vit_state(state: Mapping[str, torch.Tensor], index: int,
+                    count: int) -> dict[str, torch.Tensor]:
+    """Member ``index`` of ``count``'s part of a full ViT state: the
+    contiguous ``1/count`` slice of each sharded leaf, the others whole."""
+    out = {}
+    for name, value in state.items():
+        dim = tp_split_dim(name)
+        out[name] = value if dim is None else value.chunk(count, dim)[index].contiguous()
+    return out
+
+
+def gather_vit_state(shards: list[Mapping[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """The inverse: the members' parts, in member order, back into the full
+    state (replicated leaves from member 0)."""
+    return {name: value if (dim := tp_split_dim(name)) is None
+            else torch.cat([s[name] for s in shards], dim)
+            for name, value in shards[0].items()}

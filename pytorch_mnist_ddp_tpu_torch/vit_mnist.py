@@ -3,23 +3,44 @@
 
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist [flags]
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --flash            # attention kernel
-    python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --sp 1 --allow-degree-1 --flash
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --bf16 --flash     # bf16 trunk
+    python -m pytorch_mnist_ddp_tpu_torch.parallel.launch --nproc_per_node=W \\
+        -m pytorch_mnist_ddp_tpu_torch.vit_mnist --sp S [--sp-impl ulysses] [--tp M] [--flash]
 
 It runs on the card (``cuda``) unless ``--no-cuda``/``--no-accel`` asks for
-the CPU, and raises without a card otherwise.  Two branches: the single
-device (``--flash``: the whole-forward kernel in every block), and the
-sequence-parallel ring at degree 1 (``parallel/sp.py``; ``--flash``: one
-partial-mode kernel launch per attention call); ``--bf16`` runs either in
-bfloat16 (the kernel's bf16 mode under ``--flash``).  The flags are a subset of
-``vit_mnist.py``'s with the same names and defaults; argparse refuses the
-others.  The printed lines are the JAX CLI's, and ``--save-model`` writes
-``vit_mnist.npz`` in the JAX package's params-tree format.
+the CPU, and raises without a card otherwise.  Under the launcher's
+environment (``RANK``/``WORLD_SIZE``, ``parallel/distributed.py``) each
+process is one rank of a world, NCCL on the card and gloo on the CPU,
+and ``--sp S``/``--tp M`` lay the ranks out as JAX lays out its devices:
+a ``(data, seq, model)`` grid of shape ``(W/(S*M), S, M)``
+(``parallel/mesh.py``).  The branches, as in the JAX CLI:
+
+- single device (``--flash``: the whole-forward kernel in every block);
+- ``--sp S``: the sequence ring (``parallel/sp.py``; ``--flash``: S
+  partial-mode launches an attention call), or with ``--sp-impl ulysses``
+  the all-to-all (``--flash``: the whole-forward kernel on ``h/S`` heads);
+- ``--tp M``: Megatron blocks (``parallel/tp_vit.py``; ``--flash`` on
+  ``h/M`` heads);
+- ``--sp S --tp M``: the 3-D composition (``parallel/sp3.py``), the ring
+  inside each model shard's heads.
+
+A parallel mode runs at degree 1 only with ``--allow-degree-1``; without
+the launcher the world is of one rank.  Rows go by data coordinate: every
+seq and model member of a data shard sees that shard's rows, ``--batch-size``
+and ``--test-batch-size`` of them a step.  ``--bf16`` runs any mode in
+bfloat16 (the kernel's bf16 mode under ``--flash``).  The flags are a
+subset of ``vit_mnist.py``'s with the same names and defaults; argparse
+refuses the others.  Only rank 0 prints, and its lines are the JAX CLI's
+(its own loss, as JAX prints its first shard's); ``--save-model`` writes
+``vit_mnist.npz`` in the JAX package's params-tree format from rank 0,
+the model shards gathered first.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import torch
@@ -28,10 +49,12 @@ from .device import resolve_device
 from .models.vit import ViT, ViTConfig
 from .ops.adadelta import adadelta_init
 from .ops.flash_attention import select_attention
-from .parallel import sp
+from .parallel import sp, sp3, tp_vit
 from .parallel.ddp import TrainState, make_forward_eval_step, make_forward_train_step
-from .trainer import make_loaders, run_epochs
-from .utils.checkpoint import load_params_tree, model_state_dict, save_params_tree
+from .parallel.distributed import DistState, destroy_distributed, form_world
+from .parallel.mesh import RankGrid, make_rank_grid
+from .trainer import make_shard_loaders, run_epochs
+from .utils.checkpoint import load_params_tree, save_params_tree
 from .utils.convert import jax_vit_tree_from_torch, torch_vit_state_from_jax
 from .utils.logging import total_time_line
 from .utils.rng import split_streams
@@ -58,17 +81,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-root", type=str, default="./data")
     p.add_argument("--sp", type=int, default=None, metavar="S",
                    help="sequence-parallel degree: ring attention over an "
-                        "S-way sequence group (parallel/sp.py); only 1, "
-                        "with --allow-degree-1, is ported so far")
+                        "S-way seq group of ranks (parallel/sp.py); composes "
+                        "with --tp into the 3-D (data, seq, model) step")
+    p.add_argument("--sp-impl", type=str, default="ring",
+                   choices=("ring", "ulysses"),
+                   help="sequence-parallel strategy: 'ring' rotates k/v "
+                        "blocks S-1 hops; 'ulysses' re-shards "
+                        "tokens->heads with one all-to-all pair and runs "
+                        "dense (or --flash) attention locally "
+                        "(needs heads %% S == 0; plain --sp only)")
+    p.add_argument("--tp", type=int, default=None, metavar="M",
+                   help="tensor-parallel degree: Megatron-style head/MLP "
+                        "sharding over an M-way model group "
+                        "(parallel/tp_vit.py); composes with --sp")
     p.add_argument("--allow-degree-1", action="store_true", default=False,
-                   help="take the --sp code path even at degree 1: the ring "
-                        "and its kernel run on a group of one — the "
-                        "one-card smoke of the sequence-parallel mode")
+                   help="take the --sp/--tp parallel code paths even at "
+                        "degree 1: the groups, collectives and kernels run "
+                        "on a 1-wide axis — the one-card smoke of modes "
+                        "whose full degree needs more ranks")
     p.add_argument("--flash", action="store_true", default=False,
                    help="flash-attention CUDA kernel "
                         "(ops/flash_attention.py, csrc/flash_attention.cu): "
-                        "the whole-forward mode on the single device, the "
-                        "partial (ring-hop) mode under --sp")
+                        "the whole-forward mode on the single device, under "
+                        "--sp-impl ulysses and --tp (local head shards), the "
+                        "partial (ring-hop) mode under the --sp ring and "
+                        "--sp --tp")
     p.add_argument("--depth", type=int, default=2, metavar="N",
                    help="transformer blocks (default: 2)")
     p.add_argument("--dim", type=int, default=64, metavar="D",
@@ -89,18 +126,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_mode_flags(args) -> bool:
-    """Validate the mode flags and return ``sp_on``.  ``--sp`` defaults to
-    None (off); the ring is taken at an explicit degree 1 under
-    ``--allow-degree-1``.  After this call ``args.sp`` is a plain int.
-    Invalid flags raise SystemExit with the message the CLI prints."""
-    if args.sp is not None and args.sp < 1:
-        raise SystemExit(f"--sp must be >= 1, got {args.sp}")
-    if args.sp is not None and args.sp > 1:
-        raise SystemExit(sp.MULTI_RANK_MESSAGE)
-    sp_on = args.sp is not None and args.allow_degree_1
+def resolve_mode_flags(args) -> tuple[bool, bool]:
+    """Validate the mode flags and return ``(sp_on, tp_on)``, the JAX
+    CLI's truth table and texts for the flags this CLI takes.  ``--sp`` and
+    ``--tp`` default to None (off); a parallel path is taken at degree > 1,
+    or at an explicit degree 1 under ``--allow-degree-1``.  After this call
+    ``args.sp``/``args.tp`` are plain ints.  Invalid flags raise SystemExit
+    with the message the CLI prints."""
+    for name in ("sp", "tp"):
+        v = getattr(args, name)
+        if v is not None and v < 1:
+            raise SystemExit(f"--{name} must be >= 1, got {v}")
+    sp_on = args.sp is not None and (args.sp > 1 or args.allow_degree_1)
+    tp_on = args.tp is not None and (args.tp > 1 or args.allow_degree_1)
     args.sp = args.sp or 1
-    return sp_on
+    args.tp = args.tp or 1
+    if args.sp_impl != "ring" and tp_on:
+        raise SystemExit(
+            "--sp-impl ulysses is the plain --sp path; the 3-D --sp --tp "
+            "composition rides the ring"
+        )
+    if args.sp_impl != "ring" and not sp_on:
+        raise SystemExit(
+            "--sp-impl selects the --sp strategy; add --sp N (> 1)"
+        )
+    if args.remat and tp_on:
+        raise SystemExit(
+            "--remat rides the single-device/--zero/--sp/--fused paths; "
+            "drop --tp/--pp/--experts"
+        )
+    return sp_on, tp_on
 
 
 def _resume(model: ViT, path: str) -> None:
@@ -123,47 +178,90 @@ def _resume(model: ViT, path: str) -> None:
     model.load_state_dict(loaded)
 
 
-def fit(
-    args,
-    device: str | torch.device | None = None,
-    save_path: str | None = None,
-    timings: dict | None = None,
-) -> tuple[ViT, TrainState]:
-    """The full run; returns the trained model and its state.  ``device``
-    ``None`` means the card, and raises without one.  TF32 is switched off
-    (process-wide); ``timings`` is ``trainer.run_epochs``'s."""
-    sp_on = resolve_mode_flags(args)
-    device = resolve_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
+def build(args, device: torch.device, modes: tuple[bool, bool],
+          world: DistState = DistState()):
+    """The model, its state, the train and eval steps and this rank's grid
+    for ``args`` (``modes`` from :func:`resolve_mode_flags`): weights from
+    ``--seed`` (every rank draws the same) or ``--resume``, sharded under
+    ``--tp``, and the branch's steps.  Forms the grid's groups
+    (collective over ``world``)."""
+    sp_on, tp_on = modes
+    minors = [("seq", args.sp)] * sp_on + [("model", args.tp)] * tp_on
+    if not minors and world.world_size > 1:
+        raise SystemExit(
+            f"the single-device ViT runs on one rank; add --sp/--tp to lay "
+            f"the {world.world_size} ranks out as a grid"
+        )
+    grid = make_rank_grid(minors, world) if minors else RankGrid()
     cfg = ViTConfig(depth=args.depth, dim=args.dim, bf16=args.bf16, remat=args.remat)
     seeds = split_streams(args.seed)
     model = ViT(cfg, select_attention(args.flash), torch.Generator().manual_seed(seeds["init"]))
     if args.resume:
         _resume(model, args.resume)
     model.to(device)
+    if tp_on:
+        tp_vit.shard_vit_tp(model, grid.model)
     state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
-    if sp_on:
-        group = sp.make_seq_group(args.sp)
-        step_fn = sp.make_sp_train_step(cfg, group, use_flash=args.flash)
-        eval_fn = sp.make_sp_eval_step(cfg, group, use_flash=args.flash)
+    if sp_on and tp_on:
+        step_fn = sp3.make_sp3_train_step(cfg, grid, use_flash=args.flash)
+        eval_fn = sp3.make_sp3_eval_step(cfg, grid, use_flash=args.flash)
+    elif tp_on:
+        step_fn = tp_vit.make_vit_tp_train_step(cfg, grid, use_flash=args.flash)
+        eval_fn = tp_vit.make_vit_tp_eval_step(cfg, grid, use_flash=args.flash)
+    elif sp_on:
+        step_fn = sp.make_sp_train_step(cfg, grid, use_flash=args.flash, impl=args.sp_impl)
+        eval_fn = sp.make_sp_eval_step(cfg, grid, use_flash=args.flash, impl=args.sp_impl)
     else:
         step_fn = make_forward_train_step(lambda m, x: m(x))
         eval_fn = make_forward_eval_step(lambda m, x: m(x))
-    loaders = make_loaders(args, device, timings)
+    return model, state, step_fn, eval_fn, grid
+
+
+def fit(
+    args,
+    modes: tuple[bool, bool],
+    device: str | torch.device | None = None,
+    save_path: str | None = None,
+    timings: dict | None = None,
+    world: DistState = DistState(),
+) -> tuple[ViT, TrainState]:
+    """The full run on this rank of ``world`` (formed and torn down by the
+    caller); returns the trained model (this rank's shards under
+    ``--tp``) and its state.  ``modes`` is :func:`resolve_mode_flags`'
+    result for ``args``.  ``device`` ``None`` means the card, and raises
+    without one.  TF32 is switched off (process-wide); ``timings`` is
+    ``trainer.run_epochs``'s."""
+    device = resolve_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, state, step_fn, eval_fn, grid = build(args, device, modes, world)
+    loaders = make_shard_loaders(args, device, grid.coords[0], grid.num_data, timings)
     run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
-               dry_run_eval=args.dry_run)
+               dry_run_eval=args.dry_run, dist=world)
     if args.save_model and save_path:
-        save_params_tree(jax_vit_tree_from_torch(model_state_dict(model)), save_path)
+        full = (tp_vit.gather_vit_tp_state(model, grid.model) if modes[1]
+                else model.state_dict())  # the gather is collective
+        if world.is_chief:
+            save_params_tree(jax_vit_tree_from_torch(full), save_path)
     return model, state
 
 
 def main(argv: list[str] | None = None) -> None:
     start = time.time()
     args = build_parser().parse_args(argv)
-    fit(args, "cpu" if args.no_accel else None, save_path=SAVE_PATH)
-    print(total_time_line(time.time() - start))
+    modes = resolve_mode_flags(args)  # before the world forms
+    device = "cpu" if args.no_accel else None
+    world = form_world(device=device)
+    try:
+        # Only rank 0 prints, as the JAX CLI is one process.
+        with contextlib.ExitStack() as quiet:
+            if not world.is_chief:
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            fit(args, modes, device, SAVE_PATH, world=world)
+            print(total_time_line(time.time() - start))
+    finally:
+        destroy_distributed()
 
 
 if __name__ == "__main__":

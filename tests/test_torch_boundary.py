@@ -31,6 +31,7 @@ from pytorch_mnist_ddp_tpu_torch.serving.engine import InferenceEngine
 from pytorch_mnist_ddp_tpu_torch.trainer import fit
 from pytorch_mnist_ddp_tpu_torch.vit_mnist import build_parser as vit_parser
 from pytorch_mnist_ddp_tpu_torch.vit_mnist import fit as vit_fit
+from pytorch_mnist_ddp_tpu_torch.vit_mnist import resolve_mode_flags as resolve_vit_modes
 from pytorch_mnist_ddp_tpu_torch.vit_mnist import main as vit_cli_main
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -99,7 +100,7 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize(
     "entry",
     ["engine", "from_seed", "cli", "trainer", "train_cli", "vit_fit", "vit_cli",
-     "vit_sp_cli", "ddp_cli"],
+     "vit_sp_cli", "vit_tp_cli", "ddp_cli"],
 )
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     _no_card()
@@ -117,11 +118,14 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
         elif entry == "train_cli":
             train_cli_main(["--dry-run", "--epochs", "1"])
         elif entry == "vit_fit":
-            vit_fit(vit_parser().parse_args(["--dry-run", "--flash"]))
+            args = vit_parser().parse_args(["--dry-run", "--flash"])
+            vit_fit(args, resolve_vit_modes(args))
         elif entry == "vit_cli":
             vit_cli_main(["--dry-run", "--epochs", "1", "--flash"])
         elif entry == "ddp_cli":
             ddp_cli_main(["--dry-run", "--epochs", "1", "--syncbn"])
+        elif entry == "vit_tp_cli":
+            vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "2", "--tp", "2", "--flash"])
         else:
             vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "1", "--allow-degree-1"])
 
@@ -185,7 +189,7 @@ def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
 
 @pytest.mark.parametrize(
     "flag",
-    ["--sp-impl=ulysses", "--tp=2", "--pp", "--pp-microbatches=2", "--pp-stages=2",
+    ["--pp", "--pp-microbatches=2", "--pp-stages=2",
      "--experts=8", "--zero", "--fused", "--pregather", "--profile=x",
      "--step-stats", "--timings-json=x", "--save-state=x", "--resume-state=x"],
 )
@@ -195,16 +199,22 @@ def test_vit_cli_refuses_flags_not_ported_yet(flag):
 
 
 @pytest.mark.parametrize(
-    "flags",
-    [["--bf16"], ["--bf16", "--flash"], ["--bf16", "--sp", "1", "--allow-degree-1", "--flash"],
-     ["--bf16", "--flash", "--remat"]],
-    ids=["bf16", "bf16_flash", "bf16_sp1_flash", "bf16_flash_remat"],
+    "flags, dest, value",
+    [(["--bf16"], "bf16", True), (["--bf16", "--flash"], "bf16", True),
+     (["--bf16", "--sp", "1", "--allow-degree-1", "--flash"], "bf16", True),
+     (["--bf16", "--flash", "--remat"], "bf16", True),
+     (["--sp-impl=ulysses"], "sp_impl", "ulysses"), (["--tp=2"], "tp", 2),
+     (["--sp=2"], "sp", 2)],
+    ids=["bf16", "bf16_flash", "bf16_sp1_flash", "bf16_flash_remat", "sp_impl_ulysses", "tp",
+         "sp2"],
 )
-def test_vit_cli_accepts_ported_flags(flags):
+def test_vit_cli_accepts_ported_flags(flags, dest, value):
     """--bf16 is ported (the flash kernel's bf16 mode) and composes with
-    --flash, --remat and the degree-1 ring."""
-    args = vit_parser().parse_args(flags)
-    assert args.bf16 is True
+    --flash, --remat and the degree-1 ring; --sp N, --sp-impl and --tp
+    are taken with the JAX CLI's defaults."""
+    assert getattr(vit_parser().parse_args(flags), dest) == value
+    defaults = vit_parser().parse_args([])
+    assert (defaults.sp, defaults.sp_impl, defaults.tp) == (None, "ring", None)
 
 
 @pytest.fixture

@@ -42,10 +42,10 @@ WORLD_TIMEOUT_S = 120.0
 
 # -- running a gloo world ---------------------------------------------------
 
-def _rank_main(program, rank: int, world_size: int, init_file: str, out_dir: str,
-               args: tuple) -> None:
+def _rank_main(program, rank: int, world_size: int, init_file: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank))
+    args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
     world = port_dist.init_distributed_mode(f"file://{init_file}", rdzv_timeout_s=60,
                                             device="cpu")
     try:
@@ -58,12 +58,15 @@ def _rank_main(program, rank: int, world_size: int, init_file: str, out_dir: str
 def run_world(program, world_size: int, tmp_path: pathlib.Path, *args) -> list:
     """``program(world, *args)`` on each rank of a gloo world of
     ``world_size`` CPU processes; returns each rank's result, in rank
-    order.  ``program`` is a function of this module."""
+    order.  ``program`` is a function of a test module.  ``args`` reach
+    the ranks through a file: through the start pipe, arguments past its
+    buffer would hold each start until the rank before had imported torch."""
     ctx = multiprocessing.get_context("spawn")
     out_dir = tmp_path / f"world{world_size}-{program.__name__}"
     out_dir.mkdir()
+    torch.save(args, out_dir / "args.pt")
     procs = [ctx.Process(target=_rank_main, args=(program, r, world_size,
-                                                  str(out_dir / "rdzv"), str(out_dir), args))
+                                                  str(out_dir / "rdzv"), str(out_dir)))
              for r in range(world_size)]
     for p in procs:
         p.start()

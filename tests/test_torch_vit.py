@@ -53,6 +53,7 @@ from pytorch_mnist_ddp_tpu.parallel import sp as jax_sp
 from pytorch_mnist_ddp_tpu.utils import checkpoint as jax_checkpoint
 from pytorch_mnist_ddp_tpu.utils import logging as jax_logging
 from pytorch_mnist_ddp_tpu_torch import vit_mnist
+import vit_mnist as jax_cli  # the JAX package's CLI (no JAX import at module level)
 from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig, layer_norm, patchify
 from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
 from pytorch_mnist_ddp_tpu_torch.ops.flash_attention import select_attention
@@ -247,7 +248,7 @@ def _trajectories(batches, path, bf16):
     model = _port_vit(params, {"bf16": bf16}, flash=path != "plain")
     state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
     if path == "sp1_flash":
-        step = sp.make_sp_train_step(model.cfg, sp.make_seq_group(1), use_flash=True)
+        step = sp.make_sp_train_step(model.cfg, use_flash=True)
     else:
         step = make_forward_train_step(lambda m, x: m(x))
     w = torch.ones(BATCH)
@@ -298,11 +299,30 @@ def test_sp_eval_matches_single_device():
         assert float(got[1]) == float(ref[1])
 
 
-def test_sp_group_of_more_than_one_raises():
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        sp.make_seq_group(2)
-    with pytest.raises(ValueError, match="divisible"):
-        sp.check_token_divisibility(ViTConfig(), 3)
+def _jax_refusal(fn, *args):
+    with pytest.raises((ValueError, SystemExit)) as err:
+        fn(*args)
+    return str(err.value)
+
+
+@pytest.mark.parametrize("case", ["tokens_by_3", "ulysses_heads_by_8", "sp_impl_without_sp",
+                                  "ulysses_with_tp"])
+def test_sp_refusals_are_jax_texts(case):
+    """What replaced the refusal of every group of more than one: a token
+    count --sp does not divide, Ulysses' heads, --sp-impl without --sp,
+    and --sp-impl ulysses with --tp, each with the JAX package's text."""
+    if case in ("tokens_by_3", "ulysses_heads_by_8"):
+        impl, num_seq = ("ring", 3) if case == "tokens_by_3" else ("ulysses", 8)
+        mesh = jax_sp.make_sp_mesh(1, num_seq, devices=jax.devices()[:num_seq])
+        want = _jax_refusal(jax_sp._check_token_divisibility, jvit.ViTConfig(), mesh, impl)
+        assert ("heads=4" in want) == (impl == "ulysses")  # 16 tokens split 8 ways
+        assert _jax_refusal(sp.check_token_divisibility, ViTConfig(), num_seq, impl) == want
+        return
+    flags = ["--sp-impl", "ulysses"] + (["--sp", "2", "--tp", "2"] if case == "ulysses_with_tp"
+                                        else [])
+    want = _jax_refusal(jax_cli.resolve_mode_flags, jax_cli.build_parser().parse_args(flags))
+    got = _jax_refusal(vit_mnist.resolve_mode_flags, vit_mnist.build_parser().parse_args(flags))
+    assert got == want
 
 
 def test_params_tree_round_trips_both_ways(tmp_path):
@@ -361,18 +381,43 @@ def test_resume_refuses_another_shape(tmp_path):
 )
 def test_resolve_mode_flags(flags, sp_on):
     args = vit_mnist.build_parser().parse_args(flags)
-    assert vit_mnist.resolve_mode_flags(args) is sp_on
-    assert args.sp == 1
+    assert vit_mnist.resolve_mode_flags(args) == (sp_on, False)
+    assert args.sp == 1 and args.tp == 1
 
 
 @pytest.mark.parametrize("flags, message", [
-    (["--sp", "2"], "distributed slice"),
-    (["--sp", "4", "--allow-degree-1"], "distributed slice"),
     (["--sp", "0"], ">= 1"),
+    (["--tp", "0"], ">= 1"),
+    (["--tp", "2", "--remat"], "--remat rides"),
 ])
 def test_resolve_mode_flags_refuses(flags, message):
     with pytest.raises(SystemExit, match=message):
         vit_mnist.resolve_mode_flags(vit_mnist.build_parser().parse_args(flags))
+
+
+MODE_FLAGS = [
+    [*sp_flags, *tp_flags, *deg, *impl, *remat]
+    for sp_flags in ([], ["--sp", "1"], ["--sp", "2"], ["--sp", "0"])
+    for tp_flags in ([], ["--tp", "1"], ["--tp", "2"])
+    for deg in ([], ["--allow-degree-1"])
+    for impl in ([], ["--sp-impl", "ulysses"])
+    for remat in ([], ["--remat"])
+]
+
+
+@pytest.mark.parametrize("flags", MODE_FLAGS, ids=lambda f: " ".join(f) or "none")
+def test_resolve_mode_flags_is_jax_truth_table(flags):
+    """Every combination of --sp, --tp, --allow-degree-1, --sp-impl and
+    --remat: the same (sp_on, tp_on) and degrees as the JAX CLI's
+    resolve_mode_flags, or the same refusal text."""
+    def resolve(cli):
+        args = cli.build_parser().parse_args(flags)
+        try:
+            return cli.resolve_mode_flags(args), args.sp, args.tp
+        except SystemExit as e:
+            return str(e)
+
+    assert resolve(vit_mnist) == resolve(jax_cli)
 
 
 TRAIN_RE = r"^Train Epoch: (\d+) \[(\d+)/(\d+) \(\d+%\)\]\tLoss: (\S+)$"
