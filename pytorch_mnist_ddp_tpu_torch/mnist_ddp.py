@@ -7,9 +7,11 @@
 
 It takes the port's ``mnist.py`` flags plus the DDP ones (``--local_rank``,
 ``--world-size``, ``--dist-url``, ``--rdzv-timeout-s``,
-``--rdzv-attempts``, ``--syncbn``), with the JAX CLI's help text; argparse
-refuses the JAX CLI's ``--zero``, ``--tp``, ``--pp`` and
-``--pp-microbatches``, which are not ported.  ``RANK``/``WORLD_SIZE``
+``--rdzv-attempts``, ``--syncbn``, ``--zero``), with the JAX CLI's help
+text; argparse refuses the JAX CLI's ``--tp``, ``--pp`` and
+``--pp-microbatches``, which are not ported.  ``--zero`` shards the
+Adadelta state over the ranks (``parallel/zero.py``) and is refused with
+``--pallas-opt``, with the JAX trainer's text.  ``RANK``/``WORLD_SIZE``
 (the launcher's) or ``SLURM_PROCID`` in the environment make this process
 one rank of a world (``parallel/distributed.py``): NCCL on the card,
 gloo with ``--no-cuda``.  Without them it prints "Not using distributed
@@ -53,6 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="add BatchNorm after each conv with batch statistics "
                         "synced across the data axis (torch.nn.SyncBatchNorm "
                         "semantics; the scaled-batch config of BASELINE.json)")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1 data parallelism: shard the Adadelta state "
+                        "1/N over the data axis (reduce-scatter gradients, "
+                        "shard-local update, all-gather deltas) instead of "
+                        "replicating it; numerics match plain DP")
     return p
 
 

@@ -5,7 +5,10 @@ Pre-LN ViT: patchify(p=7) -> [b, 16, 49] -> linear embed + learned
 pos-embed -> depth x [LN -> MHA -> +residual -> LN -> MLP(gelu) ->
 +residual] -> final LN -> mean-pool over tokens -> linear head ->
 log_softmax.  ``ViTConfig()`` is dim 64, depth 2, 4 heads of 16, MLP 128:
-71,946 parameters.
+71,946 parameters.  With ``num_experts > 0`` each block's MLP is a
+switch-MoE layer (``models/moe.py``; ``--experts 8``: 305,050 parameters)
+and the forward returns ``(log_probs, aux)``, aux the blocks' mean
+load-balance loss (JAX's ``vit_moe_forward``).
 
 The numerics follow the JAX module where torch's defaults differ:
 LayerNorm eps 1e-6 with float32 statistics, GELU in its tanh form
@@ -38,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import full_attention
+from .moe import MoE, MoeOut, moe_mlp_dense
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 LN_EPS = 1e-6
@@ -52,8 +56,9 @@ class ViTConfig(NamedTuple):
     heads: int = 4
     mlp_dim: int = 128
     num_classes: int = 10
-    # The JAX package's MoE variant; not ported yet (ROADMAP).
+    # The MoE variant (models/moe.py): 0 experts is the dense MLP.
     num_experts: int = 0
+    capacity_factor: float = 2.0
     # bfloat16 activations and matmuls; parameters and the tail stay float32.
     bf16: bool = False
     # Recompute each block's activations in backward (one more forward).
@@ -111,7 +116,8 @@ def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One pre-LN transformer block's parameters."""
+    """One pre-LN transformer block's parameters: the MLP's two Linears, or
+    the experts (``moe``) when ``cfg.num_experts > 0``."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -119,8 +125,11 @@ class Block(nn.Module):
         self.qkv = nn.utils.skip_init(nn.Linear, cfg.dim, 3 * cfg.dim)
         self.proj = nn.utils.skip_init(nn.Linear, cfg.dim, cfg.dim)
         self.ln2 = LayerNorm(cfg.dim)
-        self.mlp_in = nn.utils.skip_init(nn.Linear, cfg.dim, cfg.mlp_dim)
-        self.mlp_out = nn.utils.skip_init(nn.Linear, cfg.mlp_dim, cfg.dim)
+        if cfg.num_experts > 0:
+            self.moe = MoE(cfg.dim, cfg.mlp_dim, cfg.num_experts)
+        else:
+            self.mlp_in = nn.utils.skip_init(nn.Linear, cfg.dim, cfg.mlp_dim)
+            self.mlp_out = nn.utils.skip_init(nn.Linear, cfg.mlp_dim, cfg.dim)
 
 
 def attn_sublayer(block: Block, x: torch.Tensor, cfg: ViTConfig,
@@ -157,6 +166,43 @@ def run_blocks(blocks: nn.ModuleList, tokens: torch.Tensor, cfg: ViTConfig,
     return tokens
 
 
+MoeFn = Callable[[MoE, torch.Tensor], MoeOut]
+
+
+def apply_block_moe(block: Block, x: torch.Tensor, cfg: ViTConfig, attention_fn: AttentionFn,
+                    moe_fn: MoeFn) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block (JAX ``apply_block_moe``): the same attention
+    sublayer, the experts in place of the MLP; returns ``(x, aux)``."""
+    x = attn_sublayer(block, x, cfg, attention_fn)
+    out = moe_fn(block.moe, block.ln2(x))
+    return x + out.y, out.aux_loss
+
+
+def vit_moe_forward(model: "ViT", x: torch.Tensor, moe_fn: MoeFn | None = None,
+                    attention_fn: AttentionFn | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE ViT's forward -> ``(log_probs, aux / depth)`` (JAX
+    ``vit_moe_forward``); ``moe_fn`` defaults to the single-device layer
+    (each block's tokens one routing group),
+    ``parallel/ep.py`` passes the expert-parallel one; ``attention_fn`` to
+    the model's."""
+    cfg = model.cfg
+    moe_fn = moe_fn or (lambda moe, h: moe_mlp_dense(moe, h, cfg.num_experts,
+                                                     cfg.capacity_factor))
+    attention_fn = attention_fn or model.attention_fn
+    tokens = embed_tokens(model, patchify(x, cfg), model.pos_embed)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in model.blocks:
+        if cfg.remat and torch.is_grad_enabled():
+            tokens, aux = checkpoint(apply_block_moe, block, tokens, cfg, attention_fn, moe_fn,
+                                     use_reentrant=False)
+        else:
+            tokens, aux = apply_block_moe(block, tokens, cfg, attention_fn, moe_fn)
+        aux_total = aux_total + aux
+    tokens = model.ln_f(tokens)
+    depth = torch.full((), cfg.depth, dtype=torch.float32, device=x.device)
+    return tokens_to_logp(model, tokens.float().mean(dim=1)), aux_total / depth
+
+
 def embed_tokens(model: "ViT", patches: torch.Tensor, pos_embed: torch.Tensor) -> torch.Tensor:
     """Patches ``[b, t, patch_dim]`` and their ``pos_embed`` rows -> tokens
     in the activation dtype (bf16 under ``cfg.bf16``)."""
@@ -175,15 +221,12 @@ class ViT(nn.Module):
     ``attention_fn`` (``full_attention`` or ``ops.flash_attention``'s
     ``flash_attention``) is what ``forward`` runs in every block;
     ``generator`` draws the initial weights (torch's default generator
-    when None).
+    when None).  The MoE ViT's ``forward`` returns ``(log_probs, aux)``.
     """
 
     def __init__(self, cfg: ViTConfig = ViTConfig(), attention_fn: AttentionFn = full_attention,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "the MoE ViT (--experts) is not ported yet (ROADMAP queue 1, slice 3)")
         self.cfg = cfg
         self.attention_fn = attention_fn
         self.embed = nn.utils.skip_init(nn.Linear, cfg.patch_dim, cfg.dim)
@@ -197,10 +240,15 @@ class ViT(nn.Module):
                     bound = 1.0 / math.sqrt(layer.in_features)
                     for p in (layer.weight, layer.bias):
                         p.uniform_(-bound, bound, generator=generator)
+            for layer in self.modules():
+                if isinstance(layer, MoE):
+                    layer.init_stacks(generator)
             self.pos_embed.normal_(generator=generator).mul_(0.02)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         cfg = self.cfg
+        if cfg.num_experts > 0:
+            return vit_moe_forward(self, x)
         tokens = embed_tokens(self, patchify(x, cfg), self.pos_embed)
         tokens = self.ln_f(run_blocks(self.blocks, tokens, cfg, self.attention_fn))
         # Pool in float32, the head's numeric contract.

@@ -22,11 +22,17 @@ the rank's own, not all-reduced: the reference logs rank 0's.  The
 model is not wrapped in ``DistributedDataParallel``: its reducer hooks
 run from ``AccumulateGrad``, which ``torch.autograd.grad`` never reaches.
 
+With ZeRO-1 accumulators (:func:`make_train_state` ``zero=True``,
+``mnist_ddp.py --zero``) the step reduce-scatters the flat gradient
+instead, updates this rank's chunk of the state and all-gathers the
+delta (``parallel/zero.py``); the layout of ``state.opt`` selects it.
+
 ``make_forward_train_step``/``make_forward_eval_step`` build the same two
 steps around any ``forward(model, x) -> log-probs`` without dropout and
-with the plain per-parameter Adadelta update: the ViT family's steps
-(``vit_mnist.py``, ``parallel/sp.py``, ``tp_vit.py``, ``sp3.py``), on
-one device or one rank of a ``(data, seq, model)`` grid.
+with the plain per-parameter Adadelta update (or ZeRO-1's, as above): the
+ViT family's steps (``vit_mnist.py``, ``parallel/sp.py``, ``tp_vit.py``,
+``sp3.py``, ``ep.py``), on one device or one rank of a ``(data, seq,
+model)`` grid.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ from ..ops.adadelta_flat import (
 from ..ops.loss import nll_loss
 from ..utils.rng import fold_replica_step
 from .distributed import DistState
-from .mesh import Group, RankGrid, all_reduce_
+from .mesh import Group, RankGrid, all_reduce_, world_group
+from .zero import is_zero_state, zero_init, zero_update
 
 
 @dataclass
@@ -61,11 +68,15 @@ class TrainState:
     step: int = 0
 
 
-def make_train_state(model: Net, use_pallas: bool = False) -> TrainState:
+def make_train_state(model: Net, use_pallas: bool = False, zero: bool = False,
+                     world: DistState | None = None) -> TrainState:
     """Fresh state; with ``use_pallas`` the accumulators are flat, so the
     step takes the delta kernel's path, as the JAX package's
-    ``make_train_state`` chooses its layout."""
+    ``make_train_state`` chooses its layout; with ``zero`` they are this
+    rank's ZeRO-1 chunks over ``world``."""
     params = dict(model.named_parameters())
+    if zero:
+        return TrainState(opt=zero_init(params, world_group(world or DistState())))
     init = adadelta_init_flat if use_pallas else adadelta_init
     return TrainState(opt=init(params))
 
@@ -120,6 +131,7 @@ def make_train_step(
     and ``conv_impl`` are the forward's (``models/net.py``).  A
     distributed ``world`` all-reduces the gradients (module docstring)."""
     world = world or DistState()
+    group = world_group(world)
     generators: dict[torch.device, torch.Generator] = {}
 
     def train_step(model: Net, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
@@ -136,47 +148,79 @@ def make_train_step(
                             sync_bn=world.distributed)
         grads = torch.autograd.grad(loss, list(params.values()))
         flat = torch.cat([g.reshape(-1) for g in grads])
-        if world.distributed:
-            _mean_over_ranks(flat, world.world_size)
-        if is_flat_state(state.opt):
-            adadelta_step_flat(params, flat, state.opt, lr, rho, eps)
+        if is_zero_state(state.opt):
+            zero_update(params, flat, state.opt, lr, group, rho, eps)
         else:
-            views = dict(zip(params, (v.view_as(p) for v, p in zip(
-                flat.split([p.numel() for p in params.values()]), params.values()))))
-            adadelta_update_best(params, views, state.opt, lr, rho, eps, use_pallas=use_pallas)
+            if world.distributed:
+                _mean_over_ranks(flat, world.world_size)
+            if is_flat_state(state.opt):
+                adadelta_step_flat(params, flat, state.opt, lr, rho, eps)
+            else:
+                views = dict(zip(params, (v.view_as(p) for v, p in zip(
+                    flat.split([p.numel() for p in params.values()]), params.values()))))
+                adadelta_update_best(params, views, state.opt, lr, rho, eps,
+                                     use_pallas=use_pallas)
         state.step += 1
         return loss.detach()
 
     return train_step
 
 
+def reduce_grads(
+    grads: dict[str, torch.Tensor],
+    group: Group,
+    num_data: int,
+    sharded: Callable[[str], bool] | None = None,
+) -> dict[str, torch.Tensor]:
+    """The data-parallel gradient from this rank's ``grads``: the leaves
+    summed over ``group`` in one flat ``all_reduce(SUM)`` and every leaf
+    divided by ``num_data`` as a tensor (the data-axis sum of local-mean
+    gradients over the data degree).  Leaves ``sharded`` names (the expert
+    stacks, ``parallel/ep.py``) are this rank's alone: they stay out of the
+    all-reduce and are only divided.  A group of one returns ``grads``."""
+    if group.size == 1:
+        return grads
+    shared = [k for k in grads if not (sharded and sharded(k))]
+    flat = all_reduce_(torch.cat([grads[k].reshape(-1) for k in shared]), group)
+    num = torch.full((), num_data, dtype=flat.dtype, device=flat.device)
+    flat.div_(num)
+    summed = dict(zip(shared, flat.split([grads[k].numel() for k in shared])))
+    return {k: summed[k].view_as(g) if k in summed else g / num for k, g in grads.items()}
+
+
+def _local_grads(forward, model, x, y, w) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """``forward`` in train mode, the masked-mean NLL and this rank's own
+    gradients.  A ``forward`` that returns ``(log_probs, penalty)`` (the
+    MoE ViT's weighted balance loss) is trained on ``nll + penalty`` and
+    reports the nll."""
+    model.train()
+    params = dict(model.named_parameters())
+    out = forward(model, x)
+    log_probs, penalty = out if isinstance(out, tuple) else (out, None)
+    loss = nll_loss(log_probs, y, w, reduction="mean")
+    objective = loss if penalty is None else loss + penalty
+    return loss.detach(), dict(zip(params, torch.autograd.grad(objective, list(params.values()))))
+
+
 def make_forward_grads(
     forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
     grid: RankGrid = RankGrid(),
+    sharded: Callable[[str], bool] | None = None,
 ) -> Callable[..., tuple[torch.Tensor, dict[str, torch.Tensor]]]:
     """``grads(model, x, y, w) -> (loss, {name: gradient})``: ``forward``
     in train mode, the masked-mean NLL and its backward.
 
     On a rank ``grid`` (``parallel/mesh.py``) the gradients are the JAX
-    sp/tp steps': every leaf into one flat buffer, one ``all_reduce(SUM)``
-    over the ranks that share this rank's model coordinate (data x seq),
-    divided by the data degree as a tensor: the data-axis sum of
-    local-mean gradients over the data degree.  ``forward`` makes each
-    rank's leaves its share of that sum (``parallel/sp.py``,
+    sp/tp/ep steps': :func:`reduce_grads` over the ranks that share this
+    rank's model coordinate (data x seq) and the data degree.  ``forward``
+    makes each rank's leaves its share of that sum (``parallel/sp.py``,
     ``tp_vit.py``).  Sharded leaves (``--tp``) are this rank's own, and
-    summed only with the same shard of the other data and seq ranks."""
+    summed only with the same shard of the other data and seq ranks;
+    those ``sharded`` names (``--experts``) are not summed at all."""
 
     def grads_of(model, x, y, w):
-        model.train()
-        params = dict(model.named_parameters())
-        loss = nll_loss(forward(model, x), y, w, reduction="mean")
-        grads = torch.autograd.grad(loss, list(params.values()))
-        if grid.grad.size > 1:
-            flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), grid.grad)
-            flat.div_(torch.full((), grid.num_data, dtype=flat.dtype, device=flat.device))
-            grads = [v.view_as(p) for v, p in zip(
-                flat.split([p.numel() for p in params.values()]), params.values())]
-        return loss.detach(), dict(zip(params, grads))
+        loss, grads = _local_grads(forward, model, x, y, w)
+        return loss, reduce_grads(grads, grid.grad, grid.num_data, sharded)
 
     return grads_of
 
@@ -186,15 +230,23 @@ def make_forward_train_step(
     rho: float = 0.9,
     eps: float = 1e-6,
     grid: RankGrid = RankGrid(),
+    sharded: Callable[[str], bool] | None = None,
 ) -> Callable[..., torch.Tensor]:
     """``train_step(model, state, x, y, w, lr) -> loss``:
     :func:`make_forward_grads`' gradients and the plain Adadelta update in
-    place."""
-    grads_of = make_forward_grads(forward, grid)
+    place.  With ZeRO-1 accumulators (``vit_mnist.py --zero``) this rank's
+    own gradients go to :func:`~.zero.zero_update` over the data group
+    instead, as in :func:`make_train_step`."""
 
     def train_step(model, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
-        loss, grads = grads_of(model, x, y, w)
-        adadelta_update(dict(model.named_parameters()), grads, state.opt, lr, rho, eps)
+        params = dict(model.named_parameters())
+        loss, grads = _local_grads(forward, model, x, y, w)
+        if is_zero_state(state.opt):
+            flat = torch.cat([g.reshape(-1) for g in grads.values()])
+            zero_update(params, flat, state.opt, lr, grid.data, rho, eps)
+        else:
+            grads = reduce_grads(grads, grid.grad, grid.num_data, sharded)
+            adadelta_update(params, grads, state.opt, lr, rho, eps)
         state.step += 1
         return loss
 

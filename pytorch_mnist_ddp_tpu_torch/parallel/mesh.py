@@ -11,7 +11,9 @@ where JAX puts device r: ``r = (d * S + s) * M + m`` for coordinates
 Each axis gives process groups: a seq ring per (d, m), a model group per
 (d, s), a data group per (s, m), and a gradient group per m, the ranks
 that share a model coordinate (data x seq), over which the sp/tp steps sum
-their gradients.  ``dist.new_group`` is collective over the world, so
+their gradients; ``RankGrid.world`` is every rank (the default group),
+over which the pipeline (``--pp``, the model axis its stages) sums its
+stages' disjoint gradients.  ``dist.new_group`` is collective over the world, so
 every rank creates every group, in the same order, those it is not in
 included.  A group of one has no process group and launches no
 collective: a world of one runs the degree-1 paths with none.
@@ -27,6 +29,9 @@ transposes give (``ops`` of :class:`Group`):
 - :func:`reduce_backward` (a replicated value entering a per-member
   computation): identity forward, all-reduce backward;
 - :func:`all_to_all`: chunk j of dim 0 to member j; self-transposed;
+- :func:`mean_forward` (JAX's ``pmean`` of a per-member value under
+  VMA): the group's mean forward, the gradient passed to each member's
+  own value as it is;
 - :func:`count_once`: identity forward; backward keeps the gradient on
   member 0 and zeroes it elsewhere, for a parameter every member uses
   alike after a :func:`reduce_forward` (its gradient then sums once over
@@ -84,6 +89,7 @@ class RankGrid:
     seq: Group = Group()
     model: Group = Group()
     grad: Group = Group()
+    world: Group = Group()
 
     @property
     def num_data(self) -> int:
@@ -148,7 +154,14 @@ def make_rank_grid(minors: list[tuple[str, int]], world: DistState = DistState()
             pg = dist.new_group(list(ranks)) if len(ranks) > 1 else None
             if world.rank in ranks:
                 mine[axis] = Group(ranks, ranks.index(world.rank), pg, backend)
-    return RankGrid(shape, grid_coords(world.rank, shape), **mine)
+    return RankGrid(shape, grid_coords(world.rank, shape), world=world_group(world), **mine)
+
+
+def world_group(world: DistState = DistState()) -> Group:
+    """Every rank of ``world`` as a :class:`Group`: the default process
+    group (``pg`` None)."""
+    backend = dist.get_backend() if world.distributed else None
+    return Group(tuple(range(world.world_size)), world.rank, None, backend)
 
 
 # -- transport -----------------------------------------------------------------
@@ -186,6 +199,53 @@ def _exchange(x: torch.Tensor, group: Group, to: int, frm: int) -> torch.Tensor:
         STAGED["calls"] += 1
         STAGED["bytes"] += x.numel() * x.element_size()
         return dst.to(x.device)
+    return dst
+
+
+def reduce_scatter(flat: torch.Tensor, group: Group) -> torch.Tensor:
+    """This member's chunk of ``flat`` summed over the group: ``flat`` is
+    ``size`` equal chunks, member j gets the sum of chunk j."""
+    if group.size == 1:
+        return flat
+    out = flat.new_empty(flat.numel() // group.size)
+    dist.reduce_scatter_tensor(out, flat.contiguous(), group=group.pg)
+    return out
+
+
+def all_gather_flat(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Every member's 1-D ``t`` concatenated in group order."""
+    if group.size == 1:
+        return t
+    out = t.new_empty(t.numel() * group.size)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group.pg)
+    return out
+
+
+def stage_shift(x: torch.Tensor | None, group: Group, to: int | None, frm: int | None,
+                like: torch.Tensor) -> torch.Tensor | None:
+    """The pipeline's one-way hop: send ``x`` to member ``to`` (None: send
+    nothing) and receive a tensor shaped and typed as ``like`` from member
+    ``frm`` (None: receive nothing), posted together; returns what
+    arrived.  A member with neither posts nothing.  Through host copies
+    for gloo and CUDA tensors, each staged send counted in
+    :data:`STAGED`."""
+    staged = like.is_cuda and group.backend == "gloo"
+    ops, dst = [], None
+    if to is not None:
+        src = x.contiguous()
+        if staged:
+            src = src.cpu()
+            STAGED["calls"] += 1
+            STAGED["bytes"] += x.numel() * x.element_size()
+        ops.append(dist.P2POp(dist.isend, src, group.ranks[to], group.pg))
+    if frm is not None:
+        dst = torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged else like.device)
+        ops.append(dist.P2POp(dist.irecv, dst, group.ranks[frm], group.pg))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if dst is not None and staged:
+        return dst.to(like.device)
     return dst
 
 
@@ -244,6 +304,17 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, ctx.group), None
 
 
+class _MeanForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        size = torch.full((), group.size, dtype=x.dtype, device=x.device)
+        return all_reduce_(x.clone(), group).div_(size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _CountOnce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -274,6 +345,15 @@ def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``x [size, ...]``: chunk j goes to member j, and chunk j of the
     result came from member j."""
     return x if group.size == 1 else _AllToAll.apply(x, group)
+
+
+def mean_forward(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` averaged over the group (divided by a tensor); the gradient
+    reaches each member's own ``x`` as it is: the cotangent JAX's VMA
+    gives a ``pmean``'d per-device value whose result every device adds to
+    its own loss (the group's cotangents sum to ``size`` times each, the
+    mean divides them back)."""
+    return x if group.size == 1 else _MeanForward.apply(x, group)
 
 
 def count_once(x: torch.Tensor, group: Group) -> torch.Tensor:

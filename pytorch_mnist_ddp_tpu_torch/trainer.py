@@ -7,14 +7,16 @@ epoch, and ``--save-model``; with the JAX package's ``--resume``
 (parameters from a model checkpoint, a fresh optimizer),
 ``--save-state``/``--resume-state`` (the whole training state, continued
 bit for bit, from a final or a mid-epoch archive of either package),
-``--conv-impl``, ``--bf16`` and ``--syncbn``.  Given a distributed
+``--conv-impl``, ``--bf16``, ``--syncbn`` and ``--zero`` (the Adadelta
+state sharded over the ranks, ``parallel/zero.py``; archives per leaf on
+disk, so they cross with plain runs of either package).  Given a distributed
 ``DistState`` (``parallel/distributed.py``) each rank trains on its shard
 of every epoch, the gradients are all-reduced (``parallel/ddp.py``),
 every rank evaluates its shard of the test set and the totals are
 summed; only rank 0 prints and saves.  The data and the epoch loop are
 shared with the ViT CLI (``vit_mnist.py``).  The printed lines are the
 JAX package's (and so the reference's), byte for byte.  The JAX
-package's other paths (fused, ZeRO, TP/PP, telemetry, the resilient and
+package's other paths (fused, TP/PP, telemetry, the resilient and
 elastic runtimes) are not ported yet.
 """
 
@@ -39,6 +41,8 @@ from .parallel.ddp import (
     make_train_step,
 )
 from .parallel.distributed import DistState, destroy_distributed
+from .parallel.mesh import world_group
+from .parallel.zero import per_leaf_opt_to_zero, zero_opt_to_per_leaf
 from .utils.checkpoint import (
     load_latest_train_state,
     load_resume_state,
@@ -313,6 +317,10 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
     torch.backends.cudnn.deterministic = True
     use_pallas, conv_impl = args.pallas_opt, args.conv_impl
     syncbn = bool(getattr(args, "syncbn", False))
+    zero = bool(getattr(args, "zero", False))
+    if zero and use_pallas:
+        raise ValueError("--zero and --pallas-opt both re-lay-out the "
+                         "Adadelta state; pick one")
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     # Checkpoints load before any data or device work, so a wrong file
@@ -331,7 +339,7 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
     model = Net(torch.Generator().manual_seed(seeds["init"]), use_bn=syncbn).to(device)
     if params is not None:
         model.load_state_dict(params)
-    state = make_train_state(model, use_pallas=use_pallas)
+    state = make_train_state(model, use_pallas=use_pallas, zero=zero, world=world)
     state.step = step0
     if archive is not None:
         opt = ensure_opt_layout(archive.opt, dict(model.named_parameters()), use_pallas)
@@ -342,6 +350,8 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
             step = torch.tensor([state.step], dtype=torch.int64, device=device)
             broadcast_from_chief([*_opt_tensors(state.opt), step])
             state.step = int(step.item())
+    if zero and archive is not None:  # this rank's chunks of the archive's
+        state.opt = per_leaf_opt_to_zero(state.opt, world_group(world))
     step_fn = make_train_step(use_pallas=use_pallas, dropout_seed=seeds["dropout"],
                               compute_dtype=compute_dtype, conv_impl=conv_impl, world=world)
     run_epochs(args, device, model, state, step_fn,
@@ -352,11 +362,14 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
         save_state_dict(model_state_dict(model, ddp_prefix=world.distributed,
                                          num_batches=state.step if syncbn else None),
                         save_path)
+    opt = state.opt
+    if args.save_state and zero:  # per leaf on disk; the gather is collective
+        opt = zero_opt_to_per_leaf(opt, dict(model.named_parameters()), world_group(world))
     if args.save_state and world.is_chief:
         # Epochs completed: where a continuation picks up the schedule,
         # the shuffle and the numbering.
         stats = {k: v for k, v in model.state_dict().items()
                  if k.endswith(("running_mean", "running_var"))}
-        save_train_state(dict(model.named_parameters()), state.opt, state.step,
+        save_train_state(dict(model.named_parameters()), opt, state.step,
                          args.save_state, epoch=epoch0 + args.epochs, batch_stats=stats)
     return model, state

@@ -31,7 +31,10 @@ JAX order.
 The ViT's tree (``models/vit.py``) crosses by name alone: dense kernels
 ``[in, out]`` transpose to ``weight [out, in]``, LayerNorm ``scale`` is
 ``weight``, ``blocks/<i>`` is ``blocks.<i>``.  No feature is reordered:
-the qkv projection is head-major in both packages.
+the qkv projection is head-major in both packages.  The MoE ViT's
+experts cross the same way: the gate's ``kernel [dim, E]`` is
+``gate.weight [E, dim]``, the ``[E, d_in, d_out]`` stacks and their
+``[E, d]`` biases are the same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -275,20 +278,35 @@ def tp_split_dim(name: str) -> int | None:
     return TP_SPLIT_DIM.get(name.split(".", 2)[2])
 
 
-def shard_vit_state(state: Mapping[str, torch.Tensor], index: int,
-                    count: int) -> dict[str, torch.Tensor]:
+# Expert parallelism (the JAX package's ep.py ep_param_specs): the MoE
+# blocks' expert stacks and their biases split on dim E over the data
+# group; the gate and every other leaf are replicated.
+EP_SHARDED = ("moe.w_in", "moe.b_in", "moe.w_out", "moe.b_out")
+
+
+def ep_split_dim(name: str) -> int | None:
+    """The dim a MoE ViT state leaf splits on over the expert group, or
+    None (replicated)."""
+    return 0 if name.endswith(EP_SHARDED) else None
+
+
+def shard_vit_state(state: Mapping[str, torch.Tensor], index: int, count: int,
+                    split_dim=tp_split_dim) -> dict[str, torch.Tensor]:
     """Member ``index`` of ``count``'s part of a full ViT state: the
-    contiguous ``1/count`` slice of each sharded leaf, the others whole."""
+    contiguous ``1/count`` slice of each leaf ``split_dim`` names a dim for
+    (the model group's, or :func:`ep_split_dim`'s experts), the others
+    whole."""
     out = {}
     for name, value in state.items():
-        dim = tp_split_dim(name)
+        dim = split_dim(name)
         out[name] = value if dim is None else value.chunk(count, dim)[index].contiguous()
     return out
 
 
-def gather_vit_state(shards: list[Mapping[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+def gather_vit_state(shards: list[Mapping[str, torch.Tensor]],
+                     split_dim=tp_split_dim) -> dict[str, torch.Tensor]:
     """The inverse: the members' parts, in member order, back into the full
     state (replicated leaves from member 0)."""
-    return {name: value if (dim := tp_split_dim(name)) is None
+    return {name: value if (dim := split_dim(name)) is None
             else torch.cat([s[name] for s in shards], dim)
             for name, value in shards[0].items()}

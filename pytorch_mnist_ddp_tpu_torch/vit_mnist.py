@@ -6,6 +6,8 @@
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --bf16 --flash     # bf16 trunk
     python -m pytorch_mnist_ddp_tpu_torch.parallel.launch --nproc_per_node=W \\
         -m pytorch_mnist_ddp_tpu_torch.vit_mnist --sp S [--sp-impl ulysses] [--tp M] [--flash]
+    python -m pytorch_mnist_ddp_tpu_torch.parallel.launch --nproc_per_node=W \\
+        -m pytorch_mnist_ddp_tpu_torch.vit_mnist --experts 8 [--flash] | --zero [--flash] | --pp
 
 It runs on the card (``cuda``) unless ``--no-cuda``/``--no-accel`` asks for
 the CPU, and raises without a card otherwise.  Under the launcher's
@@ -22,18 +24,26 @@ a ``(data, seq, model)`` grid of shape ``(W/(S*M), S, M)``
 - ``--tp M``: Megatron blocks (``parallel/tp_vit.py``; ``--flash`` on
   ``h/M`` heads);
 - ``--sp S --tp M``: the 3-D composition (``parallel/sp3.py``), the ring
-  inside each model shard's heads.
+  inside each model shard's heads;
+- ``--pp``: the blocks pipelined over ``--pp-stages`` stages of the model
+  axis, ``--pp-microbatches`` a data shard's batch (``parallel/pp_vit.py``);
+- ``--experts E``: the switch-MoE ViT, its experts sharded over the data
+  axis, E/W a rank, tokens routed by two all-to-alls (``parallel/ep.py``;
+  ``--flash``: the whole-forward kernel in every block);
+- ``--zero``: data parallelism with the Adadelta state sharded 1/W
+  (``parallel/zero.py``; ``--flash`` as the single device).
 
 A parallel mode runs at degree 1 only with ``--allow-degree-1``; without
 the launcher the world is of one rank.  Rows go by data coordinate: every
 seq and model member of a data shard sees that shard's rows, ``--batch-size``
 and ``--test-batch-size`` of them a step.  ``--bf16`` runs any mode in
 bfloat16 (the kernel's bf16 mode under ``--flash``).  The flags are a
-subset of ``vit_mnist.py``'s with the same names and defaults; argparse
-refuses the others.  Only rank 0 prints, and its lines are the JAX CLI's
-(its own loss, as JAX prints its first shard's); ``--save-model`` writes
-``vit_mnist.npz`` in the JAX package's params-tree format from rank 0,
-the model shards gathered first.
+subset of ``vit_mnist.py``'s with the same names, defaults and truth
+table; argparse refuses the others.  Only rank 0 prints, and its lines
+are the JAX CLI's (its own loss, as JAX prints its first shard's; under
+``--pp`` its data shard's, summed over the stages); ``--save-model``
+writes ``vit_mnist.npz`` in the JAX package's params-tree format from
+rank 0, the model and expert shards gathered first.
 """
 
 from __future__ import annotations
@@ -49,8 +59,9 @@ from .device import resolve_device
 from .models.vit import ViT, ViTConfig
 from .ops.adadelta import adadelta_init
 from .ops.flash_attention import select_attention
-from .parallel import sp, sp3, tp_vit
+from .parallel import ep, pp_vit, sp, sp3, tp_vit
 from .parallel.ddp import TrainState, make_forward_eval_step, make_forward_train_step
+from .parallel.zero import zero_init
 from .parallel.distributed import DistState, destroy_distributed, form_world
 from .parallel.mesh import RankGrid, make_rank_grid
 from .trainer import make_shard_loaders, run_epochs
@@ -99,13 +110,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "degree 1: the groups, collectives and kernels run "
                         "on a 1-wide axis — the one-card smoke of modes "
                         "whose full degree needs more ranks")
+    p.add_argument("--pp", action="store_true", default=False,
+                   help="pipeline the transformer blocks across 2 stages "
+                        "(parallel/pp_vit.py: microbatched GPipe schedule "
+                        "over a stage group of ranks); mutually exclusive "
+                        "with --sp/--tp")
+    p.add_argument("--pp-microbatches", type=int, default=2, metavar="M",
+                   help="microbatches per shard batch in --pp mode")
+    p.add_argument("--pp-stages", type=int, default=2, metavar="S",
+                   help="pipeline stage count in --pp mode: depth blocks "
+                        "split into S nearly-even chunks over an S-wide "
+                        "stage axis (needs --depth >= S)")
+    p.add_argument("--experts", type=int, default=0, metavar="E",
+                   help="switch-MoE with E experts, expert-parallel over "
+                        "the data axis (models/moe.py + parallel/ep.py); "
+                        "mutually exclusive with --sp/--tp/--pp")
+    p.add_argument("--zero", action="store_true", default=False,
+                   help="ZeRO-1 data parallelism over every rank: batch "
+                        "sharded on the data axis, Adadelta state sharded "
+                        "1/N (parallel/zero.py); mutually exclusive with "
+                        "--sp/--tp/--pp/--experts")
     p.add_argument("--flash", action="store_true", default=False,
                    help="flash-attention CUDA kernel "
                         "(ops/flash_attention.py, csrc/flash_attention.cu): "
                         "the whole-forward mode on the single device, under "
-                        "--sp-impl ulysses and --tp (local head shards), the "
-                        "partial (ring-hop) mode under the --sp ring and "
-                        "--sp --tp")
+                        "--zero and --experts, under --sp-impl ulysses and "
+                        "--tp (local head shards), the partial (ring-hop) "
+                        "mode under the --sp ring and --sp --tp; not with "
+                        "--pp")
     p.add_argument("--depth", type=int, default=2, metavar="N",
                    help="transformer blocks (default: 2)")
     p.add_argument("--dim", type=int, default=64, metavar="D",
@@ -141,6 +173,15 @@ def resolve_mode_flags(args) -> tuple[bool, bool]:
     tp_on = args.tp is not None and (args.tp > 1 or args.allow_degree_1)
     args.sp = args.sp or 1
     args.tp = args.tp or 1
+    if args.experts > 0 and (sp_on or tp_on or args.pp):
+        raise SystemExit("--experts is mutually exclusive with --sp/--tp/--pp")
+    if args.pp and (sp_on or tp_on):
+        raise SystemExit("--pp is mutually exclusive with --sp/--tp")
+    if args.zero and (sp_on or tp_on or args.pp or args.experts > 0):
+        raise SystemExit(
+            "--zero is plain data parallelism; drop --sp/--tp/--pp/"
+            "--experts"
+        )
     if args.sp_impl != "ring" and tp_on:
         raise SystemExit(
             "--sp-impl ulysses is the plain --sp path; the 3-D --sp --tp "
@@ -150,10 +191,19 @@ def resolve_mode_flags(args) -> tuple[bool, bool]:
         raise SystemExit(
             "--sp-impl selects the --sp strategy; add --sp N (> 1)"
         )
-    if args.remat and tp_on:
+    if args.pp and args.pp_stages < 2:
+        raise SystemExit(
+            f"--pp-stages must be >= 2, got {args.pp_stages}"
+        )
+    if args.remat and (tp_on or args.pp or args.experts > 0):
         raise SystemExit(
             "--remat rides the single-device/--zero/--sp/--fused paths; "
             "drop --tp/--pp/--experts"
+        )
+    if args.flash and args.pp:
+        raise SystemExit(
+            "--flash composes with every mode except the pipeline engine "
+            "and the fused whole-run; drop --pp/--fused"
         )
     return sp_on, tp_on
 
@@ -183,17 +233,20 @@ def build(args, device: torch.device, modes: tuple[bool, bool],
     """The model, its state, the train and eval steps and this rank's grid
     for ``args`` (``modes`` from :func:`resolve_mode_flags`): weights from
     ``--seed`` (every rank draws the same) or ``--resume``, sharded under
-    ``--tp``, and the branch's steps.  Forms the grid's groups
-    (collective over ``world``)."""
+    ``--tp`` and ``--experts``, and the branch's steps, in the JAX CLI's
+    branch order.  Forms the grid's groups (collective over ``world``)."""
     sp_on, tp_on = modes
-    minors = [("seq", args.sp)] * sp_on + [("model", args.tp)] * tp_on
-    if not minors and world.world_size > 1:
+    data_parallel = args.experts > 0 or args.zero
+    minors = ([("seq", args.sp)] * sp_on + [("model", args.tp)] * tp_on
+              + [("model", args.pp_stages)] * args.pp)
+    if not minors and not data_parallel and world.world_size > 1:
         raise SystemExit(
-            f"the single-device ViT runs on one rank; add --sp/--tp to lay "
-            f"the {world.world_size} ranks out as a grid"
+            f"the single-device ViT runs on one rank; add --sp/--tp/--pp/--experts/"
+            f"--zero to lay the {world.world_size} ranks out as a grid"
         )
-    grid = make_rank_grid(minors, world) if minors else RankGrid()
-    cfg = ViTConfig(depth=args.depth, dim=args.dim, bf16=args.bf16, remat=args.remat)
+    grid = make_rank_grid(minors, world) if minors or data_parallel else RankGrid()
+    cfg = ViTConfig(depth=args.depth, dim=args.dim, num_experts=args.experts, bf16=args.bf16,
+                    remat=args.remat)
     seeds = split_streams(args.seed)
     model = ViT(cfg, select_attention(args.flash), torch.Generator().manual_seed(seeds["init"]))
     if args.resume:
@@ -201,6 +254,8 @@ def build(args, device: torch.device, modes: tuple[bool, bool],
     model.to(device)
     if tp_on:
         tp_vit.shard_vit_tp(model, grid.model)
+    if args.experts > 0:
+        ep.shard_ep(model, grid.data)
     state = TrainState(opt=adadelta_init(dict(model.named_parameters())))
     if sp_on and tp_on:
         step_fn = sp3.make_sp3_train_step(cfg, grid, use_flash=args.flash)
@@ -208,9 +263,19 @@ def build(args, device: torch.device, modes: tuple[bool, bool],
     elif tp_on:
         step_fn = tp_vit.make_vit_tp_train_step(cfg, grid, use_flash=args.flash)
         eval_fn = tp_vit.make_vit_tp_eval_step(cfg, grid, use_flash=args.flash)
+    elif args.pp:
+        step_fn = pp_vit.make_vit_pp_train_step(cfg, grid, num_micro=args.pp_microbatches)
+        eval_fn = make_forward_eval_step(lambda m, x: m(x), grid.data)
     elif sp_on:
         step_fn = sp.make_sp_train_step(cfg, grid, use_flash=args.flash, impl=args.sp_impl)
         eval_fn = sp.make_sp_eval_step(cfg, grid, use_flash=args.flash, impl=args.sp_impl)
+    elif args.experts > 0:
+        step_fn = ep.make_ep_train_step(cfg, grid, use_flash=args.flash)
+        eval_fn = ep.make_ep_eval_step(cfg, grid, use_flash=args.flash)
+    elif args.zero:
+        state = TrainState(opt=zero_init(dict(model.named_parameters()), grid.data))
+        step_fn = make_forward_train_step(lambda m, x: m(x), grid=grid)
+        eval_fn = make_forward_eval_step(lambda m, x: m(x), grid.data)
     else:
         step_fn = make_forward_train_step(lambda m, x: m(x))
         eval_fn = make_forward_eval_step(lambda m, x: m(x))
@@ -227,7 +292,7 @@ def fit(
 ) -> tuple[ViT, TrainState]:
     """The full run on this rank of ``world`` (formed and torn down by the
     caller); returns the trained model (this rank's shards under
-    ``--tp``) and its state.  ``modes`` is :func:`resolve_mode_flags`'
+    ``--tp`` and ``--experts``) and its state.  ``modes`` is :func:`resolve_mode_flags`'
     result for ``args``.  ``device`` ``None`` means the card, and raises
     without one.  TF32 is switched off (process-wide); ``timings`` is
     ``trainer.run_epochs``'s."""
@@ -239,8 +304,13 @@ def fit(
     run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
                dry_run_eval=args.dry_run, dist=world)
     if args.save_model and save_path:
-        full = (tp_vit.gather_vit_tp_state(model, grid.model) if modes[1]
-                else model.state_dict())  # the gather is collective
+        # the gathers are collective
+        if modes[1]:
+            full = tp_vit.gather_vit_tp_state(model, grid.model)
+        elif args.experts > 0:
+            full = ep.gather_ep_state(model, grid.data)
+        else:
+            full = model.state_dict()
         if world.is_chief:
             save_params_tree(jax_vit_tree_from_torch(full), save_path)
     return model, state

@@ -163,12 +163,22 @@ def test_train_cli_accepts_ported_flags(flags, dest, value):
 
 @pytest.mark.parametrize(
     "flag",
-    ["--zero", "--tp=2", "--pp", "--pp-microbatches=2", "--fused", "--telemetry-dir=x",
+    ["--tp=2", "--pp", "--pp-microbatches=2", "--fused", "--telemetry-dir=x",
      "--elastic", "--resume-reshard", "--checkpoint-every-steps=1", "--chaos=x"],
 )
 def test_ddp_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
         ddp_parser().parse_args([flag])
+
+
+@pytest.mark.parametrize("flags", [["--zero"], ["--zero", "--syncbn"], ["--zero", "--bf16"]],
+                         ids=["zero", "zero_syncbn", "zero_bf16"])
+def test_ddp_cli_accepts_zero(flags):
+    """--zero is ported (parallel/zero.py) and composes with --syncbn and
+    --bf16; off by default, as in the JAX CLI."""
+    args = ddp_parser().parse_args(flags)
+    assert args.zero and args.syncbn == ("--syncbn" in flags) and args.bf16 == ("--bf16" in flags)
+    assert ddp_parser().parse_args([]).zero is False
 
 
 def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
@@ -189,8 +199,7 @@ def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
 
 @pytest.mark.parametrize(
     "flag",
-    ["--pp", "--pp-microbatches=2", "--pp-stages=2",
-     "--experts=8", "--zero", "--fused", "--pregather", "--profile=x",
+    ["--fused", "--pregather", "--profile=x",
      "--step-stats", "--timings-json=x", "--save-state=x", "--resume-state=x"],
 )
 def test_vit_cli_refuses_flags_not_ported_yet(flag):
@@ -204,17 +213,22 @@ def test_vit_cli_refuses_flags_not_ported_yet(flag):
      (["--bf16", "--sp", "1", "--allow-degree-1", "--flash"], "bf16", True),
      (["--bf16", "--flash", "--remat"], "bf16", True),
      (["--sp-impl=ulysses"], "sp_impl", "ulysses"), (["--tp=2"], "tp", 2),
-     (["--sp=2"], "sp", 2)],
+     (["--sp=2"], "sp", 2), (["--pp"], "pp", True), (["--pp-microbatches=4"], "pp_microbatches", 4),
+     (["--pp-stages=3"], "pp_stages", 3), (["--experts=8", "--flash"], "experts", 8),
+     (["--zero", "--flash"], "zero", True)],
     ids=["bf16", "bf16_flash", "bf16_sp1_flash", "bf16_flash_remat", "sp_impl_ulysses", "tp",
-         "sp2"],
+         "sp2", "pp", "pp_microbatches", "pp_stages", "experts", "zero"],
 )
 def test_vit_cli_accepts_ported_flags(flags, dest, value):
     """--bf16 is ported (the flash kernel's bf16 mode) and composes with
-    --flash, --remat and the degree-1 ring; --sp N, --sp-impl and --tp
-    are taken with the JAX CLI's defaults."""
+    --flash, --remat and the degree-1 ring; --sp N, --sp-impl, --tp,
+    --pp, --pp-microbatches, --pp-stages, --experts and --zero are taken
+    with the JAX CLI's defaults."""
     assert getattr(vit_parser().parse_args(flags), dest) == value
     defaults = vit_parser().parse_args([])
     assert (defaults.sp, defaults.sp_impl, defaults.tp) == (None, "ring", None)
+    assert (defaults.pp, defaults.pp_microbatches, defaults.pp_stages, defaults.experts,
+            defaults.zero) == (False, 2, 2, 0, False)
 
 
 @pytest.fixture
