@@ -160,7 +160,31 @@ Phases, one JSON line each:
                 steps, --pp to the single-device plain steps), the MoE
                 legs' routing flips and smallest gate margin recorded;
                 (d) one --experts 8 --flash epoch through vit_mnist.fit
-                (epoch-1 accuracy floor, ms a step, row 4 at its formula).
+                (epoch-1 accuracy floor, ms a step, row 4 at its formula);
+19. train_state — 20-step epochs on a seeded IDX set, TF32 off: (a) the
+                ViT's --save-state then --resume-state, --flash and --sp 1
+                --allow-degree-1 --flash, torch.equal to two epochs without
+                a break (params, accumulators, step; the archives byte for
+                byte), rows 4 and 5 once an attention call; (b) two gloo
+                ranks sharing the card: a mid-epoch --pallas-opt archive
+                (mnist_ddp's step, dropout off), mnist_ddp --tp 2 and --pp
+                (f32, --bf16), 20 fixed steps from SEED held to the
+                one-process data-parallel steps (the first 8 at the ddp
+                phase's gates, bf16 at 5e-3), and --tp 2 --save-model
+                writing the gathered state; (c) four: --tp 2 on 2 x 2;
+                (d) an NCCL world of one through the launcher (this script
+                the rank program): --zero --flash saved and resumed equal
+                to two epochs, a plain archive resumed under --zero and a
+                --zero archive without it (archives byte for byte), and the
+                two ranks' archive resumed with --resume-reshard within the
+                trajectory gates of their own epoch (without the flag, the
+                JAX trainer's refusal); (e) the CNN's --elastic: --epochs
+                1, then 2 (torch.equal to two epochs), then 2 again (no
+                step); (f) --profile --step-stats on a --pallas-opt CNN
+                epoch and a ViT --flash epoch: the Chrome trace parses and
+                names row 3's and row 4's kernels once a launch, one
+                step-stats line an epoch, trace bytes and wall seconds
+                beside the unprofiled epoch.
 
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
@@ -172,7 +196,9 @@ apart), flash_attention over phases 13-14 (the ViT training path) and
 again over 17 (b)-(e) (the parallel modes, counted by the ranks'
 processes; the single-device references apart; (a)'s launches compare
 and are not counted) and over 18 (the ranks' processes and the epoch;
-the references apart).
+the references apart); flash_attention and adadelta again over 19 (the
+ranks' and the launcher's processes included; the uninterrupted runs the
+resumed ones are held to apart).
 Latencies, seconds per epoch and images/s are smoke readings of this
 script's own work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -181,6 +207,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -420,6 +447,22 @@ VIT_FAM_EPOCH = ["--epochs", "1", "--experts", "8", "--flash"]
 # trained from each package's initial weights reads 75.53-85.43%, JAX's
 # own 85.43% at seed 5 (tools/vit_epoch1_cross.py, CPU).
 VIT_MOE_EPOCH1_MIN_ACCURACY = 0.66
+# train_state phase: 20-step epochs on vit_idx_root's IDX set (1280 train
+# rows, batch 64).  The --tp 2 / --pp legs (mode, bf16), TRAIN_STEPS fixed
+# steps from SEED against the one-process data-parallel steps: over the
+# first DDP_GATE_STEPS steps at the ddp phase's gates (the CNN's runs
+# without BatchNorm part ways past them at lr 1.0, ddp phase above), bf16
+# at STATE_BF16_ATOL; the 20-step differences recorded.  The
+# --resume-reshard archive: two ranks of STATE_RANK_BATCH rows save it
+# before batch STATE_CURSOR, so the world of one resumes DDP_GATE_STEPS
+# steps of 64.
+STATE_MP_LEGS = {"tp2": ("tp", False), "tp2_bf16": ("tp", True), "pp": ("pp", False),
+                 "pp_bf16": ("pp", True)}
+STATE_TWO = ("tp2", "tp2_bf16", "pp", "pp_bf16")
+STATE_FOUR = ("tp2",)
+STATE_BF16_ATOL = 5e-3
+STATE_RANK_BATCH = 32
+STATE_CURSOR = 12
 
 
 def emit(obj: dict) -> None:
@@ -1648,11 +1691,6 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     for k in references:
         references[k] += af.LAUNCHES[k] - before[k]
 
-    def same_archive(a, b):
-        with np.load(arch[a]) as x, np.load(arch[b]) as y:
-            return sorted(x.keys()) == sorted(y.keys()) and all(
-                x[k].tobytes() == y[k].tobytes() for k in y.keys())
-
     zmodel = load_inference_state(os.path.join(zdir, "mnist_cnn.pt"))
     pmodel = {k: v.cpu() for k, v in plain_run["model"].state_dict().items()}
     zero_nccl = {
@@ -1664,11 +1702,11 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
                "lines_equal_to_plain_fit": zlines == [
                    ln for ln in plain_run["lines"] if ln.startswith(("Train Epoch",
                                                                      "Test set"))],
-               "archive_equal_to_plain": same_archive("zero", "plain"),
-               "plain_archive_resumed_under_zero": same_archive("plain_resumed_zero",
-                                                                "plain_resumed_plain"),
-               "zero_archive_resumed_plain": same_archive("zero_resumed_plain",
-                                                          "plain_resumed_plain"),
+               "archive_equal_to_plain": same_archive(np, arch["zero"], arch["plain"]),
+               "plain_archive_resumed_under_zero": same_archive(
+                   np, arch["plain_resumed_zero"], arch["plain_resumed_plain"]),
+               "zero_archive_resumed_plain": same_archive(
+                   np, arch["zero_resumed_plain"], arch["plain_resumed_plain"]),
                "resumed_steps": resumed["state"].step == zstate.step == 2 * zrank["step"],
                "no_optimizer_kernel": zrank["launches"] == {k: 0 for k in af.LAUNCHES}}}
 
@@ -2891,6 +2929,566 @@ def vit_family_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     return launches, references
 
 
+
+# -- 19. train_state ---------------------------------------------------------------
+
+
+def vit_state_fit(flags: list[str], world=None, device: str | None = "cuda") -> dict:
+    """vit_mnist.fit() with ``flags`` (in ``world``, else alone): the
+    model's state, the per-leaf accumulators (gathered under --zero), the
+    step, the printed lines, the timings and the flash launches of the run."""
+    from pytorch_mnist_ddp_tpu_torch import vit_mnist
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.parallel.distributed import DistState
+    from pytorch_mnist_ddp_tpu_torch.parallel.zero import is_zero_state, zero_opt_to_per_leaf
+
+    args = vit_mnist.build_parser().parse_args(flags)
+    modes = vit_mnist.resolve_mode_flags(args)
+    world = world or DistState()
+    timings: dict = {}
+    before = dict(fa.LAUNCHES)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model, state = vit_mnist.fit(args, modes, device, timings=timings, world=world)
+    wall = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    opt = state.opt
+    if is_zero_state(opt):
+        from pytorch_mnist_ddp_tpu_torch.parallel.mesh import world_group
+
+        opt = zero_opt_to_per_leaf(opt, params, world_group(world))
+    return {"params": {k: v.detach().cpu() for k, v in params.items()},
+            "opt": [{k: v.cpu() for k, v in tree.items()} for tree in opt], "step": state.step,
+            "lines": [ln for ln in out.getvalue().splitlines()
+                      if ln.startswith(("Train Epoch", "Test set", "Step stats"))],
+            "timings": timings,
+            "wall": wall, "launches": {k: fa.LAUNCHES[k] - before[k] for k in before}}
+
+
+def same_state(torch, a: dict, b: dict) -> bool:
+    """Params, per-leaf accumulators and step equal bit for bit."""
+    return (a["step"] == b["step"]
+            and all(torch.equal(a["params"][k], b["params"][k]) for k in b["params"])
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a["opt"], b["opt"]) for k in y))
+
+
+def same_archive(np, a: str, b: str) -> bool:
+    """Two npz archives with the same arrays, byte for byte."""
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].tobytes() == y[k].tobytes() for k in x.files)
+
+
+def cnn_mp_legs(world, legs: tuple, batches: str) -> dict:
+    """Each mnist_ddp --tp 2 / --pp leg of ``legs`` (STATE_MP_LEGS) on this
+    rank: the (data, model) grid of the world, the CNN from SEED, TRAIN_STEPS
+    fixed steps (dropout off, lr 1.0) on this rank's data shard; the losses,
+    a digest of the leaves every rank holds whole after every step, the
+    state gathered whole after DDP_GATE_STEPS steps and at the end, and
+    the host-staged sends."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
+    from pytorch_mnist_ddp_tpu_torch.parallel import mesh, pp, tp
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import TrainState
+
+    data = np.load(batches)
+    out = {}
+    for leg in legs:
+        mode, bf16 = STATE_MP_LEGS[leg]
+        grid = mesh.make_rank_grid([("model", 2)], world)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        net = Net(torch.Generator().manual_seed(SEED)).cuda()
+        if mode == "tp":
+            tp.shard_state(net, grid.model)
+            step = tp.make_tp_train_step(grid, dropout=False, compute_dtype=dtype)
+        else:
+            step = pp.make_pp_train_step(grid, dropout=False, compute_dtype=dtype)
+
+        def whole():
+            full = tp.gather_replicated(net, grid.model) if mode == "tp" else net.state_dict()
+            return {k: v.detach().to("cpu", copy=True) for k, v in full.items()}
+
+        state = TrainState(opt=adadelta_init(dict(net.named_parameters())))
+        rows = data["xs"].shape[1] // grid.num_data
+        cut = slice(grid.coords[0] * rows, (grid.coords[0] + 1) * rows)
+        xs = torch.from_numpy(data["xs"][:, cut]).cuda()
+        ys = torch.from_numpy(data["ys"][:, cut]).cuda()
+        w = torch.ones(rows, device="cuda")
+        staged = mesh.STAGED["calls"]
+        losses, digests = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            losses.append(step(net, state, xs[i], ys[i], w, 1.0))
+            h = hashlib.sha256()
+            for name, p in net.named_parameters():
+                if tp.split_dim(name) is None:
+                    h.update(p.detach().cpu().numpy().tobytes())
+            digests.append(h.hexdigest())
+            if i + 1 == DDP_GATE_STEPS:
+                gate = whole()
+        torch.cuda.synchronize()
+        out[leg] = {"losses": torch.stack(losses).float().cpu(), "digests": digests,
+                    "gate_state": gate, "state": whole(), "coords": grid.coords,
+                    "shape": grid.shape, "staged": mesh.STAGED["calls"] - staged,
+                    "seconds": time.perf_counter() - t0}
+    return out
+
+
+def cnn_reshard_ranks(world, root: str, archive: str) -> dict:
+    """mnist_ddp's data-parallel --pallas-opt steps (dropout off) over one
+    epoch of the IDX set at ``root``, STATE_RANK_BATCH rows a rank; rank 0
+    writes a mid-epoch archive with the JAX package's extras before batch
+    STATE_CURSOR.  Returns this rank's losses, the final state and the
+    adadelta launches."""
+    import torch
+
+    from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
+    from pytorch_mnist_ddp_tpu_torch.trainer import make_loaders
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import save_train_state
+    from pytorch_mnist_ddp_tpu_torch.utils.rng import split_streams
+
+    args = build_parser().parse_args(["--batch-size", str(STATE_RANK_BATCH), "--pallas-opt",
+                                      "--data-root", root])
+    net = Net(torch.Generator().manual_seed(split_streams(args.seed)["init"])).cuda()
+    state = make_train_state(net, use_pallas=True)
+    step = make_train_step(dropout=False, use_pallas=True, world=world)
+    loader, _ = make_loaders(args, torch.device("cuda"), dist=world)
+    before = dict(af.LAUNCHES)
+    losses = []
+    for b, (x, y, w) in enumerate(loader.epoch(1)):
+        if b == STATE_CURSOR and world.is_chief:
+            extras = {"epoch_in_progress": 1, "batch_cursor": b, "seed": args.seed,
+                      "global_batch": loader.global_batch, "world_size": world.world_size,
+                      "steps_total": state.step, "samples_total": state.step * loader.global_batch}
+            save_train_state(dict(net.named_parameters()), state.opt, state.step, archive,
+                             epoch=0, extras=extras)
+        losses.append(step(net, state, x, y, w, args.lr))
+    return {"losses": torch.stack(losses).cpu(), "step": state.step,
+            "state": {k: v.detach().cpu() for k, v in net.state_dict().items()},
+            "launches": {k: af.LAUNCHES[k] - before[k] for k in before}}
+
+
+def cnn_tp_save(world, root: str, path: str) -> dict:
+    """mnist_ddp --tp 2 --save-model (the trainer's body, dropout on) for
+    one epoch of the IDX set at ``root``: rank 0's lines and the model
+    gathered whole here (collective)."""
+    import torch
+
+    from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser
+    from pytorch_mnist_ddp_tpu_torch.parallel import mesh, tp
+    from pytorch_mnist_ddp_tpu_torch.trainer import _fit
+
+    args = build_parser().parse_args(["--tp", "2", "--epochs", "1", "--save-model",
+                                      "--data-root", root])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        net, state = _fit(args, None, path, None, world)
+    full = tp.gather_replicated(net, mesh.make_rank_grid([("model", 2)], world).model)
+    return {"lines": [ln for ln in out.getvalue().splitlines() if ln], "step": state.step,
+            "state": {k: v.detach().cpu() for k, v in full.items()}}
+
+
+def state_gloo_rank(rank: int, world_size: int, init_file: str, workdir: str,
+                    jobs: dict) -> None:
+    """Rank ``rank`` of ``world_size`` gloo ranks sharing cuda:0 in the
+    train_state phase: ``jobs`` ``{"legs": (...), "batches": path}``, and
+    with two ranks also ``"reshard"`` and ``"tp_save"`` (an IDX root and
+    the file each writes)."""
+    import os
+
+    import torch
+
+    from pytorch_mnist_ddp_tpu_torch.parallel import mesh
+    from pytorch_mnist_ddp_tpu_torch.parallel.distributed import destroy_distributed, form_world
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK="0")
+    world = form_world(f"file://{init_file}", rdzv_timeout_s=120, backend="gloo")
+    result = {"backend": torch.distributed.get_backend()}
+    try:
+        if "reshard" in jobs:
+            result["reshard"] = cnn_reshard_ranks(world, *jobs["reshard"])
+        result["legs"] = cnn_mp_legs(world, jobs["legs"], jobs["batches"])
+        if "tp_save" in jobs:
+            result["tp_save"] = cnn_tp_save(world, *jobs["tp_save"])
+        result["staged_total"] = mesh.STAGED["calls"]
+    finally:
+        destroy_distributed()
+    torch.save(result, os.path.join(workdir, f"state_gloo{world_size}_rank{rank}.pt"))
+
+
+def state_gloo_world(ranks: int, workdir: str, jobs: dict,
+                     timeout: float = 600.0) -> tuple[list, float]:
+    """``ranks`` spawned gloo ranks sharing cuda:0 (:func:`state_gloo_rank`);
+    their results in rank order and the wall seconds."""
+    import multiprocessing
+    import os
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    init_file = os.path.join(workdir, f"state_gloo{ranks}_rdzv")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=state_gloo_rank, args=(r, ranks, init_file, workdir, jobs))
+             for r in range(ranks)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(timeout=10)
+    wall = time.perf_counter() - t0
+    check(not alive and [p.exitcode for p in procs] == [0] * ranks,
+          f"train_state: {ranks} gloo ranks exited {[p.exitcode for p in procs]}")
+    return [torch.load(os.path.join(workdir, f"state_gloo{ranks}_rank{r}.pt"),
+                       weights_only=False) for r in range(ranks)], wall
+
+
+def state_rank_program(argv: list[str]) -> int:
+    """``chip_smoke.py --state-rank OUT SPEC``: the rank program of the
+    train_state phase's NCCL world of one (the launcher's environment).
+    SPEC (JSON) holds ``vit``, vit_mnist flag lists each run through
+    vit_mnist.fit() in this world, and ``reshard``, the mnist_ddp flags of
+    the --resume-reshard run (the trainer's body, dropout off as on the
+    two ranks that saved its archive); writes each run's results, the
+    backend and the launches to OUT."""
+    import functools
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_mnist_ddp_tpu_torch import trainer
+    from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_step
+    from pytorch_mnist_ddp_tpu_torch.parallel.distributed import destroy_distributed, form_world
+
+    out, spec = argv[0], json.load(open(argv[1]))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = form_world()
+    result = {"backend": dist.get_backend(), "vit": []}
+    try:
+        for flags in spec["vit"]:
+            result["vit"].append(vit_state_fit(flags, world, None))
+        trainer.make_train_step = functools.partial(make_train_step, dropout=False)
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            net, state = trainer._fit(build_parser().parse_args(spec["reshard"]), None, None,
+                                      None, world)
+        result["reshard"] = {"lines": lines.getvalue().splitlines(), "step": state.step,
+                             "state": {k: v.detach().cpu() for k, v in net.state_dict().items()}}
+    finally:
+        destroy_distributed()
+    result["launches"] = {**fa.LAUNCHES, **af.LAUNCHES}
+    torch.save(result, f"{out}.rank{os.environ['RANK']}")
+    return 0
+
+
+def cnn_dp_reference(torch, np, batches: str, bf16: bool) -> dict:
+    """The one-process data-parallel steps the --tp/--pp legs are held to:
+    the CNN from SEED, TRAIN_STEPS steps on the whole fixed batches,
+    dropout off, plain Adadelta (no kernel)."""
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
+
+    data = np.load(batches)
+    xs, ys = (torch.from_numpy(data[k]).cuda() for k in ("xs", "ys"))
+    w = torch.ones(xs.shape[1], device="cuda")
+    net = Net(torch.Generator().manual_seed(SEED)).cuda()
+    state = make_train_state(net)
+    step = make_train_step(dropout=False,
+                           compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        losses.append(step(net, state, xs[i], ys[i], w, 1.0))
+        if i + 1 == DDP_GATE_STEPS:
+            gate = {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()}
+    return {"losses": torch.stack(losses).cpu(), "gate_state": gate,
+            "state": {k: v.detach().cpu() for k, v in net.state_dict().items()}}
+
+
+def hold_mp_leg(torch, leg: str, ranks: list, ref: dict) -> dict:
+    """One --tp/--pp leg's ranks against each other and against the
+    one-process reference of its dtype: the losses of the first
+    DDP_GATE_STEPS steps and the state after them within the gates (f32:
+    the trajectory gates; bf16: STATE_BF16_ATOL), the rest recorded."""
+    got = [r["legs"][leg] for r in ranks]
+    a = got[0]
+    mode, bf16 = STATE_MP_LEGS[leg]
+    shards = {}
+    for g in got:
+        shards.setdefault(g["coords"][0], g["losses"])
+    losses = torch.stack([shards[d] for d in sorted(shards)]).mean(0)
+    ref_losses = ref["losses"].float()
+    k = DDP_GATE_STEPS
+    gate_param = max(float((a["gate_state"][n] - ref["gate_state"][n]).abs().max())
+                     for n in ref["gate_state"])
+    gate_loss = float((losses[:k] - ref_losses[:k]).abs().max())
+    if bf16:
+        within = gate_loss <= STATE_BF16_ATOL and gate_param <= STATE_BF16_ATOL
+    else:
+        within = (torch.allclose(losses[:k], ref_losses[:k], rtol=DDP_LOSS_RTOL,
+                                 atol=DDP_LOSS_ATOL) and gate_param <= DDP_PARAM_ATOL)
+    staged = TRAIN_STEPS * 2 if mode == "pp" else 0  # 2 microbatches a step, one way a rank
+    ok = {"replicated_leaves_equal_every_step": all(g["digests"] == a["digests"] for g in got),
+          "final_state_equal": all(all(torch.equal(g["state"][n], a["state"][n])
+                                       for n in a["state"]) for g in got),
+          "vs_one_process_dp": within, "staged_sends": all(g["staged"] == staged for g in got),
+          "finite": bool(torch.isfinite(losses).all())}
+    return {"grid": list(a["shape"]), "ranks": len(ranks), "ok": ok,
+            "gate_steps": k, "gate_max_abs_loss_diff": gate_loss,
+            "gate_max_abs_param_diff": gate_param,
+            f"max_abs_loss_diff_{TRAIN_STEPS}_steps": float((losses - ref_losses).abs().max()),
+            f"max_abs_param_diff_{TRAIN_STEPS}_steps": max(
+                float((a["state"][n] - ref["state"][n]).abs().max()) for n in ref["state"]),
+            "staged_sends_per_rank": [g["staged"] for g in got],
+            "host_ms_per_step_rank0": 1e3 * a["seconds"] / TRAIN_STEPS}
+
+
+def trace_kernels(json_path: str, name: str) -> dict:
+    """The kernel events of a torch.profiler Chrome trace whose name holds
+    ``name``: their count and the trace's size."""
+    import os
+
+    with open(json_path) as f:
+        events = json.load(f)["traceEvents"]
+    hits = [e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+    return {"bytes": os.path.getsize(json_path), "events": len(events),
+            "kernel_events": sum(e.get("cat") == "kernel" for e in events),
+            f"{name}_events": len(hits)}
+
+
+def profiled_epoch(run, flags: list[str], prof_dir: str, kernel: str, launches_key: str) -> dict:
+    """One epoch of ``run`` (fit_run or vit_state_fit) with ``flags`` plus
+    --step-stats, without and then with --profile into ``prof_dir``: the
+    step-stats lines, wall and epoch seconds of both, and what the trace
+    holds of ``kernel``."""
+    import glob
+
+    plain = run([*flags, "--step-stats"])
+    traced = run([*flags, "--step-stats", "--profile", prof_dir])
+    files = sorted(glob.glob(f"{prof_dir}/*.pt.trace.json"))
+    check(len(files) == 1, f"--profile wrote {files}")
+    found = trace_kernels(files[0], kernel)
+    steps = traced["timings"]["epoch_steps"][0]
+    stats = [ln for ln in traced["lines"] if ln.startswith("Step stats epoch")]
+    ok = {"one_stats_line": len(stats) == 1 and stats[0].startswith(
+              f"Step stats epoch 1: {steps} steps,"),
+          "trace_names_the_kernel": found[f"{kernel}_events"] == traced["launches"][launches_key]
+          > 0}
+    return {"ok": ok, "steps": steps, "stats_line": stats, "trace": found,
+            "launches": traced["launches"][launches_key],
+            "epoch_train_s": {"unprofiled": plain["timings"]["epoch_train_s"][0],
+                              "profiled": traced["timings"]["epoch_train_s"][0]},
+            "wall_s": {"unprofiled": plain["wall"], "profiled": traced["wall"]},
+            "runs": (plain, traced)}
+
+
+def train_state_phase(torch, np, workdir: str) -> tuple[dict, dict]:
+    """The train_state phase (module docstring, 19).  Returns the path's
+    kernel launches (this process's and the ranks') and, apart, those of
+    the references it is held to; the caller zeroes the counters first."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.models.vit import ViTConfig
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import load_train_state_full
+
+    t_phase = time.perf_counter()
+    root = vit_idx_root(np, workdir)
+    batches = vit_par_batches(np, workdir)
+    at = functools.partial(os.path.join, workdir)
+    counts = lambda: {**fa.LAUNCHES, **af.LAUNCHES}  # noqa: E731
+    refs0 = counts()
+    references = {k: 0 for k in refs0}
+
+    def as_reference(before):
+        for k, v in counts().items():
+            references[k] += v - before[k]
+
+    record, ok = {}, {}
+    depth, epoch_calls = ViTConfig().depth, VIT_PAR_STEPS + 1  # + 1 eval batch of 1000
+    data = ["--data-root", root]
+
+    # (a) the ViT in this process: 1 epoch + --save-state, 1 + --resume-state
+    for leg, flags in (("flash", ["--flash"]),
+                       ("sp1_flash", ["--sp", "1", "--allow-degree-1", "--flash"])):
+        before = counts()
+        full = vit_state_fit([*flags, *data, "--epochs", "2", "--save-state", at(f"{leg}_2.npz")])
+        as_reference(before)
+        first = vit_state_fit([*flags, *data, "--epochs", "1", "--save-state", at(f"{leg}_1.npz")])
+        resumed = vit_state_fit([*flags, *data, "--epochs", "1", "--resume-state",
+                                 at(f"{leg}_1.npz"), "--save-state", at(f"{leg}_r.npz")])
+        mode = "flash_partial" if leg.startswith("sp1") else "flash_fwd"
+        ok[f"vit_{leg}"] = {
+            "resumed_equal_uninterrupted": same_state(torch, resumed, full),
+            "archives_equal": same_archive(np, at(f"{leg}_r.npz"), at(f"{leg}_2.npz")),
+            "resumed_lines_are_epoch_2": resumed["lines"][0].startswith("Train Epoch: 2 ")
+            and resumed["lines"] == full["lines"][len(first["lines"]):],
+            "launches_equal_attention_calls": all(
+                r["launches"][mode] == n * depth * epoch_calls
+                for r, n in ((full, 2), (first, 1), (resumed, 1)))}
+        record[f"vit_{leg}"] = {"steps": resumed["step"],
+                                "launches": {m: first["launches"][m] + resumed["launches"][m]
+                                             for m in fa.LAUNCHES},
+                                "epoch_wall_s": resumed["wall"],
+                                "archive_bytes": os.path.getsize(at(f"{leg}_1.npz"))}
+
+    # (b) two gloo ranks sharing the card: the --resume-reshard archive, the
+    # --tp 2 / --pp legs and --tp 2 --save-model; (c) four: --tp 2 on 2 x 2
+    refs = {bf16: cnn_dp_reference(torch, np, batches, bf16) for bf16 in (False, True)}
+    mid = at("mid.npz")
+    two, two_s = state_gloo_world(2, workdir, {
+        "legs": STATE_TWO, "batches": batches, "reshard": (root, mid),
+        "tp_save": (root, at("tp2.pt"))})
+    four, four_s = state_gloo_world(4, workdir, {"legs": STATE_FOUR, "batches": batches})
+    check(all(r["backend"] == "gloo" for r in two + four), "train_state ranks not gloo")
+    legs = {}
+    for ranks, names in ((two, STATE_TWO), (four, STATE_FOUR)):
+        for leg in names:
+            legs[f"gloo{len(ranks)}_{leg}"] = hold_mp_leg(torch, leg, ranks,
+                                                           refs[STATE_MP_LEGS[leg][1]])
+    saved = torch.load(at("tp2.pt"), weights_only=True)
+    gathered = two[0]["tp_save"]["state"]
+    ok["tp2_save_model"] = {
+        "file_is_gathered_state": list(saved) == [f"module.{k}" for k in gathered]
+        and all(torch.equal(saved[f"module.{k}"], v) for k, v in gathered.items()),
+        "ranks_gathered_equal": all(torch.equal(two[1]["tp_save"]["state"][k], v)
+                                    for k, v in gathered.items()),
+        "one_epoch_of_steps": two[0]["tp_save"]["step"] == VIT_PAR_STEPS}
+
+    # (d) an NCCL world of one through the launcher (this script the rank
+    # program): --zero --flash saved and resumed, a plain archive resumed
+    # under --zero, and the two ranks' mid-epoch archive with --resume-reshard
+    zero = ["--zero", "--flash", *data]
+    spec = {"vit": [[*zero, "--epochs", "2", "--save-state", at("zero_2.npz")],
+                    [*zero, "--epochs", "1", "--save-state", at("zero_1.npz")],
+                    [*zero, "--epochs", "1", "--resume-state", at("zero_1.npz"),
+                     "--save-state", at("zero_r.npz")],
+                    [*zero, "--epochs", "1", "--resume-state", at("flash_1.npz"),
+                     "--save-state", at("plain_to_zero.npz")]],
+            "reshard": ["--batch-size", str(2 * STATE_RANK_BATCH), "--epochs", "1",
+                        "--pallas-opt", "--log-interval", "1", "--resume-state", mid,
+                        "--resume-reshard", *data]}
+    with open(at("state_spec.json"), "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
+         "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
+         "--state-rank", at("state_counts"), at("state_spec.json")],
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
+    nccl_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train_state launcher leg exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    nccl = torch.load(at("state_counts") + ".rank0", weights_only=False)
+    check(nccl["backend"] == "nccl", f"train_state launcher leg formed {nccl['backend']}")
+    zfull, zfirst, zres, p2z = nccl["vit"]
+    z2p = vit_state_fit(["--flash", *data, "--epochs", "1", "--resume-state", at("zero_1.npz"),
+                         "--save-state", at("zero_to_plain.npz")])
+    ok["vit_zero_flash_nccl1"] = {
+        "resumed_equal_uninterrupted": same_state(torch, zres, zfull),
+        "archives_equal": same_archive(np, at("zero_r.npz"), at("zero_2.npz")),
+        "plain_archive_under_zero": same_archive(np, at("plain_to_zero.npz"),
+                                                 at("flash_2.npz")),
+        "zero_archive_without_zero": same_archive(np, at("zero_to_plain.npz"),
+                                                  at("zero_2.npz")),
+        "launches_equal_attention_calls": all(
+            r["launches"]["flash_fwd"] == n * depth * epoch_calls
+            for r, n in ((zfull, 2), (zfirst, 1), (zres, 1), (p2z, 1), (z2p, 1)))}
+    record["vit_zero_flash_nccl1"] = {"launches": {m: sum(r["launches"][m] for r in nccl["vit"])
+                                                   - zfull["launches"][m] for m in fa.LAUNCHES},
+                                      "launcher_wall_s": nccl_s}
+
+    # --resume-reshard: the two ranks' epoch against the world of one's
+    # continuation from batch STATE_CURSOR; without the flag, JAX's refusal
+    two_loss = torch.stack([r["reshard"]["losses"] for r in two]).mean(0)
+    got = nccl["reshard"]
+    resumed_losses = torch.tensor([float(m.group(5)) for m in map(TRAIN_LINE.match, got["lines"])
+                                   if m])
+    param_diff = max(float((got["state"][k] - two[0]["reshard"]["state"][k]).abs().max())
+                     for k in got["state"])
+    refused = ""
+    try:
+        fit_run(["--batch-size", str(2 * STATE_RANK_BATCH), "--epochs", "1", "--pallas-opt",
+                 "--resume-state", mid, *data])
+    except ValueError as e:
+        refused = str(e)
+    ok["resume_reshard"] = {
+        "archive_world_size_2": load_train_state_full(mid)[2]["world_size"] == 2,
+        "steps": got["step"] == two[0]["reshard"]["step"] == VIT_PAR_STEPS
+        and len(resumed_losses) == VIT_PAR_STEPS - STATE_CURSOR,
+        "within_gates": torch.allclose(resumed_losses, two_loss[STATE_CURSOR:],
+                                       rtol=DDP_LOSS_RTOL, atol=DDP_LOSS_ATOL)
+        and param_diff <= DDP_PARAM_ATOL,
+        "refused_without_the_flag": "pass --resume-reshard" in refused}
+    record["resume_reshard"] = {
+        "max_abs_loss_diff": float((resumed_losses - two_loss[STATE_CURSOR:]).abs().max()),
+        "max_abs_param_diff": param_diff, "refusal": refused[:120],
+        "rank_launches": [r["reshard"]["launches"] for r in two]}
+
+    # (e) CNN --elastic in this process: --epochs 1, then 2, then 2 again
+    limit = ["--pallas-opt", "--train-limit", str(RESUME_LIMIT)]
+    before = counts()
+    full = fit_run([*limit, "--epochs", "2"])
+    as_reference(before)
+    elastic = [fit_run([*limit, "--epochs", str(n), "--save-state", at("elastic.npz"),
+                        "--elastic"]) for n in (1, 2, 2)]
+    ok["cnn_elastic"] = {
+        "second_equal_uninterrupted": all(same_run(torch, elastic[1], full).values()),
+        "third_trains_no_step": elastic[2]["state"].step == full["state"].step
+        and not any(ln.startswith("Train Epoch") for ln in elastic[2]["lines"]),
+        "delta_kernel_once_a_step": [e["launches"]["adadelta_delta"] for e in elastic] == [
+            elastic[0]["state"].step, elastic[0]["state"].step, 0]}
+
+    # (f) --profile: one --pallas-opt CNN epoch and one ViT --flash epoch
+    prof = {"cnn": profiled_epoch(fit_run, [*limit, "--epochs", "1"], at("prof_cnn"),
+                                  "adadelta_kernel", "adadelta_delta"),
+            "vit": profiled_epoch(vit_state_fit, ["--flash", *data, "--epochs", "1"],
+                                  at("prof_vit"), "flash_kernel", "flash_fwd")}
+    for name, p in prof.items():
+        ok[f"profile_{name}"] = p.pop("ok")
+        p.pop("runs")
+
+    launches = {k: v - refs0[k] - references[k] for k, v in counts().items()}
+    for k in launches:  # the ranks'; the launcher's uninterrupted --zero run a reference
+        references[k] += zfull["launches"].get(k, 0)
+        launches[k] += (nccl["launches"][k] - zfull["launches"].get(k, 0)
+                        + sum(r["reshard"]["launches"].get(k, 0) for r in two))
+    emit({"phase": "train_state", "steps_an_epoch": VIT_PAR_STEPS, "legs": legs,
+          "checks": ok, "record": record, "profile": prof,
+          "gates": {"loss_rtol": DDP_LOSS_RTOL, "loss_atol": DDP_LOSS_ATOL,
+                    "param_atol": DDP_PARAM_ATOL, "bf16_atol": STATE_BF16_ATOL,
+                    "mp_gate_steps": DDP_GATE_STEPS},
+          "gloo2_wall_seconds": two_s, "gloo4_wall_seconds": four_s,
+          "nccl_launcher_wall_seconds": nccl_s, "seconds": time.perf_counter() - t_phase,
+          "launches": launches, "reference_launches": references})
+    for name, checks in [*ok.items(), *((k, v["ok"]) for k, v in legs.items())]:
+        check(all(checks.values()), f"train_state {name}: {checks}")
+    return launches, references
+
+
 def main() -> int:
     import torch
 
@@ -3179,6 +3777,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         fam_launches, fam_references = vit_family_phase(torch, np, workdir)
     check(fam_launches["flash_fwd"] > 0, "the vit_family path never launched flash_fwd")
+
+    # 19. train_state: the ViT's archives, --elastic, --resume-reshard,
+    # mnist_ddp --tp/--pp, --profile; rows 3-5 counted on its path (the
+    # ranks' processes included), the references apart
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    for k in af.LAUNCHES:
+        af.LAUNCHES[k] = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        state_launches, state_references = train_state_phase(torch, np, workdir)
+    for k in ("flash_fwd", "flash_partial", "adadelta_delta"):
+        check(state_launches[k] > 0, f"the train_state path never launched {k}")
     top = by_n[str(TIMED_ROWS[-1])]
     kernels = [{
         "name": "int8_head", "route": "cuda",
@@ -3198,10 +3808,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/adadelta.cu",
             "replaces": ADADELTA_REPLACES[name],
-            "launches": train_launches[name] + ddp_launches[name],
+            "launches": train_launches[name] + ddp_launches[name] + state_launches[name],
             "launches_by_phase": {**{phase: n[name] for phase, n in by_phase.items()},
-                                  "ddp": ddp_launches[name]},
+                                  "ddp": ddp_launches[name], "train_state": state_launches[name]},
             "ddp_reference_launches": ddp_references[name],
+            "train_state_reference_launches": state_references[name],
             "max_abs_err": adadelta_err[name], **t,
         })
     train_shape = FLASH_MAIN["train"]
@@ -3210,11 +3821,14 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": vit_launches[name] + par_launches[name] + fam_launches[name],
+            "launches": (vit_launches[name] + par_launches[name] + fam_launches[name]
+                         + state_launches[name]),
             "launches_by_path": {"vit": vit_launches[name], "vit_parallel": par_launches[name],
-                                 "vit_family": fam_launches[name]},
+                                 "vit_family": fam_launches[name],
+                                 "train_state": state_launches[name]},
             "vit_parallel_reference_launches": par_references[name],
             "vit_family_reference_launches": fam_references[name],
+            "train_state_reference_launches": state_references[name],
             "launches_bf16": vit_bf16_launches[name],
             "max_abs_err": max([*flash_err[name].values()]
                                + ([ring["max_abs_err"]] if name == "flash_partial" else [])),
@@ -3236,4 +3850,6 @@ if __name__ == "__main__":
         sys.exit(ddp_rank_program(sys.argv[2:]))
     if sys.argv[1:2] == ["--vit-rank"]:
         sys.exit(vit_rank_program(sys.argv[2:]))
+    if sys.argv[1:2] == ["--state-rank"]:
+        sys.exit(state_rank_program(sys.argv[2:]))
     sys.exit(main())

@@ -9,7 +9,9 @@ subset of ``mnist.py``'s, with the same names, defaults and meaning;
 argparse refuses the others.  The printed lines are ``mnist.py``'s, byte
 for byte, and ``--save-model`` writes ``mnist_cnn.pt``.  Training always
 shuffles, as the JAX package does.  ``--save-state`` archives are the
-JAX package's format: either package resumes the other's.
+JAX package's format: either package resumes the other's.  ``--profile
+DIR`` writes a ``torch.profiler`` trace of the run, ``--step-stats`` one
+latency line an epoch.
 """
 
 from __future__ import annotations
@@ -73,6 +75,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 activations/matmuls (params, optimizer "
                         "state, and log_softmax/NLL stay fp32)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the run into DIR "
+                        "(a Chrome trace, also read by TensorBoard's "
+                        "profiler plugin; utils/profiling.py)")
+    p.add_argument("--step-stats", action="store_true", default=False,
+                   help="print per-epoch host-side step latency summaries "
+                        "(per-batch path only)")
+    p.add_argument("--elastic", action="store_true", default=False,
+                   help="elastic-restart contract: when the --save-state "
+                        "archive already exists, resume from it and read "
+                        "--epochs as the TOTAL target (a gang restart "
+                        "gets this automatically via ELASTIC_RESTART_COUNT)")
+    p.add_argument("--resume-reshard", action="store_true", default=False,
+                   help="accept a mid-epoch archive saved at a DIFFERENT "
+                        "world size: same seed + global batch consume the "
+                        "exact same global batches over the new rank "
+                        "count (sampler contract) — a sample-exact "
+                        "continuation with FP-level drift (reductions "
+                        "re-associate), not bit-equality; without this "
+                        "flag the world-fingerprint mismatch is refused")
     p.add_argument("--data-root", type=str, default="./data",
                    help="MNIST IDX directory")
     p.add_argument("--train-limit", type=int, default=0, metavar="N",

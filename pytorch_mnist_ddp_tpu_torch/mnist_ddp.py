@@ -7,11 +7,14 @@
 
 It takes the port's ``mnist.py`` flags plus the DDP ones (``--local_rank``,
 ``--world-size``, ``--dist-url``, ``--rdzv-timeout-s``,
-``--rdzv-attempts``, ``--syncbn``, ``--zero``), with the JAX CLI's help
-text; argparse refuses the JAX CLI's ``--tp``, ``--pp`` and
-``--pp-microbatches``, which are not ported.  ``--zero`` shards the
-Adadelta state over the ranks (``parallel/zero.py``) and is refused with
-``--pallas-opt``, with the JAX trainer's text.  ``RANK``/``WORLD_SIZE``
+``--rdzv-attempts``, ``--tp``, ``--pp``, ``--pp-microbatches``,
+``--syncbn``, ``--zero``), with the JAX CLI's help text.  ``--zero``
+shards the Adadelta state over the ranks (``parallel/zero.py``) and is
+refused with ``--pallas-opt``, with the JAX trainer's text.  ``--tp N``
+shards the dense head over N ranks of a model group (``parallel/tp.py``)
+and ``--pp`` pipelines the two stages over two (``parallel/pp.py``); both
+need a world of more than one rank and refuse what the JAX trainer
+refuses with them.  ``RANK``/``WORLD_SIZE``
 (the launcher's) or ``SLURM_PROCID`` in the environment make this process
 one rank of a world (``parallel/distributed.py``): NCCL on the card,
 gloo with ``--no-cuda``.  Without them it prints "Not using distributed
@@ -51,6 +54,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rdzv-attempts", type=int, default=None, metavar="K",
                    help="bounded rendezvous attempts within the budget "
                         "(default: RDZV_ATTEMPTS env, else 2)")
+    p.add_argument("--tp", type=int, default=1, metavar="N",
+                   help="tensor-parallel degree: shard the dense head over "
+                        "N model-axis ranks (data axis = ranks / N)")
+    p.add_argument("--pp", action="store_true",
+                   help="pipeline the two stages (convs | dense head) over "
+                        "a 2-wide model axis of ranks, microbatched")
+    p.add_argument("--pp-microbatches", type=int, default=2, metavar="M",
+                   help="microbatches per shard batch in --pp mode")
     p.add_argument("--syncbn", action="store_true",
                    help="add BatchNorm after each conv with batch statistics "
                         "synced across the data axis (torch.nn.SyncBatchNorm "

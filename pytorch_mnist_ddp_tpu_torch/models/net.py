@@ -233,9 +233,26 @@ class Net(nn.Module):
         mask: torch.Tensor | None = None,
         sync_bn: bool = False,
     ) -> torch.Tensor:
+        drop = self.training and dropout_generator is not None
+        x = self.features(x, dropout_generator if drop else None, conv_impl, compute_dtype,
+                          mask, sync_bn)
+        return self.head(x, dropout_generator if drop else None)
+
+    def features(
+        self,
+        x: torch.Tensor,
+        dropout_generator: torch.Generator | None = None,
+        conv_impl: str = "conv",
+        compute_dtype: torch.dtype = torch.float32,
+        mask: torch.Tensor | None = None,
+        sync_bn: bool = False,
+    ) -> torch.Tensor:
+        """The convolutional stage (the JAX package's ``raw_conv_stack``
+        and the pipeline's stage 0): ``[n, 28, 28, 1]`` -> convs -> pool
+        (-> dropout(.25) given a generator) -> ``[n, 9216]`` in
+        ``compute_dtype``, C*H*W order."""
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl {conv_impl!r} not in {CONV_IMPLS}")
-        drop = self.training and dropout_generator is not None
         x = to_nchw(x).to(compute_dtype)
         x = _conv(self.conv1, x, conv_impl in ("im2col_c1", "im2col"))
         if self.bn1 is not None:
@@ -245,11 +262,17 @@ class Net(nn.Module):
             x = self.bn2(x, mask, sync_bn)
         x = F.relu(x)
         x = F.max_pool2d(x, 2)
-        if drop:
+        if dropout_generator is not None:
             x = dropout(x, DROPOUT1_RATE, dropout_generator)
-        x = torch.flatten(x, 1)  # [n, 9216], C*H*W order
+        return torch.flatten(x, 1)
+
+    def head(self, x: torch.Tensor,
+             dropout_generator: torch.Generator | None = None) -> torch.Tensor:
+        """The dense head (the pipeline's stage 1 before its loss): fc1 ->
+        relu (-> dropout(.5) given a generator) -> fc2 -> float32
+        log_softmax."""
         x = F.relu(_linear(self.fc1, x))
-        if drop:
+        if dropout_generator is not None:
             x = dropout(x, DROPOUT2_RATE, dropout_generator)
         x = _linear(self.fc2, x)
         return F.log_softmax(x.float(), dim=-1)

@@ -43,9 +43,11 @@ def make_pipeline(stage_fns: list[Callable], num_micro: int, group: Group):
     grads)`` for the member of ``group`` whose stage body is
     ``stage_fns[group.rank]``:
 
-    - ``stage_fns[0](model, x_mb) -> act``;
-    - ``stage_fns[s](model, act) -> act`` for the middle stages;
-    - ``stage_fns[-1](model, act, y_mb, w_mb) -> loss_sum``.
+    - ``stage_fns[0](model, x_mb, j) -> act``;
+    - ``stage_fns[s](model, act, j) -> act`` for the middle stages;
+    - ``stage_fns[-1](model, act, y_mb, w_mb, j) -> loss_sum``;
+
+    ``j`` the microbatch's index (the CNN's per-microbatch dropout streams).
 
     ``x_mbs/y_mbs/w_mbs`` hold ``num_micro`` microbatches on dim 0,
     ``seed`` is the loss sum's cotangent and ``boundary`` a tensor shaped
@@ -74,10 +76,10 @@ def make_pipeline(stage_fns: list[Callable], num_micro: int, group: Group):
                 with torch.enable_grad():
                     inp = None if first else arrived.detach().requires_grad_()
                     if last:
-                        parts.append(fn(model, inp, y_mbs[j], w_mbs[j]))
+                        parts.append(fn(model, inp, y_mbs[j], w_mbs[j], j))
                         graphs[j] = (inp, parts[-1])
                     else:
-                        out = fn(model, x_mbs[j]) if first else fn(model, inp)
+                        out = fn(model, x_mbs[j], j) if first else fn(model, inp, j)
                         graphs[j] = (inp, out)
             send = out.detach() if out is not None else None
             # stage s - 1 runs microbatch t - (s - 1) at this tick

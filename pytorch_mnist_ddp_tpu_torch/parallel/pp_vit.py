@@ -52,14 +52,14 @@ def stage_fns(cfg: ViTConfig, num_stages: int) -> list:
     """The S stage bodies of ``parallel/pipeline.py``'s contract."""
     bounds = stage_bounds(cfg.depth, num_stages)
 
-    def first(model, x_mb):
+    def first(model, x_mb, j):
         tokens = embed_tokens(model, patchify(x_mb, cfg), model.pos_embed)
         return _blocks(model, tokens, bounds[0], bounds[1])
 
     def mid(start, end):
-        return lambda model, act: _blocks(model, act, start, end)
+        return lambda model, act, j: _blocks(model, act, start, end)
 
-    def last(model, act, y_mb, w_mb):
+    def last(model, act, y_mb, w_mb, j):
         tokens = model.ln_f(_blocks(model, act, bounds[-2], bounds[-1]))
         logp = tokens_to_logp(model, tokens.float().mean(dim=1))
         return nll_loss(logp, y_mb, w_mb, reduction="sum")

@@ -7,21 +7,27 @@ epoch, and ``--save-model``; with the JAX package's ``--resume``
 (parameters from a model checkpoint, a fresh optimizer),
 ``--save-state``/``--resume-state`` (the whole training state, continued
 bit for bit, from a final or a mid-epoch archive of either package),
-``--conv-impl``, ``--bf16``, ``--syncbn`` and ``--zero`` (the Adadelta
+``--conv-impl``, ``--bf16``, ``--syncbn``, ``--zero`` (the Adadelta
 state sharded over the ranks, ``parallel/zero.py``; archives per leaf on
-disk, so they cross with plain runs of either package).  Given a distributed
-``DistState`` (``parallel/distributed.py``) each rank trains on its shard
-of every epoch, the gradients are all-reduced (``parallel/ddp.py``),
-every rank evaluates its shard of the test set and the totals are
-summed; only rank 0 prints and saves.  The data and the epoch loop are
-shared with the ViT CLI (``vit_mnist.py``).  The printed lines are the
-JAX package's (and so the reference's), byte for byte.  The JAX
-package's other paths (fused, TP/PP, telemetry, the resilient and
-elastic runtimes) are not ported yet.
+disk, so they cross with plain runs of either package), ``--elastic``
+(resume the run's own ``--save-state`` archive, ``--epochs`` the total),
+``--resume-reshard`` (a mid-epoch archive of another world size),
+``--profile``/``--step-stats`` (``utils/profiling.py``), and the model
+axis: ``--tp N`` (``parallel/tp.py``) and ``--pp`` (``parallel/pp.py``)
+over a ``(data, model)`` rank grid.  Given a distributed ``DistState``
+(``parallel/distributed.py``) each rank trains on its shard of every
+epoch, the gradients are all-reduced (``parallel/ddp.py``), every rank
+evaluates its shard of the test set and the totals are summed; only rank
+0 prints and saves.  The data and the epoch loop are shared with the ViT
+CLI (``vit_mnist.py``).  The printed lines are the JAX package's (and so
+the reference's), byte for byte.  The JAX package's other paths (fused,
+telemetry, the resilient runtime) are not ported yet.
 """
 
 from __future__ import annotations
 
+import argparse
+import os
 import time
 
 import torch
@@ -30,20 +36,23 @@ from .data.loader import DataLoader
 from .data.mnist import MNIST
 from .device import resolve_device
 from .models.net import Net
-from .ops.adadelta import AdadeltaState
+from .ops.adadelta import AdadeltaState, adadelta_init
 from .ops.adadelta_flat import FlatAdadeltaState, ensure_opt_layout, is_flat_state
 from .ops.schedule import step_lr
+from .parallel import pp, tp
 from .parallel.ddp import (
     TrainState,
     broadcast_from_chief,
     make_eval_step,
+    make_forward_eval_step,
     make_train_state,
     make_train_step,
 )
 from .parallel.distributed import DistState, destroy_distributed
-from .parallel.mesh import world_group
+from .parallel.mesh import RankGrid, make_rank_grid, world_group
 from .parallel.zero import per_leaf_opt_to_zero, zero_opt_to_per_leaf
 from .utils.checkpoint import (
+    PREV_SUFFIX,
     load_latest_train_state,
     load_resume_state,
     model_state_dict,
@@ -51,6 +60,7 @@ from .utils.checkpoint import (
     save_train_state,
 )
 from .utils.logging import test_summary_lines, train_log_line
+from .utils.profiling import StepStats, trace
 from .utils.rng import split_streams
 
 
@@ -65,19 +75,26 @@ def train_one_epoch(
     dry_run: bool = False,
     start_batch: int = 0,
     dist: DistState = DistState(),
+    step_stats: StepStats | None = None,
 ) -> int:
     """One training epoch (reference ``train()``); returns the steps taken.
     The loss is read from the device only on log steps, by rank 0 alone:
     its own loss, and the global sample counter ``batch_idx`` times the
     loader's global batch (``world_size * batch_size`` in distributed mode,
-    mnist_ddp.py:78; ``num_data * batch_size`` for the ViT's grids).
-    ``start_batch`` resumes a mid-epoch archive at its batch cursor: batch
-    numbering and log lines go on as if the run had never stopped."""
+    mnist_ddp.py:78; ``num_data * batch_size`` for the grids of the ViT
+    and of ``--tp``/``--pp``).  ``start_batch`` resumes a mid-epoch
+    archive at its batch cursor: batch numbering and log lines go on as if
+    the run had never stopped.  ``step_stats`` times every step, waiting
+    for its loss."""
     num_batches = len(loader)
     steps = 0
+    if step_stats is not None:
+        step_stats.start()
     for batch_idx, (x, y, w) in enumerate(loader.epoch(epoch, start_batch),
                                           start=start_batch):
         loss = step_fn(model, state, x, y, w, lr)
+        if step_stats is not None:
+            step_stats.mark(loss)
         steps += 1
         if dist.is_chief and batch_idx % log_interval == 0:
             print(train_log_line(
@@ -184,7 +201,9 @@ def run_epochs(
 ) -> None:
     """``--epochs`` epochs of training after ``epoch0`` completed ones, each
     followed by evaluation, with StepLR (``--lr``, ``--gamma``) once per
-    epoch; the first starts at batch ``start_batch``.  With ``timings`` (a
+    epoch; the first starts at batch ``start_batch``.  ``--step-stats``
+    prints one latency line an epoch (rank 0), before the evaluation, as
+    the JAX trainer does.  With ``timings`` (a
     dict from :func:`make_loaders` or :func:`make_shard_loaders`) the run
     records per-epoch training seconds (``epoch_train_s``, the device
     synchronized at each end),
@@ -193,15 +212,18 @@ def run_epochs(
     train_loader, test_loader = loaders
     lr_fn = step_lr(args.lr, args.gamma, step_size=1)
     for epoch in range(epoch0 + 1, epoch0 + args.epochs + 1):
+        stats = StepStats() if getattr(args, "step_stats", False) else None
         t0 = time.perf_counter()
         steps = train_one_epoch(step_fn, model, state, train_loader, epoch,
                                 lr_fn(epoch), args.log_interval, args.dry_run,
-                                start_batch if epoch == epoch0 + 1 else 0, dist)
+                                start_batch if epoch == epoch0 + 1 else 0, dist, stats)
         if timings is not None:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             timings["epoch_train_s"].append(time.perf_counter() - t0)
             timings["epoch_steps"].append(steps)
+        if stats is not None and dist.is_chief:
+            print(stats.summary_line(epoch))
         _, correct = evaluate(eval_fn, model, test_loader, dry_run_eval, dist)
         if timings is not None:
             n_test = test_loader.dataset_len
@@ -215,9 +237,12 @@ def _resume_cursor(
 ) -> int:
     """The batch cursor of a mid-epoch archive (0 for a final one), after
     the JAX trainer's checks that this run can continue it: the epoch in
-    progress follows the completed ones, and the seed, the global batch
-    (``--batch-size`` times the world size) and the world size are the
-    saved run's."""
+    progress follows the completed ones, the seed and the global batch
+    (``--batch-size`` times the world size) are the saved run's, and so is
+    the world size unless ``--resume-reshard`` accepts another.  At the
+    same seed and global batch every world size consumes the same global
+    batches (``parallel/sampler.py``): a re-shard continues sample for
+    sample, its sums re-associated."""
     in_progress = extras.get("epoch_in_progress", 0)
     if not in_progress:
         return 0
@@ -244,12 +269,15 @@ def _resume_cursor(
             "match --batch-size and the device count"
         )
     saved_ws = extras.get("world_size")
-    if saved_ws is not None and saved_ws != world_size:
+    if (saved_ws is not None and saved_ws != world_size
+            and not getattr(args, "resume_reshard", False)):
         raise ValueError(
             f"--resume-state {path!r} was saved mid-epoch at world size "
-            f"{saved_ws}; this run's world size is {world_size}.  Re-sharding "
-            "a mid-epoch archive is not ported: relaunch at the original "
-            "world size"
+            f"{saved_ws}; this run's world size is {world_size}.  Matching "
+            "seed and global batch make a re-shard consume the exact same "
+            "global batches (sampler contract; reductions re-associate, so "
+            "expect FP-level drift, not bit-equality) — pass --resume-reshard "
+            "to accept it, or relaunch at the original world size"
         )
     return extras.get("batch_cursor", 0)
 
@@ -277,7 +305,8 @@ def fit(
     ``None`` means the card, and raises without one (``resolve_device``).
     ``dist`` is this process's place in the world (``DistState()``, a world
     of one, by default); a distributed world's group is torn down at the
-    end.
+    end.  ``--profile DIR`` traces the whole run (``utils/profiling.py``),
+    and the trace is written also when the run raises.
 
     TF32 is switched off for the f32 path, in convolutions and matmuls
     alike (cuDNN would otherwise run the convs in TF32 by default), and
@@ -290,37 +319,90 @@ def fit(
     ``--resume-state`` continues the archive's run: epoch numbering, the
     lr schedule and the shuffle from its completed epochs (and batch
     cursor), the dropout seeds from its step counter, its accumulators in
-    the layout this run's ``--pallas-opt`` executes.  ``--save-state``
-    writes the final archive after the last epoch.  Before the first
-    step every rank takes rank 0's parameters and BatchNorm averages (and,
-    resumed from an archive, its accumulators and step), as
-    ``DistributedDataParallel``'s constructor broadcasts them.
+    the layout this run's ``--pallas-opt`` executes.  ``--elastic`` (or
+    ``ELASTIC_RESTART_COUNT`` > 0 in the environment, a gang restart's
+    mark) resumes from the run's own ``--save-state`` archive (or its
+    ``.prev``) when one exists and no ``--resume-state`` is given, and then
+    reads ``--epochs`` as the total.  ``--save-state`` writes the final
+    archive after the last epoch.  Before the first step every rank takes
+    rank 0's parameters and BatchNorm averages (and, resumed from an
+    archive, its accumulators and step), as ``DistributedDataParallel``'s
+    constructor broadcasts them.
+
+    ``--tp N`` and ``--pp`` lay the ranks out as JAX lays out its devices,
+    a ``(W/N, 1, N)`` grid (N = 2 for ``--pp``): every model member of a
+    data shard sees that shard's ``--batch-size`` rows a step.  They refuse
+    the flags the JAX trainer refuses, with its texts.
     """
     world = dist or DistState()
     try:
-        return _fit(args, device, save_path, timings, world)
+        with trace(getattr(args, "profile", None), resolve_device(device)):
+            return _fit(args, device, save_path, timings, world)
     finally:
         if world.distributed:
             destroy_distributed()
 
 
-def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, TrainState]:
-    resume_path, resume_state_path = args.resume, args.resume_state
-    if resume_path and resume_state_path:
+def _model_axis(args, world: DistState) -> tuple[int, bool]:
+    """``(tp degree, pp)`` after the JAX trainer's refusals of the flags
+    the model axis does not take."""
+    tp_degree = int(getattr(args, "tp", 1) or 1)
+    pp_on = bool(getattr(args, "pp", False))
+    if tp_degree > 1 and pp_on:
+        raise ValueError("--tp and --pp both claim the model axis; pick one")
+    if tp_degree == 1 and not pp_on:
+        return 1, False
+    if args.pallas_opt:
         raise ValueError(
-            "--resume (model-only checkpoint) and --resume-state (full "
-            "training state) are mutually exclusive"
+            "--pallas-opt is implemented for the DP paths; drop --tp/--pp"
         )
-    device = resolve_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
+    if not world.distributed:
+        raise ValueError("--tp/--pp need a multi-device mesh (use the launcher)")
+    if getattr(args, "syncbn", False):
+        raise ValueError("--syncbn rides the DP paths; drop --tp/--pp")
+    if getattr(args, "zero", False):
+        raise ValueError("--zero rides the DP paths; drop --tp/--pp")
+    if args.conv_impl != "conv":
+        raise ValueError("--conv-impl rides the DP paths; drop --tp/--pp")
+    if args.save_state or args.resume_state:
+        raise ValueError(
+            "--save-state/--resume-state ride the DP paths; drop --tp/--pp"
+        )
+    return tp_degree, pp_on
+
+
+def _elastic_archive(args) -> str | None:
+    """The run's own ``--save-state`` archive to resume under the elastic
+    contract, or None."""
+    elastic = bool(getattr(args, "elastic", False)) or int(
+        os.environ.get("ELASTIC_RESTART_COUNT", "0") or 0) > 0
+    path = args.save_state
+    if elastic and path and not args.resume_state and (
+            os.path.exists(path) or os.path.exists(path + PREV_SUFFIX)):
+        return path
+    return None
+
+
+def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, TrainState]:
+    tp_degree, pp_on = _model_axis(args, world)
     use_pallas, conv_impl = args.pallas_opt, args.conv_impl
     syncbn = bool(getattr(args, "syncbn", False))
     zero = bool(getattr(args, "zero", False))
     if zero and use_pallas:
         raise ValueError("--zero and --pallas-opt both re-lay-out the "
                          "Adadelta state; pick one")
+    resume_path, resume_state_path = args.resume, args.resume_state
+    if resume_path and resume_state_path:
+        raise ValueError(
+            "--resume (model-only checkpoint) and --resume-state (full "
+            "training state) are mutually exclusive"
+        )
+    elastic_path = _elastic_archive(args)
+    resume_state_path = resume_state_path or elastic_path
+    device = resolve_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     # Checkpoints load before any data or device work, so a wrong file
@@ -331,37 +413,55 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
         start_batch = _resume_cursor(resume_state_path, extras, epoch0, args,
                                      world.world_size)
         params = {**archive.params, **archive.batch_stats}
+        if elastic_path:
+            # Epochs as the total: a restart reruns the same command, so
+            # "train 2 epochs" finishes the 2-epoch run.
+            args = argparse.Namespace(**{**vars(args),
+                                         "epochs": max(int(args.epochs) - epoch0, 0)})
     elif resume_path:
         params, step0 = load_resume_state(resume_path, syncbn)
 
-    loaders = make_loaders(args, device, timings, world)
+    grid = (make_rank_grid([("model", tp_degree if tp_degree > 1 else pp.NUM_STAGES)], world)
+            if tp_degree > 1 or pp_on else None)
+    shard = (DistState(rank=grid.coords[0], world_size=grid.num_data) if grid is not None
+             else world)
+    loaders = make_loaders(args, device, timings, shard)
     seeds = split_streams(args.seed)
     model = Net(torch.Generator().manual_seed(seeds["init"]), use_bn=syncbn).to(device)
     if params is not None:
         model.load_state_dict(params)
-    state = make_train_state(model, use_pallas=use_pallas, zero=zero, world=world)
-    state.step = step0
-    if archive is not None:
-        opt = ensure_opt_layout(archive.opt, dict(model.named_parameters()), use_pallas)
-        state = TrainState(opt=_opt_to(opt, device), step=archive.step)
     if world.distributed:
         broadcast_from_chief([*model.parameters(), *model.buffers()])
+    if grid is not None:
+        step_fn, eval_fn = _model_axis_steps(args, model, grid, tp_degree > 1, seeds["dropout"],
+                                             compute_dtype)
+        state = TrainState(opt=adadelta_init(dict(model.named_parameters())), step=step0)
+    else:
+        state = make_train_state(model, use_pallas=use_pallas, zero=zero, world=world)
+        state.step = step0
         if archive is not None:
+            opt = ensure_opt_layout(archive.opt, dict(model.named_parameters()), use_pallas)
+            state = TrainState(opt=_opt_to(opt, device), step=archive.step)
+        if world.distributed and archive is not None:
             step = torch.tensor([state.step], dtype=torch.int64, device=device)
             broadcast_from_chief([*_opt_tensors(state.opt), step])
             state.step = int(step.item())
-    if zero and archive is not None:  # this rank's chunks of the archive's
-        state.opt = per_leaf_opt_to_zero(state.opt, world_group(world))
-    step_fn = make_train_step(use_pallas=use_pallas, dropout_seed=seeds["dropout"],
-                              compute_dtype=compute_dtype, conv_impl=conv_impl, world=world)
-    run_epochs(args, device, model, state, step_fn,
-               make_eval_step(compute_dtype, conv_impl, world), loaders, timings,
+        if zero and archive is not None:  # this rank's chunks of the archive's
+            state.opt = per_leaf_opt_to_zero(state.opt, world_group(world))
+        step_fn = make_train_step(use_pallas=use_pallas, dropout_seed=seeds["dropout"],
+                                  compute_dtype=compute_dtype, conv_impl=conv_impl,
+                                  world=world)
+        eval_fn = make_eval_step(compute_dtype, conv_impl, world)
+    run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
                epoch0=epoch0, start_batch=start_batch, dist=world)
 
-    if args.save_model and save_path and world.is_chief:
-        save_state_dict(model_state_dict(model, ddp_prefix=world.distributed,
-                                         num_batches=state.step if syncbn else None),
-                        save_path)
+    if args.save_model and save_path:
+        # --tp's gather is collective; the chief alone writes
+        full = tp.gather_replicated(model, grid.model) if tp_degree > 1 else model
+        if world.is_chief:
+            save_state_dict(model_state_dict(full, ddp_prefix=world.distributed,
+                                             num_batches=state.step if syncbn else None),
+                            save_path)
     opt = state.opt
     if args.save_state and zero:  # per leaf on disk; the gather is collective
         opt = zero_opt_to_per_leaf(opt, dict(model.named_parameters()), world_group(world))
@@ -373,3 +473,17 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
         save_train_state(dict(model.named_parameters()), opt, state.step,
                          args.save_state, epoch=epoch0 + args.epochs, batch_stats=stats)
     return model, state
+
+
+def _model_axis_steps(args, model: Net, grid: RankGrid, tp_on: bool, dropout_seed: int,
+                      compute_dtype: torch.dtype):
+    """The train and eval steps of ``--tp`` (``model`` cut to this member's
+    shards) or ``--pp``."""
+    if tp_on:
+        tp.shard_state(model, grid.model)
+        return (tp.make_tp_train_step(grid, dropout_seed=dropout_seed,
+                                      compute_dtype=compute_dtype),
+                tp.make_tp_eval_step(grid, compute_dtype))
+    return (pp.make_pp_train_step(grid, args.pp_microbatches, dropout_seed=dropout_seed,
+                                  compute_dtype=compute_dtype),
+            make_forward_eval_step(lambda m, x: m(x, None, "conv", compute_dtype), grid.data))

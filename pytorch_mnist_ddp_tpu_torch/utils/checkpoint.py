@@ -37,7 +37,9 @@ layout; the accumulators as ``opt_flat.square_avg``/``opt_flat.acc_delta``
 ``step`` (int32), ``epoch`` (epochs completed, int64), BatchNorm running
 averages as ``batch_stats.<bnN>.mean|var`` and, in a mid-epoch archive,
 integer ``meta.*`` extras.  In memory they are the port's:
-torch layouts, ``named_parameters`` order (``utils/convert.py``).
+torch layouts, ``named_parameters`` order (``utils/convert.py``).  The
+ViT's archives (``vit_mnist.py --save-state``, :func:`save_vit_train_state`)
+are the same format over the ViT's param tree, accumulators per leaf.
 """
 
 from __future__ import annotations
@@ -60,8 +62,10 @@ from .convert import (
     has_bn,
     jax_flat_from_torch,
     jax_state_from_torch,
+    jax_vit_tree_from_torch,
     torch_flat_from_jax,
     torch_state_from_jax,
+    torch_vit_state_from_jax,
 )
 
 # Read once at import rather than per write: probing the umask sets it
@@ -227,15 +231,18 @@ def load_resume_state(path: str, syncbn: bool) -> tuple[dict[str, torch.Tensor],
 
 
 def model_state_dict(
-    model: torch.nn.Module, ddp_prefix: bool = False, num_batches: int | None = None
+    model: torch.nn.Module | Mapping[str, torch.Tensor], ddp_prefix: bool = False,
+    num_batches: int | None = None,
 ) -> dict[str, torch.Tensor]:
-    """The model's state as CPU float32 tensors under the reference's keys
+    """The model's state (a module, or its state dict: ``--tp``'s gathered
+    one) as CPU float32 tensors under the reference's keys
     (``conv1.weight`` ... ``fc2.bias``), torch layout.  ``ddp_prefix``
     prefixes ``module.`` (the reference's distributed-mode save);
     ``num_batches`` adds each BatchNorm's int64 ``num_batches_tracked``
     after its running averages, as ``torch.nn.BatchNorm2d`` keeps it."""
     out: dict[str, torch.Tensor] = collections.OrderedDict()
-    for k, v in model.state_dict().items():
+    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    for k, v in state.items():
         out[k] = v.detach().to("cpu", torch.float32).contiguous()
         if num_batches is not None and k.endswith(".running_var"):
             out[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(
@@ -394,16 +401,33 @@ def save_train_state(
     _atomic_npz_write(flat, path)
 
 
-def load_train_state_full(
-    path: str, syncbn: bool = False
-) -> tuple[TrainArchive, int, dict[str, int]]:
-    """The inverse of :func:`save_train_state`, for an archive written by
-    either package: ``(TrainArchive, epochs completed, extras)``, the
-    extras a ``{key: int}`` dict (empty for a final archive).  A missing
-    file raises FileNotFoundError, a torn one
-    :class:`CorruptCheckpointError`, a model-only checkpoint a ValueError
-    naming ``--resume``, and an archive whose BatchNorm state does not
-    match ``syncbn`` the JAX trainer's ``--syncbn`` message."""
+def save_vit_train_state(
+    params: Mapping[str, torch.Tensor],
+    opt: AdadeltaState,
+    step: int,
+    path: str,
+    epoch: int = 0,
+) -> None:
+    """:func:`save_train_state` for the ViT: its param tree and per-leaf
+    accumulator trees in the JAX package's layout
+    (:func:`~.convert.jax_vit_tree_from_torch`), ``step`` and ``epoch``
+    epochs completed, the file the JAX ViT CLI's ``--save-state`` writes."""
+    flat = _flatten_raw(jax_vit_tree_from_torch(params), "params.")
+    for name in ("square_avg", "acc_delta"):
+        flat.update(_flatten_raw(jax_vit_tree_from_torch(getattr(opt, name)), f"opt.{name}."))
+    flat["step"] = np.asarray(step, np.int32)
+    flat["epoch"] = np.asarray(int(epoch))
+    _atomic_npz_write(flat, path)
+
+
+def _prefixed(flat: Mapping[str, np.ndarray], prefix: str) -> dict[str, Any]:
+    return _unflatten({k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)})
+
+
+def _read_train_archive(path: str) -> dict[str, np.ndarray]:
+    """A ``--save-state`` archive's arrays by key.  A missing file raises
+    FileNotFoundError, a torn one :class:`CorruptCheckpointError`, any other
+    file a ValueError (a model-only checkpoint's naming ``--resume``)."""
     try:
         with np.load(path) as archive:
             flat = {k: archive[k] for k in archive.files}
@@ -424,6 +448,36 @@ def load_train_state_full(
             "'params.*' entries) — model-only checkpoints (--save-model) "
             "resume via --resume instead"
         )
+    return flat
+
+
+def load_vit_train_state(path: str) -> tuple[TrainArchive, int]:
+    """A ``--save-state`` archive of either package read as a ViT's:
+    ``(TrainArchive, epochs completed)`` with the params and per-leaf
+    accumulators as ``ViT`` state-dict trees (CPU tensors; empty trees
+    where the archive holds no per-leaf accumulators).  The caller checks
+    the tree against its model: another model's archive reads without
+    error and fails there.  A file that is no training archive raises as
+    :func:`load_train_state_full` does."""
+    flat = _read_train_archive(path)
+    opt = AdadeltaState(*(torch_vit_state_from_jax(_prefixed(flat, f"opt.{name}."))
+                          for name in ("square_avg", "acc_delta")))
+    state = TrainArchive(params=torch_vit_state_from_jax(_prefixed(flat, "params.")), opt=opt,
+                         step=int(flat["step"]))
+    return state, int(flat.get("epoch", 0))
+
+
+def load_train_state_full(
+    path: str, syncbn: bool = False
+) -> tuple[TrainArchive, int, dict[str, int]]:
+    """The inverse of :func:`save_train_state`, for an archive written by
+    either package: ``(TrainArchive, epochs completed, extras)``, the
+    extras a ``{key: int}`` dict (empty for a final archive).  A missing
+    file raises FileNotFoundError, a torn one
+    :class:`CorruptCheckpointError`, a model-only checkpoint a ValueError
+    naming ``--resume``, and an archive whose BatchNorm state does not
+    match ``syncbn`` the JAX trainer's ``--syncbn`` message."""
+    flat = _read_train_archive(path)
     saved_bn = any(k.startswith("batch_stats.") for k in flat)
     if saved_bn != syncbn:
         raise ValueError(

@@ -43,7 +43,15 @@ table; argparse refuses the others.  Only rank 0 prints, and its lines
 are the JAX CLI's (its own loss, as JAX prints its first shard's; under
 ``--pp`` its data shard's, summed over the stages); ``--save-model``
 writes ``vit_mnist.npz`` in the JAX package's params-tree format from
-rank 0, the model and expert shards gathered first.
+rank 0, the model and expert shards gathered first.  ``--save-state``
+writes the whole training state (params, per-leaf Adadelta accumulators,
+step, epochs) in the JAX package's archive format, and ``--resume-state``
+continues it: the schedule, the shuffle and the epoch numbering pick up
+where it stopped.  They ride the replicated-state paths, as in JAX: the
+single device, ``--zero`` (its chunks gathered per leaf on save, cut
+again on resume, so archives cross with plain runs) and ``--sp``.
+``--profile DIR`` traces the run with ``torch.profiler``, ``--step-stats``
+prints one latency line an epoch.
 """
 
 from __future__ import annotations
@@ -57,17 +65,24 @@ import torch
 
 from .device import resolve_device
 from .models.vit import ViT, ViTConfig
-from .ops.adadelta import adadelta_init
+from .ops.adadelta import AdadeltaState, adadelta_init
 from .ops.flash_attention import select_attention
 from .parallel import ep, pp_vit, sp, sp3, tp_vit
 from .parallel.ddp import TrainState, make_forward_eval_step, make_forward_train_step
-from .parallel.zero import zero_init
+from .parallel.zero import per_leaf_opt_to_zero, zero_init, zero_opt_to_per_leaf
 from .parallel.distributed import DistState, destroy_distributed, form_world
 from .parallel.mesh import RankGrid, make_rank_grid
 from .trainer import make_shard_loaders, run_epochs
-from .utils.checkpoint import load_params_tree, save_params_tree
+from .utils.checkpoint import (
+    TrainArchive,
+    load_params_tree,
+    load_vit_train_state,
+    save_params_tree,
+    save_vit_train_state,
+)
 from .utils.convert import jax_vit_tree_from_torch, torch_vit_state_from_jax
 from .utils.logging import total_time_line
+from .utils.profiling import trace
 from .utils.rng import split_streams
 
 SAVE_PATH = "vit_mnist.npz"
@@ -155,6 +170,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default=None, metavar="PATH",
                    help="initialize params from a vit_mnist.npz archive "
                         "instead of random init (optimizer starts fresh)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the whole run "
+                        "into DIR (utils/profiling.trace; same surface as "
+                        "the CNN CLI)")
+    p.add_argument("--step-stats", action="store_true", default=False,
+                   help="print per-epoch host-side step-latency summaries")
+    p.add_argument("--save-state", type=str, default=None, metavar="PATH",
+                   help="save the FULL training state (params, Adadelta "
+                        "accumulators, step/epoch counters) at the end — "
+                        "a --resume-state continuation is bit-identical "
+                        "to an uninterrupted run")
+    p.add_argument("--resume-state", type=str, default=None, metavar="PATH",
+                   help="continue training from a --save-state archive "
+                        "(schedule, shuffle stream, and epoch numbering "
+                        "pick up where the save left off); layout-"
+                        "portable across --zero/plain runs and with the "
+                        "CNN CLI's archive format")
     return p
 
 
@@ -208,6 +240,52 @@ def resolve_mode_flags(args) -> tuple[bool, bool]:
     return sp_on, tp_on
 
 
+def check_state_flags(args, modes: tuple[bool, bool]) -> None:
+    """The JAX CLI's refusals of ``--save-state``/``--resume-state``
+    (SystemExit with its texts)."""
+    _, tp_on = modes
+    if (args.resume_state or args.save_state) and (tp_on or args.pp or args.experts > 0):
+        raise SystemExit(
+            "--save-state/--resume-state ride the replicated-state paths "
+            "(single-device, --zero, --sp, --fused); drop --tp/--pp/"
+            "--experts"
+        )
+    if args.save_state and args.dry_run:
+        raise SystemExit(
+            "--dry-run trains one batch per epoch; a --save-state archive "
+            "from it would misrepresent its epoch count on resume — drop one"
+        )
+    if args.resume_state and args.resume:
+        raise SystemExit(
+            "--resume (model-only) and --resume-state (full state) "
+            "are mutually exclusive"
+        )
+
+
+def _restore(model: ViT, archive: TrainArchive, path: str) -> AdadeltaState:
+    """Load the archive's params into ``model``; returns its accumulators
+    in ``model``'s ``named_parameters`` order on its device.  Another
+    model's tree (a CNN archive, another depth) exits with the JAX CLI's
+    text, a shape of another width with its shape text."""
+    want = dict(model.named_parameters())
+    got = archive.params
+    if sorted(got) != sorted(want) or any(sorted(t) != sorted(want) for t in archive.opt):
+        raise SystemExit(
+            f"--resume-state {path!r} holds a different model's parameter tree: "
+            f"missing {sorted(set(want) - set(got))}, "
+            f"unexpected {sorted(set(got) - set(want))}"
+        )
+    for key, value in got.items():
+        if value.shape != want[key].shape:
+            raise SystemExit(
+                f"--resume-state param shape {tuple(value.shape)} does not "
+                f"match this config's {tuple(want[key].shape)}"
+            )
+    model.load_state_dict(got)
+    device = next(iter(want.values())).device
+    return AdadeltaState(*({k: tree[k].to(device) for k in want} for tree in archive.opt))
+
+
 def _resume(model: ViT, path: str) -> None:
     """Load a params-tree archive into ``model``; a tree of another shape
     exits, as the JAX CLI does."""
@@ -229,12 +307,14 @@ def _resume(model: ViT, path: str) -> None:
 
 
 def build(args, device: torch.device, modes: tuple[bool, bool],
-          world: DistState = DistState()):
+          world: DistState = DistState(), archive: TrainArchive | None = None):
     """The model, its state, the train and eval steps and this rank's grid
     for ``args`` (``modes`` from :func:`resolve_mode_flags`): weights from
-    ``--seed`` (every rank draws the same) or ``--resume``, sharded under
-    ``--tp`` and ``--experts``, and the branch's steps, in the JAX CLI's
-    branch order.  Forms the grid's groups (collective over ``world``)."""
+    ``--seed`` (every rank draws the same), ``--resume`` or the
+    ``--resume-state`` ``archive`` (its accumulators and step too, cut into
+    this rank's chunks under ``--zero``), sharded under ``--tp`` and
+    ``--experts``, and the branch's steps, in the JAX CLI's branch order.
+    Forms the grid's groups (collective over ``world``)."""
     sp_on, tp_on = modes
     data_parallel = args.experts > 0 or args.zero
     minors = ([("seq", args.sp)] * sp_on + [("model", args.tp)] * tp_on
@@ -252,6 +332,7 @@ def build(args, device: torch.device, modes: tuple[bool, bool],
     if args.resume:
         _resume(model, args.resume)
     model.to(device)
+    restored = _restore(model, archive, args.resume_state) if archive is not None else None
     if tp_on:
         tp_vit.shard_vit_tp(model, grid.model)
     if args.experts > 0:
@@ -279,6 +360,9 @@ def build(args, device: torch.device, modes: tuple[bool, bool],
     else:
         step_fn = make_forward_train_step(lambda m, x: m(x))
         eval_fn = make_forward_eval_step(lambda m, x: m(x))
+    if restored is not None:  # the replicated-state paths alone
+        state = TrainState(opt=per_leaf_opt_to_zero(restored, grid.data) if args.zero
+                           else restored, step=archive.step)
     return model, state, step_fn, eval_fn, grid
 
 
@@ -295,24 +379,38 @@ def fit(
     ``--tp`` and ``--experts``) and its state.  ``modes`` is :func:`resolve_mode_flags`'
     result for ``args``.  ``device`` ``None`` means the card, and raises
     without one.  TF32 is switched off (process-wide); ``timings`` is
-    ``trainer.run_epochs``'s."""
+    ``trainer.run_epochs``'s.  ``--resume-state`` loads before any data
+    or device work; ``--save-state`` writes after the last epoch, the
+    chief alone (under ``--zero`` after a collective gather);
+    ``--profile`` traces the whole run."""
+    check_state_flags(args, modes)
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, state, step_fn, eval_fn, grid = build(args, device, modes, world)
-    loaders = make_shard_loaders(args, device, grid.coords[0], grid.num_data, timings)
-    run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
-               dry_run_eval=args.dry_run, dist=world)
-    if args.save_model and save_path:
-        # the gathers are collective
-        if modes[1]:
-            full = tp_vit.gather_vit_tp_state(model, grid.model)
-        elif args.experts > 0:
-            full = ep.gather_ep_state(model, grid.data)
-        else:
-            full = model.state_dict()
-        if world.is_chief:
-            save_params_tree(jax_vit_tree_from_torch(full), save_path)
+    archive, epoch0 = (load_vit_train_state(args.resume_state) if args.resume_state
+                       else (None, 0))
+    with trace(args.profile, device):
+        model, state, step_fn, eval_fn, grid = build(args, device, modes, world, archive)
+        loaders = make_shard_loaders(args, device, grid.coords[0], grid.num_data, timings)
+        run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
+                   dry_run_eval=args.dry_run, epoch0=epoch0, dist=world)
+        if args.save_model and save_path:
+            # the gathers are collective
+            if modes[1]:
+                full = tp_vit.gather_vit_tp_state(model, grid.model)
+            elif args.experts > 0:
+                full = ep.gather_ep_state(model, grid.data)
+            else:
+                full = model.state_dict()
+            if world.is_chief:
+                save_params_tree(jax_vit_tree_from_torch(full), save_path)
+        if args.save_state:
+            params = dict(model.named_parameters())
+            opt = (zero_opt_to_per_leaf(state.opt, params, grid.data) if args.zero
+                   else state.opt)
+            if world.is_chief:
+                save_vit_train_state(params, opt, state.step, args.save_state,
+                                     epoch=epoch0 + args.epochs)
     return model, state
 
 

@@ -100,7 +100,7 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize(
     "entry",
     ["engine", "from_seed", "cli", "trainer", "train_cli", "vit_fit", "vit_cli",
-     "vit_sp_cli", "vit_tp_cli", "ddp_cli"],
+     "vit_sp_cli", "vit_tp_cli", "ddp_cli", "ddp_tp_cli", "vit_state_cli"],
 )
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     _no_card()
@@ -124,6 +124,10 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             vit_cli_main(["--dry-run", "--epochs", "1", "--flash"])
         elif entry == "ddp_cli":
             ddp_cli_main(["--dry-run", "--epochs", "1", "--syncbn"])
+        elif entry == "ddp_tp_cli":
+            ddp_cli_main(["--dry-run", "--epochs", "1", "--tp", "2", "--step-stats"])
+        elif entry == "vit_state_cli":
+            vit_cli_main(["--epochs", "1", "--save-state", "s.npz", "--profile", "p"])
         elif entry == "vit_tp_cli":
             vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "2", "--tp", "2", "--flash"])
         else:
@@ -132,11 +136,11 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
 
 @pytest.mark.parametrize(
     "flag",
-    ["--fused", "--pregather", "--profile=x", "--step-stats",
+    ["--fused", "--pregather",
      "--telemetry-dir=x", "--aot-cache=x", "--serve-prewarm",
      "--compile-cache-dir=x", "--prefetch-depth=0", "--loss-guard",
-     "--checkpoint-every-steps=1", "--elastic", "--chaos=x", "--preempt-grace-s=1",
-     "--spike-factor=2", "--anomaly-budget=1", "--step-timeout-s=1", "--resume-reshard"],
+     "--checkpoint-every-steps=1", "--chaos=x", "--preempt-grace-s=1",
+     "--spike-factor=2", "--anomaly-budget=1", "--step-timeout-s=1"],
 )
 def test_train_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
@@ -148,27 +152,50 @@ def test_train_cli_refuses_flags_not_ported_yet(flag):
     [(["--resume=m.pt"], "resume", "m.pt"), (["--save-state=s.npz"], "save_state", "s.npz"),
      (["--resume-state=s.npz"], "resume_state", "s.npz"),
      (["--conv-impl=im2col_c1"], "conv_impl", "im2col_c1"),
-     (["--conv-impl=im2col"], "conv_impl", "im2col"), (["--bf16"], "bf16", True)],
+     (["--conv-impl=im2col"], "conv_impl", "im2col"), (["--bf16"], "bf16", True),
+     (["--profile=x"], "profile", "x"), (["--step-stats"], "step_stats", True),
+     (["--elastic"], "elastic", True), (["--resume-reshard"], "resume_reshard", True)],
     ids=["resume", "save_state", "resume_state", "conv_impl_im2col_c1", "conv_impl_im2col",
-         "bf16"],
+         "bf16", "profile", "step_stats", "elastic", "resume_reshard"],
 )
 def test_train_cli_accepts_ported_flags(flags, dest, value):
-    """mnist.py's --resume, --save-state, --resume-state, --conv-impl and
-    --bf16 are ported, with the JAX CLI's defaults."""
+    """mnist.py's --resume, --save-state, --resume-state, --conv-impl,
+    --bf16, --profile, --step-stats, --elastic and --resume-reshard are
+    ported, with the JAX CLI's defaults."""
     assert getattr(train_parser().parse_args(flags), dest) == value
     defaults = train_parser().parse_args([])
     assert (defaults.resume, defaults.save_state, defaults.resume_state,
             defaults.conv_impl, defaults.bf16) == (None, None, None, "conv", False)
+    assert (defaults.profile, defaults.step_stats, defaults.elastic,
+            defaults.resume_reshard) == (None, False, False, False)
 
 
 @pytest.mark.parametrize(
     "flag",
-    ["--tp=2", "--pp", "--pp-microbatches=2", "--fused", "--telemetry-dir=x",
-     "--elastic", "--resume-reshard", "--checkpoint-every-steps=1", "--chaos=x"],
+    ["--fused", "--telemetry-dir=x", "--checkpoint-every-steps=1", "--chaos=x"],
 )
 def test_ddp_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
         ddp_parser().parse_args([flag])
+
+
+@pytest.mark.parametrize(
+    "flags,dest,value",
+    [(["--tp=2"], "tp", 2), (["--pp"], "pp", True),
+     (["--pp", "--pp-microbatches=4"], "pp_microbatches", 4), (["--elastic"], "elastic", True),
+     (["--resume-reshard"], "resume_reshard", True), (["--profile=x"], "profile", "x"),
+     (["--step-stats"], "step_stats", True)],
+    ids=["tp", "pp", "pp_microbatches", "elastic", "resume_reshard", "profile", "step_stats"],
+)
+def test_ddp_cli_accepts_model_axis_and_run_flags(flags, dest, value):
+    """mnist_ddp.py's --tp, --pp, --pp-microbatches, --elastic,
+    --resume-reshard, --profile and --step-stats are ported, with the JAX
+    CLI's defaults (--tp 1, --pp-microbatches 2)."""
+    assert getattr(ddp_parser().parse_args(flags), dest) == value
+    defaults = ddp_parser().parse_args([])
+    assert (defaults.tp, defaults.pp, defaults.pp_microbatches, defaults.elastic,
+            defaults.resume_reshard, defaults.profile, defaults.step_stats) == (
+        1, False, 2, False, False, None, False)
 
 
 @pytest.mark.parametrize("flags", [["--zero"], ["--zero", "--syncbn"], ["--zero", "--bf16"]],
@@ -199,8 +226,7 @@ def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
 
 @pytest.mark.parametrize(
     "flag",
-    ["--fused", "--pregather", "--profile=x",
-     "--step-stats", "--timings-json=x", "--save-state=x", "--resume-state=x"],
+    ["--fused", "--pregather", "--timings-json=x"],
 )
 def test_vit_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
@@ -215,20 +241,26 @@ def test_vit_cli_refuses_flags_not_ported_yet(flag):
      (["--sp-impl=ulysses"], "sp_impl", "ulysses"), (["--tp=2"], "tp", 2),
      (["--sp=2"], "sp", 2), (["--pp"], "pp", True), (["--pp-microbatches=4"], "pp_microbatches", 4),
      (["--pp-stages=3"], "pp_stages", 3), (["--experts=8", "--flash"], "experts", 8),
-     (["--zero", "--flash"], "zero", True)],
+     (["--zero", "--flash"], "zero", True), (["--save-state=x"], "save_state", "x"),
+     (["--resume-state=x", "--zero"], "resume_state", "x"), (["--profile=x"], "profile", "x"),
+     (["--step-stats", "--flash"], "step_stats", True)],
     ids=["bf16", "bf16_flash", "bf16_sp1_flash", "bf16_flash_remat", "sp_impl_ulysses", "tp",
-         "sp2", "pp", "pp_microbatches", "pp_stages", "experts", "zero"],
+         "sp2", "pp", "pp_microbatches", "pp_stages", "experts", "zero", "save_state",
+         "resume_state", "profile", "step_stats"],
 )
 def test_vit_cli_accepts_ported_flags(flags, dest, value):
     """--bf16 is ported (the flash kernel's bf16 mode) and composes with
     --flash, --remat and the degree-1 ring; --sp N, --sp-impl, --tp,
-    --pp, --pp-microbatches, --pp-stages, --experts and --zero are taken
+    --pp, --pp-microbatches, --pp-stages, --experts, --zero,
+    --save-state, --resume-state, --profile and --step-stats are taken
     with the JAX CLI's defaults."""
     assert getattr(vit_parser().parse_args(flags), dest) == value
     defaults = vit_parser().parse_args([])
     assert (defaults.sp, defaults.sp_impl, defaults.tp) == (None, "ring", None)
     assert (defaults.pp, defaults.pp_microbatches, defaults.pp_stages, defaults.experts,
             defaults.zero) == (False, 2, 2, 0, False)
+    assert (defaults.save_state, defaults.resume_state, defaults.profile,
+            defaults.step_stats) == (None, None, None, False)
 
 
 @pytest.fixture

@@ -264,15 +264,19 @@ def test_rendezvous_failure_text_is_jax(monkeypatch, tmp_path):
 
 def test_mid_epoch_archive_of_another_world_is_refused_naming_both():
     """Saved at 4 ranks of 8 (global batch 32), resumed at 2 ranks of 16:
-    the same global batch, another world."""
+    the same global batch, another world: refused with the JAX trainer's
+    whole text, which names --resume-reshard; with that flag the cursor
+    stands."""
     args = ddp_parser().parse_args(["--batch-size", "16"])
     extras = {"epoch_in_progress": 1, "batch_cursor": 3, "seed": 1, "global_batch": 32,
               "world_size": 4}
     with pytest.raises(ValueError, match="world size 4; this run's world size is 2") as err:
         _resume_cursor("s.npz", extras, 0, args, 2)
-    assert_jax_text(str(err.value), first_sentence=True)
-    assert "resume-reshard" not in str(err.value)
+    assert_jax_text(str(err.value))
+    assert "pass --resume-reshard to accept it" in str(err.value)
     assert _resume_cursor("s.npz", {**extras, "world_size": 2}, 0, args, 2) == 3
+    reshard = ddp_parser().parse_args(["--batch-size", "16", "--resume-reshard"])
+    assert _resume_cursor("s.npz", extras, 0, reshard, 2) == 3
     with pytest.raises(ValueError, match="global batch 32; this run's 48"):
         _resume_cursor("s.npz", extras, 0, args, 3)
 

@@ -1,9 +1,11 @@
 """The rank programs of the gloo worlds that hold the port's ``--experts``,
-``--zero`` and ``--pp`` against the JAX package, and the checks of those
+``--zero``, the ViT's and the CNN's ``--pp``, the CNN's ``--tp`` and
+``--resume-reshard`` against the JAX package, and the checks of those
 modes that need no JAX.
 
-``tests/test_torch_ep.py``, ``test_torch_zero.py`` and
-``test_torch_pp_vit.py`` run :func:`family_tasks` on every rank of a
+``tests/test_torch_ep.py``, ``test_torch_zero.py``,
+``test_torch_pp_vit.py``, ``test_torch_cnn_mp.py`` and
+``test_torch_elastic.py`` run :func:`family_tasks` on every rank of a
 world (``test_torch_launch.run_world``).  This file imports no JAX, so
 that each rank starts in seconds.  A task is ``(name, function, minors,
 kwargs)``: the rank's grid for ``minors`` (``[]`` lays every rank on the
@@ -24,7 +26,7 @@ from pytorch_mnist_ddp_tpu_torch.models.net import Net
 from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
 from pytorch_mnist_ddp_tpu_torch.ops.adadelta import AdadeltaState, adadelta_init
 from pytorch_mnist_ddp_tpu_torch.ops.flash_attention import select_attention
-from pytorch_mnist_ddp_tpu_torch.parallel import ep, mesh, pp_vit
+from pytorch_mnist_ddp_tpu_torch.parallel import ep, mesh, pp, pp_vit, tp
 from pytorch_mnist_ddp_tpu_torch.parallel.ddp import (
     TrainState,
     make_eval_step,
@@ -42,6 +44,7 @@ from pytorch_mnist_ddp_tpu_torch.parallel.zero import (
     zero_opt_to_per_leaf,
 )
 from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import save_params_tree
+from pytorch_mnist_ddp_tpu_torch.utils.rng import split_streams
 from pytorch_mnist_ddp_tpu_torch.utils.convert import (
     ep_split_dim,
     gather_vit_state,
@@ -219,6 +222,120 @@ def cnn_eval(grid, state: dict, x: np.ndarray, y: np.ndarray, w: np.ndarray) -> 
     totals = make_eval_step(world=_world(grid))(net, shard_rows(grid, x), shard_rows(grid, y),
                                                  shard_rows(grid, w))
     return np.asarray([float(t) for t in totals])
+
+
+def _cnn(state: dict) -> Net:
+    net = Net()
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return net
+
+
+def cnn_mp_grads(grid, mode: str, state: dict, x: np.ndarray, y: np.ndarray,
+                 w: np.ndarray) -> dict:
+    """The ``--tp`` (``mode`` ``tp``, the model cut to this member's
+    shards) or ``--pp`` step's loss and gradients on this rank, dropout
+    off, before the update."""
+    net = _cnn(state)
+    if mode == "tp":
+        tp.shard_state(net, grid.model)
+        fn = tp.make_tp_grads(grid, dropout=False)
+    else:
+        fn = pp.make_pp_grads(grid, dropout=False)
+    loss, g = fn(net, shard_rows(grid, x), shard_rows(grid, y), shard_rows(grid, w), 0)
+    return {"loss": float(loss), "grads": {k: v.numpy().copy() for k, v in g.items()}}
+
+
+def cnn_mp_trajectory(grid, mode: str, state: dict, batches: tuple, bf16: bool = False,
+                      num_micro: int = 2) -> dict:
+    """``mnist_ddp --tp``/``--pp`` steps (dropout off) on this rank's data
+    shard of every global batch at lr 1.0: the losses, a digest of the
+    leaves every rank holds whole after every step, and the final state
+    (gathered under ``--tp``)."""
+    net = _cnn(state)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if mode == "tp":
+        tp.shard_state(net, grid.model)
+        step = tp.make_tp_train_step(grid, dropout=False, compute_dtype=dtype)
+    else:
+        step = pp.make_pp_train_step(grid, num_micro, dropout=False, compute_dtype=dtype)
+    train_state = TrainState(opt=adadelta_init(dict(net.named_parameters())))
+    losses, replicated = [], []
+    for x, y, w in zip(*batches):
+        losses.append(float(step(net, train_state, shard_rows(grid, x), shard_rows(grid, y),
+                                 shard_rows(grid, w), 1.0)))
+        replicated.append(_digest(p for k, p in net.named_parameters()
+                                  if tp.split_dim(k) is None))
+    full = tp.gather_replicated(net, grid.model) if mode == "tp" else net.state_dict()
+    return {"losses": np.asarray(losses), "replicated": replicated, "step": train_state.step,
+            "state": {k: v.detach().numpy().copy() for k, v in full.items()}}
+
+
+def cnn_mp_eval(grid, mode: str, state: dict, x: np.ndarray, y: np.ndarray,
+                w: np.ndarray) -> np.ndarray:
+    """The ``--tp`` (sharded) or ``--pp`` (plain forward) eval totals over
+    this rank's data group."""
+    net = _cnn(state)
+    if mode == "tp":
+        tp.shard_state(net, grid.model)
+        fn = tp.make_tp_eval_step(grid)
+    else:
+        fn = make_forward_eval_step(lambda m, x: m(x), grid.data)
+    totals = fn(net, shard_rows(grid, x), shard_rows(grid, y), shard_rows(grid, w))
+    return np.asarray([float(t) for t in totals])
+
+
+def cnn_fit_saved(grid, flags: list, data_dir: str, save_path: str) -> dict:
+    """``mnist_ddp`` (the trainer's body) for ``flags`` with
+    ``--save-model`` into ``save_path``; rank 0's lines and the final model
+    gathered whole here (under ``--tp``, collective)."""
+    import contextlib
+    import io
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser
+    from pytorch_mnist_ddp_tpu_torch.trainer import _fit
+
+    os.environ["MNIST_DATA_DIR"] = data_dir
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        net, _ = _fit(build_parser().parse_args(["--no-cuda", "--save-model", *flags]), "cpu",
+                      save_path, None, _world(grid))
+    full = tp.gather_replicated(net, grid.model)
+    return {"lines": out.getvalue(), "state": {k: v.numpy().copy() for k, v in full.items()}}
+
+
+def cnn_mid_epoch(grid, flags: list, data_dir: str, cursor: int, path: str) -> dict:
+    """``mnist_ddp``'s data-parallel steps (dropout off) over epoch 1 of
+    the IDX files in ``data_dir`` at ``flags``' batch, with a mid-epoch
+    archive written by rank 0 at batch ``cursor`` (the JAX package's
+    ``meta.*`` extras, this world's size); returns the final state and
+    each batch's sample indices on this rank."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser
+    from pytorch_mnist_ddp_tpu_torch.parallel.sampler import epoch_indices
+    from pytorch_mnist_ddp_tpu_torch.trainer import make_loaders
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import save_train_state
+
+    os.environ["MNIST_DATA_DIR"] = data_dir
+    args = build_parser().parse_args(["--no-cuda", *flags])
+    world = _world(grid)
+    net = Net(torch.Generator().manual_seed(split_streams(args.seed)["init"]))
+    train_state = make_train_state(net)
+    step = make_train_step(dropout=False, world=world)
+    train_loader, _ = make_loaders(args, torch.device("cpu"), dist=world)
+    for b, (x, y, w) in enumerate(train_loader.epoch(1)):
+        if b == cursor and world.is_chief:
+            extras = {"epoch_in_progress": 1, "batch_cursor": cursor, "seed": args.seed,
+                      "global_batch": train_loader.global_batch, "world_size": world.world_size,
+                      "steps_total": train_state.step,
+                      "samples_total": train_state.step * train_loader.global_batch}
+            save_train_state(dict(net.named_parameters()), train_state.opt, train_state.step,
+                             path, epoch=0, extras=extras)
+        step(net, train_state, x, y, w, args.lr)
+    idx = epoch_indices(len(train_loader.labels), world.world_size, world.rank, 1, args.seed)
+    return {"state": {k: v.detach().numpy().copy() for k, v in net.state_dict().items()},
+            "indices": idx, "step": train_state.step}
 
 
 def _world(grid):

@@ -162,7 +162,7 @@ def test_bf16_boundary_is_bf16():
     engine sends the activation at its own dtype)."""
     model = ViT(ViTConfig(bf16=True))
     first = pp_vit.stage_fns(model.cfg, 2)[0]
-    act = first(model, torch.zeros(4, 28, 28, 1))
+    act = first(model, torch.zeros(4, 28, 28, 1), 0)
     assert act.dtype == torch.bfloat16 and act.shape == (4, 16, 64)
 
 

@@ -187,12 +187,12 @@ def test_vit_refuses_variants_not_ported():
     """The MoE variant is ported (``ViT(num_experts=E)`` builds and its
     forward returns ``(log_probs, aux)``, ``tests/test_torch_moe.py``);
     the variants still not ported, the fused whole-run with its options,
-    the state archives, ``--profile`` and ``--step-stats``, are refused by
-    the CLI."""
+    are refused by the CLI (the state archives, ``--profile`` and
+    ``--step-stats`` are ported: ``tests/test_torch_vit_state.py``,
+    ``test_torch_profiling.py``)."""
     logp, aux = ViT(ViTConfig(num_experts=4))(torch.zeros(2, 28, 28, 1))
     assert logp.shape == (2, 10) and aux.shape == ()
-    for flag in ("--fused", "--pregather", "--timings-json=x", "--profile=x", "--step-stats",
-                 "--save-state=x", "--resume-state=x"):
+    for flag in ("--fused", "--pregather", "--timings-json=x"):
         with pytest.raises(SystemExit):
             vit_mnist.build_parser().parse_args([flag])
 
