@@ -60,6 +60,25 @@ Phases, one JSON line each:
                 conv (dropout off, deterministic cuDNN, TF32 off), and two
                 epochs of --bf16 --pallas-opt (epoch-1 accuracy floor)
                 beside resume's two f32 epochs;
+9b. fused     — the fused path (--fused, parallel/fused.py: the dataset
+                on the card, each step replayed from one CUDA graph) and
+                the prefetch (--prefetch-depth): (a) 2 eager and 20
+                replayed fused steps against 22 per-batch steps on the same
+                batches from the same weights, dropout on, plain and
+                --pallas-opt, torch.equal, row 3 once a replay; (b)
+                mnist.py --fused --pallas-opt for two epochs torch.equal to
+                the train phase's two per-batch epochs, lines identical,
+                epoch-1 accuracy floor, s/epoch both ways, host reads an
+                epoch; --fused --pregather equal to --fused at
+                --train-limit; (c) --prefetch-depth 0 equal to 2 at
+                --train-limit, s/epoch and median data_wait_seconds each;
+                (d) mnist_ddp in an NCCL world of one through the launcher
+                (this script the rank program): --fused --pallas-opt
+                --save-model equal to (b), --fused --zero and --fused
+                --syncbn --pallas-opt equal to their per-batch runs (two
+                gloo ranks sharing the card refused with the NCCL
+                ValueError: in the ddp phase's gloo world); (e) 100
+                replayed steps under torch.profiler;
 10. ddp       — mnist_ddp on the card: an NCCL world of one through the
                 launcher (--nproc_per_node=1, --batch-size 200 --pallas-opt
                 --save-model, one epoch; this script is the rank program, so
@@ -95,7 +114,7 @@ Phases, one JSON line each:
                 then 100 steps, plain and --pallas-opt, under
                 torch.profiler (wall and device-busy time per step), and
                 --pallas-opt again without deterministic cuDNN and under
-                --bf16 with and without it; seconds per epoch of the
+                --bf16 with and without it; seconds for 300 of the
                 --pallas-opt steps with and without it, in turns;
 13. vit_step  — the ViT (vit_mnist.py defaults), 20 train steps from one set
                 of weights on fixed batches, seven ways: plain, --flash,
@@ -103,12 +122,12 @@ Phases, one JSON line each:
                 --bf16 plain, --flash, --sp 1 --allow-degree-1 --flash; each
                 dtype's runs must agree and launch the kernel once per
                 attention call;
-14. vit_train — the ViT CLI's fit() on the synthetic sets at the CLI
-                defaults: one epoch each of --flash, --sp 1
-                --allow-degree-1 --flash, --bf16 --flash and --bf16 --sp 1
-                --allow-degree-1 --flash (epoch-1 accuracy floor, launches
-                equal to the attention calls);
-15. vit_profile — where a ViT step's time goes: 100 steps, plain, --flash,
+14. vit_train — the ViT CLI's fit() at the CLI defaults: one epoch each
+                of --flash and --bf16 --sp 1 --allow-degree-1 --flash on
+                the synthetic sets (epoch-1 accuracy floor) and of --sp 1
+                --allow-degree-1 --flash and --bf16 --flash cut to 100
+                steps, launches equal to the attention calls;
+15. vit_profile — where a ViT step's time goes: 20 steps, plain, --flash,
                 --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
                 torch.profiler;
 16. times     — flash_attention in both modes and both dtypes, its plain
@@ -140,9 +159,9 @@ Phases, one JSON line each:
                 --sp 2 --tp 2 --flash, each held to the single-device
                 --flash steps of its dtype with the ranks' replicated
                 leaves bit-equal after every step and the flash launches
-                at their formula; (e) one epoch of --sp 2 --flash on the two
-                ranks through vit_mnist.fit (epoch-1 accuracy floor, ms a
-                step, host µs a ring pass);
+                at their formula; (e) one 100-step epoch of --sp 2 --flash
+                on the two ranks through vit_mnist.fit (ms a step, host µs
+                a ring pass, launches and staged passes at their formula);
 18. vit_family — the ViT's --experts, --zero and --pp: (a) an NCCL world
                 of one through the launcher, 20 fixed steps of --experts 8
                 --flash (twice: the repeat bit for bit) and --zero --flash,
@@ -186,11 +205,13 @@ Phases, one JSON line each:
                 step-stats line an epoch, trace bytes and wall seconds
                 beside the unprofiled epoch.
 
-Then the ``kernels`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Launch counts are zeroed just before
-each main path and read just after it: int8_head over phases 4-5 (the
-serving path), adadelta over phases 6-9 (the CNN training path, resumed
-runs included) and again over phase 10 (the data-parallel step, the
+Every phase line carries its ``seconds``.  Then the ``kernels`` line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Launch
+counts are zeroed just before each main path and read just after it:
+int8_head over phases 4-5 (the serving path), adadelta over phases 6-9
+(the CNN training path, resumed runs included), again over 9b (the fused
+and prefetching paths, the launcher rank's included; the per-batch
+references apart) and again over phase 10 (the data-parallel step, the
 ranks' processes included; the references it is held to are counted
 apart), flash_attention over phases 13-14 (the ViT training path) and
 again over 17 (b)-(e) (the parallel modes, counted by the ranks'
@@ -263,6 +284,13 @@ ADADELTA_N = (1, 37, 1024, 33000, 300000, 1199882)
 ADADELTA_TOL = 1e-6  # kernel vs plain: same IEEE ops in the same order
 TRAIN_STEPS = 20  # train_step phase
 PROFILE_STEPS = 100  # train_profile phase
+# vit_profile phase: a ViT step holds ~960 device and ~7,000 host events,
+# and reading a 100-step window back took ~50 s a way (PR 12); 20 steps
+# give the same per-step readings.
+VIT_PROFILE_STEPS = 20
+# train_profile's determinism cost: the --pallas-opt steps over this many
+# of an epoch's batches, with and without deterministic cuDNN, in turns.
+ABBA_STEPS = 300
 TRAIN_STEP_RTOL = 1e-5  # three optimizer paths, deterministic cuDNN
 EPOCH1_MIN_ACCURACY = 0.95
 # ddp phase: the reference's headline batch (README.md:42) in an NCCL world
@@ -378,6 +406,10 @@ VIT_BF16_STEP_ATOL = 5e-3
 # the port's initial weights come from another generator, so the floor sits
 # 5.9 points below the lowest reading.
 VIT_EPOCH1_MIN_ACCURACY = 0.70
+# vit_train's --sp 1 --allow-degree-1 --flash (f32) and --bf16 --flash
+# epochs, cut to 100 steps of 64: the floor stays on the full epochs of
+# --flash (f32) and --bf16 --sp 1 --allow-degree-1 --flash.
+VIT_CUT_ROWS = 6400
 # vit_parallel phase.  (a) The ring over S token shards of one sequence in
 # this process, k/v rotated between the shards as the ring passes them:
 # (S, (b, T, h, d)) at the ViT's train and eval shapes and one long one.
@@ -463,9 +495,24 @@ STATE_FOUR = ("tp2",)
 STATE_BF16_ATOL = 5e-3
 STATE_RANK_BATCH = 32
 STATE_CURSOR = 12
+# fused phase: (a) WARMUP_STEPS eager and FUSED_CAPTURED replayed steps
+# against as many per-batch steps; (b)-(d) --train-limit legs on an IDX set
+# of FUSED_LIMIT training rows (100 steps of 64); (e) profiled replays.
+FUSED_CAPTURED = 20
+FUSED_LIMIT = 6400
+FUSED_PROFILE_STEPS = 100
+
+
+_CLOCK = {"last": time.perf_counter()}
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase line carries its ``seconds``: the phase's
+    own where it times itself, else the time since the last phase line."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "seconds": obj.get("seconds", now - _CLOCK["last"])}
+        _CLOCK["last"] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -840,10 +887,11 @@ TRAIN_LINE = re.compile(r"^Train Epoch: (\d+) \[(\d+)/(\d+) \((\d+)%\)\]\tLoss: 
 TEST_LINE = re.compile(r"^Test set: Average loss: (\d+\.\d{4}), Accuracy: (\d+)/(\d+) \((\d+)%\)$")
 
 
-def fit_run(flags: list[str], save_path: str | None = None) -> dict:
+def fit_run(flags: list[str], save_path: str | None = None, registry=None) -> dict:
     """The trainer's fit() on the card with mnist.py's ``flags``: the
     model, its state, the printed lines, fit's timings, the wall seconds
-    and the adadelta launches of the run."""
+    and the adadelta launches of the run (``registry`` takes the
+    loaders' prefetch histograms)."""
     from pytorch_mnist_ddp_tpu_torch.mnist import build_parser
     from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
     from pytorch_mnist_ddp_tpu_torch.trainer import fit
@@ -854,16 +902,18 @@ def fit_run(flags: list[str], save_path: str | None = None) -> dict:
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        model, state = fit(args, "cuda", save_path=save_path, timings=timings)
+        model, state = fit(args, "cuda", save_path=save_path, timings=timings,
+                           registry=registry)
     return {"args": args, "model": model, "state": state, "timings": timings,
             "lines": [ln for ln in out.getvalue().splitlines() if ln],
             "wall": time.perf_counter() - t0,
             "launches": {k: af.LAUNCHES[k] - before[k] for k in before}}
 
 
-def train_phase(torch) -> dict[str, int]:
+def train_phase(torch) -> tuple[dict[str, int], dict]:
     """fit() on the card, --pallas-opt for two epochs then plain for one;
-    returns the adadelta launches of the phase."""
+    returns the adadelta launches of the phase and the --pallas-opt run
+    (the fused phase holds --fused to it)."""
     from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
 
     launches = {k: 0 for k in af.LAUNCHES}
@@ -906,8 +956,10 @@ def train_phase(torch) -> dict[str, int]:
             "first_last_logged_loss": [losses[0], losses[-1]],
             "wall_seconds": wall, "launches": got,
         }
+        if leg == "pallas_opt":
+            kept = run
     emit({"phase": "train", "legs": legs})
-    return launches
+    return launches, kept
 
 
 def same_run(torch, a: dict, b: dict) -> dict[str, bool]:
@@ -920,10 +972,11 @@ def same_run(torch, a: dict, b: dict) -> dict[str, bool]:
             "step": sa.step == sb.step}
 
 
-def resume_phase(torch, workdir: str) -> tuple[dict[str, int], list[float]]:
+def resume_phase(torch, workdir: str, full: dict) -> tuple[dict[str, int], list[float]]:
     """--save-state / --resume-state / --resume through fit() on the card,
     CNN at the CLI defaults with --pallas-opt on the synthetic 60k set:
-    (a) two epochs; (b) one epoch with --save-state, then --resume-state
+    (a) two epochs (``full``: the train phase's run, whose launches that
+    phase counts); (b) one epoch with --save-state, then --resume-state
     for one, equal to (a) bit for bit; (c) a per-leaf archive resumed with
     --pallas-opt (the delta kernel on the restored accumulators) and that
     run's flat archive resumed without; (d) --resume from a --save-model
@@ -934,7 +987,6 @@ def resume_phase(torch, workdir: str) -> tuple[dict[str, int], list[float]]:
     from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import load_inference_state
 
     path = os.path.join(workdir, "state.npz")
-    full = fit_run(["--epochs", "2", "--pallas-opt"])
     first = fit_run(["--epochs", "1", "--pallas-opt", "--save-state", path])
     archive_bytes = os.path.getsize(path)
     resumed = fit_run(["--epochs", "1", "--pallas-opt", "--resume-state", path])
@@ -991,11 +1043,10 @@ def resume_phase(torch, workdir: str) -> tuple[dict[str, int], list[float]]:
     check(loaded["state"].step == 0 and loaded["launches"]["adadelta_delta"] == 0,
           "--resume at --epochs 0 took steps")
     launches = {}
-    for run in (full, first, resumed, saved, to_flat, to_leaf, loaded):
+    for run in (first, resumed, saved, to_flat, to_leaf, loaded):
         for k, v in run["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    steps = full["state"].step + first["state"].step + resumed_steps + (
-        resumed["state"].step - first["state"].step)
+    steps = first["state"].step + resumed_steps + (resumed["state"].step - first["state"].step)
     check(launches == {"adadelta_delta": steps, "adadelta_fused": 0},
           f"resume phase launches {launches}, --pallas-opt steps {steps}")
     return launches, full["timings"]["epoch_train_s"]
@@ -1237,14 +1288,14 @@ def train_profile_phase(torch, np) -> None:
             step = make_train_step(use_pallas=True, dropout_seed=split_streams(1)["dropout"])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for x, y, w in batches:
+            for x, y, w in batches[:ABBA_STEPS]:
                 step(net, state, x, y, w, 1.0)
             torch.cuda.synchronize()
             epoch_s[det].append(time.perf_counter() - t0)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    report["pallas_opt_seconds_per_epoch"] = {"deterministic": epoch_s[True],
-                                              "nondeterministic": epoch_s[False]}
+    report[f"pallas_opt_seconds_per_{ABBA_STEPS}_steps"] = {"deterministic": epoch_s[True],
+                                                         "nondeterministic": epoch_s[False]}
     emit({"phase": "train_profile", **report})
 
 
@@ -1361,9 +1412,26 @@ def ddp_gloo_rank(rank: int, init_file: str, workdir: str) -> None:
             out[way] = {"losses": torch.stack(losses).cpu(),
                         "state": {k: v.cpu() for k, v in net.state_dict().items()},
                         "launches": {k: af.LAUNCHES[k] - before[k] for k in before}}
+        out["fused_refused"] = fused_on_gloo(world, os.path.join(workdir, "fused_idx"))
     finally:
         destroy_distributed()
     torch.save(out, os.path.join(workdir, f"gloo_rank{rank}.pt"))
+
+
+def fused_on_gloo(world, root: str) -> str | None:
+    """``mnist_ddp --fused`` on a gloo world of ranks sharing the card
+    (the fused phase's check (d), in the ddp phase's gloo world): what the
+    trainer raised (only NCCL's collectives can be captured), or None."""
+    from pytorch_mnist_ddp_tpu_torch import trainer
+    from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser
+
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer._fit(build_parser().parse_args(["--data-root", root, "--epochs", "1",
+                                                    "--fused"]), None, None, None, world)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def ddp_two_halves(torch, xs, ys, pallas: bool) -> tuple:
@@ -1542,6 +1610,7 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     xs = normalize(images).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH, 28, 28, 1)
     ys = labels.astype(np.int64).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH)
     np.savez(os.path.join(workdir, "batches.npz"), xs=xs, ys=ys)
+    vit_idx_root(np, workdir, name="fused_idx")  # the ranks' --fused refusal
     ctx = multiprocessing.get_context("spawn")
     init_file = os.path.join(workdir, "gloo_rdzv")
     t0 = time.perf_counter()
@@ -1561,6 +1630,9 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
              for r in (0, 1)]
     check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks),
           f"gloo ranks on {[(r['backend'], r['device']) for r in ranks]}")
+    fused_refused = [r["fused_refused"] for r in ranks]
+    check(all(msg and "NCCL" in msg for msg in fused_refused),
+          f"two gloo ranks on the card ran --fused: {fused_refused}")
     xs_t, ys_t = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
     w = torch.ones(2 * DDP_RANK_BATCH, device="cuda")
     # The one-rank steps in f64, and in f32 with the rows of every batch
@@ -1721,7 +1793,8 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     emit({"phase": "ddp", "nccl_world_of_one": leg1,
           "gloo_two_ranks_one_card": {"steps": DDP_STEPS, "rank_batch": DDP_RANK_BATCH,
                                       "wall_seconds": gloo_s, "ways": ways,
-                                      "zero_ways": zero_ways},
+                                      "zero_ways": zero_ways,
+                                      "fused_refused": fused_refused[0]},
           "zero_nccl_world_of_one": zero_nccl,
           "seconds": time.perf_counter() - t_phase, "launches": launches,
           "reference_launches": references})
@@ -1981,21 +2054,25 @@ def vit_step_phase(torch, np) -> tuple[dict[str, int], dict[str, int]]:
              for k in plain["launches"]})
 
 
-def vit_train_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+def vit_train_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     """The ViT CLI's fit() on the card, one epoch each of --flash, --sp 1
-    --allow-degree-1 --flash, and both with --bf16; returns the flash
-    launches of the phase, all and those of the --bf16 legs."""
+    --allow-degree-1 --flash, and both with --bf16: a full epoch of --flash
+    and of --bf16 --sp 1 --allow-degree-1 --flash (the accuracy floor on
+    each dtype and each path), the other two on VIT_CUT_ROWS training rows
+    of an IDX set; returns the flash launches of the phase, all and those
+    of the --bf16 legs."""
     from pytorch_mnist_ddp_tpu_torch import vit_mnist
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
     launches = {k: 0 for k in fa.LAUNCHES}
     bf16_launches = dict(launches)
     legs = {}
+    cut = ["--data-root", vit_idx_root(np, workdir, VIT_CUT_ROWS, "vit_cut_idx")]
     for leg, mode, flags in (
         ("flash", "flash_fwd", ["--epochs", "1", "--flash"]),
         ("sp1_flash", "flash_partial", ["--epochs", "1", "--sp", "1", "--allow-degree-1",
-                                        "--flash"]),
-        ("bf16_flash", "flash_fwd", ["--epochs", "1", "--bf16", "--flash"]),
+                                        "--flash", *cut]),
+        ("bf16_flash", "flash_fwd", ["--epochs", "1", "--bf16", "--flash", *cut]),
         ("bf16_sp1_flash", "flash_partial", ["--epochs", "1", "--bf16", "--sp", "1",
                                              "--allow-degree-1", "--flash"]),
     ):
@@ -2032,7 +2109,7 @@ def vit_train_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
         check(model.cfg.bf16 == ("--bf16" in flags), f"vit {leg}: bf16 {model.cfg.bf16}")
         check(state.step == steps, f"vit {leg}: {state.step} optimizer steps, loader gave {steps}")
         acc1 = timings["epoch1_test_accuracy"]
-        check(acc1 >= VIT_EPOCH1_MIN_ACCURACY,
+        check("--data-root" in flags or acc1 >= VIT_EPOCH1_MIN_ACCURACY,
               f"vit {leg}: epoch-1 test accuracy {acc1} < {VIT_EPOCH1_MIN_ACCURACY}")
         secs = timings["epoch_train_s"]
         legs[leg] = {
@@ -2046,6 +2123,7 @@ def vit_train_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
             "wall_seconds": wall, "launches": got, "attention_calls": calls,
         }
     emit({"phase": "vit_train", "epoch1_min_accuracy": VIT_EPOCH1_MIN_ACCURACY,
+          "cut_to_train_rows": {"rows": VIT_CUT_ROWS, "legs": ["sp1_flash", "bf16_flash"]},
           "jax_cpu_epoch1_accuracy": {"f32": [0.7918, 0.8100, 0.7974], "bf16": [0.7882, 0.8426, 0.7591],
                                       "seeds": [1, 2, 3]},
           "legs": legs})
@@ -2053,8 +2131,8 @@ def vit_train_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
 
 
 def vit_profile_phase(torch) -> None:
-    """Where a ViT training step's time goes: PROFILE_STEPS steps on fixed
-    batches under torch.profiler, plain, --flash, --sp 1 --allow-degree-1
+    """Where a ViT training step's time goes: VIT_PROFILE_STEPS steps on
+    fixed batches under torch.profiler, plain, --flash, --sp 1 --allow-degree-1
     --flash and --bf16 --flash."""
     from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
     from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
@@ -2075,7 +2153,7 @@ def vit_profile_phase(torch) -> None:
         for x, y, w in batches[:10]:  # warm-up
             step(model, state, x, y, w, 1.0)
         torch.cuda.synchronize()
-        report[name] = profile_window(torch, batches[10:10 + PROFILE_STEPS],
+        report[name] = profile_window(torch, batches[10:10 + VIT_PROFILE_STEPS],
                                       lambda x, y, w: step(model, state, x, y, w, 1.0))
     emit({"phase": "vit_profile", **report})
 
@@ -2330,18 +2408,19 @@ def vit_par_batches(np, workdir: str) -> str:
     return path
 
 
-def vit_idx_root(np, workdir: str) -> str:
+def vit_idx_root(np, workdir: str, train_rows: int = VIT_PAR_STEPS * 64,
+                 name: str = "vit_idx") -> str:
     """A data root of MNIST IDX files on which one epoch of vit_mnist is
-    VIT_PAR_STEPS steps: that many batches of 64 training rows and 1000
-    test rows of the synthetic set."""
+    VIT_PAR_STEPS steps (by default): that many batches of 64 training
+    rows (``train_rows``) and 1000 test rows of the synthetic set."""
     import os
     import struct
 
     from pytorch_mnist_ddp_tpu_torch.data.mnist import _FILES, synthetic_mnist
 
-    root = os.path.join(workdir, "vit_idx")
+    root = os.path.join(workdir, name)
     os.makedirs(root, exist_ok=True)
-    for split, n in (("train", VIT_PAR_STEPS * 64), ("test", 1000)):
+    for split, n in (("train", train_rows), ("test", 1000)):
         images, labels = synthetic_mnist(split, n)
         with open(os.path.join(root, _FILES[(split, "images")]), "wb") as f:
             f.write(struct.pack(">iiii", 2051, n, 28, 28) + images.astype(np.uint8).tobytes())
@@ -2547,7 +2626,8 @@ def vit_gloo_rank(rank: int, world_size: int, init_file: str, workdir: str, batc
                     pass_s.append(time.perf_counter() - t0)
 
             mesh._exchange = timed_exchange
-            args = vit_mnist.build_parser().parse_args(VIT_PAR_EPOCH)
+            args = vit_mnist.build_parser().parse_args(
+                [*VIT_PAR_EPOCH, "--data-root", os.path.join(workdir, "vit_cut_idx")])
             timings: dict = {}
             before, staged = dict(fa.LAUNCHES), mesh.STAGED["calls"]
             out = io.StringIO()
@@ -2692,6 +2772,7 @@ def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         and all(torch.equal(got["state"][k], alone["state"][k]) for k in alone["state"]))
 
     # (c) + (e) two gloo ranks sharing the card; (d) four
+    vit_idx_root(np, workdir, VIT_CUT_ROWS, "vit_cut_idx")  # (e)'s epoch
     two, two_s = gloo_world(2, workdir, batches, VIT_PAR_TWO, epoch=True)
     four, four_s = gloo_world(4, workdir, batches, VIT_PAR_FOUR, epoch=False)
     check(all(r["backend"] == "gloo" and r["device"] == 0 for r in two + four),
@@ -2704,7 +2785,8 @@ def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         for k in launches:
             launches[k] += r["launches"][k]
 
-    # (e) one epoch of --sp 2 --flash on the two ranks
+    # (e) one epoch of --sp 2 --flash on the two ranks, VIT_CUT_ROWS rows:
+    # the ring's accuracy floor is on vit_train's full --bf16 --sp 1 epoch
     ep = [r["epoch"] for r in two]
     lines = ep[0]["lines"]
     tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
@@ -2749,7 +2831,6 @@ def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         check(all(r["ok"].values()), f"vit_parallel {leg}: {r['ok']}")
     check(epoch_launches == {"flash_fwd": 0, "flash_partial": want_epoch},
           f"vit epoch leg launches {epoch_launches} != {want_epoch}")
-    check(acc1 >= VIT_EPOCH1_MIN_ACCURACY, f"vit --sp 2 epoch-1 accuracy {acc1}")
     check(all(e["staged_ring_passes"] == e["ring_passes"] == want_passes for e in ep),
           f"vit epoch leg ring passes {[(e['staged_ring_passes'], e['ring_passes']) for e in ep]}"
           f" != {want_passes}")
@@ -3489,6 +3570,283 @@ def train_state_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     return launches, references
 
 
+def log_lines(lines: list[str]) -> list[str]:
+    """The train and test lines of a run's output (the synthetic set's
+    notice is printed once a process)."""
+    return [ln for ln in lines if ln.startswith(("Train Epoch", "Test set"))]
+
+
+def same_opt(torch, a, b) -> bool:
+    """torch.equal of two optimizer states of one layout: flat, ZeRO-1
+    chunks or per-leaf trees."""
+    if type(a) is not type(b):
+        return False
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x) if isinstance(
+        a[0], dict) else all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def fused_rank_program(argv: list[str]) -> int:
+    """``chip_smoke.py --fused-rank OUT SPEC``: the rank program of the
+    fused phase's NCCL world of one (the launcher's environment).  SPEC
+    (JSON) lists ``[name, mnist_ddp flags, save path or null]`` runs, each
+    through the trainer's body in this world; writes each run's lines,
+    step, state, accumulators, timings and adadelta launches, and the
+    backend, to OUT."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_mnist_ddp_tpu_torch import trainer
+    from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.parallel.distributed import destroy_distributed, form_world
+
+    out, spec = argv[0], json.load(open(argv[1]))
+    world = form_world()
+    result = {"backend": dist.get_backend()}
+    try:
+        for name, flags, save_path in spec:
+            timings: dict = {}
+            before = dict(af.LAUNCHES)
+            lines = io.StringIO()
+            with contextlib.redirect_stdout(lines):
+                net, state = trainer._fit(build_parser().parse_args(flags), None, save_path,
+                                          timings, world)
+            result[name] = {
+                "lines": [ln for ln in lines.getvalue().splitlines() if ln],
+                "step": state.step,
+                "state": {k: v.detach().cpu() for k, v in net.state_dict().items()},
+                "opt": type(state.opt)(*(
+                    {k: v.cpu() for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+                    for t in state.opt)),
+                "timings": {k: timings.get(k) for k in ("epoch_wall_s", "epoch_train_s",
+                                                        "host_syncs", "replays")},
+                "launches": {k: af.LAUNCHES[k] - before[k] for k in before}}
+    finally:
+        destroy_distributed()
+    torch.save(result, f"{out}.rank{os.environ['RANK']}")
+    return 0
+
+
+def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
+    """The fused path (``--fused``, ``parallel/fused.py``) and the
+    prefetch (``--prefetch-depth``) on the card, TF32 off, deterministic
+    cuDNN.  (a) WARMUP_STEPS eager and FUSED_CAPTURED replayed steps of
+    the fused epoch against as many per-batch steps on the loader's
+    batches of epoch 1 from the same weights, dropout on, plain and
+    --pallas-opt: parameters, accumulators and losses torch.equal, row 3
+    once a replay.  (b) mnist.py --fused --pallas-opt, two epochs, against
+    the train phase's own two --pallas-opt epochs (``per_batch``): the
+    same bits and lines, epoch-1 accuracy, s/epoch both ways, host reads
+    an epoch; --fused --pregather against --fused at --train-limit.
+    (c) --prefetch-depth 0 against the default 2 at --train-limit: the
+    same bits and lines; s/epoch and the median data_wait_seconds each.
+    (d) mnist_ddp in an NCCL world of one through the launcher (this
+    script the rank program): --fused --pallas-opt --save-model equal to
+    (b), --fused --zero and --fused --syncbn --pallas-opt equal to their
+    per-batch runs at --train-limit (two gloo ranks sharing the card are
+    refused with the NCCL ValueError in the ddp phase's gloo world, which
+    the same ranks serve).  (e) FUSED_PROFILE_STEPS replays
+    under torch.profiler.  Returns the adadelta launches of the fused and
+    prefetching paths and, apart, those of the references."""
+    import itertools
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.obs.registry import Registry
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.parallel import fused
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import load_inference_state
+    from pytorch_mnist_ddp_tpu_torch.utils.rng import split_streams
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    path = {k: 0 for k in af.LAUNCHES}
+    references = {k: 0 for k in af.LAUNCHES}
+    start = dict(af.LAUNCHES)
+
+    def add(into: dict, launches: dict) -> None:
+        for k in into:
+            into[k] += launches[k]
+
+    def since(before: dict) -> dict:
+        return {k: af.LAUNCHES[k] - before[k] for k in before}
+
+    # (a) captured against eager
+    images, labels = synthetic_mnist("train")
+    loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
+    seed = split_streams(1)["dropout"]
+    steps = fused.WARMUP_STEPS + FUSED_CAPTURED
+    captured = {}
+    for leg, pallas in (("plain", False), ("pallas_opt", True)):
+        net = Net(torch.Generator().manual_seed(SEED)).cuda()
+        state = make_train_state(net, use_pallas=pallas)
+        step = make_train_step(use_pallas=pallas, dropout_seed=seed)
+        before = dict(af.LAUNCHES)
+        eager = torch.stack([step(net, state, x, y, w, 1.0)
+                             for x, y, w in itertools.islice(loader.epoch(1), steps)])
+        add(references, since(before))
+        fnet = Net(torch.Generator().manual_seed(SEED)).cuda()
+        fstate = make_train_state(fnet, use_pallas=pallas)
+        run = fused.FusedEpoch(fnet, fstate, loader, dropout_seed=seed, use_pallas=pallas)
+        before = dict(af.LAUNCHES)
+        run.load(1, 1.0)
+        for _ in range(fused.WARMUP_STEPS):
+            run.step()
+        mid = dict(af.LAUNCHES)
+        for _ in range(FUSED_CAPTURED):
+            run.step()
+        torch.cuda.synchronize()
+        replayed = since(mid)["adadelta_delta"]
+        add(path, since(before))
+        same = {"params": all(torch.equal(a, b) for a, b in zip(net.parameters(),
+                                                                fnet.parameters())),
+                "accumulators": same_opt(torch, state.opt, fstate.opt),
+                "losses": torch.equal(eager, run.losses[:steps]),
+                "step": state.step == fstate.step == steps}
+        captured[leg] = {"steps": steps, "eager_steps": run.eager_steps,
+                         "replays": run.replays, "row3_launches_in_replays": replayed,
+                         "recorded_in_graph": run.recorded, "torch_equal": same}
+        check(all(same.values()), f"fused (a) {leg}: the captured steps off the eager: {same}")
+        check(run.graph is not None and run.replays == FUSED_CAPTURED,
+              f"fused (a) {leg}: {run.replays} replays")
+        check(replayed == (run.replays if pallas else 0),
+              f"fused (a) {leg}: row 3 launched {replayed} times in {run.replays} replays")
+    del loader
+
+    # (b) the CLI against the train phase's per-batch epochs
+    fused_run = fit_run(["--epochs", "2", "--pallas-opt", "--fused"])
+    add(path, fused_run["launches"])
+    timings = fused_run["timings"]
+    same_b = {**same_run(torch, fused_run, per_batch),
+              "lines": log_lines(fused_run["lines"]) == log_lines(per_batch["lines"])}
+    acc1 = timings["epoch1_test_accuracy"]
+    check(all(same_b.values()), f"fused (b): --fused off the per-batch epochs: {same_b}")
+    check(acc1 >= EPOCH1_MIN_ACCURACY, f"fused (b): epoch-1 accuracy {acc1}")
+    check(fused_run["launches"]["adadelta_delta"] == fused_run["state"].step,
+          f"fused (b): row 3 {fused_run['launches']} for {fused_run['state'].step} steps")
+    root = vit_idx_root(np, workdir, FUSED_LIMIT, "fused_idx")
+    limited = ["--data-root", root, "--epochs", "2", "--pallas-opt"]
+    gather = fit_run([*limited, "--fused"])
+    pregather = fit_run([*limited, "--fused", "--pregather"])
+    add(path, gather["launches"])
+    add(path, pregather["launches"])
+    same_pre = {**same_run(torch, gather, pregather),
+                "lines": log_lines(gather["lines"]) == log_lines(pregather["lines"])}
+    check(all(same_pre.values()), f"fused (b): --pregather off --fused: {same_pre}")
+    cli = {"torch_equal_to_per_batch": same_b, "epoch1_test_accuracy": acc1,
+           "seconds_per_epoch": {"fused": timings["epoch_wall_s"],
+                                 "per_batch": per_batch["timings"]["epoch_wall_s"],
+                                 "per_batch_train_only": per_batch["timings"]["epoch_train_s"]},
+           "host_syncs_per_epoch": timings["host_syncs"] / len(timings["epoch_wall_s"]),
+           "eager_steps": 2 * timings["epoch_steps"][0] - timings["replays"],
+           "replays": timings["replays"], "launches": fused_run["launches"],
+           "pregather_torch_equal": same_pre,
+           "pregather_seconds_per_epoch": {"gather": gather["timings"]["epoch_wall_s"],
+                                           "pregather": pregather["timings"]["epoch_wall_s"]}}
+
+    # (c) prefetch depth 0 against the default 2, the per-batch path, in
+    # turns (2, 0, 0, 2): the first run of a process pays set-up the others
+    # do not
+    depths: dict[int, list] = {2: [], 0: []}
+    for depth in (2, 0, 0, 2):
+        registry = Registry()
+        run = fit_run([*limited[:-3], "--epochs", "1", "--pallas-opt",
+                       "--prefetch-depth", str(depth)], registry=registry)
+        add(path if depth else references, run["launches"])
+        waits = registry.histogram("data_wait_seconds", pipeline="train").values()
+        occupancy = registry.histogram("prefetch_buffer_occupancy", pipeline="train").values()
+        depths[depth].append({"run": run, "report": {
+            "seconds_per_epoch": run["timings"]["epoch_train_s"][0],
+            "median_data_wait_ms": 1e3 * statistics.median(waits), "consumes": len(waits),
+            "mean_occupancy": statistics.fmean(occupancy)}})
+    first = depths[2][0]["run"]
+    same_c = {f"depth_{d}_run_{i}": same_run(torch, first, r["run"]) == {
+        "params": True, "square_avg": True, "acc_delta": True, "step": True}
+        and log_lines(first["lines"]) == log_lines(r["run"]["lines"])
+        for d, runs in depths.items() for i, r in enumerate(runs)}
+    check(all(same_c.values()), f"fused (c): the prefetch depths' runs differ: {same_c}")
+    prefetch = {"torch_equal_to_the_first": same_c,
+                **{f"depth_{d}": [r["report"] for r in runs] for d, runs in depths.items()}}
+    del depths
+
+    # (d) mnist_ddp in an NCCL world of one, and two gloo ranks refused
+    spec = [["fused_pallas_opt", ["--epochs", "2", "--pallas-opt", "--fused", "--save-model"],
+             "mnist_cnn.pt"],
+            ["fused_zero", [*limited[:-1], "--zero", "--fused"], None],
+            ["zero", [*limited[:-1], "--zero"], None],
+            ["fused_syncbn", [*limited, "--syncbn", "--fused"], None],
+            ["syncbn", [*limited, "--syncbn"], None]]
+    with open(os.path.join(workdir, "fused_spec.json"), "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
+         "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
+         "--fused-rank", os.path.join(workdir, "fused_counts"),
+         os.path.join(workdir, "fused_spec.json")],
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
+    nccl_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"fused (d) launcher exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    rank0 = torch.load(os.path.join(workdir, "fused_counts.rank0"), weights_only=False)
+    check(rank0["backend"] == "nccl", f"fused (d) formed {rank0['backend']}")
+    saved = load_inference_state(os.path.join(workdir, "mnist_cnn.pt"))
+    want = {k: v.cpu() for k, v in fused_run["model"].state_dict().items()}
+    lead = rank0["fused_pallas_opt"]
+    same_d = {"mnist_cnn_pt": sorted(saved) == sorted(want)
+              and all(torch.equal(saved[k], want[k]) for k in want),
+              "lines": log_lines(lead["lines"]) == log_lines(fused_run["lines"])}
+    for name, ref in (("fused_zero", "zero"), ("fused_syncbn", "syncbn")):
+        a, b = rank0[name], rank0[ref]
+        same_d[name] = (log_lines(a["lines"]) == log_lines(b["lines"]) and a["step"] == b["step"]
+                        and all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+                        and same_opt(torch, a["opt"], b["opt"]))
+    check(all(same_d.values()), f"fused (d): the NCCL world of one: {same_d}")
+    for name in ("fused_pallas_opt", "fused_zero", "fused_syncbn"):
+        add(path, rank0[name]["launches"])
+        check(rank0[name]["timings"]["replays"] > 0, f"fused (d) {name}: no replay")
+    add(references, rank0["syncbn"]["launches"])
+    add(references, rank0["zero"]["launches"])
+    check(lead["launches"]["adadelta_delta"] == lead["step"]
+          and rank0["fused_syncbn"]["launches"]["adadelta_delta"] == rank0["fused_syncbn"]["step"],
+          "fused (d): row 3 not once a step")
+    ddp = {"nccl_world_of_one": {"torch_equal": same_d, "launcher_wall_seconds": nccl_s,
+                                 **{name: {"step": r["step"], "timings": r["timings"],
+                                           "launches": r["launches"]}
+                                    for name, r in rank0.items() if name != "backend"}},
+           "gloo_two_ranks": "refused in the ddp phase's gloo world (fused_refused)"}
+
+    # (e) where a replayed step's time goes
+    images, labels = synthetic_mnist("train")
+    loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
+    net = Net(torch.Generator().manual_seed(SEED)).cuda()
+    run = fused.FusedEpoch(net, make_train_state(net, use_pallas=True), loader,
+                           dropout_seed=seed, use_pallas=True)
+    before = dict(af.LAUNCHES)
+    run.load(1, 1.0)
+    for _ in range(fused.WARMUP_STEPS + 10):  # the capture, then a few replays
+        run.step()
+    torch.cuda.synchronize()
+    profile = profile_window(torch, [(None, None, None)] * FUSED_PROFILE_STEPS,
+                             lambda *_: run.step(), find="adadelta")
+    add(path, since(before))
+    local = since(start)
+    emit({"phase": "fused", "captured_vs_eager": captured, "cli": cli, "prefetch": prefetch,
+          "mnist_ddp": ddp, "profile_pallas_opt": profile, "launches": path,
+          "reference_launches": references, "seconds": time.perf_counter() - t_phase})
+    check(all(local[k] == path[k] + references[k]
+              - sum(rank0[n]["launches"][k] for n in rank0 if n != "backend")
+              for k in local), f"fused phase launched {local} in this process outside its legs")
+    return path, references
+
+
 def main() -> int:
     import torch
 
@@ -3714,9 +4072,10 @@ def main() -> int:
     # 6-9. the training path; adadelta launch counts cover these four
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
-    by_phase = {"train_step": train_step_phase(torch, np), "train": train_phase(torch)}
+    by_phase = {"train_step": train_step_phase(torch, np)}
+    by_phase["train"], per_batch_run = train_phase(torch)
     with tempfile.TemporaryDirectory() as workdir:
-        by_phase["resume"], f32_epoch_s = resume_phase(torch, workdir)
+        by_phase["resume"], f32_epoch_s = resume_phase(torch, workdir, per_batch_run)
     by_phase["cnn_variants"] = cnn_variants_phase(torch, np, f32_epoch_s)
     train_launches = dict(af.LAUNCHES)
     check(train_launches == {k: sum(p[k] for p in by_phase.values()) for k in train_launches},
@@ -3724,6 +4083,16 @@ def main() -> int:
     for k, v in train_launches.items():
         check(v > 0, f"the training path never launched {k}")
     check(by_phase["resume"]["adadelta_delta"] > 0, "no delta kernel launch on restored state")
+
+    # 9b. fused: the fused path and the prefetch; their adadelta launches
+    # (the launcher rank's included) counted on their own, the per-batch
+    # references apart
+    for k in af.LAUNCHES:
+        af.LAUNCHES[k] = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        fused_launches, fused_references = fused_phase(torch, np, workdir, per_batch_run)
+    del per_batch_run
+    check(fused_launches["adadelta_delta"] > 0, "the fused path never launched adadelta_delta")
 
     # 10. the data-parallel path; the data-parallel step's adadelta
     # counts, the ranks' processes' included, and apart those of the
@@ -3746,7 +4115,8 @@ def main() -> int:
     for k in fa.LAUNCHES:
         fa.LAUNCHES[k] = 0
     vit_step_launches, vit_step_bf16 = vit_step_phase(torch, np)
-    vit_fit_launches, vit_fit_bf16 = vit_train_phase(torch)
+    with tempfile.TemporaryDirectory() as workdir:
+        vit_fit_launches, vit_fit_bf16 = vit_train_phase(torch, np, workdir)
     vit_bf16_launches = {k: vit_step_bf16[k] + vit_fit_bf16[k] for k in vit_step_bf16}
     vit_launches = dict(fa.LAUNCHES)
     check(vit_launches == {k: vit_step_launches[k] + vit_fit_launches[k] for k in vit_launches},
@@ -3808,9 +4178,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/adadelta.cu",
             "replaces": ADADELTA_REPLACES[name],
-            "launches": train_launches[name] + ddp_launches[name] + state_launches[name],
+            "launches": (train_launches[name] + fused_launches[name] + ddp_launches[name]
+                         + state_launches[name]),
             "launches_by_phase": {**{phase: n[name] for phase, n in by_phase.items()},
-                                  "ddp": ddp_launches[name], "train_state": state_launches[name]},
+                                  "fused": fused_launches[name], "ddp": ddp_launches[name],
+                                  "train_state": state_launches[name]},
+            "fused_reference_launches": fused_references[name],
             "ddp_reference_launches": ddp_references[name],
             "train_state_reference_launches": state_references[name],
             "max_abs_err": adadelta_err[name], **t,
@@ -3852,4 +4225,6 @@ if __name__ == "__main__":
         sys.exit(vit_rank_program(sys.argv[2:]))
     if sys.argv[1:2] == ["--state-rank"]:
         sys.exit(state_rank_program(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fused-rank"]:
+        sys.exit(fused_rank_program(sys.argv[2:]))
     sys.exit(main())

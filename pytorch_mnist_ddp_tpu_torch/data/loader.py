@@ -11,7 +11,16 @@ padding duplicates keep weight 1 by default, as torch's
 ``DistributedSampler`` trains on them; ``mask_padding`` gives them weight
 0, so that an evaluation counts each sample once.  Each batch is
 normalized on the host with numpy, copied into pinned memory and sent to
-the device with a ``non_blocking`` copy.  No prefetch thread yet.
+the device with a ``non_blocking`` copy on the consumer's stream.
+``prefetch_depth`` batches (2 by default, as in the JAX package) are
+assembled ahead of the consumer by a thread (``data/prefetch.py``);
+``prefetch_depth <= 0`` assembles them inline.  The batches are the same
+at every depth.  The JAX package's thread also places its batches on the
+device; here the pinning and the copy stay on the consumer's thread: on
+the card a thread that also pinned and copied (on a stream of its own)
+made an epoch of steps slower than ``prefetch_depth`` 0, and one that only
+assembles did not (``tools/prefetch_variants.py``, ``PERF.md``): the step
+loop is host-bound, and the two threads share the interpreter.
 
 ``shard``/``num_shards`` cut each batch the other way, as the JAX
 package's in-process mesh shards a global batch over its data axis: the
@@ -19,6 +28,11 @@ epoch goes in global batches of ``batch_size * num_shards`` (the last one
 padded at its end), and this loader yields rows ``shard * batch_size``
 onward of each, so a shard may hold padding alone.  The ViT's parallel
 modes use it, one shard per data coordinate.
+
+:meth:`DataLoader.index_table` lays an epoch's batches out as index and
+weight tables instead, for the fused path's gather on the device
+(``parallel/fused.py``): the same rows in the same order, with the final
+partial batch filled by wrapping this rank's indices, at weight 0.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import numpy as np
 import torch
 
 from ..parallel.sampler import epoch_indices, per_rank_count
+from .prefetch import DevicePrefetcher
 from .transforms import normalize
 
 Batch = tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, y, weight)
@@ -51,6 +66,9 @@ class DataLoader:
         mask_padding: bool = False,
         shard: int = 0,
         num_shards: int = 1,
+        prefetch_depth: int = 2,
+        registry=None,
+        pipeline: str = "data",
     ) -> None:
         if not 0 <= shard < num_shards:
             raise ValueError(f"shard {shard} out of range for {num_shards} shards")
@@ -65,6 +83,9 @@ class DataLoader:
         self.mask_padding = mask_padding
         self.shard = shard
         self.num_shards = num_shards
+        self.prefetch_depth = int(prefetch_depth)
+        self.registry = registry
+        self.pipeline = pipeline
 
     def __len__(self) -> int:
         """Batches per epoch on this rank, the final partial one included."""
@@ -98,32 +119,58 @@ class DataLoader:
             w = np.ones(len(take), np.float32)
         if len(take) < bs:  # pad the final partial batch, weight 0
             pad = bs - len(take)
-            x = np.concatenate([x, np.zeros((pad, *x.shape[1:]), x.dtype)])
+            # Padded in 3-D and the channel axis added after, so that this
+            # batch has normalize's layout too (that axis at stride 0): the
+            # convolutions may sum in another order for another layout.
+            x = np.concatenate([x[..., 0], np.zeros((pad, *x.shape[1:3]), x.dtype)])[..., None]
             y = np.concatenate([y, np.zeros(pad, y.dtype)])
             w = np.concatenate([w, np.zeros(pad, np.float32)])
         return x, y, w
 
-    def _host_batches(
-        self, epoch: int, start_batch: int = 0
-    ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        idx, valid = epoch_indices(
+    def _epoch_indices(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
+        return epoch_indices(
             len(self.labels), self.world_size, self.rank, epoch, self.seed,
             self.shuffle, return_valid=True,
         )
+
+    def _host_batches(
+        self, epoch: int, start_batch: int = 0
+    ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        idx, valid = self._epoch_indices(epoch)
         for b in range(start_batch, len(self)):
             yield self._assemble(idx, valid, b)
 
-    def _place(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
+    def index_table(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
+        """``(idx int64 [batches, batch_size], w float32 [batches,
+        batch_size])``: the rows of each of ``epoch``'s batches, as
+        :meth:`epoch` yields them, and their weights; the final partial
+        batch is filled by wrapping this rank's indices, at weight 0."""
+        idx, valid = self._epoch_indices(epoch)
+        bs = self.batch_size
+        b = np.arange(len(self))[:, None]
+        pos = (b * self.num_shards + self.shard) * bs + np.arange(bs)
+        inside = pos < len(idx)
+        w = valid[pos % len(idx)] if self.mask_padding else np.ones(pos.shape, bool)
+        return idx[pos % len(idx)].astype(np.int64), (w & inside).astype(np.float32)
+
+    def _place(self, host_batch) -> Batch:
+        ts = tuple(torch.from_numpy(a) for a in host_batch)
         if self.device.type == "cpu":
-            return t
+            return ts  # type: ignore[return-value]
         # pin_memory() copies into the caching host allocator, which keeps
         # the block until the asynchronous copy that reads it has finished.
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return tuple(t.pin_memory().to(self.device, non_blocking=True)
+                     for t in ts)  # type: ignore[return-value]
 
     def epoch(self, epoch: int, start_batch: int = 0) -> Iterator[Batch]:
         """The batches of ``epoch`` from batch ``start_batch`` on: a
         resumed run skips the first ones without assembling them and
-        consumes exactly the rest of the epoch's permutation."""
-        for host_batch in self._host_batches(epoch, start_batch):
-            yield tuple(self._place(a) for a in host_batch)  # type: ignore[misc]
+        consumes exactly the rest of the epoch's permutation.  Abandoning
+        the iterator stops the prefetch thread."""
+        feed = DevicePrefetcher(self._host_batches(epoch, start_batch), None,
+                                self.prefetch_depth, self.registry, self.pipeline)
+        try:
+            for host_batch in feed:
+                yield self._place(host_batch)
+        finally:
+            feed.close()

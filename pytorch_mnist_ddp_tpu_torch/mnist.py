@@ -11,7 +11,10 @@ for byte, and ``--save-model`` writes ``mnist_cnn.pt``.  Training always
 shuffles, as the JAX package does.  ``--save-state`` archives are the
 JAX package's format: either package resumes the other's.  ``--profile
 DIR`` writes a ``torch.profiler`` trace of the run, ``--step-stats`` one
-latency line an epoch.
+latency line an epoch.  ``--fused`` (with ``--pregather``) trains over a
+device-resident dataset, each step replayed from a CUDA graph;
+``--prefetch-depth`` sets how many batches the per-batch path's loader
+keeps in flight.
 """
 
 from __future__ import annotations
@@ -63,6 +66,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "and train --epochs MORE epochs, continuing the LR "
                         "schedule, shuffle stream, and epoch numbering "
                         "exactly where the saved run stopped")
+    p.add_argument("--fused", action="store_true", default=False,
+                   help="run the training epochs over a device-resident "
+                        "dataset, each step replayed from one CUDA graph "
+                        "(parallel/fused.py; same printed output, emitted "
+                        "after each epoch)")
+    p.add_argument("--pregather", action="store_true", default=False,
+                   help="(--fused only) pre-permuted-epoch input path: one "
+                        "big gather per epoch + contiguous per-step slices "
+                        "(parallel/fused.py pregather; bit-identical "
+                        "batches)")
     p.add_argument("--conv-impl", type=str, default="conv",
                    choices=["conv", "im2col_c1", "im2col"],
                    help="convolution lowering (models/net.py): cuDNN's "
@@ -95,6 +108,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "continuation with FP-level drift (reductions "
                         "re-associate), not bit-equality; without this "
                         "flag the world-fingerprint mismatch is refused")
+    p.add_argument("--prefetch-depth", type=int, default=2, metavar="N",
+                   help="input batches assembled and copied to the device "
+                        "ahead of the step loop (per-batch path; "
+                        "data/prefetch.py): 2 double-buffers the next "
+                        "batch's copy under the current step, 0 restores "
+                        "the synchronous serial feed; batches (and all "
+                        "printed output) are bit-identical either way. "
+                        "The --fused path keeps the whole dataset on the "
+                        "device, so the flag is a no-op there")
     p.add_argument("--data-root", type=str, default="./data",
                    help="MNIST IDX directory")
     p.add_argument("--train-limit", type=int, default=0, metavar="N",

@@ -25,6 +25,13 @@ between the flat and per-parameter layouts to match what a run executes.
 For CPU tensors the wrappers run :func:`adadelta_flat_reference`, the
 plain PyTorch version (``ops/adadelta.py``'s op order); for CUDA tensors
 they launch the kernel or raise.  Nothing falls back from the card.
+
+The launch goes on the current stream, so a CUDA graph captures it
+(``parallel/fused.py``).  A launch recorded into a graph counts once per
+replay, not at the capture: the graph's owner takes the recorded launches
+(:func:`take_captured`) and adds them at each replay (:func:`count_replay`).
+``lr`` may be a 0-d f32 tensor on the device, which a graph reads at each
+replay, where a Python number would be baked into it.
 """
 
 from __future__ import annotations
@@ -40,6 +47,22 @@ from .adadelta import AdadeltaState, Params, adadelta_delta, adadelta_update
 
 # Kernel launches by mode (one per launch; the CPU path does not count).
 LAUNCHES = {"adadelta_delta": 0, "adadelta_fused": 0}
+# Launches recorded into a graph under capture, not yet taken by its owner.
+CAPTURED = {"adadelta_delta": 0, "adadelta_fused": 0}
+
+
+def take_captured() -> dict[str, int]:
+    """The launches recorded since the last call, per mode; resets them."""
+    taken = dict(CAPTURED)
+    for k in CAPTURED:
+        CAPTURED[k] = 0
+    return taken
+
+
+def count_replay(recorded: dict[str, int]) -> None:
+    """One replay of a graph that recorded ``recorded`` launches."""
+    for k, n in recorded.items():
+        LAUNCHES[k] += n
 
 
 class FlatAdadeltaState(NamedTuple):
@@ -124,6 +147,7 @@ def _launch(g, sq, ac, rho: float, eps: float, p=None, lr: float = 0.0) -> None:
         return
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         # rho, 1 - rho, eps and lr round to f32 once, here, as the plain
         # version's Python scalars do when torch multiplies an f32 tensor.
         rc = _launcher()(
@@ -133,7 +157,8 @@ def _launch(g, sq, ac, rho: float, eps: float, p=None, lr: float = 0.0) -> None:
         )
     if rc != 0:
         raise RuntimeError(f"adadelta kernel launch failed: CUDA error {rc}")
-    LAUNCHES["adadelta_fused" if p is not None else "adadelta_delta"] += 1
+    kind = "adadelta_fused" if p is not None else "adadelta_delta"
+    (CAPTURED if capturing else LAUNCHES)[kind] += 1
 
 
 def fused_adadelta_flat(

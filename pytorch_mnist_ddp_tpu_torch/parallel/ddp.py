@@ -114,6 +114,56 @@ def _mean_over_ranks(flat: torch.Tensor, world_size: int) -> torch.Tensor:
     return flat.div_(torch.full((), world_size, dtype=flat.dtype, device=flat.device))
 
 
+def make_step_body(
+    use_pallas: bool = False,
+    rho: float = 0.9,
+    eps: float = 1e-6,
+    compute_dtype: torch.dtype = torch.float32,
+    conv_impl: str = "conv",
+    world: DistState | None = None,
+) -> Callable[..., torch.Tensor]:
+    """``body(model, opt, x, y, w, lr, generator) -> loss``: one optimizer
+    step's work on the device, the part :func:`make_train_step` and the
+    fused path (``parallel/fused.py``, which captures it in a CUDA graph)
+    share.  The train-mode forward (dropout drawn from ``generator``, none
+    if it is None), the masked-mean NLL, the backward, the flat gradient,
+    its mean over a distributed ``world``, and the update of the model's
+    parameters and ``opt`` in place (ZeRO-1's, the delta kernel's or the
+    per-leaf one, by ``opt``'s layout).  ``lr`` is a number or a 0-d f32
+    tensor on the device; the products are the same.  Nothing here reads
+    the device from the host."""
+    world = world or DistState()
+    group = world_group(world)
+
+    def body(model: Net, opt, x, y, w, lr, generator) -> torch.Tensor:
+        model.train()
+        params = dict(model.named_parameters())
+        loss = forward_loss(model, x, y, w, generator, compute_dtype, conv_impl,
+                            sync_bn=world.distributed)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        if is_zero_state(opt):
+            zero_update(params, flat, opt, lr, group, rho, eps)
+        else:
+            if world.distributed:
+                _mean_over_ranks(flat, world.world_size)
+            if is_flat_state(opt):
+                adadelta_step_flat(params, flat, opt, lr, rho, eps)
+            else:
+                views = dict(zip(params, (v.view_as(p) for v, p in zip(
+                    flat.split([p.numel() for p in params.values()]), params.values()))))
+                adadelta_update_best(params, views, opt, lr, rho, eps,
+                                     use_pallas=use_pallas)
+        return loss.detach()
+
+    return body
+
+
+def dropout_seed_of(dropout_seed: int, step: int, world: DistState) -> int:
+    """The seed of step ``step``'s dropout generator on this rank."""
+    return fold_replica_step(dropout_seed, step, world.rank, world.world_size)
+
+
 def make_train_step(
     dropout: bool = True,
     use_pallas: bool = False,
@@ -129,9 +179,10 @@ def make_train_step(
     x's device seeded with ``fold_replica_step(dropout_seed, state.step,
     rank, world_size)``, one stream per (step, rank).  ``compute_dtype``
     and ``conv_impl`` are the forward's (``models/net.py``).  A
-    distributed ``world`` all-reduces the gradients (module docstring)."""
+    distributed ``world`` all-reduces the gradients (module docstring).
+    The work is :func:`make_step_body`'s."""
     world = world or DistState()
-    group = world_group(world)
+    body = make_step_body(use_pallas, rho, eps, compute_dtype, conv_impl, world)
     generators: dict[torch.device, torch.Generator] = {}
 
     def train_step(model: Net, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
@@ -140,28 +191,10 @@ def make_train_step(
             gen = generators.get(x.device)
             if gen is None:
                 gen = generators[x.device] = torch.Generator(device=x.device)
-            gen.manual_seed(fold_replica_step(dropout_seed, state.step, world.rank,
-                                              world.world_size))
-        model.train()
-        params = dict(model.named_parameters())
-        loss = forward_loss(model, x, y, w, gen, compute_dtype, conv_impl,
-                            sync_bn=world.distributed)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        if is_zero_state(state.opt):
-            zero_update(params, flat, state.opt, lr, group, rho, eps)
-        else:
-            if world.distributed:
-                _mean_over_ranks(flat, world.world_size)
-            if is_flat_state(state.opt):
-                adadelta_step_flat(params, flat, state.opt, lr, rho, eps)
-            else:
-                views = dict(zip(params, (v.view_as(p) for v, p in zip(
-                    flat.split([p.numel() for p in params.values()]), params.values()))))
-                adadelta_update_best(params, views, state.opt, lr, rho, eps,
-                                     use_pallas=use_pallas)
+            gen.manual_seed(dropout_seed_of(dropout_seed, state.step, world))
+        loss = body(model, state.opt, x, y, w, lr, gen)
         state.step += 1
-        return loss.detach()
+        return loss
 
     return train_step
 

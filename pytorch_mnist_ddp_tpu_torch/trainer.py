@@ -12,16 +12,20 @@ state sharded over the ranks, ``parallel/zero.py``; archives per leaf on
 disk, so they cross with plain runs of either package), ``--elastic``
 (resume the run's own ``--save-state`` archive, ``--epochs`` the total),
 ``--resume-reshard`` (a mid-epoch archive of another world size),
-``--profile``/``--step-stats`` (``utils/profiling.py``), and the model
+``--profile``/``--step-stats`` (``utils/profiling.py``), the model
 axis: ``--tp N`` (``parallel/tp.py``) and ``--pp`` (``parallel/pp.py``)
-over a ``(data, model)`` rank grid.  Given a distributed ``DistState``
+over a ``(data, model)`` rank grid, ``--fused`` (``--pregather``): the
+data-parallel epochs over device-resident sets, each step replayed from a
+CUDA graph (``parallel/fused.py``), and ``--prefetch-depth N``: the
+per-batch path's batches assembled and copied N ahead of the step loop
+(``data/prefetch.py``).  Given a distributed ``DistState``
 (``parallel/distributed.py``) each rank trains on its shard of every
 epoch, the gradients are all-reduced (``parallel/ddp.py``), every rank
 evaluates its shard of the test set and the totals are summed; only rank
 0 prints and saves.  The data and the epoch loop are shared with the ViT
 CLI (``vit_mnist.py``).  The printed lines are the JAX package's (and so
-the reference's), byte for byte.  The JAX package's other paths (fused,
-telemetry, the resilient runtime) are not ported yet.
+the reference's), byte for byte.  The JAX package's other paths
+(telemetry, the resilient runtime) are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from .parallel.ddp import (
     make_train_step,
 )
 from .parallel.distributed import DistState, destroy_distributed
+from .parallel.fused import FusedRun
 from .parallel.mesh import RankGrid, make_rank_grid, world_group
 from .parallel.zero import per_leaf_opt_to_zero, zero_opt_to_per_leaf
 from .utils.checkpoint import (
@@ -148,22 +153,33 @@ def _datasets(args, timings: dict | None) -> tuple[MNIST, MNIST]:
     return train_set, test_set
 
 
+def _feed(args, registry, pipeline: str) -> dict:
+    """The loaders' prefetch settings: ``--prefetch-depth`` (2 where the
+    CLI has no such flag, as in the JAX package) and the registry their
+    histograms go to."""
+    return {"prefetch_depth": int(getattr(args, "prefetch_depth", 2)),
+            "registry": registry, "pipeline": pipeline}
+
+
 def make_loaders(
     args, device: torch.device, timings: dict | None = None,
-    dist: DistState = DistState(),
+    dist: DistState = DistState(), registry=None,
 ) -> tuple[DataLoader, DataLoader]:
     """Shuffled train and ordered test loaders on ``device`` for rank
     ``dist.rank`` of ``dist.world_size``: ``--batch-size`` samples a step
     on every rank, ``ceil(--test-batch-size / world_size)`` an eval batch
     (the JAX trainer's split), the test loader's padding duplicates at
-    weight 0 (:func:`_datasets`' sets)."""
+    weight 0 (:func:`_datasets`' sets).  Both prefetch ``--prefetch-depth``
+    batches and record into ``registry`` (``obs/registry.py``) if given."""
     train_set, test_set = _datasets(args, timings)
     world = {"rank": dist.rank, "world_size": dist.world_size}
     train_loader = DataLoader(train_set.images, train_set.labels, args.batch_size,
-                              device, shuffle=True, seed=args.seed, **world)
+                              device, shuffle=True, seed=args.seed, **world,
+                              **_feed(args, registry, "train"))
     test_loader = DataLoader(test_set.images, test_set.labels,
                              -(-args.test_batch_size // dist.world_size), device,
-                             shuffle=False, mask_padding=True, **world)
+                             shuffle=False, mask_padding=True, **world,
+                             **_feed(args, registry, "eval"))
     return train_loader, test_loader
 
 
@@ -178,10 +194,10 @@ def make_shard_loaders(
     train_set, test_set = _datasets(args, timings)
     train_loader = DataLoader(train_set.images, train_set.labels, args.batch_size, device,
                               shuffle=True, seed=args.seed, shard=shard,
-                              num_shards=num_shards)
+                              num_shards=num_shards, **_feed(args, None, "train"))
     test_loader = DataLoader(test_set.images, test_set.labels, args.test_batch_size, device,
                              shuffle=False, mask_padding=True, shard=shard,
-                             num_shards=num_shards)
+                             num_shards=num_shards, **_feed(args, None, "eval"))
     return train_loader, test_loader
 
 
@@ -226,10 +242,54 @@ def run_epochs(
             print(stats.summary_line(epoch))
         _, correct = evaluate(eval_fn, model, test_loader, dry_run_eval, dist)
         if timings is not None:
-            n_test = test_loader.dataset_len
-            timings.setdefault("epoch1_test_accuracy", correct / n_test)
-            timings["final_test_accuracy"] = correct / n_test
+            timings.setdefault("epoch_wall_s", []).append(time.perf_counter() - t0)
+            _record_accuracy(timings, correct, test_loader.dataset_len)
         # scheduler.step() is implicit: lr_fn(epoch + 1) next iteration.
+
+
+def _record_accuracy(timings: dict, correct: int, n_test: int) -> None:
+    timings.setdefault("epoch1_test_accuracy", correct / n_test)
+    timings["final_test_accuracy"] = correct / n_test
+
+
+def run_fused_epochs(
+    args,
+    run: FusedRun,
+    loaders: tuple[DataLoader, DataLoader],
+    timings: dict | None = None,
+    epoch0: int = 0,
+    dist: DistState = DistState(),
+) -> None:
+    """:func:`run_epochs` on the fused path (``parallel/fused.py``): each
+    epoch trains and evaluates on the device, and then rank 0 prints its
+    train lines (``--log-interval``) and the test summary from the one
+    host read, the per-batch run's lines byte for byte.  ``timings`` gains
+    ``epoch_wall_s`` (training, evaluation and the read), ``epoch_steps``,
+    the accuracies, ``host_syncs`` and the graph's ``replays``.  The JAX
+    package warns that XLA:CPU lowers the convolutions of its fused scan
+    poorly; the port runs the same eager ops on the CPU either way and has
+    no such warning."""
+    train_loader, test_loader = loaders
+    lr_fn = step_lr(args.lr, args.gamma, step_size=1)
+    num_batches = run.num_batches
+    for epoch in range(epoch0 + 1, epoch0 + args.epochs + 1):
+        t0 = time.perf_counter()
+        losses, (loss_sum, correct) = run.epoch(epoch, lr_fn(epoch))
+        wall = time.perf_counter() - t0
+        n_test = test_loader.dataset_len
+        if dist.is_chief:
+            for batch_idx in range(0, num_batches, args.log_interval):
+                print(train_log_line(
+                    epoch, batch_idx * train_loader.global_batch, train_loader.dataset_len,
+                    batch_idx, num_batches, float(losses[batch_idx, 0]),
+                ))
+            print(test_summary_lines(loss_sum / n_test, correct, n_test))
+        if timings is not None:
+            timings.setdefault("epoch_wall_s", []).append(wall)
+            timings["epoch_steps"].append(num_batches)
+            _record_accuracy(timings, correct, n_test)
+    if timings is not None:
+        timings.update(host_syncs=run.host_syncs, replays=run.train.replays)
 
 
 def _resume_cursor(
@@ -300,13 +360,15 @@ def fit(
     save_path: str | None = None,
     timings: dict | None = None,
     dist: DistState | None = None,
+    registry=None,
 ) -> tuple[Net, TrainState]:
     """The full run; returns the trained model and its state.  ``device``
     ``None`` means the card, and raises without one (``resolve_device``).
     ``dist`` is this process's place in the world (``DistState()``, a world
     of one, by default); a distributed world's group is torn down at the
     end.  ``--profile DIR`` traces the whole run (``utils/profiling.py``),
-    and the trace is written also when the run raises.
+    and the trace is written also when the run raises.  ``registry``
+    (``obs/registry.py``) takes the loaders' prefetch histograms.
 
     TF32 is switched off for the f32 path, in convolutions and matmuls
     alike (cuDNN would otherwise run the convs in TF32 by default), and
@@ -333,11 +395,18 @@ def fit(
     a ``(W/N, 1, N)`` grid (N = 2 for ``--pp``): every model member of a
     data shard sees that shard's ``--batch-size`` rows a step.  They refuse
     the flags the JAX trainer refuses, with its texts.
+
+    ``--fused`` (not with ``--dry-run``, which stays on the per-batch loop)
+    trains the data-parallel epochs over device-resident sets
+    (``parallel/fused.py``), on the card each step replayed from one CUDA
+    graph; it prints the same lines after each epoch and writes the same
+    files.  It refuses a mid-epoch archive and the model axis, and
+    ``--pregather`` needs it, with the JAX trainer's texts.
     """
     world = dist or DistState()
     try:
         with trace(getattr(args, "profile", None), resolve_device(device)):
-            return _fit(args, device, save_path, timings, world)
+            return _fit(args, device, save_path, timings, world, registry)
     finally:
         if world.distributed:
             destroy_distributed()
@@ -352,6 +421,8 @@ def _model_axis(args, world: DistState) -> tuple[int, bool]:
         raise ValueError("--tp and --pp both claim the model axis; pick one")
     if tp_degree == 1 and not pp_on:
         return 1, False
+    if getattr(args, "fused", False):
+        raise ValueError("--fused is data-parallel only; drop it for --tp/--pp")
     if args.pallas_opt:
         raise ValueError(
             "--pallas-opt is implemented for the DP paths; drop --tp/--pp"
@@ -383,8 +454,12 @@ def _elastic_archive(args) -> str | None:
     return None
 
 
-def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, TrainState]:
+def _fit(args, device, save_path, timings, world: DistState,
+         registry=None) -> tuple[Net, TrainState]:
     tp_degree, pp_on = _model_axis(args, world)
+    if getattr(args, "pregather", False) and not getattr(args, "fused", False):
+        raise ValueError("--pregather is the fused input path; add --fused")
+    fused = bool(getattr(args, "fused", False)) and not args.dry_run
     use_pallas, conv_impl = args.pallas_opt, args.conv_impl
     syncbn = bool(getattr(args, "syncbn", False))
     zero = bool(getattr(args, "zero", False))
@@ -410,6 +485,13 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
     epoch0, start_batch, archive, params, step0 = 0, 0, None, None, 0
     if resume_state_path:
         archive, epoch0, extras, _ = load_latest_train_state(resume_state_path, syncbn)
+        if fused and extras.get("epoch_in_progress", 0):
+            raise ValueError(
+                f"--resume-state {resume_state_path!r} is a MID-EPOCH "
+                "archive; finishing the epoch needs the per-batch step "
+                "loop — drop --fused (the next end-of-run archive can "
+                "resume fused again)"
+            )
         start_batch = _resume_cursor(resume_state_path, extras, epoch0, args,
                                      world.world_size)
         params = {**archive.params, **archive.batch_stats}
@@ -425,7 +507,7 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
             if tp_degree > 1 or pp_on else None)
     shard = (DistState(rank=grid.coords[0], world_size=grid.num_data) if grid is not None
              else world)
-    loaders = make_loaders(args, device, timings, shard)
+    loaders = make_loaders(args, device, timings, shard, registry)
     seeds = split_streams(args.seed)
     model = Net(torch.Generator().manual_seed(seeds["init"]), use_bn=syncbn).to(device)
     if params is not None:
@@ -452,8 +534,15 @@ def _fit(args, device, save_path, timings, world: DistState) -> tuple[Net, Train
                                   compute_dtype=compute_dtype, conv_impl=conv_impl,
                                   world=world)
         eval_fn = make_eval_step(compute_dtype, conv_impl, world)
-    run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
-               epoch0=epoch0, start_batch=start_batch, dist=world)
+    if fused:
+        run = FusedRun(model, state, *loaders, dropout_seed=seeds["dropout"],
+                       use_pallas=use_pallas, compute_dtype=compute_dtype,
+                       conv_impl=conv_impl, world=world,
+                       pregather=bool(getattr(args, "pregather", False)))
+        run_fused_epochs(args, run, loaders, timings, epoch0, world)
+    else:
+        run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
+                   epoch0=epoch0, start_batch=start_batch, dist=world)
 
     if args.save_model and save_path:
         # --tp's gather is collective; the chief alone writes

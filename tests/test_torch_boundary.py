@@ -136,9 +136,8 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
 
 @pytest.mark.parametrize(
     "flag",
-    ["--fused", "--pregather",
-     "--telemetry-dir=x", "--aot-cache=x", "--serve-prewarm",
-     "--compile-cache-dir=x", "--prefetch-depth=0", "--loss-guard",
+    ["--telemetry-dir=x", "--aot-cache=x", "--serve-prewarm",
+     "--compile-cache-dir=x", "--loss-guard",
      "--checkpoint-every-steps=1", "--chaos=x", "--preempt-grace-s=1",
      "--spike-factor=2", "--anomaly-budget=1", "--step-timeout-s=1"],
 )
@@ -154,25 +153,30 @@ def test_train_cli_refuses_flags_not_ported_yet(flag):
      (["--conv-impl=im2col_c1"], "conv_impl", "im2col_c1"),
      (["--conv-impl=im2col"], "conv_impl", "im2col"), (["--bf16"], "bf16", True),
      (["--profile=x"], "profile", "x"), (["--step-stats"], "step_stats", True),
-     (["--elastic"], "elastic", True), (["--resume-reshard"], "resume_reshard", True)],
+     (["--elastic"], "elastic", True), (["--resume-reshard"], "resume_reshard", True),
+     (["--fused"], "fused", True), (["--fused", "--pregather"], "pregather", True),
+     (["--prefetch-depth=0"], "prefetch_depth", 0)],
     ids=["resume", "save_state", "resume_state", "conv_impl_im2col_c1", "conv_impl_im2col",
-         "bf16", "profile", "step_stats", "elastic", "resume_reshard"],
+         "bf16", "profile", "step_stats", "elastic", "resume_reshard", "fused", "pregather",
+         "prefetch_depth"],
 )
 def test_train_cli_accepts_ported_flags(flags, dest, value):
     """mnist.py's --resume, --save-state, --resume-state, --conv-impl,
-    --bf16, --profile, --step-stats, --elastic and --resume-reshard are
-    ported, with the JAX CLI's defaults."""
+    --bf16, --profile, --step-stats, --elastic, --resume-reshard,
+    --fused, --pregather and --prefetch-depth are ported, with the JAX
+    CLI's defaults."""
     assert getattr(train_parser().parse_args(flags), dest) == value
     defaults = train_parser().parse_args([])
     assert (defaults.resume, defaults.save_state, defaults.resume_state,
             defaults.conv_impl, defaults.bf16) == (None, None, None, "conv", False)
     assert (defaults.profile, defaults.step_stats, defaults.elastic,
             defaults.resume_reshard) == (None, False, False, False)
+    assert (defaults.fused, defaults.pregather, defaults.prefetch_depth) == (False, False, 2)
 
 
 @pytest.mark.parametrize(
     "flag",
-    ["--fused", "--telemetry-dir=x", "--checkpoint-every-steps=1", "--chaos=x"],
+    ["--telemetry-dir=x", "--checkpoint-every-steps=1", "--chaos=x"],
 )
 def test_ddp_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
@@ -184,18 +188,21 @@ def test_ddp_cli_refuses_flags_not_ported_yet(flag):
     [(["--tp=2"], "tp", 2), (["--pp"], "pp", True),
      (["--pp", "--pp-microbatches=4"], "pp_microbatches", 4), (["--elastic"], "elastic", True),
      (["--resume-reshard"], "resume_reshard", True), (["--profile=x"], "profile", "x"),
-     (["--step-stats"], "step_stats", True)],
-    ids=["tp", "pp", "pp_microbatches", "elastic", "resume_reshard", "profile", "step_stats"],
+     (["--step-stats"], "step_stats", True), (["--fused"], "fused", True)],
+    ids=["tp", "pp", "pp_microbatches", "elastic", "resume_reshard", "profile", "step_stats",
+         "fused"],
 )
 def test_ddp_cli_accepts_model_axis_and_run_flags(flags, dest, value):
     """mnist_ddp.py's --tp, --pp, --pp-microbatches, --elastic,
-    --resume-reshard, --profile and --step-stats are ported, with the JAX
-    CLI's defaults (--tp 1, --pp-microbatches 2)."""
+    --resume-reshard, --profile, --step-stats and --fused are ported, with
+    the JAX CLI's defaults (--tp 1, --pp-microbatches 2, --fused off,
+    --prefetch-depth 2)."""
     assert getattr(ddp_parser().parse_args(flags), dest) == value
     defaults = ddp_parser().parse_args([])
     assert (defaults.tp, defaults.pp, defaults.pp_microbatches, defaults.elastic,
             defaults.resume_reshard, defaults.profile, defaults.step_stats) == (
         1, False, 2, False, False, None, False)
+    assert (defaults.fused, defaults.pregather, defaults.prefetch_depth) == (False, False, 2)
 
 
 @pytest.mark.parametrize("flags", [["--zero"], ["--zero", "--syncbn"], ["--zero", "--bf16"]],

@@ -3,6 +3,7 @@
 ``--resume-reshard`` against the JAX package, and the checks of those
 modes that need no JAX.
 
+:func:`fused_epoch_ranks` is ``tests/test_torch_fused.py``'s rank program.
 ``tests/test_torch_ep.py``, ``test_torch_zero.py``,
 ``test_torch_pp_vit.py``, ``test_torch_cnn_mp.py`` and
 ``test_torch_elastic.py`` run :func:`family_tasks` on every rank of a
@@ -22,11 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
 from pytorch_mnist_ddp_tpu_torch.models.net import Net
 from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
 from pytorch_mnist_ddp_tpu_torch.ops.adadelta import AdadeltaState, adadelta_init
 from pytorch_mnist_ddp_tpu_torch.ops.flash_attention import select_attention
-from pytorch_mnist_ddp_tpu_torch.parallel import ep, mesh, pp, pp_vit, tp
+from pytorch_mnist_ddp_tpu_torch.parallel import ep, fused, mesh, pp, pp_vit, tp
 from pytorch_mnist_ddp_tpu_torch.parallel.ddp import (
     TrainState,
     make_eval_step,
@@ -63,6 +65,27 @@ def family_tasks(world, tasks: list) -> dict:
     for name, fn, minors, kwargs in tasks:
         grid = make_rank_grid(minors, world)
         out[name] = globals()[fn](grid, **kwargs)
+    return out
+
+
+def fused_epoch_ranks(world, state: dict, images: np.ndarray, labels: np.ndarray,
+                      perm: np.ndarray, batch: int, epoch: int, runs: tuple) -> dict:
+    """For each ``(name, pallas_opt, zero)`` of ``runs``: the CNN from
+    ``state`` through one fused epoch of this rank (``parallel/fused.py``)
+    on ``perm`` in JAX's layout, ``batch`` rows a rank, dropout off, lr
+    1.0.  Returns per run the gathered losses, the step and the state."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, pallas_opt, zero in runs:
+        model = _cnn(state)
+        train_state = make_train_state(model, use_pallas=pallas_opt, zero=zero, world=world)
+        loader = DataLoader(images, labels, batch, "cpu", rank=world.rank,
+                            world_size=world.world_size)
+        run = fused.FusedEpoch(model, train_state, loader, dropout=False,
+                               use_pallas=pallas_opt, world=world)
+        losses = run.epoch(epoch, 1.0, perm=perm)
+        out[name] = {"losses": losses.numpy(), "step": train_state.step,
+                     "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
     return out
 
 
