@@ -410,6 +410,9 @@ VIT_EPOCH1_MIN_ACCURACY = 0.70
 # epochs, cut to 100 steps of 64: the floor stays on the full epochs of
 # --flash (f32) and --bf16 --sp 1 --allow-degree-1 --flash.
 VIT_CUT_ROWS = 6400
+# vit_parallel's --sp 2 epoch on VIT_CUT_ROWS rows against vit_train's --sp 1
+# epoch on them: test rows whose prediction may differ (0 in four H100 runs)
+VIT_CUT_CORRECT_SLACK = 5
 # vit_parallel phase.  (a) The ring over S token shards of one sequence in
 # this process, k/v rotated between the shards as the ring passes them:
 # (S, (b, T, h, d)) at the ViT's train and eval shapes and one long one.
@@ -2054,13 +2057,14 @@ def vit_step_phase(torch, np) -> tuple[dict[str, int], dict[str, int]]:
              for k in plain["launches"]})
 
 
-def vit_train_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
+def vit_train_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int], dict]:
     """The ViT CLI's fit() on the card, one epoch each of --flash, --sp 1
     --allow-degree-1 --flash, and both with --bf16: a full epoch of --flash
     and of --bf16 --sp 1 --allow-degree-1 --flash (the accuracy floor on
     each dtype and each path), the other two on VIT_CUT_ROWS training rows
     of an IDX set; returns the flash launches of the phase, all and those
-    of the --bf16 legs."""
+    of the --bf16 legs, and the cut --sp 1 leg's record (its logged losses
+    and test line), which vit_parallel's --sp 2 epoch is held to."""
     from pytorch_mnist_ddp_tpu_torch import vit_mnist
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
@@ -2122,12 +2126,14 @@ def vit_train_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, 
             "first_last_logged_loss": [losses[0], losses[-1]],
             "wall_seconds": wall, "launches": got, "attention_calls": calls,
         }
+        if "--data-root" in flags:
+            legs[leg]["logged_losses"] = losses
     emit({"phase": "vit_train", "epoch1_min_accuracy": VIT_EPOCH1_MIN_ACCURACY,
           "cut_to_train_rows": {"rows": VIT_CUT_ROWS, "legs": ["sp1_flash", "bf16_flash"]},
           "jax_cpu_epoch1_accuracy": {"f32": [0.7918, 0.8100, 0.7974], "bf16": [0.7882, 0.8426, 0.7591],
                                       "seeds": [1, 2, 3]},
           "legs": legs})
-    return launches, bf16_launches
+    return launches, bf16_launches, legs["sp1_flash"]
 
 
 def vit_profile_phase(torch) -> None:
@@ -2725,9 +2731,10 @@ def hold_leg(torch, leg: str, ranks: list, refs: dict, ref_leg: str | None = Non
             "first_last_loss": [float(losses[0]), float(losses[-1])]}
 
 
-def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
-    """(b)-(e) of the vit_parallel phase: the parallel modes' main path.
-    Returns its flash launches (the ranks' processes') and the launches of
+def vit_parallel_phase(torch, np, workdir: str, sp1_cut: dict) -> tuple[dict, dict]:
+    """(b)-(e) of the vit_parallel phase: the parallel modes' main path;
+    (e)'s --sp 2 epoch is held to ``sp1_cut``, vit_train's --sp 1 epoch on
+    the same VIT_CUT_ROWS rows, within the f32 trajectory gates.  Returns its flash launches (the ranks' processes') and the launches of
     the references (the single-device steps and the in-process sp1 leg),
     counted apart; the caller zeroes the counters first."""
     import os
@@ -2785,8 +2792,11 @@ def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         for k in launches:
             launches[k] += r["launches"][k]
 
-    # (e) one epoch of --sp 2 --flash on the two ranks, VIT_CUT_ROWS rows:
-    # the ring's accuracy floor is on vit_train's full --bf16 --sp 1 epoch
+    # (e) one epoch of --sp 2 --flash on the two ranks, VIT_CUT_ROWS rows,
+    # held to vit_train's --sp 1 epoch on the same rows (no hop): the
+    # logged losses and the test loss within the f32 gates (the test line
+    # prints 4 decimals), the test set's correct rows within
+    # VIT_CUT_CORRECT_SLACK
     ep = [r["epoch"] for r in two]
     lines = ep[0]["lines"]
     tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
@@ -2805,7 +2815,19 @@ def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     acc1 = timings["epoch1_test_accuracy"]
     for k in launches:
         launches[k] += epoch_launches[k]
+    losses = [float(m.group(5)) for m in train]
+    test_loss, correct = float(tests[0].group(1)), int(tests[0].group(2))
+    ref_correct = round(sp1_cut["test_accuracy_by_epoch"][0] * int(tests[0].group(3)))
+    ref_loss = sp1_cut["test_loss_by_epoch"][0]
+    held = {"logged_losses": len(losses) == len(sp1_cut["logged_losses"]) and torch.allclose(
+                torch.tensor(losses), torch.tensor(sp1_cut["logged_losses"]),
+                rtol=VIT_PAR_LOSS_RTOL, atol=VIT_PAR_LOSS_ATOL),
+            "test_loss": abs(test_loss - ref_loss)
+            <= VIT_PAR_LOSS_RTOL * abs(ref_loss) + VIT_PAR_LOSS_ATOL + 1e-4,
+            "test_correct": abs(correct - ref_correct) <= VIT_CUT_CORRECT_SLACK}
     epoch = {"epoch1_test_accuracy": acc1, "steps": steps,
+             "held_to_vit_train_sp1_flash": held,
+             "sp1_flash_test_accuracy": sp1_cut["test_accuracy_by_epoch"][0],
              "ms_per_step": 1e3 * timings["epoch_train_s"][0] / steps,
              "train_seconds": timings["epoch_train_s"][0],
              "ring_passes_rank0": ep[0]["ring_passes"],
@@ -2817,7 +2839,7 @@ def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
              "launches": epoch_launches,
              "launch_formula": f"2 ranks x depth {depth} x S=2 x ({steps} steps + "
                                f"{eval_batches} eval batches)",
-             "logged_losses": [float(m.group(5)) for m in train]}
+             "logged_losses": losses}
     local = {k: fa.LAUNCHES[k] - main0[k] for k in main0}
     emit({"phase": "vit_parallel", "part": "b_to_e_worlds",
           "steps": VIT_PAR_STEPS, "f32_gates": {"loss_rtol": VIT_PAR_LOSS_RTOL,
@@ -2829,6 +2851,8 @@ def vit_parallel_phase(torch, np, workdir: str) -> tuple[dict, dict]:
           "launches": launches, "reference_launches": references})
     for leg, r in legs.items():
         check(all(r["ok"].values()), f"vit_parallel {leg}: {r['ok']}")
+    check(all(held.values()), f"vit --sp 2 epoch off vit_train's --sp 1 epoch on the same "
+          f"rows: {held}; accuracy {acc1}, losses {losses}")
     check(epoch_launches == {"flash_fwd": 0, "flash_partial": want_epoch},
           f"vit epoch leg launches {epoch_launches} != {want_epoch}")
     check(all(e["staged_ring_passes"] == e["ring_passes"] == want_passes for e in ep),
@@ -3716,6 +3740,8 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
               f"fused (a) {leg}: {run.replays} replays")
         check(replayed == (run.replays if pallas else 0),
               f"fused (a) {leg}: row 3 launched {replayed} times in {run.replays} replays")
+        check(run.recorded == {"adadelta_delta": int(pallas), "adadelta_fused": 0},
+              f"fused (a) {leg}: the capture recorded {run.recorded}")
     del loader
 
     # (b) the CLI against the train phase's per-batch epochs
@@ -3834,9 +3860,19 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
     for _ in range(fused.WARMUP_STEPS + 10):  # the capture, then a few replays
         run.step()
     torch.cuda.synchronize()
+    window = dict(af.LAUNCHES)
     profile = profile_window(torch, [(None, None, None)] * FUSED_PROFILE_STEPS,
                              lambda *_: run.step(), find="adadelta")
+    counted = since(window)["adadelta_delta"]
     add(path, since(before))
+    # the counts of replays are worked out from the capture; the device's
+    # own record shows that the graph launches the kernel once a replay
+    on_device = sum(v["calls"] for k, v in profile["found"].items() if k.startswith("device "))
+    check(run.recorded == {"adadelta_delta": 1, "adadelta_fused": 0},
+          f"fused (e): the capture recorded {run.recorded}")
+    check(on_device == counted == FUSED_PROFILE_STEPS,
+          f"fused (e): row 3 on the device {on_device} times, counted {counted}, "
+          f"in {FUSED_PROFILE_STEPS} replays")
     local = since(start)
     emit({"phase": "fused", "captured_vs_eager": captured, "cli": cli, "prefetch": prefetch,
           "mnist_ddp": ddp, "profile_pallas_opt": profile, "launches": path,
@@ -4116,7 +4152,7 @@ def main() -> int:
         fa.LAUNCHES[k] = 0
     vit_step_launches, vit_step_bf16 = vit_step_phase(torch, np)
     with tempfile.TemporaryDirectory() as workdir:
-        vit_fit_launches, vit_fit_bf16 = vit_train_phase(torch, np, workdir)
+        vit_fit_launches, vit_fit_bf16, sp1_cut = vit_train_phase(torch, np, workdir)
     vit_bf16_launches = {k: vit_step_bf16[k] + vit_fit_bf16[k] for k in vit_step_bf16}
     vit_launches = dict(fa.LAUNCHES)
     check(vit_launches == {k: vit_step_launches[k] + vit_fit_launches[k] for k in vit_launches},
@@ -4136,7 +4172,7 @@ def main() -> int:
     for k in fa.LAUNCHES:
         fa.LAUNCHES[k] = 0
     with tempfile.TemporaryDirectory() as workdir:
-        par_launches, par_references = vit_parallel_phase(torch, np, workdir)
+        par_launches, par_references = vit_parallel_phase(torch, np, workdir, sp1_cut)
     for k, v in par_launches.items():
         check(v > 0, f"the ViT's parallel path never launched {k}")
 

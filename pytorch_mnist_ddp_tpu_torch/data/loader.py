@@ -167,8 +167,8 @@ class DataLoader:
         resumed run skips the first ones without assembling them and
         consumes exactly the rest of the epoch's permutation.  Abandoning
         the iterator stops the prefetch thread."""
-        feed = DevicePrefetcher(self._host_batches(epoch, start_batch), None,
-                                self.prefetch_depth, self.registry, self.pipeline)
+        feed = DevicePrefetcher(self._host_batches(epoch, start_batch), self.prefetch_depth,
+                                self.registry, self.pipeline)
         try:
             for host_batch in feed:
                 yield self._place(host_batch)

@@ -3,19 +3,20 @@ package's ``data/prefetch.py`` ``DevicePrefetcher``).
 
 While the consumer's step k runs, batch k+1 is made ready by the thread,
 so the consumer's wait for the next batch shrinks to a queue pop.  The
-class is generic: it wraps any host-batch iterable and a ``place``
-callable (the identity by default: ``data/loader.py`` has the thread
-assemble its batches and pins and copies them on the consumer's side) and
-keeps up to ``depth`` of them in a bounded queue.  ``depth <= 0`` is the
-synchronous baseline: assemble and place inline on the consumer's thread.
-The batches are the same either way; only the overlap changes.
+class is generic: it iterates any batch iterable on the thread (the
+work of making a batch is the iterable's: ``data/loader.py`` has the
+thread assemble its host batches and pins and copies them on the
+consumer's side) and keeps up to ``depth`` of them in a bounded queue.
+``depth <= 0`` is the synchronous baseline: the iterable runs inline on
+the consumer's thread.  The batches are the same either way; only the
+overlap changes.
 
 Given a :class:`~..obs.registry.Registry`, two histograms labelled
 ``pipeline=`` record each consume:
 
 - ``data_wait_seconds``: how long the consumer blocked for the next
   batch (near zero: the device never waits on the host);
-- ``prefetch_buffer_occupancy``: the placed batches buffered at that
+- ``prefetch_buffer_occupancy``: the batches buffered at that
   moment (``depth`` when the producer keeps ahead, 0 when starved).
 
 The JAX package also emits a ``prefetch_epoch`` event a finished epoch
@@ -32,7 +33,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Callable, Iterable, Iterator
+from typing import Iterable, Iterator
 
 _END = object()
 
@@ -44,47 +45,30 @@ class _Raised:
         self.error = error
 
 
-def _identity(batch):
-    return batch
-
-
 class DevicePrefetcher:
-    """Up to ``depth`` placed batches in flight ahead of the consumer.
+    """Up to ``depth`` batches of ``source`` made ahead of the consumer.
 
     ``source`` is consumed on the producer thread (inline when ``depth <=
-    0``); ``place`` maps a host batch to a placed one, as early as
-    possible so that its copy overlaps the consumer's step; ``registry``
-    and ``pipeline`` as in the module docstring."""
+    0``); ``registry`` and ``pipeline`` as in the module docstring."""
 
-    def __init__(
-        self,
-        source: Iterable,
-        place: Callable | None = None,
-        depth: int = 2,
-        registry=None,
-        pipeline: str = "data",
-    ):
+    def __init__(self, source: Iterable, depth: int = 2, registry=None,
+                 pipeline: str = "data"):
         self._source = iter(source)
-        self._place = place if place is not None else _identity
         self.depth = int(depth)
-        self.pipeline = pipeline
         self._wait_hist = self._occ_hist = None
         if registry is not None:
             self._wait_hist = registry.histogram(
                 "data_wait_seconds",
-                help="consumer wait for the next placed batch "
+                help="consumer wait for the next batch "
                 "(near zero: the device never waits on the host)",
                 pipeline=pipeline,
             )
             self._occ_hist = registry.histogram(
                 "prefetch_buffer_occupancy",
-                help="placed batches buffered at each consume "
+                help="batches buffered at each consume "
                 "(depth: the producer is ahead; 0: the consumer is starved)",
                 pipeline=pipeline,
             )
-        self.batches = 0
-        self.wait_s_total = 0.0
-        self._occ_total = 0.0
         self._stop = threading.Event()
         self._queue: queue.Queue | None = None
         self._thread: threading.Thread | None = None
@@ -107,8 +91,8 @@ class DevicePrefetcher:
 
     def _produce(self) -> None:
         try:
-            for host_batch in self._source:
-                if not self._put(self._place(host_batch)):
+            for batch in self._source:
+                if not self._put(batch):
                     return  # the consumer stopped early
             self._put(_END)
         except BaseException as e:  # raised again on the consumer's side
@@ -116,21 +100,13 @@ class DevicePrefetcher:
 
     # -- consumer -------------------------------------------------------------
 
-    def _record(self, wait: float, occupancy: int) -> None:
-        self.batches += 1
-        self.wait_s_total += wait
-        self._occ_total += occupancy
-        if self._wait_hist is not None:
-            self._wait_hist.observe(wait)
-            self._occ_hist.observe(occupancy)
-
     def __iter__(self) -> Iterator:
         try:
             while True:
                 t0 = time.perf_counter()
                 if self._queue is None:
                     try:
-                        item = self._place(next(self._source))
+                        item = next(self._source)
                     except StopIteration:
                         return
                     occupancy = 0
@@ -141,14 +117,12 @@ class DevicePrefetcher:
                     if isinstance(item, _Raised):
                         raise item.error
                     occupancy = self._queue.qsize()
-                self._record(time.perf_counter() - t0, occupancy)
+                if self._wait_hist is not None:
+                    self._wait_hist.observe(time.perf_counter() - t0)
+                    self._occ_hist.observe(occupancy)
                 yield item
         finally:
             self.close()
-
-    @property
-    def occupancy_mean(self) -> float:
-        return self._occ_total / self.batches if self.batches else 0.0
 
     def close(self) -> None:
         """Stop and join the producer; idempotent."""

@@ -47,7 +47,7 @@ class StreamCopy(L.DataLoader):
                 copied.record(stream)
             return batch, copied
 
-        feed = DevicePrefetcher(self._host_batches(epoch, start_batch), place,
+        feed = DevicePrefetcher(map(place, self._host_batches(epoch, start_batch)),
                                 self.prefetch_depth)
         try:
             for batch, copied in feed:
@@ -67,7 +67,8 @@ class PinOnly(L.DataLoader):
         def pin(host_batch):
             return tuple(torch.from_numpy(a).pin_memory() for a in host_batch)
 
-        feed = DevicePrefetcher(self._host_batches(epoch, start_batch), pin, self.prefetch_depth)
+        feed = DevicePrefetcher(map(pin, self._host_batches(epoch, start_batch)),
+                                self.prefetch_depth)
         try:
             for batch in feed:
                 yield tuple(t.to(self.device, non_blocking=True) for t in batch)
