@@ -203,7 +203,32 @@ Phases, one JSON line each:
                 epoch and a ViT --flash epoch: the Chrome trace parses and
                 names row 3's and row 4's kernels once a launch, one
                 step-stats line an epoch, trace bytes and wall seconds
-                beside the unprofiled epoch.
+                beside the unprofiled epoch;
+20. resilience — the resilient runtime, telemetry and the launcher's gang
+                restart on the reference CNN at full width with
+                --pallas-opt, on 19's IDX set (20-step epochs at batch
+                64), TF32 off: (a) two epochs with --telemetry-dir,
+                --save-state and --checkpoint-every-steps 7; (b) the same
+                run with --chaos kill:step:after=13 in a process of its
+                own exits 137, and --resume-state gives (a)'s final
+                archive array for array, the two runs' step events
+                (epoch, step, loss) (a)'s; (c) kill:ckpt_save:after=1
+                exits 137 with only the .prev rotation, which resumes to
+                (a); (d) --loss-guard under nan:step:after=5 equals (a)
+                (torch.equal), one train_anomalies_total{kind="nan"},
+                row 3 launched once more than in (a); (e) the launcher
+                with --nprocs 1 --restart-budget 1 over mnist_ddp
+                --batch-size 200 in an NCCL world of one killed by
+                kill:step:rank=0:after=9 exits 0 with one restart
+                (launch_restarts_total 1, rank_death and gang_restart
+                events, both incarnations' rendezvous attempts) and the
+                final archive of an uninterrupted run; (f) one --fused
+                --pallas-opt --telemetry-dir epoch: the counters equal the
+                steps and samples, one host read; readings: ms a step of
+                the guarded, telemetered run beside the flagless one (both
+                before the child processes start), a snapshot's device
+                time, checkpoint_write_seconds, the restart's wall
+                seconds.
 
 Every phase line carries its ``seconds``.  Then the ``kernels`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Launch
@@ -219,7 +244,9 @@ processes; the single-device references apart; (a)'s launches compare
 and are not counted) and over 18 (the ranks' processes and the epoch;
 the references apart); flash_attention and adadelta again over 19 (the
 ranks' and the launcher's processes included; the uninterrupted runs the
-resumed ones are held to apart).
+resumed ones are held to apart); adadelta again over 20 (this process's
+runs; the killed processes and the launcher's rank count nothing, the
+flagless and uninterrupted references apart).
 Latencies, seconds per epoch and images/s are smoke readings of this
 script's own work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -504,6 +531,9 @@ STATE_CURSOR = 12
 FUSED_CAPTURED = 20
 FUSED_LIMIT = 6400
 FUSED_PROFILE_STEPS = 100
+# resilience phase: the checkpoint cadence and (b)'s kill, in steps
+RESILIENCE_CKPT = 7
+RESILIENCE_KILL_AFTER = 13
 
 
 _CLOCK = {"last": time.perf_counter()}
@@ -3594,6 +3624,176 @@ def train_state_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     return launches, references
 
 
+def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
+    """The resilience phase (module docstring, 20).  Returns the path's
+    adadelta launches (this process's runs) and, apart, those of the
+    references; the caller zeroes the counters first.  The flagless and
+    the guarded runs go first, alone on the card, for the ms-a-step
+    readings; then the three runs that must die or restart start together
+    in processes of their own, and the other runs in this process go on
+    meanwhile."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.obs import Registry, read_events
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.resilience.runtime import snapshot
+    from pytorch_mnist_ddp_tpu_torch.serving import faults
+
+    t_phase = time.perf_counter()
+    root = vit_idx_root(np, workdir)
+    at = functools.partial(os.path.join, workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cnn = ["--data-root", root, "--pallas-opt"]
+    two = [*cnn, "--epochs", "2"]
+    ckpt = ["--checkpoint-every-steps", str(RESILIENCE_CKPT)]
+    cli = [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.mnist"]
+    refs0 = dict(af.LAUNCHES)
+    references = {k: 0 for k in refs0}
+
+    def as_reference(run):
+        for k, v in run["launches"].items():
+            references[k] += v
+
+    # the same two epochs flagless (a reference), and (d): the guard heals a
+    # poisoned step (held to (a) below)
+    flagless = fit_run(two)
+    as_reference(flagless)
+    with faults.injected("nan:step:after=5"):
+        guarded = fit_run([*two, "--loss-guard", "--telemetry-dir", at("d_tel"), "--save-state",
+                           at("d.npz")])
+    snapshot_ms = median_ms(torch, lambda: snapshot(guarded["model"], guarded["state"]),
+                            runs=20)
+
+    procs, pool = {}, ThreadPoolExecutor(3)
+
+    def waited(proc, t0):  # (exit code, stdout, stderr, wall seconds to its exit)
+        out, err = proc.communicate(timeout=600)
+        return proc.returncode, out, err, time.perf_counter() - t0
+    for name, cmd in (
+            ("b", [*cli, *two, *ckpt, "--save-state", at("b.npz"), "--telemetry-dir",
+                   at("b_tel"), "--chaos", f"kill:step:after={RESILIENCE_KILL_AFTER}"]),
+            ("c", [*cli, *two, *ckpt, "--save-state", at("c.npz"), "--chaos",
+                   "kill:ckpt_save:after=1"]),
+            ("e", [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
+                   "--nprocs", "1", "--restart-budget", "1", f"--master_port={free_port()}",
+                   "--telemetry-dir", at("e_tel"), "-m", "pytorch_mnist_ddp_tpu_torch.mnist_ddp",
+                   *two, "--batch-size", str(DDP_BATCH), "--save-state", at("e.npz"),
+                   "--checkpoint-every-steps", "5", "--chaos", "kill:step:rank=0:after=9"])):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        procs[name] = pool.submit(waited, proc, t0)
+
+    # (a) the baseline
+    reg_a = Registry()
+    base = fit_run([*two, *ckpt, "--telemetry-dir", at("a_tel"), "--save-state", at("a.npz")],
+                   registry=reg_a)
+    steps = base["state"].step
+    a_steps = [(e["epoch"], e["step"], e["loss"])
+               for e in read_events(at("a_tel", "events-rank0.jsonl")) if e["event"] == "step"]
+    ok, record = {}, {}
+    ok["a_baseline"] = {
+        "steps": steps == 2 * VIT_PAR_STEPS == len(a_steps),
+        "delta_once_a_step": base["launches"]["adadelta_delta"] == steps,
+        "lines_equal_flagless": base["lines"] == flagless["lines"],
+        "equal_flagless": all(same_run(torch, base, flagless).values()),
+        "two_checkpoints_a_epoch_on_cadence": reg_a.counter(
+            "train_checkpoints_total", reason="periodic").value == steps // RESILIENCE_CKPT}
+
+    prom_d = open(at("d_tel", "metrics.prom")).read()
+    anomalies = [ln for ln in prom_d.splitlines() if ln.startswith("train_anomalies_total")]
+    ok["d_guard"] = {
+        "equal_a": all(same_run(torch, guarded, base).values()),
+        "archive_equal_a": same_archive(np, at("d.npz"), at("a.npz")),
+        "one_nan_anomaly": anomalies == ['train_anomalies_total{kind="nan"} 1'],
+        "launches_a_plus_one": guarded["launches"]["adadelta_delta"]
+        == base["launches"]["adadelta_delta"] + 1}
+
+    def ms_a_step(run, epoch):  # the second epoch: no anomaly, no save in it for d
+        return 1e3 * run["timings"]["epoch_train_s"][epoch] / run["timings"]["epoch_steps"][epoch]
+
+    # (f) the fused path with telemetry: the counters from one read an epoch
+    fused = fit_run(["--fused", *cnn, "--epochs", "1", "--telemetry-dir", at("f_tel")])
+    prom_f = open(at("f_tel", "metrics.prom")).read()
+    f_steps = fused["timings"]["epoch_steps"][0]
+    ok["f_fused"] = {
+        "steps_counter": f"train_steps_total {f_steps}" in prom_f.splitlines(),
+        "samples_counter": f"train_samples_total {f_steps * 64}" in prom_f.splitlines(),
+        "one_host_read_an_epoch": fused["timings"]["host_syncs"] == 1,
+        "delta_once_a_step": fused["launches"]["adadelta_delta"] == f_steps == VIT_PAR_STEPS}
+
+    # the processes: (b) and (c) died at their fault points, (e) restarted
+    outs = {name: done.result() for name, done in procs.items()}
+    pool.shutdown()
+    for name, want in (("b", 137), ("c", 137), ("e", 0)):
+        check(outs[name][0] == want, f"resilience ({name}) exited {outs[name][0]}, not "
+                                     f"{want}: {outs[name][2][-2000:]}")
+
+    # (b) the killed run resumed from its archive
+    resumed_b = fit_run([*two, *ckpt, "--save-state", at("b.npz"), "--resume-state",
+                         at("b.npz"), "--telemetry-dir", at("b_tel_resumed")])
+    b_steps = [(e["epoch"], e["step"], e["loss"])
+               for d in ("b_tel", "b_tel_resumed")
+               for e in read_events(at(d, "events-rank0.jsonl")) if e["event"] == "step"]
+    kill = RESILIENCE_KILL_AFTER
+    cursor = kill // RESILIENCE_CKPT * RESILIENCE_CKPT
+    ok["b_kill_resume"] = {
+        "archive_equal_a": same_archive(np, at("b.npz"), at("a.npz")),
+        "equal_a": all(same_run(torch, resumed_b, base).values()),
+        "step_events_equal_a": b_steps[:kill] == a_steps[:kill]
+        and b_steps[kill:] == a_steps[cursor:],
+        "resumed_steps": resumed_b["launches"]["adadelta_delta"] == steps - cursor}
+
+    # (c) killed inside the rotation: only the .prev archive is whole
+    c_files = sorted(f for f in os.listdir(workdir) if f.startswith("c.npz"))
+    resumed_c = fit_run([*two, "--save-state", at("c.npz"), "--resume-state", at("c.npz")])
+    ok["c_kill_in_save"] = {
+        "only_prev_and_new": c_files == ["c.npz.new", "c.npz.prev"],
+        "archive_equal_a": same_archive(np, at("c.npz"), at("a.npz")),
+        "equal_a": all(same_run(torch, resumed_c, base).values())}
+
+    # (e) the gang restart against an uninterrupted run at batch 200
+    e_ref = fit_run([*two, "--batch-size", str(DDP_BATCH), "--save-state", at("e_ref.npz")])
+    as_reference(e_ref)
+    launcher_prom = open(at("e_tel", "launcher.prom")).read().splitlines()
+    events_e = [e["event"] for e in read_events(at("e_tel", "events-launcher.jsonl"))]
+    restart = [e for e in read_events(at("e_tel", "events-launcher.jsonl"))
+               if e["event"] == "gang_restart"]
+    rdzv = [e["attempts"] for e in read_events(at("e_tel", "events-rdzv-rank0.jsonl"))
+            if e["event"] == "rendezvous" and e["ok"]]
+    ok["e_gang_restart"] = {
+        "one_restart": "launch_restarts_total 1" in launcher_prom,
+        "events": events_e == ["rank_death", "gang_restart"],
+        "two_incarnations_formed": len(rdzv) == 2,
+        "archive_equal_uninterrupted": same_archive(np, at("e.npz"), at("e_ref.npz")),
+        "distributed_world_of_one": outs["e"][1].count(
+            "| distributed init (rank 0): env://, local rank:0, world size:1") == 2}
+
+    checkpoint_write = reg_a.histogram("checkpoint_write_seconds")
+    launches = {k: v - refs0[k] - references[k] for k, v in af.LAUNCHES.items()}
+    record = {
+        "ms_a_step_epoch2": {"flagless": ms_a_step(flagless, 1),
+                             "telemetry_guard": ms_a_step(guarded, 1),
+                             "telemetry_checkpoint_beside_processes": ms_a_step(base, 1)},
+        "snapshot_device_ms": snapshot_ms,
+        "checkpoint_write_seconds": checkpoint_write.values(),
+        "restart_wall_seconds": {"launcher": outs["e"][3],
+                                 "downtime_s": restart[0]["downtime_s"] if restart else None},
+        "rendezvous_attempts_by_incarnation": rdzv,
+        "killed_wall_seconds": {"b": outs["b"][3], "c": outs["c"][3]},
+        "fused_epoch_wall_s": fused["timings"]["epoch_wall_s"],
+        "launches_by_leg": {"a": base["launches"], "d": guarded["launches"],
+                            "f": fused["launches"], "b_resumed": resumed_b["launches"],
+                            "c_resumed": resumed_c["launches"]}}
+    emit({"phase": "resilience", "steps_an_epoch": VIT_PAR_STEPS, "checks": ok,
+          "record": record, "launches": launches, "reference_launches": references,
+          "seconds": time.perf_counter() - t_phase})
+    for name, checks in ok.items():
+        check(all(checks.values()), f"resilience {name}: {checks}")
+    return launches, references
+
+
 def log_lines(lines: list[str]) -> list[str]:
     """The train and test lines of a run's output (the synthetic set's
     notice is printed once a process)."""
@@ -4195,6 +4395,15 @@ def main() -> int:
         state_launches, state_references = train_state_phase(torch, np, workdir)
     for k in ("flash_fwd", "flash_partial", "adadelta_delta"):
         check(state_launches[k] > 0, f"the train_state path never launched {k}")
+
+    # 20. resilience: the runtime, telemetry and the gang restart; row 3
+    # counted over this process's runs, the references apart
+    for k in af.LAUNCHES:
+        af.LAUNCHES[k] = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        res_launches, res_references = resilience_phase(torch, np, workdir)
+    check(res_launches["adadelta_delta"] > 0, "the resilience path never launched "
+          "adadelta_delta")
     top = by_n[str(TIMED_ROWS[-1])]
     kernels = [{
         "name": "int8_head", "route": "cuda",
@@ -4215,13 +4424,15 @@ def main() -> int:
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/adadelta.cu",
             "replaces": ADADELTA_REPLACES[name],
             "launches": (train_launches[name] + fused_launches[name] + ddp_launches[name]
-                         + state_launches[name]),
+                         + state_launches[name] + res_launches[name]),
             "launches_by_phase": {**{phase: n[name] for phase, n in by_phase.items()},
                                   "fused": fused_launches[name], "ddp": ddp_launches[name],
-                                  "train_state": state_launches[name]},
+                                  "train_state": state_launches[name],
+                                  "resilience": res_launches[name]},
             "fused_reference_launches": fused_references[name],
             "ddp_reference_launches": ddp_references[name],
             "train_state_reference_launches": state_references[name],
+            "resilience_reference_launches": res_references[name],
             "max_abs_err": adadelta_err[name], **t,
         })
     train_shape = FLASH_MAIN["train"]

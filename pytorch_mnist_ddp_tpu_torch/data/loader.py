@@ -22,6 +22,15 @@ made an epoch of steps slower than ``prefetch_depth`` 0, and one that only
 assembles did not (``tools/prefetch_variants.py``, ``PERF.md``): the step
 loop is host-bound, and the two threads share the interpreter.
 
+A host batch's assembly is the ``data_next`` fault point
+(``serving/faults.py``), retried up to ``data_retries`` times with
+backoff on the transient classes (``OSError``, ``RuntimeError``): the
+assembly is deterministic, so a retried batch is the same batch.  Each
+retry counts ``data_retries_total{pipeline=}`` and emits a ``data_retry``
+event; past the budget the error reaches the consumer at that batch (at
+depth > 0 it is raised on the prefetch thread and carried through the
+queue).  ``sink`` also takes the prefetcher's ``prefetch_epoch`` event.
+
 ``shard``/``num_shards`` cut each batch the other way, as the JAX
 package's in-process mesh shards a global batch over its data axis: the
 epoch goes in global batches of ``batch_size * num_shards`` (the last one
@@ -37,12 +46,14 @@ partial batch filled by wrapping this rank's indices, at weight 0.
 
 from __future__ import annotations
 
+import time
 from typing import Iterator
 
 import numpy as np
 import torch
 
 from ..parallel.sampler import epoch_indices, per_rank_count
+from ..serving.faults import fault_point
 from .prefetch import DevicePrefetcher
 from .transforms import normalize
 
@@ -69,6 +80,9 @@ class DataLoader:
         prefetch_depth: int = 2,
         registry=None,
         pipeline: str = "data",
+        sink=None,
+        data_retries: int = 3,
+        data_backoff_s: float = 0.05,
     ) -> None:
         if not 0 <= shard < num_shards:
             raise ValueError(f"shard {shard} out of range for {num_shards} shards")
@@ -86,6 +100,9 @@ class DataLoader:
         self.prefetch_depth = int(prefetch_depth)
         self.registry = registry
         self.pipeline = pipeline
+        self.sink = sink
+        self.data_retries = int(data_retries)
+        self.data_backoff_s = float(data_backoff_s)
 
     def __len__(self) -> int:
         """Batches per epoch on this rank, the final partial one included."""
@@ -138,7 +155,29 @@ class DataLoader:
     ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         idx, valid = self._epoch_indices(epoch)
         for b in range(start_batch, len(self)):
-            yield self._assemble(idx, valid, b)
+            yield self._assemble_retrying(idx, valid, epoch, b)
+
+    def _assemble_retrying(self, idx, valid, epoch: int, b: int):
+        """:meth:`_assemble` behind the ``data_next`` fault point, retried
+        on the transient classes (module docstring)."""
+        for attempt in range(self.data_retries + 1):
+            try:
+                fault_point("data_next")
+                return self._assemble(idx, valid, b)
+            except (OSError, RuntimeError) as e:
+                if attempt >= self.data_retries:
+                    raise RuntimeError(
+                        f"data pipeline [{self.pipeline}] failed assembling batch {b} "
+                        f"of epoch {epoch} after {attempt + 1} attempt(s): {e}"
+                    ) from e
+                if self.registry is not None:
+                    self.registry.counter("data_retries_total",
+                                          help="transient input-pipeline faults retried",
+                                          pipeline=self.pipeline).inc()
+                if self.sink is not None:
+                    self.sink.emit("data_retry", pipeline=self.pipeline, epoch=epoch, batch=b,
+                                   attempt=attempt + 1, error=f"{type(e).__name__}: {e}")
+                time.sleep(self.data_backoff_s * (2 ** attempt))
 
     def index_table(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
         """``(idx int64 [batches, batch_size], w float32 [batches,
@@ -168,7 +207,7 @@ class DataLoader:
         consumes exactly the rest of the epoch's permutation.  Abandoning
         the iterator stops the prefetch thread."""
         feed = DevicePrefetcher(self._host_batches(epoch, start_batch), self.prefetch_depth,
-                                self.registry, self.pipeline)
+                                self.registry, self.pipeline, sink=self.sink, epoch=epoch)
         try:
             for host_batch in feed:
                 yield self._place(host_batch)

@@ -19,8 +19,11 @@ Given a :class:`~..obs.registry.Registry`, two histograms labelled
 - ``prefetch_buffer_occupancy``: the batches buffered at that
   moment (``depth`` when the producer keeps ahead, 0 when starved).
 
-The JAX package also emits a ``prefetch_epoch`` event a finished epoch
-into its telemetry sink; the port has no event sink yet.
+Given an event sink (``obs/events.py``), :meth:`close` emits one
+``prefetch_epoch`` event for an epoch that yielded batches: the
+pipeline, the epoch, the depth, the batches, the total wait, the wall
+time from the first ask to the last batch consumed, and the mean
+occupancy.
 
 A producer's exception reaches the consumer at the batch where it was
 raised.  A consumer that stops early (a ``--dry-run`` break, an
@@ -52,9 +55,18 @@ class DevicePrefetcher:
     0``); ``registry`` and ``pipeline`` as in the module docstring."""
 
     def __init__(self, source: Iterable, depth: int = 2, registry=None,
-                 pipeline: str = "data"):
+                 pipeline: str = "data", sink=None, epoch: int | None = None):
         self._source = iter(source)
         self.depth = int(depth)
+        self.pipeline = pipeline
+        self._sink = sink
+        self._epoch = epoch
+        self.batches = 0
+        self.wait_s_total = 0.0
+        self._occ_total = 0
+        self._t_first: float | None = None
+        self._t_last: float | None = None
+        self._emitted = False
         self._wait_hist = self._occ_hist = None
         if registry is not None:
             self._wait_hist = registry.histogram(
@@ -104,6 +116,8 @@ class DevicePrefetcher:
         try:
             while True:
                 t0 = time.perf_counter()
+                if self._t_first is None:
+                    self._t_first = t0
                 if self._queue is None:
                     try:
                         item = next(self._source)
@@ -117,15 +131,32 @@ class DevicePrefetcher:
                     if isinstance(item, _Raised):
                         raise item.error
                     occupancy = self._queue.qsize()
+                wait = time.perf_counter() - t0
+                self.batches += 1
+                self.wait_s_total += wait
+                self._occ_total += occupancy
                 if self._wait_hist is not None:
-                    self._wait_hist.observe(time.perf_counter() - t0)
+                    self._wait_hist.observe(wait)
                     self._occ_hist.observe(occupancy)
                 yield item
+                self._t_last = time.perf_counter()
         finally:
             self.close()
 
+    @property
+    def occupancy_mean(self) -> float:
+        return self._occ_total / self.batches if self.batches else 0.0
+
+    @property
+    def consume_wall_s(self) -> float:
+        """From the first ask to the last batch consumed."""
+        if self._t_first is None or self._t_last is None:
+            return 0.0
+        return self._t_last - self._t_first
+
     def close(self) -> None:
-        """Stop and join the producer; idempotent."""
+        """Stop and join the producer, then emit the epoch's event once;
+        idempotent."""
         self._stop.set()
         if self._queue is not None:
             while True:
@@ -136,3 +167,10 @@ class DevicePrefetcher:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sink and not self._emitted and self.batches:
+            self._emitted = True
+            self._sink.emit("prefetch_epoch", pipeline=self.pipeline, epoch=self._epoch,
+                            depth=self.depth, batches=self.batches,
+                            wait_s_total=round(self.wait_s_total, 6),
+                            consume_wall_s=round(self.consume_wall_s, 6),
+                            occupancy_mean=round(self.occupancy_mean, 4))

@@ -14,13 +14,22 @@ DIR`` writes a ``torch.profiler`` trace of the run, ``--step-stats`` one
 latency line an epoch.  ``--fused`` (with ``--pregather``) trains over a
 device-resident dataset, each step replayed from a CUDA graph;
 ``--prefetch-depth`` sets how many batches the per-batch path's loader
-keeps in flight.
+keeps in flight.  ``--telemetry-dir`` writes JSONL events and a
+Prometheus file; the resilient runtime's flags (``--checkpoint-every-steps``,
+``--preempt-grace-s``, ``--loss-guard`` and its ``--spike-factor``/
+``--anomaly-*``, ``--step-timeout-s``/``--stall-abort``) and ``--chaos``
+(a fault schedule, ``serving/faults.py``) are the JAX CLI's, with its
+defaults; an exhausted anomaly budget ends the run with one diagnostic
+on stderr and exit 70.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
+from .resilience import EXIT_ANOMALY, AnomalyBudgetExhausted
+from .serving import faults
 from .trainer import fit
 
 
@@ -95,6 +104,70 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--step-stats", action="store_true", default=False,
                    help="print per-epoch host-side step latency summaries "
                         "(per-batch path only)")
+    p.add_argument("--telemetry-dir", type=str, default=None, metavar="DIR",
+                   help="write structured telemetry into DIR: JSONL "
+                        "step/epoch/eval events (chief-only in distributed "
+                        "mode) plus a Prometheus text exposition "
+                        "(metrics.prom) at end of run; stdout is unchanged")
+    # The resilient training runtime (resilience/).  All default to off:
+    # the flagless run builds none of it and prints the same lines.
+    p.add_argument("--checkpoint-every-steps", type=int, default=0,
+                   metavar="N",
+                   help="write a mid-epoch full-state archive to the "
+                        "--save-state path every N optimizer steps, with a "
+                        "rotating last/last-1 publish so a kill at ANY "
+                        "point (including mid-save) leaves a loadable "
+                        "archive; --resume-state continues bit-identically "
+                        "from the exact batch cursor.  SIGTERM/SIGINT also "
+                        "land an emergency archive at the next step "
+                        "boundary and exit 128+signum (per-batch DP paths; "
+                        "requires --save-state)")
+    p.add_argument("--preempt-grace-s", type=float, default=30.0,
+                   metavar="S",
+                   help="bounded grace for the emergency save after "
+                        "SIGTERM/SIGINT: if the clean save+exit has not "
+                        "finished in S seconds the process force-exits "
+                        "with the same code (default: 30)")
+    p.add_argument("--loss-guard", action="store_true", default=False,
+                   help="guard each step's loss (NaN/Inf or a spike over "
+                        "the accepted-loss EWMA): the poisoned update is "
+                        "rolled back from a pre-step snapshot and retried "
+                        "— first at the original LR (a transient anomaly "
+                        "heals with zero numeric divergence), then with "
+                        "LR backoff — aborting with one diagnostic when "
+                        "--anomaly-budget is exhausted.  Syncs the loss to "
+                        "host every step (the --step-stats trade)")
+    p.add_argument("--spike-factor", type=float, default=10.0, metavar="F",
+                   help="--loss-guard spike threshold: loss > F x EWMA of "
+                        "accepted losses is an anomaly; 0 disables spike "
+                        "detection (NaN/Inf only; default: 10)")
+    p.add_argument("--anomaly-budget", type=int, default=3, metavar="K",
+                   help="rollback-and-retry attempts per step before the "
+                        "run aborts (default: 3)")
+    p.add_argument("--anomaly-lr-backoff", type=float, default=0.5,
+                   metavar="F",
+                   help="LR multiplier applied from the second retry of an "
+                        "anomalous step on (the first retry keeps the "
+                        "original LR so a transient heals bit-exactly; "
+                        "default: 0.5)")
+    p.add_argument("--step-timeout-s", type=float, default=0.0, metavar="S",
+                   help="hung-step watchdog: emit a train_stall event (and "
+                        "train_stalls_total) when a step exceeds S seconds "
+                        "(includes the first step — budget for it); 0 "
+                        "disables.  Enabling syncs each step's output to "
+                        "host (the watchdog needs a completion signal to "
+                        "watch)")
+    p.add_argument("--stall-abort", action="store_true", default=False,
+                   help="with --step-timeout-s: exit 75 (EX_TEMPFAIL) on a "
+                        "stalled step after flushing telemetry, instead of "
+                        "only reporting it")
+    p.add_argument("--chaos", type=str, default=None, metavar="SPEC",
+                   help="deterministic fault injection for the trainer "
+                        "(serving/faults.py grammar; sites step/data_next/"
+                        "ckpt_save, ops fail/hang/kill/nan — e.g. "
+                        "'kill:step:after=7' or 'nan:step:after=5')")
+    p.add_argument("--chaos-seed", type=int, default=0, metavar="S",
+                   help="seed for probabilistic (p=) chaos triggers")
     p.add_argument("--elastic", action="store_true", default=False,
                    help="elastic-restart contract: when the --save-state "
                         "archive already exists, resume from it and read "
@@ -126,10 +199,29 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def run_cli(args, body) -> None:
+    """The CLIs' shared tail: install ``--chaos``'s schedule (if any), run
+    ``body()``, and turn an exhausted anomaly budget into one diagnostic on
+    stderr and exit ``EXIT_ANOMALY`` instead of a traceback.  The schedule
+    is uninstalled at the end, so an in-process caller keeps none."""
+    if getattr(args, "chaos", None):
+        faults.install(faults.FaultInjector(args.chaos, seed=getattr(args, "chaos_seed", 0))
+                       ).start()
+    try:
+        body()
+    except AnomalyBudgetExhausted as e:
+        print(f"fatal: {e}", file=sys.stderr)
+        raise SystemExit(EXIT_ANOMALY)
+    finally:
+        if getattr(args, "chaos", None):
+            faults.uninstall()
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     # The reference saves to mnist_cnn.pt (mnist.py:133).
-    fit(args, "cpu" if args.no_accel else None, save_path="mnist_cnn.pt")
+    run_cli(args, lambda: fit(args, "cpu" if args.no_accel else None,
+                              save_path="mnist_cnn.pt"))
 
 
 if __name__ == "__main__":

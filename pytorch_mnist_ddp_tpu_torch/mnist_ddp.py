@@ -14,7 +14,9 @@ refused with ``--pallas-opt``, with the JAX trainer's text.  ``--tp N``
 shards the dense head over N ranks of a model group (``parallel/tp.py``)
 and ``--pp`` pipelines the two stages over two (``parallel/pp.py``); both
 need a world of more than one rank and refuse what the JAX trainer
-refuses with them.  ``RANK``/``WORLD_SIZE``
+refuses with them.  The telemetry, resilience and ``--chaos`` flags are
+``mnist.py``'s; ``--loss-guard`` is refused on more than one process,
+with the JAX trainer's text.  ``RANK``/``WORLD_SIZE``
 (the launcher's) or ``SLURM_PROCID`` in the environment make this process
 one rank of a world (``parallel/distributed.py``): NCCL on the card,
 gloo with ``--no-cuda``.  Without them it prints "Not using distributed
@@ -30,6 +32,7 @@ import argparse
 import time
 
 from .mnist import build_parser as mnist_parser
+from .mnist import run_cli
 from .parallel.distributed import init_distributed_mode
 from .trainer import fit
 from .utils.logging import total_time_line
@@ -88,7 +91,8 @@ def run(args, timings: dict | None = None):
 
 def main(argv: list[str] | None = None) -> None:
     start = time.time()
-    run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    run_cli(args, lambda: run(args))
     print(total_time_line(time.time() - start))
 
 

@@ -16,7 +16,11 @@ number of processes.  The group is NCCL for the card and gloo for the CPU
 gets a timeout and is retried a few times within one budget, so a peer
 that never arrives fails every rank with one pointed error.  That timeout
 also bounds the group's collectives, so a rank whose peer stopped is not
-left waiting in one.
+left waiting in one.  Where the launcher exported
+``ELASTIC_TELEMETRY_DIR`` (its ``--telemetry-dir``), each rank writes its
+``rendezvous`` and ``rendezvous_retry`` events to
+``events-rdzv-rank<r>.jsonl`` there, before the trainer's telemetry
+exists; :class:`DistState` keeps the attempts the rendezvous took.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
@@ -45,6 +49,8 @@ class DistState:
     world_size: int = 1
     local_rank: int = 0
     dist_url: str = "env://"
+    # how the world was formed, not which world it is: not compared
+    rendezvous_attempts: int = field(default=0, compare=False)
 
     @property
     def is_chief(self) -> bool:
@@ -94,16 +100,20 @@ def initialize_with_retry(
     backend: str,
     timeout_s: float = DEFAULT_RDZV_TIMEOUT_S,
     attempts: int = DEFAULT_RDZV_ATTEMPTS,
+    sink=None,
 ) -> int:
     """``init_process_group`` under one total budget: ``attempts`` tries
     share ``timeout_s`` (each gets its share as ``timeout=``, never more
     than what is left), with a backoff of 1, 2, 4... s between them.  Returns the attempts
     used; raises RuntimeError naming the address, the rank and the world
-    when a peer never arrives."""
+    when a peer never arrives.  ``sink`` takes a ``rendezvous`` event at
+    the end (``ok`` true or false) and a ``rendezvous_retry`` event a
+    failed attempt that is retried."""
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
     per_attempt = max(1, int(timeout_s / attempts))
     deadline = time.monotonic() + float(timeout_s)
+    coordinator = init_method.removeprefix("tcp://")
     last_err: Exception | None = None
     for attempt in range(1, attempts + 1):
         if attempt > 1 and time.monotonic() >= deadline:
@@ -114,14 +124,23 @@ def initialize_with_retry(
                 backend, init_method=init_method, world_size=world_size, rank=rank,
                 timeout=datetime.timedelta(seconds=window),
             )
+            if sink is not None:
+                sink.emit("rendezvous", attempts=attempt, ok=True, coordinator=coordinator,
+                          rank=rank, world=world_size)
             return attempt
         except RuntimeError as e:  # torch's DistError and its timeouts
             last_err = e
             if dist.is_initialized():
                 dist.destroy_process_group()
             if attempt < attempts:
+                if sink is not None:
+                    sink.emit("rendezvous_retry", attempt=attempt, timeout_s=per_attempt,
+                              coordinator=coordinator, error=f"{type(e).__name__}: {e}")
                 time.sleep(min(2.0 ** (attempt - 1),
                                max(0.0, deadline - time.monotonic())))
+    if sink is not None:
+        sink.emit("rendezvous", attempts=attempts, ok=False, coordinator=coordinator,
+                  rank=rank, world=world_size)
     raise RuntimeError(
         f"rendezvous at {init_method.removeprefix('tcp://')!r} failed after "
         f"{attempts} attempt(s) x {per_attempt}s (budget {timeout_s:g}s) as "
@@ -195,13 +214,31 @@ def form_world(
         rdzv_timeout_s = float(env.get("RDZV_TIMEOUT_S", DEFAULT_RDZV_TIMEOUT_S))
     if rdzv_attempts is None:
         rdzv_attempts = int(env.get("RDZV_ATTEMPTS", DEFAULT_RDZV_ATTEMPTS))
-    initialize_with_retry(
-        _init_method(dist_url), world_size, rank,
-        backend or ("nccl" if dev.type == "cuda" else "gloo"),
-        timeout_s=rdzv_timeout_s, attempts=rdzv_attempts,
-    )
+    sink = _rendezvous_sink(rank)
+    try:
+        attempts = initialize_with_retry(
+            _init_method(dist_url), world_size, rank,
+            backend or ("nccl" if dev.type == "cuda" else "gloo"),
+            timeout_s=rdzv_timeout_s, attempts=rdzv_attempts, sink=sink,
+        )
+    finally:
+        if sink is not None:
+            sink.close()
     return DistState(distributed=True, rank=rank, world_size=world_size,
-                     local_rank=local_rank, dist_url=dist_url)
+                     local_rank=local_rank, dist_url=dist_url,
+                     rendezvous_attempts=attempts)
+
+
+def _rendezvous_sink(rank: int):
+    """This rank's sink for its rendezvous events, where the launcher
+    exported ``ELASTIC_TELEMETRY_DIR``: the events must land before the
+    trainer's telemetry exists."""
+    directory = os.environ.get("ELASTIC_TELEMETRY_DIR")
+    if not directory:
+        return None
+    from ..obs.events import EventSink
+
+    return EventSink(directory, rank=rank, filename=f"events-rdzv-rank{rank}.jsonl")
 
 
 def destroy_distributed() -> None:

@@ -24,13 +24,24 @@ epoch, the gradients are all-reduced (``parallel/ddp.py``), every rank
 evaluates its shard of the test set and the totals are summed; only rank
 0 prints and saves.  The data and the epoch loop are shared with the ViT
 CLI (``vit_mnist.py``).  The printed lines are the JAX package's (and so
-the reference's), byte for byte.  The JAX package's other paths
-(telemetry, the resilient runtime) are not ported yet.
+the reference's), byte for byte.
+
+``--telemetry-dir DIR`` (``obs/``) writes JSONL events (``step``,
+``epoch_train_end``, ``eval``, spans, ``prefetch_epoch``, ...; the chief's
+in a distributed run) and ``DIR/metrics.prom`` at the end; it reads each
+step's loss on the host, the JAX package's opt-in trade.  The resilient
+runtime (``resilience/``) takes the per-batch data-parallel steps when
+``--checkpoint-every-steps``, ``--loss-guard`` or ``--step-timeout-s`` is
+set, when a fault injector is installed (``--chaos``,
+``serving/faults.py``), or when the supervising launcher exported a
+heartbeat file; a run with none of these builds no runtime and no sink,
+and its step loop reads nothing more from the device than before.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -40,6 +51,7 @@ from .data.loader import DataLoader
 from .data.mnist import MNIST
 from .device import resolve_device
 from .models.net import Net
+from .obs import Telemetry
 from .ops.adadelta import AdadeltaState, adadelta_init
 from .ops.adadelta_flat import FlatAdadeltaState, ensure_opt_layout, is_flat_state
 from .ops.schedule import step_lr
@@ -53,11 +65,15 @@ from .parallel.ddp import (
     make_train_step,
 )
 from .parallel.distributed import DistState, destroy_distributed
+from .parallel.elastic import RankHeartbeat
 from .parallel.fused import FusedRun
 from .parallel.mesh import RankGrid, make_rank_grid, world_group
 from .parallel.zero import per_leaf_opt_to_zero, zero_opt_to_per_leaf
+from .resilience import LossGuard, MidEpochCheckpointer, PreemptionHandler, ResilientRuntime
+from .serving import faults
 from .utils.checkpoint import (
     PREV_SUFFIX,
+    TrainArchive,
     load_latest_train_state,
     load_resume_state,
     model_state_dict,
@@ -81,6 +97,8 @@ def train_one_epoch(
     start_batch: int = 0,
     dist: DistState = DistState(),
     step_stats: StepStats | None = None,
+    telemetry: Telemetry | None = None,
+    runtime: ResilientRuntime | None = None,
 ) -> int:
     """One training epoch (reference ``train()``); returns the steps taken.
     The loss is read from the device only on log steps, by rank 0 alone:
@@ -90,45 +108,101 @@ def train_one_epoch(
     and of ``--tp``/``--pp``).  ``start_batch`` resumes a mid-epoch
     archive at its batch cursor: batch numbering and log lines go on as if
     the run had never stopped.  ``step_stats`` times every step, waiting
-    for its loss."""
+    for its loss.
+
+    ``telemetry`` (``--telemetry-dir``) reads every step's loss on the
+    host (one read a step, the opt-in trade): a ``step`` event with this
+    rank's own loss, ``train_steps_total``, ``train_samples_total``,
+    ``train_step_latency_seconds``, and after the loop
+    ``train_samples_per_second`` and an ``epoch_train_end`` event.
+    ``runtime`` (``resilience/runtime.py``) takes each step through its
+    guarded attempt and each step boundary through its checkpoints and
+    preemption poll; a loss it already read is reused, never read
+    twice."""
     num_batches = len(loader)
     steps = 0
     if step_stats is not None:
         step_stats.start()
-    for batch_idx, (x, y, w) in enumerate(loader.epoch(epoch, start_batch),
-                                          start=start_batch):
-        loss = step_fn(model, state, x, y, w, lr)
-        if step_stats is not None:
-            step_stats.mark(loss)
-        steps += 1
-        if dist.is_chief and batch_idx % log_interval == 0:
-            print(train_log_line(
-                epoch, batch_idx * loader.global_batch,
-                loader.dataset_len, batch_idx, num_batches, loss.item(),
-            ))
-        if dry_run:
-            break
+    if telemetry is not None:
+        registry = telemetry.registry
+        step_counter = registry.counter("train_steps_total", help="optimizer steps executed")
+        sample_counter = registry.counter("train_samples_total",
+                                          help="global training samples consumed")
+        latency_hist = registry.histogram("train_step_latency_seconds",
+                                          help="host-observed per-step latency (blocking read)")
+        steps_recorded = samples_recorded = 0
+        epoch_t0 = step_t0 = time.perf_counter()
+    if runtime is not None:
+        runtime.begin_train()
+    try:
+        for batch_idx, (x, y, w) in enumerate(loader.epoch(epoch, start_batch),
+                                              start=start_batch):
+            loss_host = None
+            if runtime is not None:
+                loss, loss_host = runtime.run_step(step_fn, model, state, x, y, w, lr,
+                                                   epoch=epoch, batch_idx=batch_idx)
+            else:
+                loss = step_fn(model, state, x, y, w, lr)
+            if step_stats is not None:
+                # a step the runtime read is already synchronized
+                step_stats.mark(loss if loss_host is None else None)
+            steps += 1
+            if telemetry is not None:
+                if loss_host is None:
+                    loss_host = loss.item()
+                now = time.perf_counter()
+                step_counter.inc()
+                sample_counter.inc(loader.global_batch)
+                steps_recorded += 1
+                samples_recorded += loader.global_batch
+                latency_hist.observe(now - step_t0)
+                telemetry.events.emit("step", epoch=epoch, step=batch_idx, loss=loss_host,
+                                      latency_s=now - step_t0, samples=loader.global_batch)
+                step_t0 = time.perf_counter()
+            if dist.is_chief and batch_idx % log_interval == 0:
+                print(train_log_line(
+                    epoch, batch_idx * loader.global_batch, loader.dataset_len, batch_idx,
+                    num_batches, loss.item() if loss_host is None else loss_host,
+                ))
+            if runtime is not None:
+                # may raise SystemExit (a preemption, its archive written)
+                runtime.after_step(model, state, epoch=epoch, batch_idx=batch_idx)
+            if dry_run:
+                break
+    finally:
+        if runtime is not None:
+            runtime.end_train()
+    if telemetry is not None:
+        duration = time.perf_counter() - epoch_t0
+        sps = samples_recorded / duration if duration > 0 else 0.0
+        telemetry.registry.gauge("train_samples_per_second",
+                                 help="throughput of the most recent epoch").set(sps)
+        telemetry.events.emit("epoch_train_end", epoch=epoch, steps=steps_recorded,
+                              samples=samples_recorded, duration_s=duration,
+                              samples_per_s=sps)
     return steps
 
 
 def evaluate(
     eval_fn, model: Net, loader: DataLoader, dry_run: bool = False,
-    dist: DistState = DistState(),
+    dist: DistState = DistState(), telemetry: Telemetry | None = None,
 ) -> tuple[float, int]:
     """Whole-test-set NLL and accuracy (reference ``test()``); rank 0
     prints the summary, and every rank returns ``(avg_loss, correct)``.
     Per batch it reads two numbers (the all-reduced totals of every rank's
     shard, in distributed mode) and sums them in Python floats, as the JAX
     package does.  With ``dry_run`` only the first batch is evaluated (the
-    ViT CLI's dry run); the average still divides by the whole set."""
+    ViT CLI's dry run); the average still divides by the whole set.  With
+    ``telemetry`` the pass runs in an ``evaluate`` span."""
     loss_sum = 0.0
     correct = 0.0
-    for x, y, w in loader.epoch(0):
-        batch_loss, batch_correct = eval_fn(model, x, y, w)
-        loss_sum += batch_loss.item()
-        correct += batch_correct.item()
-        if dry_run:
-            break
+    with telemetry.span("evaluate") if telemetry is not None else contextlib.nullcontext():
+        for x, y, w in loader.epoch(0):
+            batch_loss, batch_correct = eval_fn(model, x, y, w)
+            loss_sum += batch_loss.item()
+            correct += batch_correct.item()
+            if dry_run:
+                break
     n = loader.dataset_len
     avg = loss_sum / n
     if dist.is_chief:
@@ -153,33 +227,34 @@ def _datasets(args, timings: dict | None) -> tuple[MNIST, MNIST]:
     return train_set, test_set
 
 
-def _feed(args, registry, pipeline: str) -> dict:
+def _feed(args, registry, pipeline: str, sink=None) -> dict:
     """The loaders' prefetch settings: ``--prefetch-depth`` (2 where the
-    CLI has no such flag, as in the JAX package) and the registry their
-    histograms go to."""
+    CLI has no such flag, as in the JAX package), the registry their
+    histograms go to and the sink of their events."""
     return {"prefetch_depth": int(getattr(args, "prefetch_depth", 2)),
-            "registry": registry, "pipeline": pipeline}
+            "registry": registry, "pipeline": pipeline, "sink": sink}
 
 
 def make_loaders(
     args, device: torch.device, timings: dict | None = None,
-    dist: DistState = DistState(), registry=None,
+    dist: DistState = DistState(), registry=None, sink=None,
 ) -> tuple[DataLoader, DataLoader]:
     """Shuffled train and ordered test loaders on ``device`` for rank
     ``dist.rank`` of ``dist.world_size``: ``--batch-size`` samples a step
     on every rank, ``ceil(--test-batch-size / world_size)`` an eval batch
     (the JAX trainer's split), the test loader's padding duplicates at
     weight 0 (:func:`_datasets`' sets).  Both prefetch ``--prefetch-depth``
-    batches and record into ``registry`` (``obs/registry.py``) if given."""
+    batches and record into ``registry`` (``obs/registry.py``) and
+    ``sink`` (``obs/events.py``) if given."""
     train_set, test_set = _datasets(args, timings)
     world = {"rank": dist.rank, "world_size": dist.world_size}
     train_loader = DataLoader(train_set.images, train_set.labels, args.batch_size,
                               device, shuffle=True, seed=args.seed, **world,
-                              **_feed(args, registry, "train"))
+                              **_feed(args, registry, "train", sink))
     test_loader = DataLoader(test_set.images, test_set.labels,
                              -(-args.test_batch_size // dist.world_size), device,
                              shuffle=False, mask_padding=True, **world,
-                             **_feed(args, registry, "eval"))
+                             **_feed(args, registry, "eval", sink))
     return train_loader, test_loader
 
 
@@ -214,6 +289,8 @@ def run_epochs(
     epoch0: int = 0,
     start_batch: int = 0,
     dist: DistState = DistState(),
+    telemetry: Telemetry | None = None,
+    runtime: ResilientRuntime | None = None,
 ) -> None:
     """``--epochs`` epochs of training after ``epoch0`` completed ones, each
     followed by evaluation, with StepLR (``--lr``, ``--gamma``) once per
@@ -224,23 +301,32 @@ def run_epochs(
     records per-epoch training seconds (``epoch_train_s``, the device
     synchronized at each end),
     ``epoch_steps``, ``epoch1_test_accuracy`` (of the run's first epoch)
-    and ``final_test_accuracy``."""
+    and ``final_test_accuracy``.  ``telemetry`` and ``runtime`` are
+    :func:`train_one_epoch`'s; with ``telemetry`` each epoch runs in an
+    ``epoch`` span and is followed by an ``eval`` event and the
+    ``test_accuracy`` gauge."""
     train_loader, test_loader = loaders
     lr_fn = step_lr(args.lr, args.gamma, step_size=1)
     for epoch in range(epoch0 + 1, epoch0 + args.epochs + 1):
         stats = StepStats() if getattr(args, "step_stats", False) else None
         t0 = time.perf_counter()
-        steps = train_one_epoch(step_fn, model, state, train_loader, epoch,
-                                lr_fn(epoch), args.log_interval, args.dry_run,
-                                start_batch if epoch == epoch0 + 1 else 0, dist, stats)
-        if timings is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            timings["epoch_train_s"].append(time.perf_counter() - t0)
-            timings["epoch_steps"].append(steps)
-        if stats is not None and dist.is_chief:
-            print(stats.summary_line(epoch))
-        _, correct = evaluate(eval_fn, model, test_loader, dry_run_eval, dist)
+        with (telemetry.span("epoch", epoch=epoch) if telemetry is not None
+              else contextlib.nullcontext()):
+            steps = train_one_epoch(step_fn, model, state, train_loader, epoch,
+                                    lr_fn(epoch), args.log_interval, args.dry_run,
+                                    start_batch if epoch == epoch0 + 1 else 0, dist, stats,
+                                    telemetry, runtime)
+            if timings is not None:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                timings["epoch_train_s"].append(time.perf_counter() - t0)
+                timings["epoch_steps"].append(steps)
+            if stats is not None and dist.is_chief:
+                print(stats.summary_line(epoch))
+            avg_loss, correct = evaluate(eval_fn, model, test_loader, dry_run_eval, dist,
+                                         telemetry)
+        if telemetry is not None:
+            _record_eval(telemetry, epoch, avg_loss, correct, test_loader.dataset_len)
         if timings is not None:
             timings.setdefault("epoch_wall_s", []).append(time.perf_counter() - t0)
             _record_accuracy(timings, correct, test_loader.dataset_len)
@@ -252,6 +338,14 @@ def _record_accuracy(timings: dict, correct: int, n_test: int) -> None:
     timings["final_test_accuracy"] = correct / n_test
 
 
+def _record_eval(telemetry: Telemetry, epoch: int, avg_loss: float, correct: int,
+                 n_test: int) -> None:
+    """An evaluation's ``eval`` event and ``test_accuracy`` gauge."""
+    acc = correct / n_test
+    telemetry.registry.gauge("test_accuracy", help="accuracy of the latest eval pass").set(acc)
+    telemetry.events.emit("eval", epoch=epoch, avg_loss=avg_loss, correct=correct, accuracy=acc)
+
+
 def run_fused_epochs(
     args,
     run: FusedRun,
@@ -259,13 +353,18 @@ def run_fused_epochs(
     timings: dict | None = None,
     epoch0: int = 0,
     dist: DistState = DistState(),
+    telemetry: Telemetry | None = None,
 ) -> None:
     """:func:`run_epochs` on the fused path (``parallel/fused.py``): each
     epoch trains and evaluates on the device, and then rank 0 prints its
     train lines (``--log-interval``) and the test summary from the one
     host read, the per-batch run's lines byte for byte.  ``timings`` gains
     ``epoch_wall_s`` (training, evaluation and the read), ``epoch_steps``,
-    the accuracies, ``host_syncs`` and the graph's ``replays``.  The JAX
+    the accuracies, ``host_syncs`` and the graph's ``replays``.  With
+    ``telemetry`` the chief records each epoch's steps and samples in
+    ``train_steps_total``/``train_samples_total`` and its ``eval`` event
+    and ``test_accuracy`` from the same read, as the JAX package records
+    its fused run's: the path adds no host read a step.  The JAX
     package warns that XLA:CPU lowers the convolutions of its fused scan
     poorly; the port runs the same eager ops on the CPU either way and has
     no such warning."""
@@ -284,6 +383,14 @@ def run_fused_epochs(
                     batch_idx, num_batches, float(losses[batch_idx, 0]),
                 ))
             print(test_summary_lines(loss_sum / n_test, correct, n_test))
+            if telemetry is not None:
+                registry = telemetry.registry
+                registry.counter("train_steps_total",
+                                 help="optimizer steps executed").inc(num_batches)
+                registry.counter("train_samples_total",
+                                 help="global training samples consumed").inc(
+                    num_batches * train_loader.global_batch)
+                _record_eval(telemetry, epoch, loss_sum / n_test, correct, n_test)
         if timings is not None:
             timings.setdefault("epoch_wall_s", []).append(wall)
             timings["epoch_steps"].append(num_batches)
@@ -402,12 +509,44 @@ def fit(
     graph; it prints the same lines after each epoch and writes the same
     files.  It refuses a mid-epoch archive and the model axis, and
     ``--pregather`` needs it, with the JAX trainer's texts.
+
+    ``--telemetry-dir DIR`` (module docstring) runs the whole run in a
+    ``run`` span and writes ``DIR/metrics.prom`` at its end, with a
+    ``run_complete`` event (``wall_seconds``); ``registry`` then is the
+    bundle's.  The resilience flags (``--checkpoint-every-steps`` with
+    ``--save-state``, ``--preempt-grace-s``, ``--loss-guard`` with
+    ``--spike-factor``/``--anomaly-budget``/``--anomaly-lr-backoff``,
+    ``--step-timeout-s``/``--stall-abort``) take the per-batch
+    data-parallel path through :class:`~.resilience.ResilientRuntime`,
+    built only when needed (:func:`_make_runtime`); they and a trainer-site
+    chaos clause are refused where the JAX trainer refuses them, with its
+    texts (:func:`_refuse_resilience`).
     """
     world = dist or DistState()
+    telemetry = None
     try:
-        with trace(getattr(args, "profile", None), resolve_device(device)):
-            return _fit(args, device, save_path, timings, world, registry)
+        dev = resolve_device(device)
+        if getattr(args, "telemetry_dir", None):
+            telemetry = Telemetry(args.telemetry_dir, rank=world.rank,
+                                  distributed=world.distributed, registry=registry)
+            if world.rendezvous_attempts:
+                telemetry.registry.counter(
+                    "rendezvous_attempts_total",
+                    help="bounded rendezvous attempts this process took to form the world",
+                ).inc(world.rendezvous_attempts)
+        with trace(getattr(args, "profile", None), dev):
+            if telemetry is None:
+                return _fit(args, device, save_path, timings, world, registry)
+            t0 = time.perf_counter()
+            with telemetry.span("run"):
+                result = _fit(args, device, save_path, timings, world,
+                              telemetry.registry, telemetry)
+            telemetry.events.emit("run_complete", wall_seconds=time.perf_counter() - t0)
+            telemetry.write_exposition()
+            return result
     finally:
+        if telemetry is not None:
+            telemetry.close()
         if world.distributed:
             destroy_distributed()
 
@@ -442,6 +581,98 @@ def _model_axis(args, world: DistState) -> tuple[int, bool]:
     return tp_degree, pp_on
 
 
+def _resilience_flags(args) -> tuple[int, bool, float]:
+    """``(--checkpoint-every-steps, --loss-guard, --step-timeout-s)``;
+    a CLI without them has them off."""
+    return (int(getattr(args, "checkpoint_every_steps", 0) or 0),
+            bool(getattr(args, "loss_guard", False)),
+            float(getattr(args, "step_timeout_s", 0) or 0.0))
+
+
+def _refuse_resilience(args, world: DistState, num_model: int) -> None:
+    """The JAX trainer's refusals, with its texts: the resilience flags and
+    a trainer-site chaos clause need the per-batch data-parallel step
+    loop, ``--loss-guard`` one process, and ``--checkpoint-every-steps`` a
+    ``--save-state`` path."""
+    ckpt_every, loss_guard, step_timeout = _resilience_flags(args)
+    on = ckpt_every > 0 or loss_guard or step_timeout > 0
+    fused = bool(getattr(args, "fused", False))
+    if fused and faults.active_sites() & set(faults.TRAINER_SITES):
+        # such a clause could never fire: a vacuous chaos run
+        raise ValueError(
+            "--chaos clauses at trainer sites (step/data_next/ckpt_save) "
+            "need the per-batch step loop; drop --fused"
+        )
+    if on:
+        if fused:
+            raise ValueError(
+                "--checkpoint-every-steps/--loss-guard/--step-timeout-s "
+                "need the per-batch step loop; drop --fused"
+            )
+        if num_model > 1:
+            raise ValueError("the resilient runtime rides the DP paths; drop --tp/--pp")
+        if loss_guard and world.world_size > 1:
+            # each rank would decide a rollback from its own loss
+            raise ValueError(
+                "--loss-guard is single-controller (a rollback decision "
+                "taken from per-host loss shards could diverge across "
+                "ranks); drop it on multi-process runs"
+            )
+    if ckpt_every > 0 and not args.save_state:
+        raise ValueError(
+            "--checkpoint-every-steps writes mid-epoch archives to the "
+            "--save-state path; add --save-state PATH"
+        )
+
+
+def _host_state(model: Net, state: TrainState, zero: bool, world: DistState) -> TrainArchive:
+    """The training state as an archive holds it, on the host: the
+    parameters, the accumulators (ZeRO's chunks gathered per leaf, a
+    collective every rank runs), the step and the BatchNorm averages."""
+    params = dict(model.named_parameters())
+    opt = state.opt
+    if zero:
+        opt = zero_opt_to_per_leaf(opt, params, world_group(world))
+    opt = _opt_to(opt, torch.device("cpu"))
+    stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return TrainArchive(params={k: v.detach().cpu() for k, v in params.items()}, opt=opt,
+                        step=int(state.step), batch_stats=stats)
+
+
+def _make_runtime(args, world: DistState, zero: bool, global_batch: int, extras: dict,
+                  telemetry: Telemetry | None) -> ResilientRuntime | None:
+    """The resilient runtime, where a resilience flag is set, a fault
+    injector is installed or ``ELASTIC_HEARTBEAT_FILE`` is; else None (the
+    step loop as it is without one)."""
+    heartbeat = RankHeartbeat.from_env()
+    ckpt_every, loss_guard, step_timeout = _resilience_flags(args)
+    if not (ckpt_every > 0 or loss_guard or step_timeout > 0 or faults.active()
+            or heartbeat is not None):
+        return None
+    registry = telemetry.registry if telemetry is not None else None
+    sink = telemetry.events if telemetry is not None else None
+    guard = (LossGuard(spike_factor=float(getattr(args, "spike_factor", 10.0)),
+                       retry_budget=int(getattr(args, "anomaly_budget", 3)),
+                       lr_backoff=float(getattr(args, "anomaly_lr_backoff", 0.5)))
+             if loss_guard else None)
+    checkpointer = (MidEpochCheckpointer(args.save_state, ckpt_every, seed=int(args.seed),
+                                         global_batch=global_batch,
+                                         world_size=world.world_size,
+                                         registry=registry, sink=sink)
+                    if ckpt_every > 0 else None)
+    preemption = (PreemptionHandler(grace_s=float(getattr(args, "preempt_grace_s", 30.0)))
+                  if checkpointer is not None else None)
+    return ResilientRuntime(
+        guard=guard, checkpointer=checkpointer, preemption=preemption,
+        step_timeout_s=step_timeout, stall_abort=bool(getattr(args, "stall_abort", False)),
+        prepare=lambda model, state: _host_state(model, state, zero, world),
+        global_batch=global_batch, steps_total=int(extras.get("steps_total", 0)),
+        samples_total=int(extras.get("samples_total", 0)), registry=registry, sink=sink,
+        is_chief=world.is_chief, heartbeat=heartbeat,
+    ).start()
+
+
 def _elastic_archive(args) -> str | None:
     """The run's own ``--save-state`` archive to resume under the elastic
     contract, or None."""
@@ -455,8 +686,9 @@ def _elastic_archive(args) -> str | None:
 
 
 def _fit(args, device, save_path, timings, world: DistState,
-         registry=None) -> tuple[Net, TrainState]:
+         registry=None, telemetry: Telemetry | None = None) -> tuple[Net, TrainState]:
     tp_degree, pp_on = _model_axis(args, world)
+    _refuse_resilience(args, world, tp_degree if tp_degree > 1 else 2 if pp_on else 1)
     if getattr(args, "pregather", False) and not getattr(args, "fused", False):
         raise ValueError("--pregather is the fused input path; add --fused")
     fused = bool(getattr(args, "fused", False)) and not args.dry_run
@@ -482,9 +714,10 @@ def _fit(args, device, save_path, timings, world: DistState,
 
     # Checkpoints load before any data or device work, so a wrong file
     # fails fast.
-    epoch0, start_batch, archive, params, step0 = 0, 0, None, None, 0
+    epoch0, start_batch, archive, params, step0, extras = 0, 0, None, None, 0, {}
     if resume_state_path:
-        archive, epoch0, extras, _ = load_latest_train_state(resume_state_path, syncbn)
+        archive, epoch0, extras, used_path = load_latest_train_state(resume_state_path,
+                                                                     syncbn)
         if fused and extras.get("epoch_in_progress", 0):
             raise ValueError(
                 f"--resume-state {resume_state_path!r} is a MID-EPOCH "
@@ -507,7 +740,8 @@ def _fit(args, device, save_path, timings, world: DistState,
             if tp_degree > 1 or pp_on else None)
     shard = (DistState(rank=grid.coords[0], world_size=grid.num_data) if grid is not None
              else world)
-    loaders = make_loaders(args, device, timings, shard, registry)
+    loaders = make_loaders(args, device, timings, shard, registry,
+                           telemetry.events if telemetry is not None else None)
     seeds = split_streams(args.seed)
     model = Net(torch.Generator().manual_seed(seeds["init"]), use_bn=syncbn).to(device)
     if params is not None:
@@ -539,10 +773,30 @@ def _fit(args, device, save_path, timings, world: DistState,
                        use_pallas=use_pallas, compute_dtype=compute_dtype,
                        conv_impl=conv_impl, world=world,
                        pregather=bool(getattr(args, "pregather", False)))
-        run_fused_epochs(args, run, loaders, timings, epoch0, world)
+        run_fused_epochs(args, run, loaders, timings, epoch0, world, telemetry)
     else:
-        run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
-                   epoch0=epoch0, start_batch=start_batch, dist=world)
+        runtime = _make_runtime(args, world, zero, loaders[0].global_batch, extras, telemetry)
+        if telemetry is not None and extras.get("epoch_in_progress", 0):
+            # the counters go on from the killed run's totals
+            base_steps = int(extras.get("steps_total", 0))
+            base_samples = int(extras.get("samples_total", 0))
+            if base_steps:
+                telemetry.registry.counter("train_steps_total",
+                                           help="optimizer steps executed").inc(base_steps)
+            if base_samples:
+                telemetry.registry.counter("train_samples_total",
+                                           help="global training samples consumed"
+                                           ).inc(base_samples)
+            telemetry.events.emit("train_resume", epoch=extras["epoch_in_progress"],
+                                  batch_cursor=start_batch, steps_total=base_steps,
+                                  archive=used_path)
+        try:
+            run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
+                       epoch0=epoch0, start_batch=start_batch, dist=world,
+                       telemetry=telemetry, runtime=runtime)
+        finally:
+            if runtime is not None:
+                runtime.stop()
 
     if args.save_model and save_path:
         # --tp's gather is collective; the chief alone writes
@@ -551,16 +805,13 @@ def _fit(args, device, save_path, timings, world: DistState,
             save_state_dict(model_state_dict(full, ddp_prefix=world.distributed,
                                              num_batches=state.step if syncbn else None),
                             save_path)
-    opt = state.opt
-    if args.save_state and zero:  # per leaf on disk; the gather is collective
-        opt = zero_opt_to_per_leaf(opt, dict(model.named_parameters()), world_group(world))
-    if args.save_state and world.is_chief:
-        # Epochs completed: where a continuation picks up the schedule,
-        # the shuffle and the numbering.
-        stats = {k: v for k, v in model.state_dict().items()
-                 if k.endswith(("running_mean", "running_var"))}
-        save_train_state(dict(model.named_parameters()), opt, state.step,
-                         args.save_state, epoch=epoch0 + args.epochs, batch_stats=stats)
+    if args.save_state:
+        host = _host_state(model, state, zero, world)  # ZeRO's gather is collective
+        if world.is_chief:
+            # Epochs completed: where a continuation picks up the schedule,
+            # the shuffle and the numbering.
+            save_train_state(host.params, host.opt, host.step, args.save_state,
+                             epoch=epoch0 + args.epochs, batch_stats=host.batch_stats)
     return model, state
 
 

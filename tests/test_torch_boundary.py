@@ -71,6 +71,7 @@ def test_every_port_module_imports_with_jax_poisoned():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "print(' '.join(mods))\n"
         "print(len(mods))\n"
     )
     proc = subprocess.run(
@@ -79,6 +80,10 @@ def test_every_port_module_imports_with_jax_poisoned():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 15  # every module of the port
+    imported = set(proc.stdout.split()[:-1])
+    files = {".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PKG.rglob("*.py")}
+    files = {f.removesuffix(".__init__") for f in files} - {PKG.name}
+    assert files <= imported, sorted(files - imported)
 
 
 def _no_card():
@@ -134,13 +139,10 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "1", "--allow-degree-1"])
 
 
-@pytest.mark.parametrize(
-    "flag",
-    ["--telemetry-dir=x", "--aot-cache=x", "--serve-prewarm",
-     "--compile-cache-dir=x", "--loss-guard",
-     "--checkpoint-every-steps=1", "--chaos=x", "--preempt-grace-s=1",
-     "--spike-factor=2", "--anomaly-budget=1", "--step-timeout-s=1"],
-)
+NOT_PORTED = ["--aot-cache=x", "--serve-prewarm", "--compile-cache-dir=x"]
+
+
+@pytest.mark.parametrize("flag", NOT_PORTED)
 def test_train_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
         train_parser().parse_args([flag])
@@ -155,10 +157,19 @@ def test_train_cli_refuses_flags_not_ported_yet(flag):
      (["--profile=x"], "profile", "x"), (["--step-stats"], "step_stats", True),
      (["--elastic"], "elastic", True), (["--resume-reshard"], "resume_reshard", True),
      (["--fused"], "fused", True), (["--fused", "--pregather"], "pregather", True),
-     (["--prefetch-depth=0"], "prefetch_depth", 0)],
+     (["--prefetch-depth=0"], "prefetch_depth", 0),
+     (["--telemetry-dir=x"], "telemetry_dir", "x"), (["--loss-guard"], "loss_guard", True),
+     (["--checkpoint-every-steps=1"], "checkpoint_every_steps", 1),
+     (["--chaos=x"], "chaos", "x"), (["--preempt-grace-s=1"], "preempt_grace_s", 1.0),
+     (["--spike-factor=2"], "spike_factor", 2.0), (["--anomaly-budget=1"], "anomaly_budget", 1),
+     (["--step-timeout-s=1"], "step_timeout_s", 1.0),
+     (["--anomaly-lr-backoff=0.25"], "anomaly_lr_backoff", 0.25),
+     (["--stall-abort"], "stall_abort", True), (["--chaos-seed=3"], "chaos_seed", 3)],
     ids=["resume", "save_state", "resume_state", "conv_impl_im2col_c1", "conv_impl_im2col",
          "bf16", "profile", "step_stats", "elastic", "resume_reshard", "fused", "pregather",
-         "prefetch_depth"],
+         "prefetch_depth", "telemetry_dir", "loss_guard", "checkpoint_every_steps", "chaos",
+         "preempt_grace_s", "spike_factor", "anomaly_budget", "step_timeout_s",
+         "anomaly_lr_backoff", "stall_abort", "chaos_seed"],
 )
 def test_train_cli_accepts_ported_flags(flags, dest, value):
     """mnist.py's --resume, --save-state, --resume-state, --conv-impl,
@@ -172,12 +183,14 @@ def test_train_cli_accepts_ported_flags(flags, dest, value):
     assert (defaults.profile, defaults.step_stats, defaults.elastic,
             defaults.resume_reshard) == (None, False, False, False)
     assert (defaults.fused, defaults.pregather, defaults.prefetch_depth) == (False, False, 2)
+    assert (defaults.telemetry_dir, defaults.checkpoint_every_steps, defaults.preempt_grace_s,
+            defaults.loss_guard, defaults.spike_factor, defaults.anomaly_budget,
+            defaults.anomaly_lr_backoff, defaults.step_timeout_s, defaults.stall_abort,
+            defaults.chaos, defaults.chaos_seed) == (
+        None, 0, 30.0, False, 10.0, 3, 0.5, 0.0, False, None, 0)
 
 
-@pytest.mark.parametrize(
-    "flag",
-    ["--telemetry-dir=x", "--checkpoint-every-steps=1", "--chaos=x"],
-)
+@pytest.mark.parametrize("flag", NOT_PORTED)
 def test_ddp_cli_refuses_flags_not_ported_yet(flag):
     with pytest.raises(SystemExit):
         ddp_parser().parse_args([flag])
@@ -188,9 +201,12 @@ def test_ddp_cli_refuses_flags_not_ported_yet(flag):
     [(["--tp=2"], "tp", 2), (["--pp"], "pp", True),
      (["--pp", "--pp-microbatches=4"], "pp_microbatches", 4), (["--elastic"], "elastic", True),
      (["--resume-reshard"], "resume_reshard", True), (["--profile=x"], "profile", "x"),
-     (["--step-stats"], "step_stats", True), (["--fused"], "fused", True)],
+     (["--step-stats"], "step_stats", True), (["--fused"], "fused", True),
+     (["--telemetry-dir=x"], "telemetry_dir", "x"),
+     (["--checkpoint-every-steps=1"], "checkpoint_every_steps", 1),
+     (["--chaos=x"], "chaos", "x"), (["--loss-guard"], "loss_guard", True)],
     ids=["tp", "pp", "pp_microbatches", "elastic", "resume_reshard", "profile", "step_stats",
-         "fused"],
+         "fused", "telemetry_dir", "checkpoint_every_steps", "chaos", "loss_guard"],
 )
 def test_ddp_cli_accepts_model_axis_and_run_flags(flags, dest, value):
     """mnist_ddp.py's --tp, --pp, --pp-microbatches, --elastic,
@@ -223,6 +239,16 @@ def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
             args.rdzv_attempts, args.syncbn) == (0, 1, "env://", None, None, False)
     mnist_dests = {a.dest for a in train_parser()._actions}
     assert mnist_dests <= {a.dest for a in ddp_parser()._actions}
+    # every flag of the JAX CLIs but the compile/ ones
+    import mnist as jax_cli  # noqa: PLC0415 -- the root JAX CLI, imported here only
+
+    jax_flags = {o for a in jax_cli.build_parser()._actions for o in a.option_strings}
+    port_flags = {o for a in train_parser()._actions for o in a.option_strings}
+    assert jax_flags - port_flags == {f.split("=")[0] for f in NOT_PORTED}
+    jax_defaults = vars(jax_cli.build_parser().parse_args([]))
+    port_defaults = vars(train_parser().parse_args([]))
+    assert {k: v for k, v in jax_defaults.items() if k in port_defaults} == {
+        k: v for k, v in port_defaults.items() if k in jax_defaults}
     args = ddp_parser().parse_args(["--syncbn", "--local_rank=3", "--world-size=4",
                                     "--dist-url=tcp://h:1", "--rdzv-timeout-s=9",
                                     "--rdzv-attempts=3", "--pallas-opt", "--batch-size=200"])
@@ -350,3 +376,38 @@ def test_builds_of_different_sources_run_concurrently(monkeypatch, tmp_path):
     assert sorted(compiled) == ["adadelta", "int8_head"]  # each once
     assert peak[0] == 2  # the two builds overlapped
     assert len(results) == 8 and len(set(results)) == 2
+
+
+def test_a_flagless_run_builds_no_runtime_and_no_sink_and_reads_no_more(monkeypatch,
+                                                                         tmp_path):
+    """Without --telemetry-dir, a resilience flag, an injector or the
+    launcher's heartbeat file, fit() constructs no ResilientRuntime, no
+    Telemetry and no event sink, and reads the device only where it did:
+    the log lines' losses and two numbers an eval batch."""
+    import struct
+
+    from pytorch_mnist_ddp_tpu_torch import obs
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import _FILES, synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.resilience import runtime
+
+    for split, n in (("train", 128), ("test", 128)):
+        images, labels = synthetic_mnist(split, n)
+        (tmp_path / _FILES[(split, "images")]).write_bytes(
+            struct.pack(">iiii", 2051, n, 28, 28) + images.tobytes())
+        (tmp_path / _FILES[(split, "labels")]).write_bytes(
+            struct.pack(">ii", 2049, n) + labels.tobytes())
+    monkeypatch.setenv("MNIST_DATA_DIR", str(tmp_path))
+    monkeypatch.delenv("ELASTIC_HEARTBEAT_FILE", raising=False)
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError(f"a flagless run built a {type(self).__name__}")
+
+    for cls in (runtime.ResilientRuntime, obs.Telemetry, obs.EventSink):
+        monkeypatch.setattr(cls, "__init__", refuse)
+    reads = []
+    item = torch.Tensor.item
+    monkeypatch.setattr(torch.Tensor, "item", lambda t: reads.append(1) or item(t))
+    args = ["--epochs", "1", "--train-limit", "128", "--pallas-opt", "--prefetch-depth", "2"]
+    fit(train_parser().parse_args(args), "cpu")
+    # 2 steps, one log line (batch 0); one eval batch of two numbers
+    assert len(reads) == 1 + 2

@@ -276,14 +276,40 @@ def test_child_env_follows_torch_distributed_launch():
 
 
 @pytest.mark.parametrize(
-    "flag",
-    ["--restart-budget=1", "--grace-s=1", "--backoff-base-s=1", "--backoff-max-s=1",
-     "--backoff-seed=1", "--heartbeat-timeout-s=1", "--telemetry-dir=x", "--nprocs=2",
-     "--backend=cpu"],
+    "flag,dest,value",
+    [("--restart-budget=1", "restart_budget", 1), ("--grace-s=1", "grace_s", 1.0),
+     ("--backoff-base-s=1", "backoff_base_s", 1.0), ("--backoff-max-s=1", "backoff_max_s", 1.0),
+     ("--backoff-seed=1", "backoff_seed", 1), ("--heartbeat-timeout-s=1", "heartbeat_timeout_s",
+                                               1.0),
+     ("--telemetry-dir=x", "telemetry_dir", "x"), ("--nprocs=2", "nprocs", 2),
+     ("--backend=cpu", "backend", "cpu")],
 )
-def test_launcher_refuses_the_supervision_flags_not_ported(flag):
+def test_launcher_accepts_the_supervision_flags(flag, dest, value):
+    """The JAX launcher's supervision flags, with its defaults."""
+    assert getattr(launch.build_parser().parse_args([flag, "script.py"]), dest) == value
+    d = launch.build_parser().parse_args(["script.py"])
+    assert (d.restart_budget, d.grace_s, d.backoff_base_s, d.backoff_max_s, d.backoff_seed,
+            d.heartbeat_timeout_s, d.telemetry_dir, d.nprocs, d.backend) == (
+        0, 10.0, 0.5, 30.0, 0, 0.0, None, 1, None)
+
+
+def test_nprocs_times_nproc_per_node_ranks_one_card_each():
+    """The module docstring's decision: --nprocs N --nproc_per_node M
+    starts N*M processes on the node, one card each, the world the JAX
+    launcher forms from N processes of M devices."""
+    args = launch.build_parser().parse_args(
+        ["--nprocs", "2", "--nproc_per_node", "2", "--master_port", "1234", "x.py"])
+    assert launch.local_ranks(args) == 4
+    envs = [launch._child_env(args, r, restart_count=1) for r in range(4)]
+    assert [(e["RANK"], e["LOCAL_RANK"], e["WORLD_SIZE"]) for e in envs] == [
+        ("0", "0", "4"), ("1", "1", "4"), ("2", "2", "4"), ("3", "3", "4")]
+    assert {e["ELASTIC_RESTART_COUNT"] for e in envs} == {"1"}
+
+
+def test_nprocs_with_nnodes_is_refused_with_the_jax_text(capsys):
     with pytest.raises(SystemExit):
-        launch.build_parser().parse_args([flag, "script.py"])
+        launch.main(["--nprocs", "2", "--nnodes", "2", "x.py"])
+    assert "--nprocs (multi-rank gang on one host) and --nnodes" in capsys.readouterr().err
 
 
 def _rank_script(tmp_path: pathlib.Path, body: str) -> str:
