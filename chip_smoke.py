@@ -39,6 +39,32 @@ Phases, one JSON line each:
                 against engine.predict_logits; /metrics, /healthz, /readyz;
                 drain.  Then over the packed engine with concurrent
                 clients, so requests coalesce into multi-segment batches;
+5b. serving_stack — the single-engine serving stack: a registry of two
+                seeded versions in a temporary directory, one packed
+                server from its default (--dtypes f32,bf16,int8
+                --int8-impl pallas --response-cache 256, telemetry on):
+                (a) the bf16 and int8 gates pass, each variant's /predict
+                within HTTP_TOL of predict_logits; (b) an --int8-impl dot
+                engine's log-probs within DOT_TOL of pallas', its head
+                torch.equal to the kernel's, row 1 launched 0 times; (c)
+                a binary-wire answer the JSON answer's bytes; (d) 16
+                concurrent identical requests one dispatch, a repeat a
+                cache hit launching nothing; (e) with the dispatch held at
+                a hang fault, batch requests fill the queue and
+                interactive arrivals shed batch ones (a check), then a
+                round of both classes (p50/p99 a reading); (f) a 25%
+                canary serves exactly the rows canary_assignment picks,
+                rollback restores v1, a swap under 8 clients tears and
+                drops nothing (each answer v1's or v2's bytes) and moves
+                the manifest's default, and the swap invalidated the
+                cache; (g) a request split across two packed batches
+                equals its unsplit answer bit for bit; (h) faults
+                installed in-process at launch and complete fail only
+                their batch (500), the next request served; (i) a
+                --syncbn archive served at f32 (CPU model within F32_TOL)
+                and bf16, int8 refused.  Row 1 launches on the path equal
+                warmup + gate + split + the int8 batches the telemetry
+                records;
 6. train_step — 20 train steps from one set of weights on fixed batches,
                 dropout off, deterministic cuDNN, three times: the plain
                 update, the fused kernel (per-parameter state) and the
@@ -233,7 +259,8 @@ Phases, one JSON line each:
 Every phase line carries its ``seconds``.  Then the ``kernels`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Launch
 counts are zeroed just before each main path and read just after it:
-int8_head over phases 4-5 (the serving path), adadelta over phases 6-9
+int8_head over phases 4-5 (the serving path) and again over 5b (the
+serving stack; its references apart), adadelta over phases 6-9
 (the CNN training path, resumed runs included), again over 9b (the fused
 and prefetching paths, the launcher rank's included; the per-batch
 references apart) and again over phase 10 (the data-parallel step, the
@@ -534,6 +561,26 @@ FUSED_PROFILE_STEPS = 100
 # resilience phase: the checkpoint cadence and (b)'s kill, in steps
 RESILIENCE_CKPT = 7
 RESILIENCE_KILL_AFTER = 13
+# serving_stack: the registry's second version and the --syncbn archive,
+# seeded (CPU scans: int8 top-1 margin ~0.14 on the parity slice for v2,
+# bf16 margin ~0.13 for the BN model, against gate errors of ~0.004)
+STACK_V2_SEED = 18
+STACK_BN_SEED = 16
+STACK_CACHE = 256  # --response-cache
+STACK_QUEUE_DEPTH = 32
+STACK_TIMEOUT_MS = 5000.0  # the shed check holds requests queued
+STACK_FLIGHT = 16  # (d) concurrent identical requests
+STACK_SHED_BATCH = 40  # (e) batch requests against the 32-deep queue
+STACK_SHED_INTERACTIVE = 8
+STACK_QOS_BATCH_CLIENTS = 6  # (e) the reading round: closed-loop clients
+STACK_QOS_BATCH_ROWS = 16
+STACK_QOS_INTERACTIVE_CLIENTS = 2
+STACK_QOS_REQUESTS = 40
+STACK_CANARY_PCT = 25.0
+STACK_CANARY_ROWS = 64
+STACK_SWAP_CLIENTS = 8
+STACK_SWAP_PER_CLIENT = 30
+DOT_TOL = 5e-4  # --int8-impl dot vs pallas log-probs (the conv ulp)
 
 
 _CLOCK = {"last": time.perf_counter()}
@@ -4083,6 +4130,458 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
     return path, references
 
 
+def http_post(url: str, data: bytes, ctype: str = "application/json") -> tuple[int, bytes, str]:
+    """POST ``data``; ``(status, body, content type)`` whatever the status."""
+    import urllib.error
+
+    req = urllib.request.Request(url, data, {"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read(), r.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers.get("Content-Type", "")
+
+
+def predict_body(rows, dtype: str | None = None, qos: str | None = None) -> bytes:
+    body = {"instances": rows.reshape(len(rows), -1).tolist(), "return_log_probs": True}
+    if dtype is not None:
+        body["dtype"] = dtype
+    if qos is not None:
+        body["qos"] = qos
+    return json.dumps(body).encode()
+
+
+def log_probs(body: bytes):
+    import numpy as np
+
+    return np.asarray(json.loads(body)["log_probs"], np.float32)
+
+
+def poll(predicate, what: str, timeout_s: float = 20.0) -> None:
+    deadline = time.perf_counter() + timeout_s
+    while not predicate():
+        check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def bn_net(torch, seed: int):
+    """A --syncbn CNN from ``seed`` with running averages and BN scales
+    moved off their init (so the eval-mode BatchNorm is not the identity)."""
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+
+    g = torch.Generator().manual_seed(seed)
+    net = Net(g, use_bn=True)
+    with torch.no_grad():
+        for bn in (net.bn1, net.bn2):
+            bn.running_mean.copy_(0.1 * torch.randn(bn.running_mean.shape, generator=g))
+            bn.running_var.copy_(1 + 0.5 * torch.rand(bn.running_var.shape, generator=g))
+            bn.weight.copy_(1 + 0.2 * torch.randn(bn.weight.shape, generator=g))
+    return net
+
+
+def serving_stack_phase(torch, np, workdir: str) -> tuple[dict, dict]:
+    """The single-engine serving stack on the card: one packed server over
+    a registry of two seeded versions, --dtypes f32,bf16,int8 --int8-impl
+    pallas --response-cache 256, telemetry on.  Checks (a)-(i) of the
+    module docstring; returns row 1's launches on the path and, apart,
+    those of the references it is held to."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.models.quant import (
+        conv_stack,
+        int8_head_dot,
+        qparams_to,
+        quantize_params,
+    )
+    from pytorch_mnist_ddp_tpu_torch.obs.events import open_sink, read_events
+    from pytorch_mnist_ddp_tpu_torch.obs.spans import span
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.serving import faults, wire
+    from pytorch_mnist_ddp_tpu_torch.serving.batcher import MicroBatcher
+    from pytorch_mnist_ddp_tpu_torch.serving.engine import PARITY_SEED, InferenceEngine
+    from pytorch_mnist_ddp_tpu_torch.serving.metrics import ServingMetrics
+    from pytorch_mnist_ddp_tpu_torch.serving.registry import ModelRegistry
+    from pytorch_mnist_ddp_tpu_torch.serving.rollout import (
+        RolloutController,
+        canary_assignment,
+    )
+    from pytorch_mnist_ddp_tpu_torch.serving.server import decode_instances, make_server
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import model_state_dict, save_state_dict
+
+    t_phase = time.perf_counter()
+    refs = {"launches": 0}
+
+    @contextlib.contextmanager
+    def reference():
+        before = ih.LAUNCHES
+        try:
+            yield
+        finally:
+            refs["launches"] += ih.LAUNCHES - before
+
+    # The registry: v1 (SEED) the default, v2 published beside it.
+    reg_dir = os.path.join(workdir, "registry")
+    os.makedirs(reg_dir)
+    states = {"v1": Net(torch.Generator().manual_seed(SEED)).state_dict(),
+              "v2": Net(torch.Generator().manual_seed(STACK_V2_SEED)).state_dict()}
+    registry = ModelRegistry(reg_dir)
+    for version, state in states.items():
+        path = os.path.join(reg_dir, f"mnist_{version}.pt")
+        save_state_dict(model_state_dict(state), path)
+        registry.publish("mnist", version, path)
+    registry = ModelRegistry(reg_dir)  # a fresh reader of the manifest
+    entry = registry.resolve()
+    check((entry.model, entry.version) == ("mnist", "v1"), f"default route {entry.describe()}")
+
+    tel_dir = os.path.join(workdir, "telemetry")
+    sink = open_sink(tel_dir)
+    metrics = ServingMetrics()
+    engine = InferenceEngine(registry.load(entry), version=entry.version, dtypes=("bf16", "int8"),
+                             int8_impl="pallas", packed=True, metrics=metrics)
+    check(engine.device.type == "cuda", f"stack engine on {engine.device}")
+    dev = engine.device
+    with span("warmup", sink=sink, registry=metrics.registry):
+        rungs = engine.warmup()
+    gates = engine.verify_parity(sink=sink)
+    check(all(g["passed"] for g in gates.values()) and set(gates) == {"bf16", "int8"},
+          f"(a) parity gates {gates}")
+    warm_launches = ih.LAUNCHES  # one int8 rung and the int8 gate
+
+    # References, computed before any server thread owns the dispatch.
+    raw = np.random.RandomState(PARITY_SEED + 14).randint(0, 256, (256, 28, 28)).astype(np.uint8)
+    x = decode_instances({"instances": raw.tolist()})  # the server's model input
+    with reference():
+        ref = {dt: engine.predict_logits(x, dtype=dt) for dt in ("f32", "bf16", "int8")}
+        engine.install_version("v2", registry.load(registry.resolve(version="v2")))
+        ref_v2 = engine.predict_logits(x, dtype="f32@v2")
+        engine.remove_version("v2")
+        split_rows = x[100:160]
+        unsplit = {dt: engine.predict_logits(split_rows, dtype=dt) for dt in ("f32", "int8")}
+    check(float(np.abs(ref_v2 - ref["f32"]).max()) > 1e-2, "v1 and v2 answer alike")
+
+    # (g) a packed request split across two batches, through the batcher:
+    # 100 rows, then 60 that overflow the 128-row buffer by 32, per dtype.
+    batches0 = metrics.batches
+    batcher = MicroBatcher(engine, metrics=ServingMetrics(), linger_ms=5.0,
+                           adaptive_linger=False, timeout_ms=STACK_TIMEOUT_MS)
+    pending = {dt: (batcher.submit(x[:100], dtype=dt), batcher.submit(split_rows, dtype=dt))
+               for dt in ("f32", "int8")}
+    batcher.start()
+    split_equal = {}
+    for dt, (_, req) in pending.items():
+        got = req.result()
+        split_equal[dt] = bool(np.array_equal(got, unsplit[dt]))
+    batcher.stop(drain=True)
+    split_batches = metrics.batches - batches0
+    check(split_batches == 4, f"(g) {split_batches} batches, want 4")
+    check(all(split_equal.values()), f"(g) split answers differ from unsplit: {split_equal}")
+    split_launches = ih.LAUNCHES - warm_launches - refs["launches"]
+    check(split_launches == 2, f"(g) int8 split batches launched row 1 {split_launches} times")
+
+    # (b) --int8-impl dot against pallas: engines and heads
+    before = ih.LAUNCHES
+    dot = InferenceEngine(registry.load(entry), dtypes=("int8",), int8_impl="dot", packed=True)
+    dot.warmup()
+    dot_gate = dot.verify_parity()["int8"]
+    out_dot = dot.predict_logits(x[:128], dtype="int8")
+    q = qparams_to(quantize_params(states["v1"]), dev)
+    with torch.inference_mode():
+        feats = conv_stack(q, torch.from_numpy(x[:128]).to(dev))
+        head_dot = int8_head_dot(q["fc1"], q["fc2"], feats)
+    dot_head_ms = median_ms(torch, lambda: int8_head_dot(q["fc1"], q["fc2"], feats))
+    check(ih.LAUNCHES == before, f"(b) the dot engine launched row 1 {ih.LAUNCHES - before} times")
+    with reference():
+        head_kernel = ih.fused_int8_head(q["fc1"], q["fc2"], feats)
+        kernel_head_ms = median_ms(torch, lambda: ih.fused_int8_head(q["fc1"], q["fc2"], feats))
+    dot_err = float(np.abs(out_dot - ref["int8"][:128]).max())
+    check(dot_gate["passed"], f"(b) dot gate {dot_gate}")
+    check(torch.equal(head_dot, head_kernel), "(b) dot head != kernel head")
+    check(dot_err <= DOT_TOL, f"(b) dot log-probs off pallas by {dot_err}")
+    del dot
+
+    rollout = RolloutController(registry, engine, metrics=metrics, sink=sink)
+    server = make_server(engine, metrics, sink=sink, response_cache=STACK_CACHE,
+                         rollout=rollout, queue_depth=STACK_QUEUE_DEPTH,
+                         timeout_ms=STACK_TIMEOUT_MS, linger_ms=2.0, fill_wait_ms=2.0)
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    predict = url + "/predict"
+    out: dict = {}
+    try:
+        # (a) every variant over JSON against predict_logits
+        a_err = {}
+        for dt in ("f32", "bf16", "int8"):
+            status, body, _ = http_post(predict, predict_body(raw[160:168], dt))
+            check(status == 200, f"(a) /predict {dt} answered {status}")
+            got = log_probs(body)
+            a_err[dt] = float(np.abs(got - ref[dt][160:168]).max())
+            check(a_err[dt] <= HTTP_TOL, f"(a) /predict {dt} off predict_logits by {a_err[dt]}")
+            check((got.argmax(1) == ref[dt][160:168].argmax(1)).all(), f"(a) {dt} argmax")
+        out["a_max_abs_vs_predict_logits"] = a_err
+
+        # (c) the binary wire, then the same rows over JSON (a cache hit)
+        rows = raw[170:174]
+        status, body, ctype = http_post(predict, wire.encode_request(rows.astype(np.float32)),
+                                        wire.WIRE_REQUEST_TYPE)
+        check(status == 200 and ctype == wire.WIRE_RESPONSE_TYPE, f"(c) wire {status} {ctype}")
+        binary = np.array(wire.decode_response(body))
+        status, body, _ = http_post(predict, predict_body(rows))
+        check(status == 200, f"(c) json {status}")
+        check(binary.tobytes() == log_probs(body).tobytes(), "(c) wire bytes != JSON logits")
+        check(binary.tobytes() == ref["f32"][170:174].tobytes(), "(c) wire != predict_logits")
+        out["c_wire"] = metrics.snapshot()["wire"]
+
+        # (d) concurrent identical requests: one dispatch; a repeat: a hit
+        body_d = predict_body(raw[180:181], "int8")
+        barrier = threading.Barrier(STACK_FLIGHT)
+
+        def flight(_):
+            barrier.wait()
+            return http_post(predict, body_d)
+
+        b0, l0, c0 = metrics.batches, ih.LAUNCHES, dict(metrics.snapshot()["cache"])
+        with ThreadPoolExecutor(STACK_FLIGHT) as pool:
+            answers = list(pool.map(flight, range(STACK_FLIGHT)))
+        check(all(s == 200 for s, _, _ in answers), "(d) a coalesced request failed")
+        check(len({b for _, b, _ in answers}) == 1, "(d) coalesced answers differ")
+        d_batches, d_launches = metrics.batches - b0, ih.LAUNCHES - l0
+        check(d_batches == 1 and d_launches == 1,
+              f"(d) {STACK_FLIGHT} identical requests: {d_batches} batches, {d_launches} launches")
+        b0, l0 = metrics.batches, ih.LAUNCHES
+        status, body_hit, _ = http_post(predict, body_d)
+        c1 = metrics.snapshot()["cache"]
+        check(status == 200 and body_hit == answers[0][1], "(d) the repeat differs")
+        check(metrics.batches == b0 and ih.LAUNCHES == l0, "(d) the repeat dispatched")
+        out["d_single_flight"] = {
+            "requests": STACK_FLIGHT, "batches": d_batches, "launches": d_launches,
+            "cache_delta": {k: c1[k] - c0.get(k, 0) for k in ("hit", "miss", "coalesced")}}
+
+        # (h) faults at launch and complete fail only their batch
+        h = {}
+        for spec, dt, lo in (("fail:launch", "f32", 190), ("fail:complete", "int8", 192)):
+            failed0 = metrics.failed
+            injector = faults.install(faults.FaultInjector(spec).start())
+            try:
+                status_fault, _, _ = http_post(predict, predict_body(raw[lo:lo + 2], dt))
+            finally:
+                faults.uninstall()
+            status_after, body, _ = http_post(predict, predict_body(raw[lo:lo + 2], dt))
+            check(injector.fired_counts() == {spec: 1}, f"(h) {spec} fired {injector.fired_counts()}")
+            check(status_fault == 500 and metrics.failed - failed0 == 1,
+                  f"(h) {spec}: {status_fault}, failed {metrics.failed - failed0}")
+            check(status_after == 200 and np.abs(log_probs(body) - ref[dt][lo:lo + 2]).max()
+                  <= HTTP_TOL, f"(h) {spec}: the server did not recover ({status_after})")
+            h[spec] = {"fault": status_fault, "after": status_after}
+        out["h_faults"] = h
+
+        # (e) shedding under a batch backlog: the dispatch hangs at launch
+        # while batch-class requests fill the queue, then interactive ones
+        # arrive; then a reading round of both classes
+        fresh = np.random.RandomState(PARITY_SEED + 15).randint(
+            0, 256, (1 + STACK_SHED_BATCH + STACK_SHED_INTERACTIVE, 28, 28)).astype(np.uint8)
+        injector = faults.install(faults.FaultInjector("hang:launch:for=10").start())
+        try:
+            rej0 = metrics.rejected
+            shed0 = metrics.snapshot()["qos"]
+            with ThreadPoolExecutor(1 + STACK_SHED_BATCH + STACK_SHED_INTERACTIVE) as pool:
+                held = pool.submit(http_post, predict, predict_body(fresh[:1], qos="batch"))
+                poll(lambda: injector.fired_counts()["hang:launch:for=10"] == 1, "the hang")
+                batch = [pool.submit(http_post, predict, predict_body(fresh[1 + i:2 + i],
+                                                                      qos="batch"))
+                         for i in range(STACK_SHED_BATCH)]
+                poll(lambda: server.batcher.depth() == STACK_QUEUE_DEPTH
+                     and metrics.rejected - rej0 == STACK_SHED_BATCH - STACK_QUEUE_DEPTH,
+                     "a full queue of batch requests")
+                inter = [pool.submit(http_post, predict,
+                                     predict_body(fresh[1 + STACK_SHED_BATCH + i:][:1],
+                                                  qos="interactive"))
+                         for i in range(STACK_SHED_INTERACTIVE)]
+                poll(lambda: metrics.snapshot()["qos"]["batch"]["shed"]
+                     - shed0["batch"]["shed"] == STACK_SHED_INTERACTIVE, "the sheds")
+                faults.uninstall()  # wakes the hang
+                statuses = {"held": held.result()[0],
+                            "batch": [f.result()[0] for f in batch],
+                            "interactive": [f.result()[0] for f in inter]}
+        finally:
+            faults.uninstall()
+        qos = metrics.snapshot()["qos"]
+        shed = {c: qos[c]["shed"] - shed0[c]["shed"] for c in qos}
+        check(statuses["held"] == 200 and all(s == 200 for s in statuses["interactive"]),
+              f"(e) {statuses}")
+        check(shed == {"batch": STACK_SHED_INTERACTIVE, "interactive": 0}, f"(e) shed {shed}")
+        check(statuses["batch"].count(503) == STACK_SHED_BATCH - STACK_QUEUE_DEPTH
+              + STACK_SHED_INTERACTIVE, f"(e) batch statuses {statuses['batch']}")
+
+        def qos_client(c: int, cls: str, n_rows: int) -> list[float]:
+            rs = np.random.RandomState(1000 + c)
+            lat = []
+            for _ in range(STACK_QOS_REQUESTS):
+                data = predict_body(rs.randint(0, 256, (n_rows, 28, 28)), qos=cls)
+                t0 = time.perf_counter()
+                status, _, _ = http_post(predict, data)
+                lat.append(1e3 * (time.perf_counter() - t0))
+                check(status == 200, f"(e) {cls} request answered {status}")
+            return lat
+
+        clients = ([("batch", STACK_QOS_BATCH_ROWS)] * STACK_QOS_BATCH_CLIENTS
+                   + [("interactive", 1)] * STACK_QOS_INTERACTIVE_CLIENTS)
+        with ThreadPoolExecutor(len(clients)) as pool:
+            lats = list(pool.map(lambda c: qos_client(c, *clients[c]), range(len(clients))))
+        by_class = {cls: [t for (c, _), lat in zip(clients, lats) if c == cls for t in lat]
+                    for cls in ("interactive", "batch")}
+        qos = metrics.snapshot()["qos"]
+        out["e_qos"] = {
+            "shed_check": {"statuses_503": {k: v.count(503) for k, v in statuses.items()
+                                            if isinstance(v, list)}, "shed": shed},
+            "client_ms": {cls: {"requests": len(v), "p50": float(np.percentile(v, 50)),
+                                "p99": float(np.percentile(v, 99))}
+                          for cls, v in by_class.items()},
+            "server_ms_whole_phase": {cls: {k: qos[cls][k] for k in ("requests", "p50_ms",
+                                                                      "p99_ms")}
+                                      for cls in qos}}
+
+        # (f) the canary at 25%, rollback, then a swap under load
+        status, body, _ = http_post(url + "/admin/canary", json.dumps(
+            {"version": "v2", "pct": STACK_CANARY_PCT}).encode())
+        check(status == 200, f"(f) canary start {status}: {body[:200]}")
+        picked = [canary_assignment(np.ascontiguousarray(x[i:i + 1]).data, STACK_CANARY_PCT)
+                  for i in range(STACK_CANARY_ROWS)]
+        wrong = []
+        for i in range(STACK_CANARY_ROWS):
+            status, body, _ = http_post(predict, predict_body(raw[i:i + 1]))
+            want = ref_v2[i:i + 1] if picked[i] else ref["f32"][i:i + 1]
+            if status != 200 or log_probs(body).tobytes() != want.tobytes():
+                wrong.append(i)
+        check(not wrong and 0 < sum(picked) < STACK_CANARY_ROWS,
+              f"(f) canary rows off their assignment: {wrong} ({sum(picked)} picked)")
+        status, _, _ = http_post(url + "/admin/rollback", b"{}")
+        check(status == 200, f"(f) rollback {status}")
+        restored = all(log_probs(http_post(predict, predict_body(raw[i:i + 1]))[1]).tobytes()
+                       == ref["f32"][i:i + 1].tobytes() for i in range(STACK_CANARY_ROWS)
+                       if picked[i])
+        check(restored, "(f) rollback did not restore v1")
+        out["f_canary"] = {"rows": STACK_CANARY_ROWS, "pct": STACK_CANARY_PCT,
+                           "picked": int(sum(picked)), "restored_v1": restored}
+
+        done = {"n": 0}
+        lock = threading.Lock()
+
+        def swap_client(c: int) -> list[tuple[int, int, bytes]]:
+            got = []
+            for j in range(STACK_SWAP_PER_CLIENT):
+                i = 64 + (c * STACK_SWAP_PER_CLIENT + j) % 192
+                status, body, _ = http_post(predict, predict_body(raw[i:i + 1]))
+                got.append((i, status, body))
+                with lock:
+                    done["n"] += 1
+            return got
+
+        total = STACK_SWAP_CLIENTS * STACK_SWAP_PER_CLIENT
+        with ThreadPoolExecutor(STACK_SWAP_CLIENTS) as pool:
+            futures = [pool.submit(swap_client, c) for c in range(STACK_SWAP_CLIENTS)]
+            poll(lambda: done["n"] >= total // 4, "a quarter of the swap traffic")
+            t0 = time.perf_counter()
+            status, body, _ = http_post(url + "/admin/swap", b'{"version": "v2"}')
+            swap_s = time.perf_counter() - t0
+            results = [r for f in futures for r in f.result()]
+        check(status == 200, f"(f) swap {status}: {body[:200]}")
+        dropped = sum(1 for _, s, _ in results if s != 200)
+        served = {"v1": 0, "v2": 0, "torn": 0}
+        for i, s, body in results:
+            if s != 200:
+                continue
+            got = log_probs(body).tobytes()
+            served["v1" if got == ref["f32"][i:i + 1].tobytes() else
+                   "v2" if got == ref_v2[i:i + 1].tobytes() else "torn"] += 1
+        check(dropped == 0 and served["torn"] == 0 and served["v1"] > 0 and served["v2"] > 0,
+              f"(f) swap under load: dropped {dropped}, served {served}")
+        after = log_probs(http_post(predict, predict_body(raw[64:65]))[1])
+        check(after.tobytes() == ref_v2[64:65].tobytes(), "(f) after the swap v1 still serves")
+        check(registry.resolve().version == "v2", "(f) the manifest's default did not move")
+        # (d) the swap invalidated the cache: the repeat misses and dispatches
+        m0, l0 = metrics.snapshot()["cache"]["miss"], ih.LAUNCHES
+        status, body_after, _ = http_post(predict, body_d)
+        check(status == 200 and metrics.snapshot()["cache"]["miss"] == m0 + 1
+              and ih.LAUNCHES == l0 + 1 and body_after != body_hit,
+              "(d) the swap left the cache entry")
+        out["f_swap"] = {"requests": total, "swap_s": swap_s, "dropped": dropped,
+                         "served": served}
+        snap = metrics.snapshot()
+        out["cache"] = snap["cache"]
+        out["hit_ratio"] = snap["cache"]["hit_rate"]
+        check("serving_qos_requests_total" in get(url + "/metrics?format=prom").decode(),
+              "the qos family on /metrics")
+        out["healthz_rollout"] = json.loads(get(url + "/healthz"))["rollout"]
+    finally:
+        faults.uninstall()
+        server.shutdown()
+        server.batcher.stop(drain=True)
+        server.server_close()
+        serve.join(timeout=30)
+        sink.close()
+    check(not serve.is_alive(), "the stack server thread did not stop")
+    events = read_events(sink.path)
+    int8_batches = sum(1 for e in events if e["event"] == "serving_batch"
+                       and e["dtype"].split("@")[0] == "int8")
+    path = ih.LAUNCHES - refs["launches"]
+    check(path == warm_launches + split_launches + int8_batches,
+          f"row 1 launched {path} times on the path, want {warm_launches} (warmup, gate) + "
+          f"{split_launches} (split) + {int8_batches} (int8 batches served)")
+    check(any(e["event"] == "span_end" and e["span"] == "warmup" for e in events),
+          "no warmup span in the telemetry")
+
+    # (i) a --syncbn archive at f32 and bf16; int8 refused
+    bn_model = bn_net(torch, STACK_BN_SEED)
+    bn_path = os.path.join(workdir, "mnist_cnn_syncbn.pt")
+    save_state_dict(model_state_dict(bn_model, ddp_prefix=True, num_batches=9), bn_path)
+    bn_engine = InferenceEngine.from_checkpoint(bn_path, dtypes=("bf16",), packed=True)
+    bn_engine.warmup()
+    bn_gate = bn_engine.verify_parity()["bf16"]
+    check(bn_gate["passed"], f"(i) BN bf16 gate {bn_gate}")
+    bn_metrics = ServingMetrics()
+    bn_server = make_server(bn_engine, bn_metrics, linger_ms=1.0)
+    bn_serve = threading.Thread(target=bn_server.serve_forever, daemon=True)
+    bn_serve.start()
+    try:
+        bn_url = f"http://127.0.0.1:{bn_server.server_address[1]}/predict"
+        bn_out = {}
+        for dt in ("f32", "bf16"):
+            status, body, _ = http_post(bn_url, predict_body(raw[:16], dt))
+            check(status == 200, f"(i) BN /predict {dt} answered {status}")
+            bn_out[dt] = log_probs(body)
+    finally:
+        bn_server.shutdown()
+        bn_server.batcher.stop(drain=True)
+        bn_server.server_close()
+        bn_serve.join(timeout=30)
+    with torch.inference_mode():
+        bn_ref = bn_model.eval()(torch.from_numpy(x[:16])).numpy()
+    bn_err = {dt: float(np.abs(v - bn_ref).max()) for dt, v in bn_out.items()}
+    check(bn_err["f32"] <= F32_TOL, f"(i) BN f32 off the CPU model by {bn_err['f32']}")
+    check((bn_out["bf16"].argmax(1) == bn_ref.argmax(1)).all(), "(i) BN bf16 argmax")
+    try:
+        InferenceEngine.from_checkpoint(bn_path, dtypes=("int8",))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("serve BN checkpoints at f32 or bf16" in refused, f"(i) int8 not refused: {refused!r}")
+    out["i_batchnorm"] = {"bf16_gate": bn_gate, "max_abs_vs_cpu_model": bn_err,
+                          "int8_refusal": refused}
+
+    emit({"phase": "serving_stack", "registry": registry.describe()["models"]["mnist"],
+          "rungs": len(rungs), "gates": gates, "split": {"batches": split_batches,
+                                                          "equal_bit_for_bit": split_equal},
+          "dot_vs_pallas": {"gate": dot_gate, "max_abs_log_probs": dot_err,
+                            "head_equal": True, "dot_head_ms": dot_head_ms,
+                            "kernel_head_ms": kernel_head_ms, "rows": 128},
+          **out, "int8_batches_served": int8_batches,
+          "launches": {"int8_head": path, "reference": refs["launches"]},
+          "seconds": time.perf_counter() - t_phase})
+    return {"int8_head": path}, {"int8_head": refs["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -4305,6 +4804,13 @@ def main() -> int:
           "completed": metrics.completed, "rounds": rounds,
           "launches_main_path": {"int8_head": launches}})
 
+    # 5b. serving_stack: the single-engine stack; row 1 counted on its
+    # path, the references it is held to apart
+    ih.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        stack_launches, stack_references = serving_stack_phase(torch, np, workdir)
+    check(stack_launches["int8_head"] > 0, "the serving stack never launched int8_head")
+
     # 6-9. the training path; adadelta launch counts cover these four
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
@@ -4409,7 +4915,11 @@ def main() -> int:
         "name": "int8_head", "route": "cuda",
         "source": "pytorch_mnist_ddp_tpu_torch/csrc/int8_head.cu",
         "replaces": "pytorch_mnist_ddp_tpu/ops/pallas_infer.py:61",
-        "launches": launches, "max_abs_err": max(kernel_err.values()),
+        "launches": launches + stack_launches["int8_head"],
+        "launches_by_phase": {"engine_server": launches,
+                              "serving_stack": stack_launches["int8_head"]},
+        "serving_stack_reference_launches": stack_references["int8_head"],
+        "max_abs_err": max(kernel_err.values()),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "rows": TIMED_ROWS[-1],

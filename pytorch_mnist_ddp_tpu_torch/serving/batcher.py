@@ -1,16 +1,16 @@
-"""Pipelined micro-batching: bounded admission, overlap, backpressure.
+"""Pipelined micro-batching: QoS admission, overlap, backpressure, the
+tail machinery (the JAX package's ``serving/batcher.py``, single engine).
 
 One 64-row dispatch costs barely more device time than a 1-row dispatch
 at these shapes, so coalescing concurrent requests multiplies throughput —
 at the price of waiting.  The batcher takes the first queued request, then
-keeps pulling until the batch would exceed the top bucket or the **linger**
-passes (in packed mode the **fill wait**, when set, replaces the linger:
-waiting to fill the one rows-capacity buffer is worth more there).
+keeps pulling until the batch would exceed the top bucket or the batch's
+**close time** passes.
 
 Two threads:
 
-- the **dispatch worker** coalesces same-dtype requests, pads them into a
-  preallocated staging buffer and calls ``engine.launch``, which returns
+- the **dispatch worker** coalesces same-variant requests, pads them into
+  a preallocated staging buffer and calls ``engine.launch``, which returns
   without waiting for the device;
 - the **completion worker** waits on each launched batch's own CUDA event
   (:class:`~.engine.DeviceResult`), slices the rows to their requests and
@@ -20,10 +20,38 @@ A semaphore bounds the launched-not-yet-read window (``max_inflight``):
 batch N+1's host work overlaps batch N's device work, and time the
 dispatch worker spends blocked on a full window is recorded as stall.
 
-Admission is a bounded queue: a full queue rejects at once
-(:class:`RejectedError`, HTTP 503) instead of queueing without limit, and a
-request whose deadline passes while queued completes with
-:class:`RequestTimeout` (504) without being dispatched.  ``stop()`` closes
+The close time:
+
+- the **adaptive linger** (:class:`AdaptiveLinger`) halves the linger
+  while the admission queue is deep (the next batch is already there;
+  waiting is pure latency) and relaxes it back toward the configured
+  ceiling when the queue empties;
+- the **deadline-aware close** (:meth:`MicroBatcher._close_at`) clamps it
+  so the OLDEST member's remaining deadline still covers the estimated
+  service time (an EWMA of launch -> read-back fed by the completion
+  worker).
+
+Admission is a bounded **QoS-weighted** queue (serving/qos.py): requests
+carry a class (``interactive``/``batch``), dequeue is weighted
+round-robin, and a full queue first sweeps expired entries, then sheds
+the newest request of a strictly lower class before rejecting
+(:class:`RejectedError`, HTTP 503).  A request whose deadline passes while
+queued completes with :class:`RequestTimeout` (504) without being
+dispatched, eagerly, on the workers' cadence.
+
+**Packed ragged batching** (``engine.packed``): batches are segment lists
+— ``(request, start, rows)`` — concatenated into one rows-capacity buffer
+with a segment-id vector.  A request that would overflow the forming
+batch is SPLIT: its head fills this batch exactly to capacity and the
+remainder leads the next one.  The completion worker reassembles split
+requests by segment, bit for bit the unsplit answer (rows are independent
+through the eval forward).  The fill wait (``fill_wait_ms``) replaces the
+linger as the adaptive controller's ceiling in packed mode.
+
+The dispatch and completion paths carry the fault points ``launch`` and
+``complete`` (serving/faults.py), and, given an event sink, the spans
+``serving_pad``, ``serving_dispatch``, ``serving_complete`` and the events
+``serving_request``, ``serving_batch``, ``qos_shed``.  ``stop()`` closes
 admission and, by default, drains the queue and the in-flight window so
 nothing admitted is lost.
 """
@@ -37,13 +65,16 @@ import time
 import numpy as np
 
 from ..models.net import INPUT_SHAPE
+from ..obs.spans import span
 from .buckets import StagingPool, segment_ids
+from .faults import fault_point
 from .metrics import ServingMetrics
+from .qos import DEFAULT_QOS, QOS_CLASSES, QoSQueue
 
 
 class RejectedError(RuntimeError):
-    """Admission refused (queue full, server draining, unservable request)
-    — HTTP 503."""
+    """Admission refused (queue full, shed, server draining, unservable
+    request) — HTTP 503."""
 
 
 class RequestTimeout(RuntimeError):
@@ -51,15 +82,18 @@ class RequestTimeout(RuntimeError):
 
 
 class PendingRequest:
-    """One admitted request: rows, dtype, deadline and a result slot.
-    The first outcome set wins; later ones are ignored."""
+    """One admitted request: rows, dtype (the engine variant key), QoS
+    class, deadline and a result slot.  The first outcome set wins; later
+    ones are ignored."""
 
-    __slots__ = ("x", "dtype", "deadline", "t_submit", "_event", "_lock",
+    __slots__ = ("x", "dtype", "qos", "deadline", "t_submit", "_event", "_lock",
                  "_value", "_error")
 
-    def __init__(self, x: np.ndarray, deadline: float, dtype: str):
+    def __init__(self, x: np.ndarray, deadline: float, dtype: str = "f32",
+                 qos: str = DEFAULT_QOS):
         self.x = x
         self.dtype = dtype
+        self.qos = qos
         self.deadline = deadline
         self.t_submit = time.perf_counter()
         self._event = threading.Event()
@@ -71,8 +105,8 @@ class PendingRequest:
     def n(self) -> int:
         return len(self.x)
 
-    def expired(self) -> bool:
-        return time.perf_counter() > self.deadline
+    def expired(self, now: float | None = None) -> bool:
+        return (now if now is not None else time.perf_counter()) > self.deadline
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -106,16 +140,94 @@ class PendingRequest:
             return self._value
 
 
+class AdaptiveLinger:
+    """Queue-depth-driven linger: shrink under load, relax when idle.
+
+    Halves the linger whenever the admission queue is at least
+    ``deep_depth`` requests deep (snapping to 0 below ``floor_s``) and
+    relaxes it additively by ``relax_frac`` of the ceiling on an empty
+    queue; in-between depths hold.  Both moves keep the value inside
+    ``[0, ceiling_s]``.  The current value is the
+    ``serving_linger_seconds`` gauge.  The JAX package's controller, value
+    for value.
+    """
+
+    def __init__(
+        self,
+        ceiling_s: float,
+        enabled: bool = True,
+        registry=None,
+        deep_depth: int = 4,
+        shrink: float = 0.5,
+        relax_frac: float = 0.25,
+        floor_s: float = 1e-4,
+    ):
+        if not 0.0 < shrink < 1.0:
+            raise ValueError(f"shrink factor must be in (0, 1), got {shrink}")
+        if not 0.0 < relax_frac <= 1.0:
+            raise ValueError(f"relax_frac must be in (0, 1], got {relax_frac}")
+        self.ceiling_s = max(0.0, ceiling_s)
+        self.enabled = enabled
+        self.deep_depth = max(1, deep_depth)
+        self.shrink = shrink
+        self.relax_frac = relax_frac
+        self.floor_s = floor_s
+        self.current_s = self.ceiling_s
+        self._gauge = (
+            registry.gauge(
+                "serving_linger_seconds",
+                help="current adaptive linger (shrinks under queue depth, "
+                "relaxes toward the configured ceiling when idle)",
+            )
+            if registry is not None
+            else None
+        )
+        if self._gauge is not None:
+            self._gauge.set(self.current_s)
+
+    def update(self, queue_depth: int) -> float:
+        """Observe the admission depth; return the linger to use now."""
+        if not self.enabled:
+            return self.ceiling_s
+        if queue_depth >= self.deep_depth:
+            self.current_s *= self.shrink
+            if self.current_s < self.floor_s:
+                self.current_s = 0.0
+        elif queue_depth == 0:
+            self.current_s = min(
+                self.ceiling_s, self.current_s + self.relax_frac * self.ceiling_s
+            )
+        if self._gauge is not None:
+            self._gauge.set(self.current_s)
+        return self.current_s
+
+
 class _InFlight:
-    """One launched batch on its way to the completion worker."""
+    """One launched batch on its way to the completion worker: the member
+    requests (``batch``, each once) and the row layout (``segments``:
+    ``(request, start, rows)`` in staging order, ``start`` the block's
+    offset within its request)."""
 
-    __slots__ = ("batch", "result", "staged", "bucket")
+    __slots__ = ("batch", "segments", "result", "staged", "bucket", "n", "stall_s",
+                 "dtype", "t_launch")
 
-    def __init__(self, batch, result, staged, bucket):
+    def __init__(self, batch, segments, result, staged, bucket, n, stall_s, dtype):
         self.batch = batch
+        self.segments = segments
         self.result = result
         self.staged = staged
         self.bucket = bucket
+        self.n = n
+        self.stall_s = stall_s
+        self.dtype = dtype
+        self.t_launch = time.perf_counter()
+
+
+def _read_back(result) -> np.ndarray:
+    """A launched batch's host log-probs: :class:`~.engine.DeviceResult`
+    waits on its event; anything else (a test's fake) converts."""
+    wait = getattr(result, "wait", None)
+    return wait() if wait is not None else np.asarray(result)
 
 
 class MicroBatcher:
@@ -123,7 +235,9 @@ class MicroBatcher:
 
     Exactly one dispatch worker calls ``engine.launch`` and exactly one
     completion worker reads results back; HTTP handler threads only
-    ``submit()`` and wait.
+    ``submit()`` and wait.  The engine contract is ``engine.buckets`` plus
+    ``engine.launch(staged, n)`` (with ``dtype=`` for other variants and
+    ``seg_ids=`` when ``engine.packed``).
     """
 
     def __init__(
@@ -135,31 +249,59 @@ class MicroBatcher:
         timeout_ms: float = 1000.0,
         max_inflight: int = 2,
         fill_wait_ms: float | None = None,
+        adaptive_linger: bool = True,
+        deadline_aware: bool = True,
+        qos_classes: tuple[str, ...] = QOS_CLASSES,
+        qos_weights: dict[str, int] | None = None,
+        sink=None,
+        heartbeat=None,
     ):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         self.engine = engine
-        self.metrics = metrics if metrics is not None else engine.metrics
+        self.metrics = metrics if metrics is not None else getattr(engine, "metrics", None)
         self.max_batch = engine.buckets[-1]
-        self.packed = bool(engine.packed)
-        self.linger_s = (
-            fill_wait_ms / 1e3
-            if self.packed and fill_wait_ms is not None
-            else linger_ms / 1e3
+        self.packed = bool(getattr(engine, "packed", False))
+        self.linger_s = linger_ms / 1e3
+        self.fill_wait_s = (
+            fill_wait_ms / 1e3 if self.packed and fill_wait_ms is not None else None
         )
         self.timeout_s = timeout_ms / 1e3
         self.max_inflight = max_inflight
-        self._queue: queue.Queue[PendingRequest] = queue.Queue(maxsize=queue_depth)
+        self._default_dtype = getattr(engine, "default_dtype", "f32")
+        registry = self.metrics.registry if self.metrics is not None else None
+        self._registry = registry
+        self._sink = sink
+        self._linger = AdaptiveLinger(
+            self.fill_wait_s if self.fill_wait_s is not None else self.linger_s,
+            enabled=adaptive_linger, registry=registry,
+        )
+        self.deadline_aware = deadline_aware
+        self._service_ewma_s: float | None = None
+        self.qos_classes = tuple(qos_classes)
+        self._queue = QoSQueue(maxsize=queue_depth, classes=self.qos_classes,
+                               weights=qos_weights)
+        if self.metrics is not None:
+            for name in self.qos_classes:
+                self.metrics.ensure_qos(name)
+        # Expiry hook: called with 1 per request that expires in the queue.
+        self.on_expire = None
+        # Liveness hook: called once per dispatch-loop iteration.
+        self._heartbeat = heartbeat
         self._window = threading.Semaphore(max_inflight)
         self._completions: queue.Queue[_InFlight | None] = queue.Queue()
         # One spare slot beyond the window: batch N+1 stages while the
         # window is still full.
+        device = getattr(engine, "device", None)
         self._staging = StagingPool(
             engine.buckets,
             INPUT_SHAPE,
             slots=max_inflight + 1,
-            pin=engine.device.type == "cuda",
+            pin=device is not None and device.type == "cuda",
         )
+        # Packed-split reassembly (completion worker only): id(request)
+        # -> [request, out buffer, rows filled].
+        self._assembly: dict[int, list] = {}
         self._inflight_lock = threading.Lock()
         self._inflight = 0
         self._closed = threading.Event()
@@ -222,6 +364,13 @@ class MicroBatcher:
         with self._inflight_lock:
             return self._inflight
 
+    @property
+    def current_linger_ms(self) -> float:
+        """What the adaptive controller is currently waiting (ms)."""
+        return 1e3 * (
+            self._linger.current_s if self._linger.enabled else self._linger.ceiling_s
+        )
+
     # -- admission (any thread) ---------------------------------------------------
 
     def _reject(self, message: str) -> RejectedError:
@@ -230,36 +379,87 @@ class MicroBatcher:
         return RejectedError(message)
 
     def submit(
-        self, x: np.ndarray, timeout_ms: float | None = None, dtype: str | None = None
+        self,
+        x: np.ndarray,
+        timeout_ms: float | None = None,
+        dtype: str | None = None,
+        qos: str | None = None,
     ) -> PendingRequest:
-        """Admit one request of ``[n, 28, 28, 1]`` rows or reject now
-        (draining, too big for one batch, queue full, or a dtype the engine
-        does not serve or has not verified)."""
+        """Admit one request of ``[n, 28, 28, 1]`` rows or reject now:
+        draining, an unknown QoS class, a variant the engine does not
+        serve or has not verified, too big for one batch, or a full queue
+        with nothing expired to sweep and nothing of a lower class to
+        shed."""
         x = np.asarray(x, np.float32)
         if self._closed.is_set():
             raise self._reject("server draining; not accepting requests")
-        dtype = dtype or self.engine.default_dtype
-        if dtype not in self.engine.dtypes:
-            raise self._reject(
-                f"dtype {dtype!r} is not served (have {list(self.engine.dtypes)})"
-            )
-        if not self.engine.variant_verified(dtype):
-            raise self._reject(
-                f"dtype {dtype!r} has not passed its parity gate; refusing to serve it"
-            )
+        qos = qos or DEFAULT_QOS
+        if qos not in self.qos_classes:
+            raise self._reject(f"unknown QoS class {qos!r}; have {list(self.qos_classes)}")
+        dtype = dtype or self._default_dtype
+        if dtype != self._default_dtype:
+            served = getattr(self.engine, "dtypes", (self._default_dtype,))
+            if dtype not in served:
+                raise self._reject(f"dtype {dtype!r} is not served (have {list(served)})")
+            verified = getattr(self.engine, "variant_verified", None)
+            if verified is not None and not verified(dtype):
+                raise self._reject(
+                    f"dtype {dtype!r} has not passed its parity gate; refusing to serve it"
+                )
         if not 1 <= len(x) <= self.max_batch:
             raise self._reject(f"request of {len(x)} samples outside [1, {self.max_batch}]")
         timeout_s = self.timeout_s if timeout_ms is None else timeout_ms / 1e3
-        req = PendingRequest(x, time.perf_counter() + timeout_s, dtype)
+        req = PendingRequest(x, time.perf_counter() + timeout_s, dtype=dtype, qos=qos)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
-            raise self._reject(
-                f"admission queue full ({self._queue.maxsize} deep)"
-            ) from None
+            if not self._admit_under_pressure(req):
+                raise self._reject(
+                    f"admission queue full ({self._queue.maxsize} deep)"
+                ) from None
         if self.metrics is not None:
             self.metrics.record_admitted()
         return req
+
+    def _admit_under_pressure(self, req: PendingRequest) -> bool:
+        """Full-queue admission: (1) sweep requests that expired while
+        queued; (2) shed the newest queued request of a strictly lower
+        class, again while a concurrent arrival takes the freed slot first
+        and a lower class has requests left.  Returns True once ``req`` is
+        queued.  (The JAX batcher sheds once and rejects if it loses that
+        race: an interactive 503 with batch requests still queued.)"""
+        self.sweep_expired()
+        while True:
+            try:
+                self._queue.put_nowait(req)
+                return True
+            except queue.Full:
+                pass
+            victim = self._queue.shed_for(req.qos)
+            if victim is None:
+                return False
+            self._shed(victim)
+
+    def _shed(self, victim: PendingRequest) -> None:
+        """Complete a load-shed victim with the 503 and count it."""
+        won = victim.set_error(RejectedError(
+            f"shed under pressure (QoS {victim.qos!r} yielded the "
+            "queue slot to a higher class)"
+        ))
+        if self.metrics is not None and won:
+            self.metrics.record_shed(victim.qos)
+            self.metrics.record_rejected()
+        if self._sink and won:
+            self._sink.emit("qos_shed", qos=victim.qos, n=victim.n)
+
+    def sweep_expired(self) -> int:
+        """Expire every queued request whose deadline already passed
+        (the workers call it on their cadence, admission under pressure
+        too).  Returns the number expired."""
+        expired = self._queue.sweep_expired()
+        for req in expired:
+            self._expire(req)
+        return len(expired)
 
     # -- dispatch worker ------------------------------------------------------------
 
@@ -267,26 +467,54 @@ class MicroBatcher:
         won = req.set_error(RequestTimeout("expired in queue before dispatch"))
         if won and self.metrics is not None:
             self.metrics.record_timeout()
+        if self.on_expire is not None:
+            try:
+                self.on_expire(1)
+            except Exception:
+                pass  # a hook must not kill the worker
+
+    def _close_at(self, now: float, linger: float, oldest_deadline: float) -> float:
+        """When the forming batch must dispatch: the linger, clamped —
+        when ``deadline_aware`` — so the oldest member's remaining budget
+        still covers the estimated service time."""
+        close = now + linger
+        if self.deadline_aware:
+            margin = self._service_ewma_s or 0.0
+            close = min(close, oldest_deadline - margin)
+        return close
 
     def _run(self) -> None:
-        carry: PendingRequest | None = None
+        # The carried leader of the next batch: (request, start row);
+        # start > 0 only for a packed split's remainder.
+        carry: tuple[PendingRequest, int] | None = None
         while True:
+            if self._heartbeat is not None:
+                self._heartbeat()
             if carry is not None:
-                first, carry = carry, None
+                (first, first_start), carry = carry, None
             else:
                 try:
                     first = self._queue.get(timeout=0.05)
                 except queue.Empty:
                     if self._closed.is_set():
                         return
+                    # Idle tick: the controller relaxes, expired requests
+                    # leave the queue.
+                    self._linger.update(0)
+                    self.sweep_expired()
                     continue
+                first_start = 0
+            if first.done():
+                continue
             if first.expired():
                 self._expire(first)
                 continue
-            batch, total = [first], first.n
+            segs = [(first, first_start, first.n - first_start)]
+            total = first.n - first_start
+            oldest_deadline = first.deadline
             # A draining batcher skips the linger: nothing new is coming.
-            linger = 0.0 if self._closed.is_set() else self.linger_s
-            close_at = time.perf_counter() + linger
+            linger = 0.0 if self._closed.is_set() else self._linger.update(self._queue.qsize())
+            close_at = self._close_at(time.perf_counter(), linger, oldest_deadline)
             while total < self.max_batch:
                 remaining = close_at - time.perf_counter()
                 try:
@@ -297,28 +525,64 @@ class MicroBatcher:
                     )
                 except queue.Empty:
                     break
+                if nxt.done():
+                    continue
                 if nxt.expired():
                     self._expire(nxt)
                     continue
-                if nxt.dtype != first.dtype or total + nxt.n > self.max_batch:
-                    carry = nxt  # another variant, or does not fit: leads the next batch
+                if nxt.dtype != first.dtype:
+                    carry = (nxt, 0)  # another variant leads the next batch
                     break
-                batch.append(nxt)
+                if total + nxt.n > self.max_batch:
+                    if self.packed:
+                        # The head fills this buffer exactly; the
+                        # remainder leads the next batch.
+                        head = self.max_batch - total
+                        segs.append((nxt, 0, head))
+                        total = self.max_batch
+                        carry = (nxt, head)
+                    else:
+                        carry = (nxt, 0)  # does not fit: leads the next batch
+                    break
+                segs.append((nxt, 0, nxt.n))
                 total += nxt.n
-            self._dispatch(batch, total)
+                if nxt.deadline < oldest_deadline:
+                    # Weighted dequeue can hand over a member with an
+                    # earlier deadline than the leader's.
+                    oldest_deadline = nxt.deadline
+                    close_at = min(close_at, self._close_at(
+                        time.perf_counter(), linger, oldest_deadline))
+            self._dispatch(segs)
 
-    def _dispatch(self, batch: list[PendingRequest], total: int) -> None:
+    def _dispatch(self, segs: list[tuple[PendingRequest, int, int]]) -> None:
         """Stage, launch without waiting, hand off to the completion worker."""
-        staged, bucket = self._staging.stage([r.x for r in batch])
-        seg = segment_ids([r.n for r in batch], bucket) if self.packed else None
-        if not self._window.acquire(blocking=False):
+        segs = [s for s in segs if not s[0].done()]
+        if not segs:
+            return
+        batch = [s[0] for s in segs]  # unique: one segment per request
+        parts = [r.x[start : start + rows] for r, start, rows in segs]
+        total = sum(len(p) for p in parts)
+        with span("serving_pad", sink=self._sink, registry=self._registry):
+            staged, bucket = self._staging.stage(parts)
+        seg = segment_ids([len(p) for p in parts], bucket) if self.packed else None
+        if self._window.acquire(blocking=False):
+            stall_s = 0.0
+        else:
             t0 = time.perf_counter()
             self._window.acquire()
+            stall_s = time.perf_counter() - t0
             if self.metrics is not None:
-                self.metrics.record_stall(time.perf_counter() - t0)
+                self.metrics.record_stall(stall_s)
         dtype = batch[0].dtype
         try:
-            result = self.engine.launch(staged, total, dtype=dtype, seg_ids=seg)
+            with span("serving_dispatch", sink=self._sink, registry=self._registry):
+                fault_point("launch")
+                if self.packed:
+                    result = self.engine.launch(staged, total, dtype=dtype, seg_ids=seg)
+                elif dtype == self._default_dtype:
+                    result = self.engine.launch(staged, total)
+                else:
+                    result = self.engine.launch(staged, total, dtype=dtype)
         except Exception as e:  # complete every waiter, keep serving
             self._staging.release(staged, bucket)
             self._window.release()
@@ -330,7 +594,8 @@ class MicroBatcher:
             self._inflight += 1
             if self.metrics is not None:
                 self.metrics.set_inflight(self._inflight)
-        self._completions.put(_InFlight(batch, result, staged, bucket))
+        self._completions.put(
+            _InFlight(batch, segs, result, staged, bucket, total, stall_s, dtype))
 
     # -- completion worker ------------------------------------------------------------
 
@@ -341,23 +606,55 @@ class MicroBatcher:
             if item is None:
                 return
             try:
-                host = item.result.wait()
+                with span("serving_complete", sink=self._sink, registry=self._registry):
+                    fault_point("complete")
+                    host = _read_back(item.result)
             except Exception as e:
                 failed = sum(1 for req in item.batch if req.set_error(e))
                 if self.metrics is not None and failed:
                     self.metrics.record_failed(failed)
             else:
                 done = time.perf_counter()
+                dur = done - item.t_launch
+                self._service_ewma_s = (
+                    dur if self._service_ewma_s is None
+                    else 0.2 * dur + 0.8 * self._service_ewma_s
+                )
                 offset = 0
-                for req in item.batch:
-                    part = host[offset : offset + req.n].copy()
-                    offset += req.n
-                    # Counted before the waiter wakes, so a client that reads
-                    # /metrics right after its reply sees its own request.
-                    # Nothing else settles a request once it is dispatched.
+                for req, start, rows in item.segments:
+                    part = host[offset : offset + rows].copy()
+                    offset += rows
+                    if rows == req.n:
+                        won = req.set_result(part)
+                    else:
+                        # A packed split: only the last part completes
+                        # the waiter.
+                        if req.done():
+                            continue
+                        entry = self._assembly.get(id(req))
+                        if entry is None:
+                            entry = [req, np.empty((req.n, *part.shape[1:]), part.dtype), 0]
+                            self._assembly[id(req)] = entry
+                        entry[1][start : start + rows] = part
+                        entry[2] += rows
+                        if entry[2] < req.n:
+                            continue
+                        del self._assembly[id(req)]
+                        won = req.set_result(entry[1])
+                    if not won:
+                        continue
+                    latency_s = done - req.t_submit
+                    # Counted as the waiter wakes; nothing else settles a
+                    # request once it is dispatched.
                     if self.metrics is not None:
-                        self.metrics.record_completed(done - req.t_submit, dtype=req.dtype)
-                    req.set_result(part)
+                        self.metrics.record_completed(latency_s, dtype=req.dtype,
+                                                      qos=req.qos)
+                    if self._sink:
+                        self._sink.emit(
+                            "serving_request", n=req.n, latency_s=latency_s,
+                            dtype=req.dtype,
+                            **({"qos": req.qos} if req.qos != DEFAULT_QOS else {}),
+                        )
             finally:
                 self._staging.release(item.staged, item.bucket)
                 with self._inflight_lock:
@@ -365,4 +662,15 @@ class MicroBatcher:
                     if self.metrics is not None:
                         self.metrics.set_inflight(self._inflight)
                 self._window.release()
-
+            if self._sink:
+                self._sink.emit(
+                    "serving_batch", real=item.n, bucket=item.bucket,
+                    fill_ratio=item.n / item.bucket, stall_s=item.stall_s,
+                    dtype=item.dtype, **({"packed": True} if self.packed else {}),
+                )
+            # A split whose other part failed must not pin its buffer.
+            if self._assembly:
+                for key in [k for k, e in self._assembly.items() if e[0].done()]:
+                    del self._assembly[key]
+            # Eager expiry while the dispatch worker waits on the window.
+            self.sweep_expired()

@@ -1,42 +1,58 @@
 """The inference engine: checkpoint -> warmed bucket rungs -> log-probs.
 
 Lifecycle: construct (weights placed on the device), :meth:`warmup` (run
-every (variant, bucket) rung once), :meth:`verify_parity` (gate the int8
-variant against f32), then :meth:`launch`/:meth:`predict_logits` from the
-dispatch thread.
+every (variant, bucket) rung once), :meth:`verify_parity` (gate the
+reduced-precision variants against f32), then
+:meth:`launch`/:meth:`predict_logits` from the dispatch thread.
 
-Variants: ``f32`` (the eval-mode :class:`~..models.net.Net`) is always
-served and is the parity reference; ``dtypes=("int8",)`` adds the
-per-channel-quantized forward (models/quant.py).  The port's int8 variant
-always runs ``int8_forward_fused``: on the card its dense head is the CUDA
-kernel of ``ops/int8_head.py``, and nothing falls back from it.  (The JAX
-package's ``--int8-impl dot`` head is XLA arithmetic, which here is the
-plain PyTorch version; that version serves only CPU tensors and the
-tests.)  A variant is REFUSED (:class:`UnverifiedVariantError`) until its
-parity gate passes: logit tolerance plus argmax-identical against f32 on a
-fixed, seeded eval slice.
+Variants (the JAX package's): ``f32`` (the eval-mode
+:class:`~..models.net.Net`) is always served and is the parity reference;
+``dtypes=("bf16",)`` adds the bf16 forward (activations and products in
+bf16, parameters f32, the log_softmax tail f32), ``("int8",)`` the
+per-channel-quantized forward (models/quant.py) with its dense head from
+``int8_impl``: ``"pallas"`` (the default) is the CUDA kernel of
+``ops/int8_head.py`` on the card, with no fallback from it, ``"dot"`` two
+library int8 GEMMs.  ``compute_dtype=torch.bfloat16`` (the CLI's
+``--bf16``) serves the DEFAULT forward in bf16 and then takes no
+variants: the gates need their f32 reference.  ``conv_impl`` picks the
+f32/bf16 forwards' convolution lowering.  A BatchNorm checkpoint
+(``--syncbn``) serves at f32 and bf16, normalizing by its running
+averages; the int8 variant refuses it.  A variant is REFUSED
+(:class:`UnverifiedVariantError`) until its parity gate passes: logit
+tolerance plus argmax-identical against f32 on a fixed, seeded eval
+slice.
 
-Threading contract: exactly one thread (the micro-batcher's dispatch
-worker, or the caller in direct use) calls ``launch``/``predict_logits``.
-:meth:`DeviceResult.wait` on a launched batch is safe from a second thread
-— the batcher's completion worker — because it waits on that batch's own
-CUDA event, not on the whole device.
+Versioned weights (the registry's swap and canary, serving/rollout.py):
+a dispatch reads its variant's weight reference once, so
+:meth:`publish_weights` swaps by reassigning the reference — a batch
+already launched runs on the tensors it read, the next one on the new
+ones, and nothing is ever copied into tensors a batch in flight reads.
+:meth:`install_version` adds ``{dtype}@{version}`` twins beside the
+primary variants (the batcher coalesces by variant key, so no batch mixes
+versions), :meth:`remove_version` drops them.
+
+Threading contract: one thread (the micro-batcher's dispatch worker, or
+the caller in direct use) calls ``launch``/``predict_logits``; the
+rollout controller's weight calls arrive from admin threads and only
+swap references.  :meth:`DeviceResult.wait` on a launched batch is safe
+from a second thread — the batcher's completion worker — because it
+waits on that batch's own CUDA event, not on the whole device.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from ..data.transforms import normalize
 from ..device import resolve_device
-from ..models.net import INPUT_SHAPE, NUM_CLASSES, Net
-from ..models.quant import qparams_to, quantize_params
-from ..utils.checkpoint import load_inference_state
-from ..utils.convert import LAYERS
+from ..models.net import CONV_IMPLS, INPUT_SHAPE, NUM_CLASSES, Net
+from ..models.quant import INT8_IMPLS, qparams_to, quantize_params
+from ..utils.checkpoint import jax_stats_from_torch, load_inference_state
+from ..utils.convert import BN_LAYERS, LAYERS, has_bn, jax_state_from_torch
 from .buckets import (
     DEFAULT_MAX_BUCKET,
     StagingPool,
@@ -53,12 +69,18 @@ from .predict import (
 )
 
 DEFAULT_DTYPE = "f32"
-VARIANT_DTYPES = ("int8",)
 
-# Parity-gate tolerance: max |log_prob_variant - log_prob_f32| over the
-# slice.  int8 (per-channel weights, per-row activations) lands around
-# 5e-3 on this CNN; argmax-identity is the sharp edge.
-PARITY_TOL = {"int8": 1.0}
+# Separator between a dtype and a pinned model version in a variant key
+# ("f32@v2"): the rollout controller installs a canary version's weights
+# as parallel variants under these keys.  Client "dtype" fields must not
+# contain it (the server refuses them).
+VERSION_SEP = "@"
+
+VARIANT_DTYPES = ("bf16", "int8")
+
+# Parity-gate tolerances: max |log_prob_variant - log_prob_f32| over the
+# slice.  argmax-identity is the sharp edge.
+PARITY_TOL = {"bf16": 0.25, "int8": 1.0}
 
 # Rows in the fixed parity slice (the largest warmed bucket <= this) and
 # its seed: a variant that passes once passes every restart.
@@ -66,13 +88,37 @@ PARITY_ROWS = 64
 PARITY_SEED = 20260803
 
 
-def weights_digest(state: dict[str, torch.Tensor]) -> str:
-    """Content hash of a state dict: key, shape, dtype and raw bytes of
-    every tensor in sorted key order."""
+def _tree_leaves(tree: Mapping[str, Any]) -> list[np.ndarray]:
+    """A nested dict's leaves in JAX's tree-flatten order (sorted keys at
+    every level)."""
+    out: list[np.ndarray] = []
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, Mapping):
+            out.extend(_tree_leaves(value))
+        else:
+            out.append(value)
+    return out
+
+
+def _served_tree(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """A CNN state dict as the JAX serving engine's served tree: the param
+    tree in JAX layout (``utils/convert.py``), and for a BatchNorm state
+    with running averages ``{"params": ..., "batch_stats": ...}``."""
+    params = jax_state_from_torch(state)
+    stats = jax_stats_from_torch(state) if has_bn(state) else {}
+    return {"params": params, "batch_stats": stats} if stats else params
+
+
+def weights_digest(state: Mapping[str, torch.Tensor]) -> str:
+    """Content hash of the served weights, equal to the JAX package's
+    ``serving/engine.py:weights_digest`` of the same weights: each leaf of
+    :func:`_served_tree`, in JAX's tree order, contributes its shape/dtype
+    tag and raw bytes."""
     h = hashlib.blake2b(digest_size=16)
-    for key in sorted(state):
-        arr = state[key].detach().cpu().contiguous().numpy()
-        h.update(f"{key}{arr.shape}{arr.dtype}".encode())
+    for leaf in _tree_leaves(_served_tree(state)):
+        arr = np.ascontiguousarray(leaf)
+        h.update(f"{arr.shape}{arr.dtype}".encode())
         h.update(arr.tobytes())
     return h.hexdigest()
 
@@ -126,11 +172,18 @@ class InferenceEngine:
     Parameters
     ----------
     state_dict:
-        torch-layout weights (``conv1.weight`` ... ``fc2.bias``).
+        torch-layout weights (``conv1.weight`` ... ``fc2.bias``, and for a
+        BatchNorm model ``bnN.weight/bias`` with optional running
+        averages, which default to mean 0 / var 1 as in the JAX engine).
     device:
         ``None`` = ``cuda`` (raises without a card); ``"cpu"`` on request.
     buckets / max_bucket:
         The batch-size ladder (default powers of two up to 128).
+    compute_dtype:
+        The DEFAULT forward's dtype (``torch.bfloat16`` = ``--bf16``);
+        refused together with ``dtypes``.
+    conv_impl:
+        Convolution lowering of the f32/bf16 forwards (``CONV_IMPLS``).
     dtypes:
         Extra variants beside f32 (subset of :data:`VARIANT_DTYPES`).
     packed:
@@ -139,18 +192,28 @@ class InferenceEngine:
     metrics:
         Optional :class:`ServingMetrics`; per-dispatch occupancy is
         recorded when present.
+    int8_impl:
+        The int8 variant's dense head: ``"pallas"`` (the kernel) or
+        ``"dot"`` (library GEMMs).
+    version:
+        The registry version of the served weights (``""`` without one).
     """
 
     def __init__(
         self,
-        state_dict: dict[str, torch.Tensor],
+        state_dict: Mapping[str, torch.Tensor],
         device: str | torch.device | None = None,
         buckets: Sequence[int] | None = None,
         max_bucket: int | None = None,
+        compute_dtype: torch.dtype | None = None,
+        conv_impl: str = "conv",
         dtypes: Sequence[str] = (),
         packed: bool = False,
         metrics: ServingMetrics | None = None,
+        int8_impl: str = "pallas",
+        version: str = "",
     ):
+        self.version = str(version)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # cuDNN runs f32 convolutions in TF32 by default (about three
@@ -167,45 +230,41 @@ class InferenceEngine:
         self.packed = bool(packed)
         if self.packed:
             self.buckets = packed_capacities(self.buckets[-1])
-        if any(k.split(".")[0].startswith("bn") for k in state_dict):
+        if int8_impl not in INT8_IMPLS:
+            raise ValueError(f"unknown int8 impl {int8_impl!r} (want dot|pallas)")
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl {conv_impl!r} not in {CONV_IMPLS}")
+        self.int8_impl = int8_impl
+        self.conv_impl = conv_impl
+        compute_dtype = compute_dtype or torch.float32
+        if dtypes and compute_dtype != torch.float32:
             raise ValueError(
-                "BatchNorm checkpoints are not served by this port yet"
+                "a non-f32 default compute_dtype cannot anchor the "
+                "variants' parity gates; drop the legacy --bf16 flag and "
+                "request the reduced-precision path via dtypes=('bf16',) "
+                "instead"
             )
-        state = {
-            f"{layer}.{leaf}": state_dict[f"{layer}.{leaf}"]
-            .detach().to("cpu", torch.float32).contiguous()
-            for layer in LAYERS
-            for leaf in ("weight", "bias")
-        }
-        # Content address of the served weights, hashed once on the host.
+        state = self._served_state(state_dict)
+        self.use_bn = has_bn(state)
+        # Content address of the served weights (the response cache's
+        # key), hashed once on the host.
         self.weights_digest = weights_digest(state)
-        model = Net()
-        model.load_state_dict(state)
-        model.to(self.device).eval().requires_grad_(False)
+        self._shapes = {k: tuple(v.shape) for k, v in state.items()}
+        self._model = self._place(state)
         self.metrics = metrics
+        make_default = make_packed_predict_step if self.packed else make_predict_step
         self._variants: dict[str, _Variant] = {
             DEFAULT_DTYPE: _Variant(
                 DEFAULT_DTYPE,
-                make_packed_predict_step() if self.packed else make_predict_step(),
-                model,
+                make_default(compute_dtype, conv_impl),
+                self._model,
                 verified=True,  # the parity reference itself
             )
         }
         for name in dtypes or ():
             if name == DEFAULT_DTYPE or name in self._variants:
                 continue
-            if name != "int8":
-                raise ValueError(
-                    f"unknown serving dtype {name!r}; have "
-                    f"{(DEFAULT_DTYPE, *VARIANT_DTYPES)}"
-                )
-            self._variants[name] = _Variant(
-                name,
-                make_packed_int8_predict_step()
-                if self.packed
-                else make_int8_predict_step(),
-                qparams_to(quantize_params(state), self.device),
-            )
+            self._variants[name] = self._build_variant(name, state)
         self.warmed = False
         # Direct-call staging (predict_logits): one slot per bucket, read
         # back before the next chunk stages.
@@ -213,12 +272,63 @@ class InferenceEngine:
             self.buckets, INPUT_SHAPE, slots=1, pin=self.device.type == "cuda"
         )
 
+    # -- weights ------------------------------------------------------------------
+
+    @staticmethod
+    def _served_state(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The served parameters as float32 CPU tensors; a BatchNorm
+        state's missing running averages start at mean 0 / var 1."""
+        bn = has_bn(state_dict)
+        layers = LAYERS + (tuple(BN_LAYERS) if bn else ())
+        keys = [f"{layer}.{leaf}" for layer in layers for leaf in ("weight", "bias")]
+        missing = sorted(k for k in keys if k not in state_dict)
+        if missing:
+            raise ValueError(f"state dict is missing {missing}")
+        state = {k: state_dict[k].detach().to("cpu", torch.float32).contiguous()
+                 for k in keys}
+        for layer, features in BN_LAYERS.items() if bn else ():
+            for leaf, init in (("running_mean", torch.zeros), ("running_var", torch.ones)):
+                key = f"{layer}.{leaf}"
+                state[key] = (state_dict[key].detach().to("cpu", torch.float32).contiguous()
+                              if key in state_dict else init(features))
+        return state
+
+    def _place(self, state: dict[str, torch.Tensor]) -> Net:
+        model = Net(torch.Generator(), use_bn=self.use_bn)
+        model.load_state_dict(state)
+        return model.to(self.device).eval().requires_grad_(False)
+
+    def _variant_weights(self, name: str, state: dict, model: Net):
+        """A variant's weights for a served state: int8 quantizes, f32 and
+        bf16 share the placed model."""
+        if name.split(VERSION_SEP)[0] != "int8":
+            return model
+        return qparams_to(quantize_params(state), self.device)
+
+    def _build_variant(self, name: str, state: dict) -> _Variant:
+        if name == "bf16":
+            make = make_packed_predict_step if self.packed else make_predict_step
+            return _Variant(name, make(torch.bfloat16, self.conv_impl), self._model)
+        if name == "int8":
+            if self.use_bn:
+                raise ValueError(
+                    "int8 variant does not support BatchNorm checkpoints; "
+                    "serve BN checkpoints at f32 or bf16"
+                )
+            make = make_packed_int8_predict_step if self.packed else make_int8_predict_step
+            return _Variant(name, make(self.int8_impl),
+                            self._variant_weights(name, state, self._model))
+        raise ValueError(
+            f"unknown serving dtype {name!r}; have {(DEFAULT_DTYPE, *VARIANT_DTYPES)}"
+        )
+
     # -- construction helpers -------------------------------------------------
 
     @classmethod
     def from_checkpoint(cls, path: str, **kwargs) -> "InferenceEngine":
         """Any checkpoint the JAX package writes (``--save-model`` .pt or
-        npz, ``--save-state`` archive) -> engine."""
+        npz, ``--save-state`` archive, with or without BatchNorm) ->
+        engine."""
         return cls(load_inference_state(path), **kwargs)
 
     @classmethod
@@ -234,7 +344,7 @@ class InferenceEngine:
 
     @property
     def dtypes(self) -> tuple[str, ...]:
-        """Served dtype names, default first."""
+        """Served variant keys, default first (canary twins included)."""
         return tuple(self._variants)
 
     @property
@@ -264,15 +374,16 @@ class InferenceEngine:
         """One bucket-shaped batch through a variant, bypassing the gate
         (warmup and the gate itself come through here).  ``staged`` is a
         host array or tensor; packed mode with ``seg=None`` runs the whole
-        buffer as one live segment."""
+        buffer as one live segment.  The variant's weights are read once."""
+        params = v.params
         x = torch.as_tensor(staged).to(self.device, non_blocking=True)
         with torch.inference_mode():
             if not self.packed:
-                return v.predict(v.params, x)
+                return v.predict(params, x)
             if seg is None:
                 seg = np.zeros(len(x), np.int32)
             seg = torch.as_tensor(seg).to(self.device, non_blocking=True)
-            return v.predict(v.params, x, seg)
+            return v.predict(params, x, seg)
 
     def warmup(self, on_rung=None) -> list[tuple[str, int]]:
         """Run every (variant, bucket) rung once — cuDNN's algorithm
@@ -301,15 +412,15 @@ class InferenceEngine:
         raw = np.random.RandomState(PARITY_SEED).randint(0, 256, (bucket, 28, 28))
         return normalize(raw.astype(np.uint8)), bucket
 
-    def verify_parity(self, tol: dict[str, float] | None = None) -> dict[str, dict]:
+    def verify_parity(self, tol: dict[str, float] | None = None, sink=None) -> dict[str, dict]:
         """Gate every unverified variant against the f32 forward.
 
         A variant passes iff ``max |log_prob - log_prob_f32| <= tol[dtype]``
         (:data:`PARITY_TOL` defaults) AND argmax is identical on every row
         of the slice.  Passing makes it servable; failing leaves it
-        refused.  Near-untrained weights can rightly fail int8's argmax
-        check: nearly uniform logits put real ties inside the quantization
-        error.
+        refused.  Near-untrained weights can rightly fail int8's argmax check:
+        nearly uniform logits put real ties inside the quantization
+        error.  ``sink`` gets one ``parity_gate`` event a variant.
         """
         pending = [
             v for v in self._variants.values()
@@ -324,7 +435,8 @@ class InferenceEngine:
             out = self._run_variant(v, x).cpu().numpy()
             max_diff = float(np.abs(out - ref).max())
             argmax_ok = bool((out.argmax(axis=1) == ref.argmax(axis=1)).all())
-            tolerance = float((tol or {}).get(v.name, PARITY_TOL.get(v.name, 0.25)))
+            base = v.name.split(VERSION_SEP)[0]
+            tolerance = float((tol or {}).get(v.name, PARITY_TOL.get(base, 0.25)))
             passed = argmax_ok and max_diff <= tolerance
             v.verified = passed
             v.parity = {
@@ -343,7 +455,105 @@ class InferenceEngine:
                     "may serve; 0 = refused",
                     dtype=v.name,
                 ).set(1.0 if passed else 0.0)
+            if sink:
+                sink.emit("parity_gate", **v.parity)
         return results
+
+    # -- the registry's swap surface (serving/registry.py, rollout.py) ---------
+
+    def _prepare_weights(self, state_dict: Mapping[str, torch.Tensor]):
+        """Validate and place incoming weights against the served ones:
+        the same BatchNorm-ness, keys and shapes."""
+        bn = has_bn(state_dict)
+        if bn != self.use_bn:
+            raise ValueError(
+                f"cannot publish a {'BN' if bn else 'non-BN'} "
+                f"checkpoint into a {'BN' if self.use_bn else 'non-BN'} "
+                "engine: the warmed executables are specialized to the "
+                "served tree"
+            )
+        state = self._served_state(state_dict)
+        if {k: tuple(v.shape) for k, v in state.items()} != self._shapes:
+            raise ValueError(
+                "published variable tree does not match the served tree "
+                "(structure or leaf shapes differ); versions of one "
+                "model must share an architecture — register a new "
+                "model name for a new architecture instead"
+            )
+        return state, weights_digest(state), self._place(state)
+
+    def publish_weights(self, state_dict: Mapping[str, torch.Tensor],
+                        version: str | None = None) -> str:
+        """Republish the PRIMARY served weights: every primary variant's
+        weight reference is replaced (int8 re-quantized); version-pinned
+        canary variants keep theirs.  A batch in flight completes on the
+        tensors it read; the next dispatch reads the new ones.  Returns
+        the new weights digest (the response cache's invalidation key)."""
+        state, digest, model = self._prepare_weights(state_dict)
+        for key, v in list(self._variants.items()):
+            if VERSION_SEP not in key:
+                v.params = self._variant_weights(key, state, model)
+        self._model = model
+        self.weights_digest = digest
+        if version is not None:
+            self.version = str(version)
+        return digest
+
+    def install_version(self, version: str, state_dict: Mapping[str, torch.Tensor],
+                        verified: bool | None = None) -> str:
+        """Install VERSION's weights as ``{dtype}@{version}`` twins beside
+        each primary variant (the canary).  ``verified`` overrides the gate
+        state (default: the base variant's).  Returns the digest."""
+        version = str(version)
+        if not version or VERSION_SEP in version:
+            raise ValueError(
+                f"bad version {version!r}: must be non-empty and free of "
+                f"{VERSION_SEP!r}"
+            )
+        state, digest, model = self._prepare_weights(state_dict)
+        variants = dict(self._variants)
+        for name, base in list(variants.items()):
+            if VERSION_SEP in name:
+                continue
+            key = f"{name}{VERSION_SEP}{version}"
+            variants[key] = _Variant(
+                key, base.predict, self._variant_weights(name, state, model),
+                verified=base.verified if verified is None else verified,
+            )
+        # One reference swap: a reader sees the old table or the new one.
+        self._variants = variants
+        return digest
+
+    def remove_version(self, version: str) -> int:
+        """Drop VERSION's pinned variants (rollback, or after a promote).
+        Batches already dispatched on them complete normally.  Returns the
+        number removed."""
+        suffix = VERSION_SEP + str(version)
+        variants = {k: v for k, v in self._variants.items() if not k.endswith(suffix)}
+        removed = len(self._variants) - len(variants)
+        self._variants = variants
+        return removed
+
+    def version_divergence(self, version: str) -> dict:
+        """Max |dlogit| and argmax agreement between the primary f32
+        forward and VERSION's pinned f32 variant on the parity slice (the
+        canary's drift probe)."""
+        key = f"{DEFAULT_DTYPE}{VERSION_SEP}{version}"
+        v = self._variants.get(key)
+        if v is None:
+            raise ValueError(
+                f"version {version!r} is not installed; have "
+                f"{[k for k in self._variants if VERSION_SEP in k]}"
+            )
+        x, bucket = self._parity_slice()
+        ref = self._run_variant(self._variants[DEFAULT_DTYPE], x).cpu().numpy()
+        out = self._run_variant(v, x).cpu().numpy()
+        return {
+            "version": version,
+            "rows": int(bucket),
+            "max_abs_logit_diff": float(np.abs(out - ref).max()),
+            "argmax_identical": bool((out.argmax(axis=1) == ref.argmax(axis=1)).all()),
+        }
 
     # -- serving ----------------------------------------------------------------
 

@@ -7,9 +7,11 @@ flag installs a :class:`FaultInjector`.  The trainer sites are ``step``
 (once an optimizer-step attempt, ``resilience/runtime.py``),
 ``data_next`` (once a host batch's assembly, ``data/loader.py``) and
 ``ckpt_save`` (inside the mid-epoch checkpointer's rotate-to-publish
-window, ``resilience/checkpoint.py``).  The serving sites (``launch``,
-``complete``, ``warmup``, ``aot_load``) parse and fire as in the JAX
-package; the port's serving stack has no fault points yet.
+window, ``resilience/checkpoint.py``).  The serving sites parse and
+fire as in the JAX package: the batcher (``serving/batcher.py``) calls
+``launch`` once a dispatch and ``complete`` once a read-back; ``warmup``
+and ``aot_load`` belong to the replica pool and the ``compile/``
+analogue, which the port does not have yet.
 
 Triggers are counted in events (``after=``/``count=``), so a schedule
 fires at the same events on every run; the only randomness (``p=``)

@@ -1,4 +1,6 @@
-"""Serving metrics: request outcomes, occupancy, latency percentiles.
+"""Serving metrics: request outcomes, occupancy, latency percentiles, the
+tail surfaces (the JAX package's ``serving/metrics.py``, its names and
+labels).
 
 Every counter and reservoir lives in one :class:`~..obs.registry.Registry`,
 so the same numbers back both ``/metrics`` surfaces — the JSON snapshot
@@ -6,6 +8,24 @@ and the Prometheus text (``?format=prom``).  Mutations arrive from the
 HTTP handler threads and the batcher's workers; the registry's one lock
 makes every read a consistent cut.  :meth:`report_lines` renders the
 shutdown summary; callers print.
+
+Families beside the request outcomes, each registered before its first
+observation where a short run's exposition must already carry it:
+
+- per QoS class: ``serving_qos_requests_total{qos=}``,
+  ``serving_qos_latency_seconds{qos=}``, ``serving_shed_total{qos=}``
+  (the batcher registers its classes);
+- the adaptive linger: ``serving_linger_seconds`` (batcher.py);
+- the wire: ``serving_wire_requests_total{format=}``,
+  ``serving_wire_bytes_total{direction=}`` (the server registers them);
+- the response cache: ``serving_cache_total{outcome=}`` (only with the
+  cache on);
+- the registry routes: ``serving_model_requests_total{model=,version=}``,
+  ``serving_model_latency_seconds{...}``;
+- per dtype variant: ``serving_dtype_requests_total{dtype=}``,
+  ``serving_dtype_latency_seconds{dtype=}``, and the engine's
+  ``serving_variant_verified{dtype=}`` gauge; the canary's
+  ``serving_circuit_state{replica=}`` (circuit.py).
 """
 
 from __future__ import annotations
@@ -72,12 +92,32 @@ class ServingMetrics:
         )
         self._dtype_count: dict[str, object] = {}
         self._dtype_latency: dict[str, object] = {}
+        self._qos_count: dict[str, object] = {}
+        self._qos_latency: dict[str, object] = {}
+        self._shed: dict[str, object] = {}
+        self._wire_requests: dict[str, object] = {}
+        self._wire_bytes: dict[str, object] = {}
+        self._cache: dict[str, object] = {}
+        self._model_count: dict[tuple[str, str], object] = {}
+        self._model_latency: dict[tuple[str, str], object] = {}
 
     # -- counter views --------------------------------------------------------
 
     @property
+    def admitted(self) -> int:
+        return self._requests["admitted"].value
+
+    @property
     def completed(self) -> int:
         return self._requests["completed"].value
+
+    @property
+    def rejected(self) -> int:
+        return self._requests["rejected"].value
+
+    @property
+    def timed_out(self) -> int:
+        return self._requests["timed_out"].value
 
     @property
     def failed(self) -> int:
@@ -86,6 +126,90 @@ class ServingMetrics:
     @property
     def batches(self) -> int:
         return self._batches.value
+
+    # -- family registration (before the first observation) ---------------------
+
+    def ensure_qos(self, qos: str) -> None:
+        """One QoS class's count/latency/shed families."""
+        if qos in self._qos_count:
+            return
+        with self.registry.locked():
+            self._qos_count[qos] = self.registry.counter(
+                "serving_qos_requests_total",
+                help="completed requests per QoS class",
+                qos=qos,
+            )
+            self._qos_latency[qos] = self.registry.histogram(
+                "serving_qos_latency_seconds",
+                help="request latency per QoS class (reservoir window)",
+                reservoir=self._reservoir,
+                qos=qos,
+            )
+            self._shed[qos] = self.registry.counter(
+                "serving_shed_total",
+                help="requests load-shed from the admission queue per "
+                "QoS class (lowest class first under pressure)",
+                qos=qos,
+            )
+
+    def ensure_wire(self) -> None:
+        """Both wire formats and both byte directions."""
+        if self._wire_requests:
+            return
+        with self.registry.locked():
+            for fmt in ("json", "binary"):
+                self._wire_requests[fmt] = self.registry.counter(
+                    "serving_wire_requests_total",
+                    help="/predict requests by wire format (json = the "
+                    "default text protocol, binary = "
+                    "application/x-mnist-f32)",
+                    format=fmt,
+                )
+            for direction in ("in", "out"):
+                self._wire_bytes[direction] = self.registry.counter(
+                    "serving_wire_bytes_total",
+                    help="/predict payload bytes by direction (request "
+                    "bodies in, response bodies out)",
+                    direction=direction,
+                )
+
+    def ensure_cache(self) -> None:
+        """The response cache's outcome family (only with the cache on,
+        so cache-off expositions are unchanged)."""
+        if self._cache:
+            return
+        with self.registry.locked():
+            for outcome in ("hit", "miss", "coalesced"):
+                self._cache[outcome] = self.registry.counter(
+                    "serving_cache_total",
+                    help="response-cache lookups by outcome (hit = "
+                    "served from cache, miss = claimed the dispatch, "
+                    "coalesced = joined an identical in-flight request)",
+                    outcome=outcome,
+                )
+
+    def ensure_model(self, model: str, version: str) -> None:
+        """One (model, version) route's count/latency families (the
+        rollout controller registers each route as it becomes servable)."""
+        key = (model, version)
+        if key in self._model_count:
+            return
+        with self.registry.locked():
+            self._model_count[key] = self.registry.counter(
+                "serving_model_requests_total",
+                help="completed requests per served (model, version) "
+                "registry route",
+                model=model,
+                version=version,
+            )
+            self._model_latency[key] = self.registry.histogram(
+                "serving_model_latency_seconds",
+                help="request latency per served (model, version) "
+                "registry route (reservoir window)",
+                reservoir=self._reservoir,
+                model=model,
+                version=version,
+            )
 
     # -- recording (any thread) -----------------------------------------------
 
@@ -115,11 +239,44 @@ class ServingMetrics:
     def set_inflight(self, depth: int) -> None:
         self._inflight.set(depth)
 
-    def record_completed(self, latency_s: float, dtype: str | None = None) -> None:
+    def record_model_request(self, model: str, version: str, latency_s: float) -> None:
+        """One request served by registry route (model, version)."""
+        key = (model, version)
+        if key not in self._model_count:
+            self.ensure_model(model, version)
+        self._model_count[key].inc()
+        self._model_latency[key].observe(latency_s)
+
+    def record_wire(self, fmt: str, bytes_in: int = 0, bytes_out: int = 0) -> None:
+        """One /predict exchange on wire format ``fmt``."""
+        self.ensure_wire()
+        self._wire_requests[fmt].inc()
+        if bytes_in:
+            self._wire_bytes["in"].inc(bytes_in)
+        if bytes_out:
+            self._wire_bytes["out"].inc(bytes_out)
+
+    def record_cache(self, outcome: str) -> None:
+        self.ensure_cache()
+        self._cache[outcome].inc()
+
+    def record_shed(self, qos: str) -> None:
+        """One request evicted from the admission queue to admit a higher
+        class under pressure."""
+        self.ensure_qos(qos)
+        self._shed[qos].inc()
+
+    def record_completed(
+        self, latency_s: float, dtype: str | None = None, qos: str | None = None
+    ) -> None:
         """One request finished; ``dtype`` also lands it on the per-variant
-        count/latency families."""
+        families, ``qos`` on the per-class ones."""
         self._requests["completed"].inc()
         self._latency.observe(latency_s)
+        if qos is not None:
+            self.ensure_qos(qos)
+            self._qos_count[qos].inc()
+            self._qos_latency[qos].observe(latency_s)
         if dtype is None:
             return
         with self.registry.locked():
@@ -148,6 +305,7 @@ class ServingMetrics:
         buckets: tuple[int, ...] | None = None,
         inflight: int | None = None,
         max_inflight: int | None = None,
+        linger_ms: float | None = None,
     ) -> dict:
         """One consistent dict of everything (the /metrics JSON payload).
         Passed values are owned by the batcher and engine; ``queue_depth``
@@ -161,7 +319,19 @@ class ServingMetrics:
                 )
                 for name in self._dtype_count
             }
+            by_qos = {
+                name: (
+                    self._qos_count[name].value,
+                    sorted(self._qos_latency[name].values()),
+                    self._shed[name].value,
+                )
+                for name in self._qos_count
+            }
+            cache = {o: c.value for o, c in self._cache.items()}
+            wire = {f: c.value for f, c in self._wire_requests.items()}
+            wire_bytes = {d: c.value for d, c in self._wire_bytes.items()}
             fills = self._fill.values()
+            stalls = sorted(self._stall.values())
             stall_count, stall_sum = self._stall.count, self._stall.sum
             real = self._samples["real"].value
             dispatched = self._samples["dispatched"].value
@@ -191,6 +361,7 @@ class ServingMetrics:
                 "fill_ratio_mean": sum(fills) / len(fills) if fills else 0.0,
                 "stalls": stall_count,
                 "stall_s_total": stall_sum,
+                "stall_ms_p95": 1e3 * percentile(stalls, 95),
             },
         }
         if by_dtype:
@@ -198,9 +369,34 @@ class ServingMetrics:
                 name: {
                     "requests": count,
                     "p50_ms": 1e3 * percentile(window, 50),
+                    "p95_ms": 1e3 * percentile(window, 95),
                     "p99_ms": 1e3 * percentile(window, 99),
                 }
                 for name, (count, window) in sorted(by_dtype.items())
+            }
+        if by_qos:
+            snap["qos"] = {
+                name: {
+                    "requests": count,
+                    "shed": shed,
+                    "p50_ms": 1e3 * percentile(window, 50),
+                    "p95_ms": 1e3 * percentile(window, 95),
+                    "p99_ms": 1e3 * percentile(window, 99),
+                }
+                for name, (count, window, shed) in sorted(by_qos.items())
+            }
+        if cache:
+            lookups = sum(cache.values())
+            snap["cache"] = {
+                **dict(sorted(cache.items())),
+                "hit_rate": cache.get("hit", 0) / lookups if lookups else 0.0,
+            }
+        if wire.get("binary"):
+            # Only once a binary request was seen: JSON-only traffic keeps
+            # the snapshot and the shutdown report as they were.
+            snap["wire"] = {
+                "requests": dict(sorted(wire.items())),
+                "bytes": dict(sorted(wire_bytes.items())),
             }
         gauges = [
             ("serving_uptime_seconds", "process uptime", uptime),
@@ -214,6 +410,8 @@ class ServingMetrics:
             snap["pipeline"]["inflight"] = inflight
         if max_inflight is not None:
             snap["pipeline"]["max_inflight"] = max_inflight
+        if linger_ms is not None:
+            snap["pipeline"]["linger_ms"] = linger_ms
         if buckets is not None:
             snap["buckets"] = list(buckets)
         for name, help_text, value in gauges:
@@ -241,12 +439,38 @@ class ServingMetrics:
         if "queue_depth" in s:
             lines.append(f"  queue depth: {s['queue_depth']}")
         pipe = s["pipeline"]
-        if "inflight" in pipe:
+        if pipe["stalls"] or "inflight" in pipe:
             lines.append(
-                f"  pipeline: in-flight {pipe['inflight']}"
-                + (f"/{pipe['max_inflight']}" if "max_inflight" in pipe else "")
-                + f", mean fill {100.0 * pipe['fill_ratio_mean']:.1f}%, "
-                f"{pipe['stalls']} stalls ({pipe['stall_s_total']:.3f} s total)"
+                "  pipeline: "
+                + (f"in-flight {pipe['inflight']}"
+                   + (f"/{pipe['max_inflight']}" if "max_inflight" in pipe else "")
+                   + ", " if "inflight" in pipe else "")
+                + (f"linger {pipe['linger_ms']:.2f} ms, " if "linger_ms" in pipe else "")
+                + f"mean fill {100.0 * pipe['fill_ratio_mean']:.1f}%, "
+                f"{pipe['stalls']} stalls "
+                f"({pipe['stall_s_total']:.3f} s total, "
+                f"p95 {pipe['stall_ms_p95']:.2f} ms)"
+            )
+        for name, q in s.get("qos", {}).items():
+            lines.append(
+                f"  qos [{name}]: {q['requests']} ok, {q['shed']} shed, "
+                f"p50 {q['p50_ms']:.2f} ms / p95 {q['p95_ms']:.2f} ms / "
+                f"p99 {q['p99_ms']:.2f} ms"
+            )
+        if "cache" in s:
+            c = s["cache"]
+            lines.append(
+                f"  cache: {c.get('hit', 0)} hit / {c.get('miss', 0)} miss "
+                f"/ {c.get('coalesced', 0)} coalesced "
+                f"(hit rate {c['hit_rate']:.1%})"
+            )
+        if "wire" in s:
+            w = s["wire"]
+            lines.append(
+                f"  wire: {w['requests'].get('binary', 0)} binary / "
+                f"{w['requests'].get('json', 0)} json requests, "
+                f"{w['bytes'].get('in', 0)} B in / "
+                f"{w['bytes'].get('out', 0)} B out"
             )
         for name, d in s.get("dtypes", {}).items():
             lines.append(

@@ -15,8 +15,9 @@ Three formats, the same ones the JAX serving engine reads:
 The npz forms go through :func:`~.convert.torch_state_from_jax`.
 BatchNorm checkpoints (``mnist_ddp.py --syncbn``) carry
 ``bnN.weight/bias/running_mean/running_var/num_batches_tracked`` in the
-JAX package's naming; :func:`load_resume_state` reads them, and serving
-refuses them.
+JAX package's naming; :func:`load_resume_state` reads them for training,
+:func:`load_inference_state` for serving (at f32 and bf16; the int8
+variant refuses them).
 
 ``--save-model`` writes through :func:`save_state_dict`: a ``torch.save``
 file of the model's state dict (``module.`` prefixed in distributed mode,
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import io
+import json
 import os
 import tempfile
 import zipfile
@@ -88,10 +90,6 @@ def _strip_prefix(key: str) -> str:
     return key[len("module."):] if key.startswith("module.") else key
 
 
-_SERVING_BN_MESSAGE = (
-    "BatchNorm checkpoints are not served by this port yet; serve a "
-    "checkpoint without --syncbn"
-)
 # BatchNorm running averages: the JAX package's batch_stats leaves -> torch.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -193,13 +191,11 @@ def _load_model_file(path: str, check_bn) -> tuple[dict[str, torch.Tensor], int]
 def load_inference_state(path: str) -> dict[str, torch.Tensor]:
     """Any supported checkpoint -> float32 CPU state dict in torch layout
     (``conv1.weight`` OIHW ... ``fc1.weight`` with NCHW-ordered columns),
-    for serving, which refuses a BatchNorm checkpoint."""
-
-    def refuse(bn: bool) -> None:
-        if bn:
-            raise ValueError(_SERVING_BN_MESSAGE)
-
-    return _load_model_file(path, refuse)[0]
+    for serving.  A BatchNorm checkpoint (``--syncbn``, either package's)
+    keeps its ``bnN.weight``/``bnN.bias`` and, where the file has them, its
+    running averages; the JAX package's ``load_inference_variables``
+    reads the same files."""
+    return _load_model_file(path, lambda bn: None)[0]
 
 
 def load_resume_state(path: str, syncbn: bool) -> tuple[dict[str, torch.Tensor], int]:
@@ -287,6 +283,57 @@ def _atomic_npz_write(flat: Mapping[str, np.ndarray], path: str) -> None:
 # head_dim]``); a format-1 archive's qkv kernels have the same shape with
 # every head's q/k/v scrambled, so only the tag tells them apart.
 PARAMS_TREE_FORMAT = 2
+
+
+# The model registry's manifest (serving/registry.py): its only durable
+# state, a JSON document in the registry directory naming every (model,
+# version) entry and the default aliases.  Written atomically like every
+# checkpoint, so a reader sees an absent or a complete manifest, never a
+# torn one.  The JAX package's utils/checkpoint.py writes the same bytes.
+REGISTRY_MANIFEST = "registry.json"
+REGISTRY_FORMAT = 1
+
+
+def registry_manifest_path(directory: str) -> str:
+    return os.path.join(directory, REGISTRY_MANIFEST)
+
+
+def save_registry_manifest(manifest: Mapping[str, Any], directory: str) -> str:
+    """Atomically publish the registry manifest into ``directory``: the
+    format tag stamped, sorted keys and a trailing newline, so identical
+    state gives identical bytes."""
+    manifest = dict(manifest)
+    manifest["format"] = REGISTRY_FORMAT
+    path = registry_manifest_path(directory)
+    payload = (json.dumps(manifest, indent=2, sort_keys=True) + "\n").encode()
+    _atomic_write(path, lambda f: f.write(payload))
+    return path
+
+
+def load_registry_manifest(directory: str) -> dict[str, Any]:
+    """Read the registry manifest back; ``FileNotFoundError`` when the
+    directory holds none (a fresh registry), ``ValueError`` on one this
+    code cannot interpret (a future format is refused, not half-read)."""
+    path = registry_manifest_path(directory)
+    with open(path, "rb") as f:
+        try:
+            manifest = json.load(f)
+        except json.JSONDecodeError as e:
+            raise ValueError(
+                f"{path!r} is not valid JSON ({e}); the registry writes "
+                "manifests atomically, so this file was likely produced "
+                "by a non-atomic writer or damaged in transit"
+            ) from e
+    if not isinstance(manifest, dict):
+        raise ValueError(f"{path!r} must hold a JSON object manifest")
+    fmt = int(manifest.get("format", 0))
+    if fmt != REGISTRY_FORMAT:
+        raise ValueError(
+            f"{path!r} is a format-{fmt} registry manifest; this build "
+            f"reads format {REGISTRY_FORMAT} — upgrade the reader or "
+            "re-publish the registry"
+        )
+    return manifest
 
 
 def _flatten_raw(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:

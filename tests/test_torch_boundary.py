@@ -296,6 +296,45 @@ def test_vit_cli_accepts_ported_flags(flags, dest, value):
             defaults.step_stats) == (None, None, None, False)
 
 
+SERVING_NOT_PORTED = [
+    ["--aot-cache", "x"], ["--cache-dir", "x"], ["--serial-warmup"], ["--no-device-stage"],
+    ["--replicas", "2"], ["--replica-shapes", "tp4,dp"], ["--router-policy", "cost"],
+    ["--hedge"], ["--hedge-delay-ms", "5"], ["--no-supervise"], ["--stall-timeout-s", "5"],
+    ["--restart-budget", "3"], ["--fleet", "2"], ["--fleet-base-port", "9000"],
+    ["--fleet-restart-budget", "3"], ["--fleet-heartbeat-timeout-s", "10"],
+    ["--fleet-ready-timeout-s", "300"], ["--autoscale"], ["--scale-high", "8"],
+    ["--scale-low", "1"], ["--scale-min", "1"], ["--scale-max", "4"],
+    ["--scale-window-s", "2"], ["--scale-cooldown-s", "10"],
+]
+
+
+@pytest.mark.parametrize("argv", SERVING_NOT_PORTED, ids=[a[0] for a in SERVING_NOT_PORTED])
+def test_serving_refuses_flags_not_ported_yet(argv, capsys):
+    """The pool, the fleet and the compile/ analogue: argparse takes each
+    flag (no unknown-flag exit), and the CLI refuses it by name, exit 2,
+    before anything is built (no card needed)."""
+    from pytorch_mnist_ddp_tpu_torch.serving.__main__ import build_parser as serving_parser
+
+    serving_parser().parse_args(argv)
+    assert cli_main(argv + ["--warmup-only"]) == 2
+    out = capsys.readouterr().out
+    assert out.startswith(f"error: {argv[0]} is not ported to the PyTorch/CUDA serving CLI")
+
+
+def test_serving_accepts_the_flags_of_this_slice(tmp_path, capsys):
+    """The single-engine flags, warmed and gated on the CPU."""
+    argv = ["--device", "cpu", "--warmup-only", "--buckets", "1,2", "--dtypes", "f32,bf16,int8",
+            "--int8-impl", "dot", "--conv-impl", "im2col_c1", "--no-adaptive-linger",
+            "--no-deadline-close", "--qos-weights", "interactive=3,batch=1",
+            "--response-cache", "8", "--request-timeout-s", "5", "--telemetry-dir",
+            str(tmp_path), "--packed", "--fill-wait-ms", "1"]
+    assert cli_main(argv) == 0
+    out = capsys.readouterr().out
+    assert "parity gate [bf16]: PASS" in out and "parity gate [int8]: PASS" in out
+    assert cli_main(["--device", "cpu", "--warmup-only", "--buckets", "1", "--bf16",
+                     "--int8-impl", "pallas"]) == 0
+
+
 @pytest.fixture
 def head_args():
     q = quantize_params(Net(torch.Generator().manual_seed(3)).state_dict())

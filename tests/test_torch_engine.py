@@ -143,7 +143,7 @@ def test_unverified_variant_is_refused(state, inputs):
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        ({"dtypes": ("bf16",)}, "unknown serving dtype"),
+        ({"dtypes": ("fp8",)}, "unknown serving dtype"),
         ({"buckets": (3,)}, "power of two"),
         ({"buckets": (2,), "max_bucket": 4}, "not both"),
     ],

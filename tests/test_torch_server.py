@@ -1,5 +1,7 @@
 """The port's HTTP serving path on the CPU: make_server, the micro-batcher
-and the CLI, with carried-across JAX seed-1 weights.
+and the CLI, with carried-across JAX seed-1 weights; the QoS field, the
+binary wire, the response cache, the registry's admin surface and the
+JAX server's status mapping (400, 408, 500, 503, 504).
 
 Answers over HTTP are held against ``engine.predict_logits`` on the same
 rows: within 1e-5 (a request may coalesce into another bucket size than
@@ -16,6 +18,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -26,6 +29,7 @@ import pytest
 from pytorch_mnist_ddp_tpu.models.net import init_params
 from pytorch_mnist_ddp_tpu.utils.rng import root_key, split_streams
 from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
+from pytorch_mnist_ddp_tpu_torch.serving import wire
 from pytorch_mnist_ddp_tpu_torch.serving.batcher import MicroBatcher, RejectedError
 from pytorch_mnist_ddp_tpu_torch.serving.engine import InferenceEngine
 from pytorch_mnist_ddp_tpu_torch.serving.metrics import ServingMetrics
@@ -288,3 +292,200 @@ def test_cli_serves_then_drains_on_sigterm():
     assert proc.returncode == 0, rest
     assert "draining admitted requests" in rest
     assert "requests: 1 ok / 0 rejected / 0 timed out / 0 failed" in rest
+
+
+# -- the serving stack over HTTP: QoS, the wire, the cache, the registry's
+# admin surface, the status mapping -------------------------------------------
+
+
+def _post_raw(url: str, data: bytes, ctype: str) -> tuple[int, bytes, str]:
+    req = urllib.request.Request(url + "/predict", data, {"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read(), r.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers.get("Content-Type", "")
+
+
+def _admin(url: str, verb: str, body: dict) -> tuple[int, dict]:
+    req = urllib.request.Request(f"{url}/admin/{verb}", json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+class _ListSink:
+    def __init__(self):
+        self.events = []
+
+    def emit(self, event, **fields):
+        self.events.append((event, fields))
+
+    def __bool__(self):
+        return True
+
+
+def test_qos_field_selects_the_class_and_an_unknown_one_is_400(running):
+    body = {"instances": _raw(1, seed=20).reshape(1, -1).tolist()}
+    status, resp = _post(running.url, {**body, "qos": "premium"})
+    assert status == 400 and "premium" in resp["error"]
+    assert _post(running.url, {**body, "qos": "batch"})[0] == 200
+    assert _post(running.url, body)[0] == 200
+    qos = json.loads(_get(running.url, "/metrics")[1])["qos"]
+    assert qos["batch"]["requests"] >= 1 and qos["interactive"]["requests"] >= 1
+
+
+def test_binary_wire_answers_the_json_logits_and_falls_back_to_json(engine):
+    sink = _ListSink()
+    srv = _Running(engine, linger_ms=1.0, sink=sink)
+    try:
+        raw = _raw(3, seed=21)
+        for dtype in ("f32", "int8"):
+            status, body, ctype = _post_raw(
+                srv.url, wire.encode_request(raw.astype(np.float32), dtype=dtype, qos="batch"),
+                wire.WIRE_REQUEST_TYPE)
+            assert status == 200 and ctype == wire.WIRE_RESPONSE_TYPE
+            logits = wire.decode_response(body)
+            json_logits = np.asarray(_post(srv.url, {
+                "instances": raw.tolist(), "dtype": dtype, "return_log_probs": True,
+            })[1]["log_probs"], np.float32)
+            np.testing.assert_allclose(logits, json_logits, rtol=0, atol=TOL)
+        status, body, _ = _post_raw(srv.url, b"MNW1" + b"\0" * 10, wire.WIRE_REQUEST_TYPE)
+        assert status == 400 and b"shorter than" in body
+        status, body, _ = _post_raw(srv.url, json.dumps({"instances": raw.tolist()}).encode(),
+                                    "text/plain")
+        assert status == 200 and ("wire_fallback", {"content_type": "text/plain"}) in sink.events
+        snap = json.loads(_get(srv.url, "/metrics")[1])
+        assert snap["wire"]["requests"]["binary"] == 3
+        assert snap["wire"]["bytes"]["in"] > 3 * 3 * 784 * 4
+    finally:
+        srv.stop()
+
+
+def test_response_cache_coalesces_and_hits_over_http(engine):
+    srv = _Running(engine, linger_ms=1.0, response_cache=16)
+    try:
+        body = {"instances": _raw(2, seed=22).reshape(2, -1).tolist(), "dtype": "int8"}
+        batches0 = engine.metrics.batches
+        barrier = threading.Barrier(8)
+        answers = []
+
+        def client():
+            barrier.wait()
+            answers.append(_post(srv.url, body))
+
+        threads = [threading.Thread(target=client) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert [a[0] for a in answers] == [200] * 8 and len({str(a[1]) for a in answers}) == 1
+        assert engine.metrics.batches - batches0 == 1  # one dispatch for eight requests
+        assert _post(srv.url, body) == answers[0]
+        cache = srv.metrics.snapshot()["cache"]
+        assert cache["miss"] == 1 and cache["hit"] + cache["coalesced"] == 8
+        assert engine.metrics.batches - batches0 == 1
+    finally:
+        srv.stop()
+
+
+@pytest.fixture()
+def registry_server(engine, tmp_path):
+    from pytorch_mnist_ddp_tpu_torch.serving.registry import ModelRegistry
+    from pytorch_mnist_ddp_tpu_torch.serving.rollout import RolloutController
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import model_state_dict, save_state_dict
+
+    reg = ModelRegistry(str(tmp_path))
+    for version, seed in (("v1", 1), ("v2", 2)):
+        params = jax.device_get(init_params(split_streams(root_key(seed))["init"]))
+        path = str(tmp_path / f"{version}.pt")
+        save_state_dict(model_state_dict(torch_state_from_jax(params)), path)
+        reg.publish("mnist", version, path)
+    entry = reg.resolve()
+    eng = InferenceEngine(reg.load(entry), device="cpu", buckets=(1, 2, 4, 8),
+                          metrics=ServingMetrics(), version=entry.version)
+    eng.warmup()
+    srv = _Running(eng, linger_ms=1.0, response_cache=16,
+                   rollout=RolloutController(reg, eng))
+    yield srv, eng
+    srv.stop()
+
+
+def test_admin_swap_canary_rollback_and_the_model_fields(registry_server, running):
+    srv, eng = registry_server
+    assert _admin(running.url, "swap", {"version": "v2"})[0] == 503  # no registry
+    body = {"instances": _raw(2, seed=23).reshape(2, -1).tolist(), "return_log_probs": True}
+    v1 = _post(srv.url, body)[1]["log_probs"]
+    status, resp = _admin(srv.url, "canary", {"version": "v2", "pct": 100})
+    assert status == 200 and resp["canary"]["version"] == "v2"
+    assert _post(srv.url, body)[1]["log_probs"] != v1  # every unpinned request: v2
+    assert _post(srv.url, {**body, "version": "v1"})[1]["log_probs"] == v1  # pinned
+    status, resp = _post(srv.url, {**body, "dtype": "f32@v2"})
+    assert status == 400 and "unknown dtype" in resp["error"]
+    assert _admin(srv.url, "rollback", {})[1]["canary"] is None
+    assert _post(srv.url, body)[1]["log_probs"] == v1
+    status, resp = _admin(srv.url, "swap", {"version": "v9"})
+    assert status == 400 and "unknown version" in resp["error"]
+    assert _admin(srv.url, "swap", {})[0] == 400  # missing field
+    status, resp = _admin(srv.url, "swap", {"version": "v2"})
+    assert status == 200 and resp["version"] == "v2" and resp["weights_digest"] == eng.weights_digest
+    v2 = _post(srv.url, body)[1]["log_probs"]
+    assert v2 != v1 and _post(srv.url, {**body, "model": "mnist", "version": "v2"})[1][
+        "log_probs"] == v2
+    assert _post(srv.url, {**body, "model": "other"})[0] == 400
+    assert _post(running.url, {**body, "model": "mnist"})[0] == 400  # no registry there
+    assert json.loads(_get(srv.url, "/healthz")[1])["rollout"]["version"] == "v2"
+    assert _admin(srv.url, "rollout", {})[1]["version"] == "v2"
+
+
+def test_a_stalled_body_is_answered_408(engine):
+    import socket
+
+    srv = _Running(engine, request_timeout_s=0.3)
+    try:
+        host, port = srv.server.server_address[:2]
+        with socket.create_connection((host, port), timeout=10) as sock:
+            sock.sendall(b"POST /predict HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                         b"application/json\r\nContent-Length: 500\r\n\r\n{\"inst")
+            reply = b""
+            while chunk := sock.recv(4096):  # the server closes after its 408
+                reply += chunk
+        assert reply.startswith(b"HTTP/1.1 408") and b"timed out" in reply
+    finally:
+        srv.stop()
+
+
+def test_503_504_500_map_as_in_jax(engine):
+    from pytorch_mnist_ddp_tpu_torch.serving import faults
+
+    srv = _Running(engine, linger_ms=0.0, queue_depth=1)
+    try:
+        body = {"instances": _raw(1, seed=24).reshape(1, -1).tolist()}
+        with faults.injected("fail:launch"):
+            status, resp = _post(srv.url, body)
+        assert status == 500 and "FaultError" in resp["error"]
+        with faults.injected("hang:launch:for=5") as injector:
+            held = threading.Thread(target=_post, args=(srv.url, body))
+            held.start()
+            deadline = time.perf_counter() + 10
+            while not injector.fired_counts()["hang:launch:for=5"]:
+                assert time.perf_counter() < deadline
+                time.sleep(0.005)
+            data = wire.encode_request(_raw(1, seed=25).astype(np.float32), deadline_ms=50)
+            status504 = []
+            queued = threading.Thread(target=lambda: status504.append(
+                _post_raw(srv.url, data, wire.WIRE_REQUEST_TYPE)[0]))
+            queued.start()
+            while srv.server.batcher.depth() < 1:
+                time.sleep(0.005)
+            status, resp = _post(srv.url, {**body, "qos": "batch"})  # the queue is full
+            assert status == 503 and "queue full" in resp["error"]
+            queued.join(timeout=10)
+        held.join(timeout=10)
+        assert status504 == [504]
+        assert srv.metrics.snapshot()["requests"]["timed_out"] == 1
+    finally:
+        srv.stop()
