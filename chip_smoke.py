@@ -65,6 +65,47 @@ Phases, one JSON line each:
                 and bf16, int8 refused.  Row 1 launches on the path equal
                 warmup + gate + split + the int8 batches the telemetry
                 records;
+5c. pool      — the replica pool (serving/pool.py): two replicas of the
+                full-width CNN on cuda:0, each on its own CUDA stream,
+                --dtypes f32,int8 --int8-impl pallas, telemetry on; a
+                bucketed pool (the CLI's default) and a packed one
+                (--packed: a row's answer does not depend on its
+                batch-mates): (a) the int8 gates pass, each replica's
+                predict_logits on a 128-row batch equal (np.array_equal)
+                to a single engine's in f32 and int8, JSON answers within
+                HTTP_TOL from one client, bucketed and packed; (b) under
+                each router policy 8 closed-loop clients on the packed
+                pool, every request one answer within HTTP_TOL, the
+                decision counters summing to the requests; the bucketed
+                pool under cost and the same 8 clients, each request on
+                rows of its own and held within HTTP_TOL to a single
+                engine's answer at the bucket its batch was served in
+                (each launched batch's rows replayed on it; the buckets
+                launched are those the serving_batch events name); (c)
+                under cost, r1
+                drained at a
+                quarter of the traffic and added back at half: nothing
+                lost or duplicated, the add ran no warmup rung and loaded
+                no kernel library; (d) a launch fault kills r1: the
+                supervisor quarantines it, restarts it around its warm
+                engine (no rung, no library), its circuit goes open,
+                half-open, closed, every request answered once (the
+                server resubmits flushed ones); a second schedule past
+                the restart budget ejects r1 and r0 serves on; (e) r0's
+                read-back hangs, the hedge on r1 wins, the hedge counters
+                say won 1 and one dispatch; (f) 256 rows split over both
+                replicas equal the single engine's rows, 300 are refused
+                (two replicas x 128 rows is the pool's capacity); (g) a
+                swap to v2 under 8 clients drops and tears nothing, a
+                cache hit launches nothing.  Readings: client p50/p99
+                with one and two replicas under the same 8 clients, how
+                long kernels of the two streams overlapped in a profiled
+                window, row 1 a call at n = 128 on one stream and on the
+                two replicas' streams in turn.  Row 1's launches on the
+                path equal the int8 dispatches the replicas' engines
+                took, and the int8 batches the telemetry records for r0
+                and r1, summed, up to the batches a supervisor abort
+                caught in flight (at most 3 an abort);
 6. train_step — 20 train steps from one set of weights on fixed batches,
                 dropout off, deterministic cuDNN, three times: the plain
                 update, the fused kernel (per-parameter state) and the
@@ -580,6 +621,25 @@ STACK_CANARY_PCT = 25.0
 STACK_CANARY_ROWS = 64
 STACK_SWAP_CLIENTS = 8
 STACK_SWAP_PER_CLIENT = 30
+# pool: two replicas of the full-width CNN on cuda:0, each on its own
+# stream; closed-loop JSON clients of 1..12 rows (f32 and int8 in turn).
+POOL_REPLICAS = 2
+POOL_CLIENTS = 8
+POOL_PER_CLIENT = 12  # (b) per policy
+POOL_SUPERVISOR_PER_CLIENT = 8  # (d)
+POOL_KILLED_LAUNCHES = 4  # (d) three trip r1's circuit, one fails its first trial
+POOL_TIMEOUT_MS = 5000.0
+POOL_HEDGE_DELAY_MS = 20.0  # (e)
+POOL_HANG_S = 2.0  # (e) r0's read-back hangs this long unless woken
+# (f) two replicas x the 128-row top bucket; one row more than the pool's
+# capacity is refused (the JAX router's cap), so 300 rows are
+POOL_OVERSIZE_ROWS = 256
+POOL_REFUSED_ROWS = 300
+POOL_CACHE = 64  # (g) --response-cache
+POOL_SWAP_PER_CLIENT = 20  # (g)
+POOL_READ_PER_CLIENT = 20  # the latency readings, with 1 and 2 replicas
+POOL_BUCKETED_LADDER = (1, 2, 4, 8, 128)  # (a): one client's 1..8 rows, and 128
+POOL_BUCKETED_ROWS = 624  # (b) bucketed: 8 clients x 78 rows, each request rows of its own
 DOT_TOL = 5e-4  # --int8-impl dot vs pallas log-probs (the conv ulp)
 
 
@@ -4582,6 +4642,654 @@ def serving_stack_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     return {"int8_head": path}, {"int8_head": refs["launches"]}
 
 
+def pool_clients(url: str, ref: dict, n_clients: int, per_client: int, seed: int,
+                 dtypes=("f32", "int8"), progress=None, allow_503: bool = False) -> dict:
+    """``n_clients`` closed-loop JSON clients, ``per_client`` requests each
+    of 1..12 rows of the phase's rows (dtypes in turn); every answer held
+    to ``ref`` within HTTP_TOL with the same argmax.  With ``allow_503`` a
+    503 is an outcome too (every retry of the request met a failing
+    replica).  Returns the request ids answered, the client latencies, the
+    503s, the failures and the largest error per dtype."""
+    import numpy as np
+
+    raw = ref["raw"]
+    lock = threading.Lock()
+    answered, latencies, bad, rejected = [], [], [], []
+    worst = {dt: 0.0 for dt in dtypes}
+
+    def client(c: int) -> None:
+        for j in range(per_client):
+            size = 1 + (c + j + seed) % 12
+            off = (7 * c + 13 * j + seed) % (len(raw) - size)
+            dtype = dtypes[(c + j) % len(dtypes)]
+            t0 = time.perf_counter()
+            status, body, _ = http_post(url + "/predict", predict_body(raw[off:off + size], dtype))
+            ms = 1e3 * (time.perf_counter() - t0)
+            ok, err = status == 200, None
+            if ok:
+                got = log_probs(body)
+                want = ref[dtype][off:off + size]
+                err = float(np.abs(got - want).max())
+                ok = err <= HTTP_TOL and bool((got.argmax(1) == want.argmax(1)).all())
+            with lock:
+                answered.append((c, j))
+                latencies.append(ms)
+                if err is not None:
+                    worst[dtype] = max(worst[dtype], err)
+                if status == 503 and allow_503:
+                    rejected.append((c, j))
+                elif not ok:
+                    bad.append((c, j, status, dtype, err))
+                n = len(answered)
+            if progress is not None:
+                progress(n)
+
+    with ThreadPoolExecutor(n_clients) as pool:
+        list(pool.map(client, range(n_clients)))
+    return {"answered": answered, "latencies_ms": latencies, "bad": bad, "rejected": rejected,
+            "max_abs_err": worst}
+
+
+def pool_phase(torch, np, workdir: str, device: str = "cuda") -> tuple[dict, dict]:
+    """The replica pool on the card: two replicas of the full-width CNN
+    sharing cuda:0, each on its own CUDA stream, --dtypes f32,int8
+    --int8-impl pallas.  Checks (a)-(g) of the module docstring; readings
+    of client latency with one and two replicas, of the two streams'
+    overlap on the card and of row 1 alone and on two streams.  Returns
+    row 1's launches on the path and, apart, those of the references.
+
+    (a) runs a bucketed pool (the CLI's default) and a packed one from one
+    client; the other concurrent checks run the packed pool, whose batch
+    is always the 128-row buffer, so a row's answer does not depend on its
+    batch-mates and one reference holds every answer within HTTP_TOL.  A
+    coalesced bucketed batch has another size than a lone request's, cuDNN
+    sums its f32 convs in another order, and int8 answers then move by
+    flipped fc1 input codes (up to 7.2e-4 on the card against the 128-row
+    reference).  So (b)'s bucketed round sends each request rows of its
+    own, records the bucket and rows of every batch at its launch, and
+    holds each answer to a single engine's on the same rows at that
+    bucket."""
+    import json as json_
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.models.quant import conv_stack, qparams_to, quantize_params
+    from pytorch_mnist_ddp_tpu_torch.obs.events import open_sink, read_events
+    from pytorch_mnist_ddp_tpu_torch.ops import _build
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.serving import faults
+    from pytorch_mnist_ddp_tpu_torch.serving.batcher import RejectedError
+    from pytorch_mnist_ddp_tpu_torch.serving.engine import PARITY_SEED, InferenceEngine
+    from pytorch_mnist_ddp_tpu_torch.serving.metrics import ServingMetrics
+    from pytorch_mnist_ddp_tpu_torch.serving.pool import EnginePool
+    from pytorch_mnist_ddp_tpu_torch.serving.registry import ModelRegistry
+    from pytorch_mnist_ddp_tpu_torch.serving.rollout import RolloutController
+    from pytorch_mnist_ddp_tpu_torch.serving.router import POLICIES, ShardedRequest
+    from pytorch_mnist_ddp_tpu_torch.serving.server import decode_instances, make_server
+    from pytorch_mnist_ddp_tpu_torch.utils.checkpoint import model_state_dict, save_state_dict
+
+    t_phase = time.perf_counter()
+    refs = {"launches": 0}
+
+    @contextlib.contextmanager
+    def reference():
+        before = ih.LAUNCHES
+        try:
+            yield
+        finally:
+            refs["launches"] += ih.LAUNCHES - before
+
+    reg_dir = os.path.join(workdir, "pool_registry")
+    os.makedirs(reg_dir)
+    for version, seed in (("v1", SEED), ("v2", STACK_V2_SEED)):
+        path = os.path.join(reg_dir, f"mnist_{version}.pt")
+        save_state_dict(model_state_dict(Net(torch.Generator().manual_seed(seed)).state_dict()),
+                        path)
+        ModelRegistry(reg_dir).publish("mnist", version, path)
+    registry = ModelRegistry(reg_dir)
+    entry = registry.resolve()
+    v1, v2 = registry.load(entry), registry.load(registry.resolve(version="v2"))
+
+    sink = open_sink(os.path.join(workdir, "pool_telemetry"))
+    metrics = ServingMetrics()
+    kw = dict(replicas=POOL_REPLICAS, device=device, dtypes=("int8",), int8_impl="pallas")
+    bucketed = EnginePool(v1, version=entry.version, metrics=ServingMetrics(),
+                          buckets=POOL_BUCKETED_LADDER, **kw)
+    pool = EnginePool(v1, version=entry.version, packed=True, metrics=metrics, **kw)
+    streams = [e.stream for e in pool.engines]
+    if device == "cuda":
+        check(pool.devices == [torch.device("cuda", 0)] * POOL_REPLICAS,
+              f"replicas on {pool.devices}, want both on cuda:0")
+        default = torch.cuda.default_stream(pool.devices[0])
+        check(len({s.cuda_stream for s in streams} | {default.cuda_stream})
+              == POOL_REPLICAS + 1, "the replicas do not each own a stream")
+    t0 = time.perf_counter()
+    pool.warmup()
+    warm_s = time.perf_counter() - t0
+    bucketed.warmup()
+    gates = pool.verify_parity(sink=sink)
+    gates_bucketed = bucketed.verify_parity()
+    check(set(gates) == {"int8"} and gates["int8"]["passed"]
+          and gates_bucketed["int8"]["passed"], f"(a) pool gates {gates}, {gates_bucketed}")
+    rungs, loads = pool.rungs_run(), _build.LOADS
+    warm_launches = ih.LAUNCHES
+
+    # References, before any batcher owns a replica's dispatch.
+    raw = np.random.RandomState(PARITY_SEED + 16).randint(0, 256, (320, 28, 28)).astype(np.uint8)
+    x = decode_instances({"instances": raw.tolist()})
+    raw_b = np.random.RandomState(PARITY_SEED + 17).randint(
+        0, 256, (POOL_BUCKETED_ROWS, 28, 28)).astype(np.uint8)
+    xb = decode_instances({"instances": raw_b.tolist()})
+    with reference():
+        refs_by_mode, a_equal = {}, {}
+        for mode, p in (("bucketed", bucketed), ("packed", pool)):
+            single = InferenceEngine(v1, device=device, dtypes=("int8",), int8_impl="pallas",
+                                     packed=mode == "packed", buckets=p.buckets)
+            single.warmup()
+            check(single.verify_parity()["int8"]["passed"], "(a) the single engine's gate")
+            r = {"raw": raw, **{dt: single.predict_logits(x, dtype=dt) for dt in ("f32", "int8")}}
+            refs_by_mode[mode] = r
+            if mode == "bucketed":  # (b)'s bucketed round replays its batches on it
+                single_bucketed = single
+            a_equal.update({f"{mode} r{i}:{dt}": bool(np.array_equal(
+                e.predict_logits(x[:128], dtype=dt), r[dt][:128]))
+                for i, e in enumerate(p.engines) for dt in ("f32", "int8")})
+            del single
+        ref = refs_by_mode["packed"]
+        ref_v2 = InferenceEngine(v2, device=device, packed=True).predict_logits(x)
+    check(all(a_equal.values()), f"(a) a replica's predict_logits differs from the "
+          f"single engine's: {a_equal}")
+    check(float(np.abs(ref_v2 - ref["f32"]).max()) > 1e-2, "v1 and v2 answer alike")
+
+    # Every int8 dispatch a replica's engine takes on the path: the count
+    # row 1's launches must equal.  (The telemetry's serving_batch events
+    # miss a batch the supervisor's abort caught between its launch and
+    # its read-back, whose requests were retried elsewhere.)
+    int8_dispatches = {"n": 0}
+    count_lock = threading.Lock()
+
+    def count_int8_dispatches(engine) -> None:
+        launch = engine.launch
+
+        def counted(staged, n, dtype=None, seg_ids=None):
+            result = launch(staged, n, dtype=dtype, seg_ids=seg_ids)
+            if (dtype or "f32").split("@")[0] == "int8":
+                with count_lock:
+                    int8_dispatches["n"] += 1
+            return result
+
+        engine.launch = counted
+
+    # (b) bucketed: the bucket, dtype and rows of every batch launched
+    launched: dict = {"log": None}
+
+    def record_launches(engine) -> None:
+        launch = engine.launch
+
+        def recorded(staged, n, dtype=None, seg_ids=None):
+            if launched["log"] is not None:
+                rows = [r.tobytes() for r in staged[:n].numpy()]
+                with count_lock:
+                    launched["log"].append((len(staged), (dtype or "f32").split("@")[0], rows))
+            return launch(staged, n, dtype=dtype, seg_ids=seg_ids)
+
+        engine.launch = recorded
+
+    for engine in pool.engines + bucketed.engines:
+        count_int8_dispatches(engine)
+    for engine in bucketed.engines:
+        record_launches(engine)
+    path_start, refs_start = ih.LAUNCHES, refs["launches"]
+    batcher_kwargs = dict(linger_ms=1.0, timeout_ms=POOL_TIMEOUT_MS)
+    out: dict = {}
+
+    @contextlib.contextmanager
+    def serving(policy: str = "cost", p=None, rollout=None, response_cache=None, **start):
+        p = p if p is not None else pool
+        router = p.start(router_policy=policy, sink=sink, **{**batcher_kwargs, **start})
+        server = make_server(p, p.metrics, batcher=router, sink=sink, rollout=rollout,
+                             response_cache=response_cache)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            yield router, f"http://127.0.0.1:{server.server_address[1]}"
+        finally:
+            faults.uninstall()
+            server.shutdown()
+            p.stop()
+            server.server_close()
+            thread.join(timeout=30)
+            check(not thread.is_alive(), "a pool server thread did not stop")
+
+    def decisions(policy: str, p=None) -> dict:
+        p = p if p is not None else pool
+        return {name: p.metrics.registry.counter("serving_router_decisions_total",
+                                                 policy=policy, replica=name).value
+                for name in p.replica_names}
+
+    try:
+        # (a) over HTTP, one client: each dtype within HTTP_TOL of
+        # predict_logits, the bucketed pool and the packed one
+        out["a_http_max_abs_err"] = {}
+        for mode, p in (("bucketed", bucketed), ("packed", pool)):
+            with serving("roundrobin", p=p, supervise=False) as (_, url):
+                run = pool_clients(url, refs_by_mode[mode], 1, 8, seed=0)
+            check(not run["bad"], f"(a) {mode} /predict answers off: {run['bad']}")
+            out["a_http_max_abs_err"][mode] = run["max_abs_err"]
+
+        # (b) each policy under POOL_CLIENTS closed-loop clients; (c) under
+        # cost, r1 drained at a quarter of the traffic and added back at half
+        b = {}
+        for policy in POLICIES:
+            total = POOL_CLIENTS * POOL_PER_CLIENT
+            done0, d0 = metrics.completed, decisions(policy)
+            drain: dict = {}
+            with serving(policy) as (_, url):
+                def progress(n, policy=policy):
+                    if policy != "cost":
+                        return
+                    if n == total // 4 and "s" not in drain:
+                        drain["s"] = pool.drain("r1")
+                    elif n == total // 2 and "add" not in drain:
+                        t0 = time.perf_counter()
+                        pool.add("r1")
+                        drain["add"] = time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                run = pool_clients(url, ref, POOL_CLIENTS, POOL_PER_CLIENT, seed=1,
+                                   progress=progress)
+                secs = time.perf_counter() - t0
+            d = {name: n - d0[name] for name, n in decisions(policy).items()}
+            ids = run["answered"]
+            check(not run["bad"] and len(ids) == total and len(set(ids)) == total,
+                  f"(b) {policy}: {len(ids)} answers for {total}, bad {run['bad'][:5]}")
+            check(sum(d.values()) == total and metrics.completed - done0 == total,
+                  f"(b) {policy}: decisions {d}, completed {metrics.completed - done0} of {total}")
+            b[policy] = {"requests": total, "decisions": d, "seconds": secs,
+                         "max_abs_err": run["max_abs_err"],
+                         "client_p50_ms": float(np.percentile(run["latencies_ms"], 50)),
+                         "client_p99_ms": float(np.percentile(run["latencies_ms"], 99))}
+            if policy == "cost":
+                check("s" in drain and "add" in drain, f"(c) drain/add did not run: {drain}")
+                check(pool.rungs_run() == rungs and _build.LOADS == loads,
+                      f"(c) the add ran {pool.rungs_run() - rungs} rungs, "
+                      f"loaded {_build.LOADS - loads} libraries")
+                out["c_drain_add"] = {"drain_s": drain["s"], "add_s": drain["add"],
+                                      "rungs_added": pool.rungs_run() - rungs,
+                                      "libraries_loaded": _build.LOADS - loads}
+        out["b_policies"] = b
+        out["b_bucketed"] = bucketed_round(bucketed, single_bucketed, reference, xb, raw_b,
+                                           launched, sink, serving, decisions)
+        del bucketed, single_bucketed
+
+        # (d) the supervisor: r1 killed at launch -> quarantined, restarted,
+        # half-open, closed; then a schedule past its restart budget
+        sup_kwargs = dict(interval_s=0.02, backoff_base_s=0.05, backoff_max_s=0.5,
+                          restart_budget=3)
+        retried0, done0 = metrics.retried, metrics.completed
+        with serving("roundrobin", supervisor_kwargs=sup_kwargs) as (router, url):
+            with faults.injected(f"fail:launch:r1:count={POOL_KILLED_LAUNCHES}") as injector:
+                run = pool_clients(url, ref, POOL_CLIENTS, POOL_SUPERVISOR_PER_CLIENT, seed=2,
+                                   allow_503=True)
+            fired = injector.fired_counts()
+            closes = 0
+            deadline = time.perf_counter() + 20
+            while not (router.replica("r1").active
+                       and router.replica("r1").breaker.state == "closed"):
+                check(time.perf_counter() < deadline, "(d) r1 did not come back closed")
+                closes += len(pool_clients(url, ref, 2, 2, seed=3)["answered"])
+                time.sleep(0.02)
+            stats = pool.supervisor.stats()
+        total = POOL_CLIENTS * POOL_SUPERVISOR_PER_CLIENT
+        # A 503 is a request whose 1 + replicas attempts all met r1's faults
+        # (the server's retry budget, JAX's): three faults each.
+        rejected = len(run["rejected"])
+        check(not run["bad"] and len(run["answered"]) == total
+              and rejected <= sum(fired.values()) // 3, f"(d) {run['bad'][:5]}, {rejected} 503s")
+        check(metrics.completed - done0 == total - rejected + closes,
+              "(d) a request completed twice or never")
+        check(stats["replicas"]["r1"]["restarts"] >= 1, f"(d) no restart: {stats}")
+        check(pool.rungs_run() == rungs and _build.LOADS == loads,
+              "(d) the restart ran a warmup rung or loaded a library")
+        r1_moves = [(e["src"], e["dst"]) for e in read_events(sink.path)
+                    if e["event"] == "circuit_transition" and e["replica"] == "r1"]
+        check(("closed", "open") in r1_moves and ("open", "half-open") in r1_moves
+              and ("half-open", "closed") in r1_moves, f"(d) r1's circuit moves {r1_moves}")
+        out["d_supervisor"] = {"fired": fired, "requests": total, "503": rejected,
+                               "restarts": stats["replicas"]["r1"]["restarts"],
+                               "recovery_s": stats["replicas"]["r1"]["recovery_s"],
+                               "retries": metrics.retried - retried0,
+                               "circuit_moves": r1_moves}
+        with serving("roundrobin", supervisor_kwargs={**sup_kwargs, "restart_budget": 1}) \
+                as (router, url):
+            with faults.injected("fail:launch:r1:count=inf"):
+                deadline = time.perf_counter() + 20
+                sent = rejected = 0
+                while router.replica("r1").state != "ejected":
+                    check(time.perf_counter() < deadline, "(d) r1 was not ejected")
+                    run = pool_clients(url, ref, 4, 2, seed=4, allow_503=True)
+                    check(not run["bad"], f"(d) ejection schedule: {run['bad']}")
+                    sent += len(run["answered"])
+                    rejected += len(run["rejected"])
+                run = pool_clients(url, ref, 4, 2, seed=5)
+            check(not run["bad"] and router.routable_count() == 1, "(d) after the ejection")
+            status, body, _ = http_post(url + "/predict", predict_body(raw[:1]))
+        out["d_ejection"] = {"requests_until_ejected": sent, "503": rejected,
+                             "served_after": status}
+
+        # (e) hedging: r0's read-back hangs, the hedge on r1 wins
+        h0 = dict(metrics.snapshot().get("hedges", {}))
+        with serving("roundrobin", supervise=False, hedge=True,
+                     hedge_delay_ms=POOL_HEDGE_DELAY_MS) as (router, url):
+            with faults.injected(f"hang:complete:r0:for={POOL_HANG_S}"):
+                req = router.submit(x[:4], dtype="int8")  # rotation 0: r0
+                got = req.result()
+                by = req.completed_by
+        h1 = metrics.snapshot()["hedges"]
+        hedges = {k: h1[k] - h0.get(k, 0) for k in h1}
+        dispatched = metrics.registry.counter("serving_hedge_dispatches_total",
+                                              replica="r1").value
+        check(by == "r1" and np.abs(got - ref["int8"][:4]).max() <= HTTP_TOL,
+              f"(e) the hedge did not win: completed by {by}")
+        check(hedges == {"won": 1, "lost": 0, "cancelled": 0} and dispatched == 1,
+              f"(e) hedge counters {hedges}, dispatches {dispatched}")
+        out["e_hedge"] = {"completed_by": by, "hedges": hedges, "dispatches_r1": dispatched}
+
+        # (f) oversize: 256 rows (two replicas x the top bucket) split over
+        # both, equal to the single engine's rows; 300 refused by capacity
+        with serving("roundrobin", supervise=False) as (router, url):
+            f = {}
+            for dt in ("f32", "int8"):
+                req = router.submit(x[:POOL_OVERSIZE_ROWS], dtype=dt)
+                check(isinstance(req, ShardedRequest), "(f) not split")
+                got = req.result()
+                by = sorted(p.completed_by for p in req._parts)
+                f[dt] = {"equal": bool(np.array_equal(got, ref[dt][:POOL_OVERSIZE_ROWS])),
+                         "replicas": by}
+            try:
+                router.submit(x[:POOL_REFUSED_ROWS])
+                refused = ""
+            except RejectedError as e:
+                refused = str(e)
+            status, body, _ = http_post(url + "/predict", predict_body(raw[:POOL_OVERSIZE_ROWS]))
+        check(all(v["equal"] and v["replicas"] == ["r0", "r1"] for v in f.values()),
+              f"(f) oversize answers {f}")
+        check("exceeds pool capacity" in refused, f"(f) {POOL_REFUSED_ROWS} rows: {refused!r}")
+        check(status == 200 and np.abs(log_probs(body) - ref["f32"][:POOL_OVERSIZE_ROWS]).max()
+              <= HTTP_TOL, f"(f) oversize over HTTP {status}")
+        out["f_oversize"] = {**f, "refused_rows": POOL_REFUSED_ROWS, "refusal": refused}
+
+        # (g) a swap to v2 under load; a cache hit and the dot head launch
+        # nothing
+        rollout = RolloutController(registry, pool, metrics=metrics, sink=sink)
+        with serving("cost", rollout=rollout, response_cache=POOL_CACHE) as (router, url):
+            body_hit = predict_body(raw[300:302], "int8")
+            http_post(url + "/predict", body_hit)
+            l0, c0 = ih.LAUNCHES, metrics.snapshot()["cache"]["hit"]
+            status, _, _ = http_post(url + "/predict", body_hit)
+            check(status == 200 and ih.LAUNCHES == l0
+                  and metrics.snapshot()["cache"]["hit"] == c0 + 1, "(g) a cache hit launched")
+            results, count = [], {"n": 0}
+            lock = threading.Lock()
+
+            def swap_client(c: int) -> None:
+                for j in range(POOL_SWAP_PER_CLIENT):
+                    i = (c * POOL_SWAP_PER_CLIENT + j) % 256
+                    status, body, _ = http_post(url + "/predict", predict_body(raw[i:i + 1]))
+                    with lock:
+                        results.append((i, status, body))
+                        count["n"] += 1
+
+            total = POOL_CLIENTS * POOL_SWAP_PER_CLIENT
+            with ThreadPoolExecutor(POOL_CLIENTS) as tp:
+                futures = [tp.submit(swap_client, c) for c in range(POOL_CLIENTS)]
+                poll(lambda: count["n"] >= total // 4, "a quarter of the swap traffic")
+                status, body, _ = http_post(url + "/admin/swap", b'{"version": "v2"}')
+                for fut in futures:
+                    fut.result()
+            check(status == 200, f"(g) swap {status}: {body[:200]}")
+            served = {"v1": 0, "v2": 0, "torn": 0}
+            dropped = 0
+            for i, s, body in results:
+                if s != 200:
+                    dropped += 1
+                    continue
+                got = log_probs(body)
+                close = {v: float(np.abs(got - r[i:i + 1]).max())
+                         for v, r in (("v1", ref["f32"]), ("v2", ref_v2))}
+                served[min(close, key=close.get) if min(close.values()) <= HTTP_TOL
+                       else "torn"] += 1
+            after = log_probs(http_post(url + "/predict", predict_body(raw[310:311]))[1])
+        check(dropped == 0 and served["torn"] == 0 and served["v1"] > 0 and served["v2"] > 0,
+              f"(g) swap under load: dropped {dropped}, served {served}")
+        check(np.abs(after - ref_v2[310:311]).max() <= HTTP_TOL
+              and all(e.version == "v2" for e in pool.engines), "(g) v2 does not serve")
+        out["g_swap"] = {"requests": total, "dropped": dropped, "served": served}
+        # back to v1 for the readings
+        pool.publish_weights(v1, version="v1")
+
+        # Readings: client latency with one and two replicas, the same
+        # traffic; the two streams' overlap on the card
+        readings = {}
+        with reference():  # its warmup and gate are no served batches
+            one = EnginePool(v1, replicas=1, device=device, dtypes=("int8",), packed=True,
+                             int8_impl="pallas", metrics=ServingMetrics())
+            one.warmup()
+            check(one.verify_parity()["int8"]["passed"], "the one-replica pool's gate")
+        count_int8_dispatches(one.engines[0])
+        for n, p in ((1, one), (POOL_REPLICAS, pool)):
+            with serving("cost", p=p) as (_, url):
+                t0 = time.perf_counter()
+                run = pool_clients(url, ref, POOL_CLIENTS, POOL_READ_PER_CLIENT, seed=6)
+                secs = time.perf_counter() - t0
+            check(not run["bad"], f"reading round with {n} replicas: {run['bad'][:5]}")
+            lat = run["latencies_ms"]
+            readings[f"replicas_{n}"] = {
+                "requests": len(lat), "seconds": secs, "rps": len(lat) / secs,
+                "max_abs_err": run["max_abs_err"],
+                "client_p50_ms": float(np.percentile(lat, 50)),
+                "client_p99_ms": float(np.percentile(lat, 99))}
+        del one
+        if device == "cuda":
+            trace = os.path.join(workdir, "pool_trace.json")
+            with serving("roundrobin", supervise=False) as (_, url):
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                        torch.profiler.ProfilerActivity.CUDA]) \
+                        as prof:
+                    pool_clients(url, ref, POOL_CLIENTS, 4, seed=7, dtypes=("int8",))
+                prof.export_chrome_trace(trace)
+            readings["overlap"] = stream_overlap(json_.load(open(trace)))
+        out["readings"] = readings
+    finally:
+        faults.uninstall()
+        pool.stop()
+        sink.close()
+
+    events = read_events(sink.path)
+    int8_batches = {name: sum(1 for e in events if e["event"] == "serving_batch"
+                              and e["dtype"].split("@")[0] == "int8" and e.get("replica") == name)
+                    for name in pool.replica_names}
+    path = ih.LAUNCHES - path_start - (refs["launches"] - refs_start)
+    served = sum(int8_batches.values())
+    aborts = sum(1 for e in events if e["event"] in ("replica_quarantine", "replica_eject"))
+    check(path == int8_dispatches["n"] and path > 0,
+          f"row 1 launched {path} times on the pool's path, want one per int8 dispatch "
+          f"({int8_dispatches['n']})")
+    # An abort can catch at most its window (2) and one racing dispatch.
+    check(served <= path <= served + 3 * aborts,
+          f"row 1 launched {path} times, the replicas served {int8_batches} int8 batches, "
+          f"{aborts} aborts")
+    check(all(int8_batches.values()), f"a replica served no int8 batch: {int8_batches}")
+
+    # Row 1 at n = 128: one stream, then the two replicas' streams in turn
+    # (a reading; launches counted as references)
+    if device == "cuda":
+        with reference():
+            q = qparams_to(quantize_params(v1), pool.devices[0])
+            with torch.inference_mode():
+                feats = conv_stack(q, torch.from_numpy(x[:128]).to(pool.devices[0]))
+            out["row1_us_n128"] = two_stream_head_us(torch, q, feats, streams)
+
+    emit({"phase": "pool", "replicas": POOL_REPLICAS, "devices": [str(d) for d in pool.devices],
+          "streams": [s.cuda_stream for s in streams] if device == "cuda" else None,
+          "warmup_s": warm_s, "rungs": rungs, "gates": gates, "a_replicas_equal_single": a_equal,
+          **out, "int8_batches_served": int8_batches, "int8_dispatches": int8_dispatches["n"],
+          "aborts": aborts,
+          "launches": {"int8_head": path, "warmup_and_gate": warm_launches,
+                       "reference": refs["launches"]},
+          "seconds": time.perf_counter() - t_phase})
+    return {"int8_head": path}, {"int8_head": refs["launches"] + warm_launches}
+
+
+def bucketed_round(bucketed, single, reference, xb, raw_b, launched: dict, sink, serving,
+                   decisions) -> dict:
+    """(b) on the bucketed pool: POOL_CLIENTS closed-loop clients under
+    cost, each request 1..12 rows of its own.  Every batch's bucket, dtype
+    and rows are recorded at its launch and replayed on ``single`` (a
+    single engine on the same ladder, its launches counted as
+    references), which stages them at the same bucket; a request must
+    land whole in one batch, and its answer be within HTTP_TOL (same
+    argmax) of the replay's rows.  The buckets launched must be those the
+    round's serving_batch events name, and the decision counters must sum
+    to the requests."""
+    import collections
+
+    import numpy as np
+
+    from pytorch_mnist_ddp_tpu_torch.obs.events import read_events
+    from pytorch_mnist_ddp_tpu_torch.serving.buckets import bucket_for
+
+    plan, off = [], 0  # (client, j, first row, rows, dtype)
+    for c in range(POOL_CLIENTS):
+        for j in range(POOL_PER_CLIENT):
+            size = 1 + (c + j) % 12
+            plan.append((c, j, off, size, ("f32", "int8")[(c + j) % 2]))
+            off += size
+    check(off <= len(xb), f"(b) bucketed: {off} rows planned, {len(xb)} made")
+    answers, lock = {}, threading.Lock()
+
+    def client(c: int) -> None:
+        for cc, j, first, size, dtype in plan:
+            if cc != c:
+                continue
+            t0 = time.perf_counter()
+            status, body, _ = http_post(url + "/predict", predict_body(raw_b[first:first + size],
+                                                                        dtype))
+            with lock:
+                answers[(c, j)] = (status, body, 1e3 * (time.perf_counter() - t0))
+
+    d0 = decisions("cost", bucketed)
+    events0 = len(read_events(sink.path))
+    launched["log"] = []
+    try:
+        with serving("cost", p=bucketed) as (_, url):
+            with ThreadPoolExecutor(POOL_CLIENTS) as tp:
+                list(tp.map(client, range(POOL_CLIENTS)))
+    finally:
+        log, launched["log"] = launched["log"], None
+    d = {name: n - d0[name] for name, n in decisions("cost", bucketed).items()}
+    index = {xb[i].tobytes(): i for i in range(len(xb))}
+    served_at: dict = {}
+    replayed: dict = {}  # (row, bucket, dtype) -> the single engine's log-probs
+    with reference():
+        for bucket, dtype, rows in log:
+            idx = [index[key] for key in rows]
+            check(bucket_for(len(idx), single.buckets) == bucket,
+                  f"(b) bucketed: {len(idx)} rows launched at bucket {bucket}")
+            for i, want in zip(idx, single.predict_logits(xb[idx], dtype=dtype)):
+                served_at.setdefault(i, set()).add((bucket, dtype))
+                replayed[(i, bucket, dtype)] = want
+    bad, worst = [], {"f32": 0.0, "int8": 0.0}
+    by_bucket = collections.Counter()
+    for c, j, first, size, dtype in plan:
+        status, body, _ = answers[(c, j)]
+        where = set().union(*(served_at.get(i, set()) for i in range(first, first + size)))
+        if status != 200 or len(where) != 1 or next(iter(where))[1] != dtype:
+            bad.append((c, j, status, sorted(where)))
+            continue
+        bucket = next(iter(where))[0]
+        by_bucket[bucket] += 1
+        got = log_probs(body)
+        want = np.stack([replayed[(i, bucket, dtype)] for i in range(first, first + size)])
+        err = float(np.abs(got - want).max())
+        worst[dtype] = max(worst[dtype], err)
+        if err > HTTP_TOL or not (got.argmax(1) == want.argmax(1)).all():
+            bad.append((c, j, bucket, dtype, err))
+    events = [e for e in read_events(sink.path)[events0:] if e["event"] == "serving_batch"]
+    launched_buckets = collections.Counter(bucket for bucket, _, _ in log)
+    told_buckets = collections.Counter(e["bucket"] for e in events)
+    total = len(plan)
+    check(not bad, f"(b) bucketed: answers off their bucket's reference: {bad[:5]}")
+    check(launched_buckets == told_buckets,
+          f"(b) bucketed: launched buckets {dict(launched_buckets)}, the serving_batch events "
+          f"say {dict(told_buckets)}")
+    check(sum(d.values()) == total, f"(b) bucketed: decisions {d} for {total} requests")
+    lat = [ms for _, _, ms in answers.values()]
+    return {"requests": total, "decisions": d, "max_abs_err": worst,
+            "requests_by_bucket": dict(sorted(by_bucket.items())),
+            "batches_by_bucket": dict(sorted(launched_buckets.items())),
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99))}
+
+
+def stream_overlap(trace: dict) -> dict:
+    """Device kernels per stream in a Chrome trace, and how long kernels of
+    two different streams ran at the same time."""
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    by_stream: dict = {}
+    for e in kernels:
+        by_stream.setdefault(e.get("args", {}).get("stream", e.get("tid")), []).append(
+            (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))))
+    spans = sorted((lo, hi, s) for s, ivs in by_stream.items() for lo, hi in ivs)
+    overlap_us, pairs = 0.0, 0
+    for i, (lo, hi, s) in enumerate(spans):
+        for lo2, hi2, s2 in spans[i + 1:]:
+            if lo2 >= hi:
+                break
+            if s2 != s:
+                overlap_us += min(hi, hi2) - lo2
+                pairs += 1
+    busy = sum(hi - lo for lo, hi, _ in spans)
+    return {"kernels": len(kernels), "streams": {str(s): len(v) for s, v in by_stream.items()},
+            "kernel_us": busy, "overlap_us": overlap_us, "overlapping_pairs": pairs}
+
+
+def two_stream_head_us(torch, q: dict, feats, streams, calls: int = BACK_TO_BACK_CALLS,
+                       reps: int = 5) -> dict:
+    """Row 1's device time a call at n = 128, as :func:`back_to_back_ms`
+    times it (``calls`` launches between one pair of events, behind a sleep
+    kernel): on one replica's stream, then alternating between the two
+    replicas' streams (the end is the later of the two streams' ends)."""
+    from pytorch_mnist_ddp_tpu_torch.ops.int8_head import fused_int8_head
+
+    def run(order) -> float:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(order[0]):
+            torch.cuda._sleep(100_000_000)
+        start.record(order[0])
+        for s in order[1:]:
+            s.wait_event(start)
+        for i in range(calls):
+            with torch.cuda.stream(order[i % len(order)]):
+                fused_int8_head(q["fc1"], q["fc2"], feats)
+        ends = []
+        for s in order:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record(s)
+            ends.append(e)
+        torch.cuda.synchronize()
+        return 1e3 * max(start.elapsed_time(e) for e in ends) / calls
+
+    for s in streams:  # q and feats were made on the default stream
+        s.wait_stream(torch.cuda.current_stream())
+    run(streams)  # warm
+    return {"calls": calls,
+            "one_stream_us_per_call": statistics.median(run(streams[:1]) for _ in range(reps)),
+            "two_streams_us_per_call": statistics.median(run(streams) for _ in range(reps))}
+
+
 def main() -> int:
     import torch
 
@@ -4811,6 +5519,12 @@ def main() -> int:
         stack_launches, stack_references = serving_stack_phase(torch, np, workdir)
     check(stack_launches["int8_head"] > 0, "the serving stack never launched int8_head")
 
+    # 5c. pool: the replica pool; row 1 counted on its path (== the int8
+    # batches its replicas served), the warmups, gates and references apart
+    ih.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        pool_launches, pool_references = pool_phase(torch, np, workdir)
+
     # 6-9. the training path; adadelta launch counts cover these four
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
@@ -4915,10 +5629,12 @@ def main() -> int:
         "name": "int8_head", "route": "cuda",
         "source": "pytorch_mnist_ddp_tpu_torch/csrc/int8_head.cu",
         "replaces": "pytorch_mnist_ddp_tpu/ops/pallas_infer.py:61",
-        "launches": launches + stack_launches["int8_head"],
+        "launches": launches + stack_launches["int8_head"] + pool_launches["int8_head"],
         "launches_by_phase": {"engine_server": launches,
-                              "serving_stack": stack_launches["int8_head"]},
+                              "serving_stack": stack_launches["int8_head"],
+                              "pool": pool_launches["int8_head"]},
         "serving_stack_reference_launches": stack_references["int8_head"],
+        "pool_reference_launches": pool_references["int8_head"],
         "max_abs_err": max(kernel_err.values()),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"],

@@ -36,9 +36,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_lock = threading.Lock()  # guards _locks and _loaded
+_lock = threading.Lock()  # guards _locks, _loaded and LOADS
 _locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
+# Libraries loaded into this process (each built first if it was not on
+# disk): a pool's replica restart must load none.
+LOADS = 0
 
 
 def nvcc_path() -> str:
@@ -107,6 +110,8 @@ def library(name: str) -> ctypes.CDLL:
         if not target.exists():
             _compile(name, target)
         lib = ctypes.CDLL(str(target))
+        global LOADS
         with _lock:
             _loaded[name] = lib
+            LOADS += 1
         return lib

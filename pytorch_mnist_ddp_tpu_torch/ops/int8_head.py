@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -33,8 +34,17 @@ from . import _build
 QMAX = 127.0
 
 # Kernel launches made through fused_int8_head (one per launch); the
-# plain CPU path does not count.
+# plain CPU path does not count.  A pool's replicas launch from a dispatch
+# thread each, so the increment holds a lock (a bare += can lose counts).
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to :data:`LAUNCHES` (called once per kernel launch)."""
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
 
 # The kernel's launch geometry (csrc/int8_head.cu): a cluster of C blocks
 # per tile of ROWS rows, each block one K-slice of whole 32-column chunks,
@@ -261,6 +271,5 @@ def fused_int8_head(fc1: dict, fc2: dict, x: torch.Tensor) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"int8_head kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch()
     return out

@@ -1,7 +1,7 @@
 """Serving CLI: ``python -m pytorch_mnist_ddp_tpu_torch.serving``.
 
-The JAX package's single-engine serving CLI: its flags, refusals and
-lines (the warmup lines aside: the port has no traces to count).
+The JAX package's serving CLI: its flags, refusals and lines (the warmup
+lines aside: they count rungs, the port has no traces to count).
 Startup order: validate the flags (a config error fails before the
 engine is built), load the checkpoint, the registry's default version or
 seed-init weights, warm every (dtype, bucket) rung, gate the
@@ -11,8 +11,15 @@ its first requests at build-and-tune latency.  A failed gate refuses to
 serve (exit 1).  ``--warmup-only`` stops after the gate.  SIGTERM/SIGINT
 drain the queue and the in-flight window, then print the metrics report.
 
-The replica pool, the fleet and the ``compile/`` analogue are not ported
-yet: their flags parse and are refused with an explicit error (exit 2).
+``--replicas N`` serves the replica pool (serving/pool.py): N engines,
+replica i on ``cuda:(i % device_count)`` each on its own CUDA stream
+(``0`` = one per visible card), behind the router (``--router-policy``,
+``--hedge``/``--hedge-delay-ms``) and the replica supervisor
+(``--no-supervise``, ``--stall-timeout-s``, ``--restart-budget``).
+``--replica-shapes`` takes all-``dp`` plans; a sharded entry (tpK, vtpK,
+epK, ppK) is refused by name (exit 2).  The fleet and the ``compile/``
+analogue are not ported yet: their flags parse and are refused with an
+explicit error (exit 2).
 """
 
 from __future__ import annotations
@@ -26,17 +33,13 @@ import threading
 NOT_PORTED = {
     "the compile/ analogue (CUDA-graph capture, the AOT store, warm start)": (
         "--aot-cache", "--cache-dir", "--serial-warmup", "--no-device-stage"),
-    "the replica pool": (
-        "--replicas", "--replica-shapes", "--router-policy", "--hedge",
-        "--hedge-delay-ms", "--no-supervise", "--stall-timeout-s", "--restart-budget"),
     "the serving fleet": (
         "--fleet", "--fleet-base-port", "--fleet-restart-budget",
         "--fleet-heartbeat-timeout-s", "--fleet-ready-timeout-s", "--autoscale",
         "--scale-high", "--scale-low", "--scale-min", "--scale-max",
         "--scale-window-s", "--scale-cooldown-s"),
 }
-_SWITCHES = ("--serial-warmup", "--no-device-stage", "--hedge", "--no-supervise",
-             "--autoscale")
+_SWITCHES = ("--serial-warmup", "--no-device-stage", "--autoscale")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -171,6 +174,54 @@ def build_parser() -> argparse.ArgumentParser:
         "--warmup-only", action="store_true",
         help="warm every rung, run the parity gates, exit without serving",
     )
+    parser.add_argument(
+        "--replicas", type=int, default=None, metavar="N",
+        help="serve N engine replicas, replica i on cuda:(i %% cards), each "
+        "on its own CUDA stream (0 = one per visible card; --device cuda:K "
+        "puts every replica on card K; at most 32 a card), behind the "
+        "queue-aware router; omitted = the single-engine path",
+    )
+    parser.add_argument(
+        "--replica-shapes", default=None, metavar="SPEC",
+        help="with --replicas: comma-separated per-replica shard shape; "
+        "only 'dp' (one whole model on one device) is ported, sharded "
+        "shapes (tpK, vtpK, epK, ppK) are refused",
+    )
+    parser.add_argument(
+        "--router-policy", default="cost", choices=("roundrobin", "least-loaded", "cost"),
+        help="replica placement policy with --replicas: roundrobin "
+        "(load-blind baseline), least-loaded (queue depth + in-flight), "
+        "or cost (expected time-to-answer from the per-replica latency "
+        "EWMA; falls back to least-loaded until samples exist)",
+    )
+    parser.add_argument(
+        "--hedge", action="store_true",
+        help="with --replicas: hedged dispatch — re-submit a straggler "
+        "request to a second replica once it has waited past its QoS "
+        "class's online p99 (or --hedge-delay-ms), first completion "
+        "wins with exactly one client-visible outcome",
+    )
+    parser.add_argument(
+        "--hedge-delay-ms", type=float, default=None, metavar="MS",
+        help="fixed hedge delay instead of the per-class p99 digest "
+        "(implies --hedge; pool mode only)",
+    )
+    parser.add_argument(
+        "--no-supervise", action="store_true",
+        help="with --replicas: disable the replica supervisor "
+        "(quarantine / backoff restart / ejection of replicas that "
+        "fail, hang, or trip their circuit breaker)",
+    )
+    parser.add_argument(
+        "--stall-timeout-s", type=float, default=5.0,
+        help="supervisor completion-stall threshold: a replica whose "
+        "oldest in-flight batch is older than this is quarantined",
+    )
+    parser.add_argument(
+        "--restart-budget", type=int, default=3,
+        help="consecutive failed supervisor restarts before a replica "
+        "is permanently ejected from the pool",
+    )
     for part, flags in NOT_PORTED.items():
         for flag in flags:
             kwargs = (dict(action="store_const", const=True) if flag in _SWITCHES
@@ -247,6 +298,29 @@ def main(argv: list[str] | None = None) -> int:
         if error:
             print(error)
             return 2
+    hedge = args.hedge or args.hedge_delay_ms is not None
+    if hedge and (args.replicas is None or args.replicas == 1):
+        print("error: --hedge/--hedge-delay-ms need --replicas >= 2 (a "
+              "lone replica has no second replica to hedge onto)")
+        return 2
+    pool_mode = args.replicas is not None
+    if args.replica_shapes:
+        if not pool_mode:
+            print("error: --replica-shapes needs --replicas (a sharded "
+                  "replica is a pool member)")
+            return 2
+        from .devices import SHARDED_NOT_PORTED, parse_replica_shapes
+
+        try:
+            shapes = parse_replica_shapes(args.replica_shapes)
+        except ValueError as e:
+            print(f"error: --replica-shapes {args.replica_shapes!r}: {e}")
+            return 2
+        sharded = [f"{kind}{k}" for kind, k in shapes if kind != "dp"]
+        if sharded:
+            print(f"error: --replica-shapes {args.replica_shapes!r}: {sharded}: "
+                  f"{SHARDED_NOT_PORTED}")
+            return 2
 
     import torch
 
@@ -257,6 +331,14 @@ def main(argv: list[str] | None = None) -> int:
     from .metrics import ServingMetrics
     from .server import make_server
 
+    factory = InferenceEngine
+    pool_kwargs = {}
+    if pool_mode:
+        from .pool import EnginePool
+
+        factory = EnginePool
+        pool_kwargs = dict(replicas=args.replicas or None,
+                           replica_shapes=args.replica_shapes or None)
     metrics = ServingMetrics()
     engine_kwargs = dict(
         device=args.device,
@@ -268,6 +350,7 @@ def main(argv: list[str] | None = None) -> int:
         packed=args.packed,
         metrics=metrics,
         int8_impl=args.int8_impl,
+        **pool_kwargs,
     )
     registry = entry = canary_version = None
     if args.registry:
@@ -291,36 +374,37 @@ def main(argv: list[str] | None = None) -> int:
                 f"registry {args.registry}: serving "
                 f"{entry.model}@{entry.version} (digest {entry.digest[:12]})"
             )
-            engine = InferenceEngine(registry.load(entry), version=entry.version,
-                                     **engine_kwargs)
+            engine = factory(registry.load(entry), version=entry.version, **engine_kwargs)
         except ValueError as e:
             print(f"error: --registry {args.registry}: {e}")
             return 2
     elif args.checkpoint:
         print(f"loading checkpoint {args.checkpoint}")
-        engine = InferenceEngine.from_checkpoint(args.checkpoint, **engine_kwargs)
+        engine = factory.from_checkpoint(args.checkpoint, **engine_kwargs)
     else:
         print(
             f"no --checkpoint; serving fresh seed-{args.seed} weights "
             "(smoke/load-test mode)"
         )
-        engine = InferenceEngine.from_seed(args.seed, **engine_kwargs)
+        engine = factory.from_seed(args.seed, **engine_kwargs)
 
     sink = open_sink(args.telemetry_dir)
     if sink:
         print(f"serving telemetry: {sink.path}")
+    where = (f"x {engine.n_replicas} replicas (devices {[str(d) for d in engine.devices]})"
+             if pool_mode else f"on {engine.device}")
     print(
-        f"warming buckets {list(engine.buckets)} x dtypes {list(engine.dtypes)} "
-        f"on {engine.device}" + (" (packed)" if engine.packed else "")
+        f"warming buckets {list(engine.buckets)} x dtypes {list(engine.dtypes)} {where}"
+        + (" (packed)" if engine.packed else "")
         + (" (BatchNorm checkpoint)" if engine.use_bn else "")
     )
+
+    def on_rung(dtype, bucket, done, replica=None):
+        tag = f"[{replica}] " if replica else ""
+        print(f"  {tag}{dtype:>4s} bucket {bucket:4d}: ready ({done} rungs warmed)", flush=True)
+
     with span("warmup", sink=sink, registry=metrics.registry):
-        engine.warmup(
-            on_rung=lambda dtype, bucket, done: print(
-                f"  {dtype:>4s} bucket {bucket:4d}: ready ({done} rungs warmed)",
-                flush=True,
-            )
-        )
+        engine.warmup(on_rung=on_rung)
     gates = engine.verify_parity(sink=sink)
     for name, result in gates.items():
         print(
@@ -351,10 +435,7 @@ def main(argv: list[str] | None = None) -> int:
         from .rollout import RolloutController
 
         rollout = RolloutController(registry, engine, metrics=metrics, sink=sink)
-    server = make_server(
-        engine, metrics, host=args.host, port=args.port, sink=sink,
-        request_timeout_s=args.request_timeout_s,
-        response_cache=args.response_cache, rollout=rollout,
+    batcher_kwargs = dict(
         linger_ms=args.linger_ms, queue_depth=args.queue_depth,
         timeout_ms=args.timeout_ms, max_inflight=args.max_inflight,
         adaptive_linger=not args.no_adaptive_linger,
@@ -363,6 +444,27 @@ def main(argv: list[str] | None = None) -> int:
         heartbeat=hb.beat if hb is not None else None,
         fill_wait_ms=args.fill_wait_ms,
     )
+    server_kwargs = batcher_kwargs
+    if pool_mode:
+        server_kwargs = dict(batcher=engine.start(
+            router_policy=args.router_policy, sink=sink,
+            supervise=not args.no_supervise,
+            supervisor_kwargs=dict(stall_timeout_s=args.stall_timeout_s,
+                                   restart_budget=args.restart_budget),
+            hedge=hedge, hedge_delay_ms=args.hedge_delay_ms,
+            **batcher_kwargs,
+        ))
+    try:
+        server = make_server(
+            engine, metrics, host=args.host, port=args.port, sink=sink,
+            request_timeout_s=args.request_timeout_s,
+            response_cache=args.response_cache, rollout=rollout,
+            **server_kwargs,
+        )
+    except BaseException:
+        if pool_mode:
+            engine.stop(drain=False)
+        raise
     if rollout is not None and canary_version is not None:
         rollout.start_canary(canary_version, args.canary)
         print(
@@ -380,7 +482,17 @@ def main(argv: list[str] | None = None) -> int:
     print(
         f"serving on http://{host}:{port} (POST /predict, GET /metrics, "
         "GET /healthz liveness, GET /readyz readiness; "
-        f"in-flight window {args.max_inflight}, adaptive linger "
+        + (f"{engine.n_replicas} replicas, router policy "
+           f"{args.router_policy}, supervisor "
+           f"{'off' if args.no_supervise else 'on'}, hedging "
+           # The resolved truth: the router does not hedge a one-replica
+           # pool (--replicas 0 on a one-card host).
+           + ("off, " if not (hedge and engine.n_replicas > 1) else (
+               f"on ({args.hedge_delay_ms:g} ms), "
+               if args.hedge_delay_ms is not None else "on (p99 digest), "))
+           + "per-replica "
+           if pool_mode else "")
+        + f"in-flight window {args.max_inflight}, adaptive linger "
         f"{'off' if args.no_adaptive_linger else 'on'}, deadline close "
         f"{'off' if args.no_deadline_close else 'on'})",
         flush=True,
@@ -397,7 +509,10 @@ def main(argv: list[str] | None = None) -> int:
         server.serve_forever()
     finally:
         print("draining admitted requests and the in-flight window...")
-        server.batcher.stop(drain=True)
+        if pool_mode:
+            engine.stop(drain=True)  # the supervisor first, then the router
+        else:
+            server.batcher.stop(drain=True)
         server.server_close()
         sink.close()
         print(metrics.report_lines(

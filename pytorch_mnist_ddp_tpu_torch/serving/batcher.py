@@ -54,10 +54,24 @@ The dispatch and completion paths carry the fault points ``launch`` and
 ``serving_request``, ``serving_batch``, ``qos_shed``.  ``stop()`` closes
 admission and, by default, drains the queue and the in-flight window so
 nothing admitted is lost.
+
+**Pool mode** (``replica=`` names the batcher, serving/pool.py): the fault
+points and the in-flight gauge carry the replica's name, the hooks
+``on_complete(latency_s, rows)`` / ``on_failure(batches)`` /
+``on_expire(n)`` feed the router's latency averages and circuit breaker,
+and a launch or read-back failure completes its requests with
+:class:`ReplicaDeadError`, which the server resubmits on a surviving
+replica.  :meth:`MicroBatcher.abort` tears down a dead replica without
+waiting on it; :meth:`MicroBatcher.submit_hedge` enqueues an admitted
+request a second time (hedged dispatch, serving/router.py), and the
+request's live-copy count keeps every eviction path silent while another
+copy still owns the outcome.  Without ``replica`` the single-engine
+behaviour is unchanged.
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -77,6 +91,13 @@ class RejectedError(RuntimeError):
     request) — HTTP 503."""
 
 
+class ReplicaDeadError(RejectedError):
+    """A pool replica failed or was torn down with this request aboard; the
+    work produced no result, so resubmitting it on a surviving replica
+    cannot duplicate a response.  A :class:`RejectedError`, so the server's
+    retry and the router's skip treat a dead replica like a draining one."""
+
+
 class RequestTimeout(RuntimeError):
     """Deadline expired before a result was produced — HTTP 504."""
 
@@ -84,10 +105,16 @@ class RequestTimeout(RuntimeError):
 class PendingRequest:
     """One admitted request: rows, dtype (the engine variant key), QoS
     class, deadline and a result slot.  The first outcome set wins; later
-    ones are ignored."""
+    ones are ignored.
 
-    __slots__ = ("x", "dtype", "qos", "deadline", "t_submit", "_event", "_lock",
-                 "_value", "_error")
+    ``completed_by`` names the replica whose completion won (hedged
+    dispatch tells won from lost by it).  The live-copy count is 1, plus
+    one per hedge twin (:meth:`add_copy`); an eviction path (shed, flush,
+    abort, a launch or read-back failure) consumes a copy
+    (:meth:`drop_copy`) and sets an error only on the last one."""
+
+    __slots__ = ("x", "dtype", "qos", "deadline", "t_submit", "completed_by", "_copies",
+                 "_event", "_lock", "_value", "_error")
 
     def __init__(self, x: np.ndarray, deadline: float, dtype: str = "f32",
                  qos: str = DEFAULT_QOS):
@@ -96,6 +123,8 @@ class PendingRequest:
         self.qos = qos
         self.deadline = deadline
         self.t_submit = time.perf_counter()
+        self.completed_by: str | None = None
+        self._copies = 1
         self._event = threading.Event()
         self._lock = threading.Lock()
         self._value: np.ndarray | None = None
@@ -111,19 +140,33 @@ class PendingRequest:
     def done(self) -> bool:
         return self._event.is_set()
 
-    def set_result(self, value: np.ndarray) -> bool:
+    def add_copy(self) -> None:
+        """A hedge twin is being enqueued: one more live copy."""
+        with self._lock:
+            self._copies += 1
+
+    def drop_copy(self) -> int:
+        """One copy was evicted without an outcome; returns the live copies
+        left (non-zero: another copy owns the outcome, stay silent)."""
+        with self._lock:
+            self._copies = max(0, self._copies - 1)
+            return self._copies
+
+    def set_result(self, value: np.ndarray, by: str | None = None) -> bool:
         with self._lock:
             if self._event.is_set():
                 return False
             self._value = value
+            self.completed_by = by
             self._event.set()
             return True
 
-    def set_error(self, error: BaseException) -> bool:
+    def set_error(self, error: BaseException, by: str | None = None) -> bool:
         with self._lock:
             if self._event.is_set():
                 return False
             self._error = error
+            self.completed_by = by
             self._event.set()
             return True
 
@@ -148,8 +191,8 @@ class AdaptiveLinger:
     relaxes it additively by ``relax_frac`` of the ceiling on an empty
     queue; in-between depths hold.  Both moves keep the value inside
     ``[0, ceiling_s]``.  The current value is the
-    ``serving_linger_seconds`` gauge.  The JAX package's controller, value
-    for value.
+    ``serving_linger_seconds`` gauge (``{replica=}`` in pool mode).  The
+    JAX package's controller, value for value.
     """
 
     def __init__(
@@ -157,6 +200,7 @@ class AdaptiveLinger:
         ceiling_s: float,
         enabled: bool = True,
         registry=None,
+        replica: str | None = None,
         deep_depth: int = 4,
         shrink: float = 0.5,
         relax_frac: float = 0.25,
@@ -178,6 +222,7 @@ class AdaptiveLinger:
                 "serving_linger_seconds",
                 help="current adaptive linger (shrinks under queue depth, "
                 "relaxes toward the configured ceiling when idle)",
+                **({"replica": replica} if replica else {}),
             )
             if registry is not None
             else None
@@ -255,10 +300,18 @@ class MicroBatcher:
         qos_weights: dict[str, int] | None = None,
         sink=None,
         heartbeat=None,
+        replica: str | None = None,
     ):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         self.engine = engine
+        # Pool mode: the replica's name on the fault points, gauges and
+        # events, and the router's hooks (set by the pool after
+        # construction): on_complete(latency_s, rows) per completed
+        # request, on_failure(n) per failed batch.
+        self.replica = replica
+        self.on_complete = None
+        self.on_failure = None
         self.metrics = metrics if metrics is not None else getattr(engine, "metrics", None)
         self.max_batch = engine.buckets[-1]
         self.packed = bool(getattr(engine, "packed", False))
@@ -274,7 +327,7 @@ class MicroBatcher:
         self._sink = sink
         self._linger = AdaptiveLinger(
             self.fill_wait_s if self.fill_wait_s is not None else self.linger_s,
-            enabled=adaptive_linger, registry=registry,
+            enabled=adaptive_linger, registry=registry, replica=replica,
         )
         self.deadline_aware = deadline_aware
         self._service_ewma_s: float | None = None
@@ -304,6 +357,12 @@ class MicroBatcher:
         self._assembly: dict[int, list] = {}
         self._inflight_lock = threading.Lock()
         self._inflight = 0
+        # The supervisor's health signals (serving/pool.py): launched
+        # batches not yet read back (the oldest one's age) and the current
+        # launch-failure streak.
+        self._live: set[_InFlight] = set()
+        self.consecutive_launch_failures = 0
+        self._aborted = threading.Event()
         self._closed = threading.Event()
         self._stop_lock = threading.Lock()
         self._worker: threading.Thread | None = None
@@ -330,7 +389,11 @@ class MicroBatcher:
 
         ``drain=False`` completes every queued request with
         :class:`RejectedError`; batches already launched are always read
-        back and completed.  Safe to call more than once."""
+        back and completed.  Safe to call more than once; a no-op after
+        :meth:`abort` (its completion worker may be stuck on a dead
+        replica, and abort already completed every waiter)."""
+        if self._aborted.is_set():
+            return
         self._closed.set()
         with self._stop_lock:
             if not drain:
@@ -353,12 +416,73 @@ class MicroBatcher:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 return
+            if req.drop_copy() > 0:
+                continue  # a live hedge twin owns the outcome
             won = req.set_error(RejectedError("server shutting down"))
-            if won and self.metrics is not None:
+            # Pool mode: the server resubmits a flushed request on another
+            # replica, so the flush is no client outcome yet; the router or
+            # the server counts the one that is.
+            if won and self.metrics is not None and self.replica is None:
                 self.metrics.record_rejected()
+
+    def abort(self) -> int:
+        """Tear down a DEAD replica's pipeline without waiting on it (the
+        supervisor's quarantine): every queued request and every
+        launched-but-unread batch completes with :class:`ReplicaDeadError`,
+        the dispatch worker is unstuck, a stuck completion worker is
+        abandoned (daemon thread).  Returns the number of requests
+        flushed.  First-wins completion discards a late read."""
+        self._closed.set()
+        with self._inflight_lock:
+            self._aborted.set()
+            live = list(self._live)
+            self._live.clear()
+            self._inflight = 0
+            if self.metrics is not None:
+                self.metrics.set_inflight(0, replica=self.replica)
+        for _ in range(self.max_inflight):
+            self._window.release()
+        flushed = self._flush_dead()
+        dead = ReplicaDeadError(f"replica {self.replica or '?'} aborted by the supervisor")
+        for item in live:
+            for req in item.batch:
+                if req.drop_copy() > 0:
+                    continue
+                req.set_error(dead)
+                flushed += 1
+        self._completions.put(None)
+        return flushed
+
+    def _flush_dead(self) -> int:
+        """Complete every queued request with :class:`ReplicaDeadError`
+        (abort, and the submit-side re-check of abort's race)."""
+        dead = ReplicaDeadError(f"replica {self.replica or '?'} aborted by the supervisor")
+        flushed = 0
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return flushed
+            if req.drop_copy() > 0:
+                continue
+            req.set_error(dead)
+            flushed += 1
 
     def depth(self) -> int:
         return self._queue.qsize()
+
+    def qos_depths(self) -> dict[str, int]:
+        """Per-class admission-queue depths."""
+        return self._queue.sizes()
+
+    def oldest_inflight_age(self, now: float | None = None) -> float:
+        """Seconds the oldest launched-but-unread batch has waited (0.0
+        with nothing in flight): the supervisor's completion-stall signal."""
+        with self._inflight_lock:
+            if not self._live:
+                return 0.0
+            oldest = min(item.t_launch for item in self._live)
+        return (now if now is not None else time.perf_counter()) - oldest
 
     def inflight(self) -> int:
         with self._inflight_lock:
@@ -373,8 +497,8 @@ class MicroBatcher:
 
     # -- admission (any thread) ---------------------------------------------------
 
-    def _reject(self, message: str) -> RejectedError:
-        if self.metrics is not None:
+    def _reject(self, message: str, count: bool = True) -> RejectedError:
+        if count and self.metrics is not None:
             self.metrics.record_rejected()
         return RejectedError(message)
 
@@ -384,41 +508,48 @@ class MicroBatcher:
         timeout_ms: float | None = None,
         dtype: str | None = None,
         qos: str | None = None,
+        count_reject: bool = True,
     ) -> PendingRequest:
         """Admit one request of ``[n, 28, 28, 1]`` rows or reject now:
         draining, an unknown QoS class, a variant the engine does not
         serve or has not verified, too big for one batch, or a full queue
         with nothing expired to sweep and nothing of a lower class to
-        shed."""
+        shed.  ``count_reject=False`` (the router trying replicas in turn)
+        raises without counting the rejection."""
         x = np.asarray(x, np.float32)
+        reject = functools.partial(self._reject, count=count_reject)
         if self._closed.is_set():
-            raise self._reject("server draining; not accepting requests")
+            raise reject("server draining; not accepting requests")
         qos = qos or DEFAULT_QOS
         if qos not in self.qos_classes:
-            raise self._reject(f"unknown QoS class {qos!r}; have {list(self.qos_classes)}")
+            raise reject(f"unknown QoS class {qos!r}; have {list(self.qos_classes)}")
         dtype = dtype or self._default_dtype
         if dtype != self._default_dtype:
             served = getattr(self.engine, "dtypes", (self._default_dtype,))
             if dtype not in served:
-                raise self._reject(f"dtype {dtype!r} is not served (have {list(served)})")
+                raise reject(f"dtype {dtype!r} is not served (have {list(served)})")
             verified = getattr(self.engine, "variant_verified", None)
             if verified is not None and not verified(dtype):
-                raise self._reject(
+                raise reject(
                     f"dtype {dtype!r} has not passed its parity gate; refusing to serve it"
                 )
         if not 1 <= len(x) <= self.max_batch:
-            raise self._reject(f"request of {len(x)} samples outside [1, {self.max_batch}]")
+            raise reject(f"request of {len(x)} samples outside [1, {self.max_batch}]")
         timeout_s = self.timeout_s if timeout_ms is None else timeout_ms / 1e3
         req = PendingRequest(x, time.perf_counter() + timeout_s, dtype=dtype, qos=qos)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
             if not self._admit_under_pressure(req):
-                raise self._reject(
+                raise reject(
                     f"admission queue full ({self._queue.maxsize} deep)"
                 ) from None
         if self.metrics is not None:
             self.metrics.record_admitted()
+        # abort() may have flushed the queue between the admission check
+        # and the enqueue; sweep this request too.
+        if self._aborted.is_set():
+            self._flush_dead()
         return req
 
     def _admit_under_pressure(self, req: PendingRequest) -> bool:
@@ -441,16 +572,26 @@ class MicroBatcher:
             self._shed(victim)
 
     def _shed(self, victim: PendingRequest) -> None:
-        """Complete a load-shed victim with the 503 and count it."""
+        """Complete a load-shed victim with the 503 and count it (a hedged
+        copy goes silently: its twin owns the outcome)."""
+        if victim.drop_copy() > 0:
+            return
         won = victim.set_error(RejectedError(
             f"shed under pressure (QoS {victim.qos!r} yielded the "
             "queue slot to a higher class)"
         ))
         if self.metrics is not None and won:
             self.metrics.record_shed(victim.qos)
-            self.metrics.record_rejected()
+            if self.replica is None:
+                self.metrics.record_rejected()
         if self._sink and won:
-            self._sink.emit("qos_shed", qos=victim.qos, n=victim.n)
+            self._sink.emit("qos_shed", qos=victim.qos, n=victim.n,
+                            **({"replica": self.replica} if self.replica else {}))
+        if self.on_expire is not None and won:
+            try:
+                self.on_expire(1)  # returns a half-open trial token
+            except Exception:
+                pass
 
     def sweep_expired(self) -> int:
         """Expire every queued request whose deadline already passed
@@ -460,6 +601,28 @@ class MicroBatcher:
         for req in expired:
             self._expire(req)
         return len(expired)
+
+    def submit_hedge(self, req: PendingRequest) -> None:
+        """Enqueue an ALREADY-ADMITTED request a second time (hedged
+        dispatch): the same :class:`PendingRequest` rides this queue beside
+        its twin, and the first completion wins.  No new deadline, no
+        admitted count, no shedding; a full queue raises
+        :class:`RejectedError` (the hedger's "declined")."""
+        if self._closed.is_set():
+            raise RejectedError("replica draining; not accepting hedges")
+        if req.done() or req.expired():
+            raise RejectedError("hedge target already settled")
+        req.add_copy()
+        try:
+            self._queue.put_nowait(req)
+        except queue.Full:
+            # Never enqueued: give the copy back; if an eviction took the
+            # origin's copy meanwhile, this request has none left.
+            if req.drop_copy() == 0 and not req.done():
+                req.set_error(RejectedError("evicted under pressure while a hedge was declined"))
+            raise RejectedError("admission queue full; hedge declined") from None
+        if self._aborted.is_set():
+            self._flush_dead()
 
     # -- dispatch worker ------------------------------------------------------------
 
@@ -576,7 +739,7 @@ class MicroBatcher:
         dtype = batch[0].dtype
         try:
             with span("serving_dispatch", sink=self._sink, registry=self._registry):
-                fault_point("launch")
+                fault_point("launch", self.replica)
                 if self.packed:
                     result = self.engine.launch(staged, total, dtype=dtype, seg_ids=seg)
                 elif dtype == self._default_dtype:
@@ -586,16 +749,53 @@ class MicroBatcher:
         except Exception as e:  # complete every waiter, keep serving
             self._staging.release(staged, bucket)
             self._window.release()
-            failed = sum(1 for req in batch if req.set_error(e))
-            if self.metrics is not None and failed:
-                self.metrics.record_failed(failed)
+            self.consecutive_launch_failures += 1
+            self._fail(batch, self._pool_error(e, "launch"))
             return
+        self.consecutive_launch_failures = 0
+        item = _InFlight(batch, segs, result, staged, bucket, total, stall_s, dtype)
         with self._inflight_lock:
-            self._inflight += 1
-            if self.metrics is not None:
-                self.metrics.set_inflight(self._inflight)
-        self._completions.put(
-            _InFlight(batch, segs, result, staged, bucket, total, stall_s, dtype))
+            aborted = self._aborted.is_set()
+            if not aborted:
+                self._live.add(item)
+                self._inflight += 1
+                if self.metrics is not None:
+                    self.metrics.set_inflight(self._inflight, replica=self.replica)
+        if aborted:
+            # abort() ran between the launch and the bookkeeping above.
+            for req in batch:
+                if req.drop_copy() == 0:
+                    req.set_error(ReplicaDeadError(
+                        f"replica {self.replica or '?'} aborted by the supervisor"))
+            return
+        self._completions.put(item)
+
+    def _pool_error(self, e: BaseException, where: str) -> BaseException:
+        """In pool mode a failed launch or read-back produced no result, so
+        it is retriable on a survivor: :class:`ReplicaDeadError`.  A single
+        engine has no survivor; the raw error is the client's outcome."""
+        if self.replica is None or isinstance(e, RejectedError):
+            return e
+        err = ReplicaDeadError(
+            f"replica {self.replica} {where} failed: {type(e).__name__}: {e}")
+        err.__cause__ = e
+        return err
+
+    def _fail(self, batch: list[PendingRequest], err: BaseException) -> None:
+        """Complete a failed batch's requests (those whose last live copy
+        this was) and strike the replica, unless the pipeline was aborted:
+        then the requests were already flushed and retried, and a strike
+        would hit the restarted replica's circuit."""
+        failed = sum(1 for req in batch if req.drop_copy() == 0 and req.set_error(err))
+        if self._aborted.is_set():
+            return
+        if self.metrics is not None and failed:
+            self.metrics.record_failed(failed)
+        if self.on_failure is not None:
+            try:
+                self.on_failure(len(batch))
+            except Exception:
+                pass  # a hook must not kill the worker
 
     # -- completion worker ------------------------------------------------------------
 
@@ -605,16 +805,16 @@ class MicroBatcher:
             item = self._completions.get()
             if item is None:
                 return
+            tag = {"replica": self.replica} if self.replica else {}
             try:
                 with span("serving_complete", sink=self._sink, registry=self._registry):
-                    fault_point("complete")
+                    fault_point("complete", self.replica)
                     host = _read_back(item.result)
             except Exception as e:
-                failed = sum(1 for req in item.batch if req.set_error(e))
-                if self.metrics is not None and failed:
-                    self.metrics.record_failed(failed)
+                self._fail(item.batch, self._pool_error(e, "completion"))
             else:
                 done = time.perf_counter()
+                aborted = self._aborted.is_set()
                 dur = done - item.t_launch
                 self._service_ewma_s = (
                     dur if self._service_ewma_s is None
@@ -625,7 +825,7 @@ class MicroBatcher:
                     part = host[offset : offset + rows].copy()
                     offset += rows
                     if rows == req.n:
-                        won = req.set_result(part)
+                        won = req.set_result(part, by=self.replica)
                     else:
                         # A packed split: only the last part completes
                         # the waiter.
@@ -640,8 +840,10 @@ class MicroBatcher:
                         if entry[2] < req.n:
                             continue
                         del self._assembly[id(req)]
-                        won = req.set_result(entry[1])
-                    if not won:
+                        won = req.set_result(entry[1], by=self.replica)
+                    # A read that unsticks after abort() belongs to a dead
+                    # pipeline: its requests were retried elsewhere.
+                    if not won or aborted:
                         continue
                     latency_s = done - req.t_submit
                     # Counted as the waiter wakes; nothing else settles a
@@ -649,24 +851,32 @@ class MicroBatcher:
                     if self.metrics is not None:
                         self.metrics.record_completed(latency_s, dtype=req.dtype,
                                                       qos=req.qos)
+                    if self.on_complete is not None:
+                        try:
+                            self.on_complete(latency_s, req.n)
+                        except Exception:
+                            pass  # a hook must not kill the worker
                     if self._sink:
                         self._sink.emit(
                             "serving_request", n=req.n, latency_s=latency_s,
                             dtype=req.dtype,
                             **({"qos": req.qos} if req.qos != DEFAULT_QOS else {}),
+                            **tag,
                         )
             finally:
                 self._staging.release(item.staged, item.bucket)
                 with self._inflight_lock:
-                    self._inflight -= 1
+                    self._live.discard(item)
+                    # abort() may have zeroed the count already.
+                    self._inflight = max(0, self._inflight - 1)
                     if self.metrics is not None:
-                        self.metrics.set_inflight(self._inflight)
+                        self.metrics.set_inflight(self._inflight, replica=self.replica)
                 self._window.release()
             if self._sink:
                 self._sink.emit(
                     "serving_batch", real=item.n, bucket=item.bucket,
                     fill_ratio=item.n / item.bucket, stall_s=item.stall_s,
-                    dtype=item.dtype, **({"packed": True} if self.packed else {}),
+                    dtype=item.dtype, **tag, **({"packed": True} if self.packed else {}),
                 )
             # A split whose other part failed must not pin its buffer.
             if self._assembly:

@@ -37,10 +37,21 @@ rollout controller's weight calls arrive from admin threads and only
 swap references.  :meth:`DeviceResult.wait` on a launched batch is safe
 from a second thread — the batcher's completion worker — because it
 waits on that batch's own CUDA event, not on the whole device.
+
+Streams: on the card every engine owns a ``torch.cuda.Stream``, and
+everything it puts on the device — the weights' placement, a batch's
+staging copy, the forward (the int8 head kernel launches on the current
+stream), the read-back copy and its event — goes on that stream.  Two
+pool replicas sharing one card therefore never queue behind each other's
+work, a completion wait measures its own batch only, and warmup waits on
+the engine's stream, not on the whole card.  ``torch.cuda.Stream`` hands
+out a card's 32 pooled streams in turn, so 32 streams taken later an
+engine's stream comes round again; the pool refuses replicas that share one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 from typing import Any, Mapping, Sequence
 
@@ -215,6 +226,9 @@ class InferenceEngine:
     ):
         self.version = str(version)
         self.device = resolve_device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # Warmup rungs run, ever: a pool's restart or add must run none.
+        self.rungs_run = 0
         if self.device.type == "cuda":
             # cuDNN runs f32 convolutions in TF32 by default (about three
             # decimal digits), which would put the f32 variant — the
@@ -293,17 +307,24 @@ class InferenceEngine:
                               if key in state_dict else init(features))
         return state
 
+    def on_stream(self):
+        """A context in which torch's current stream is this engine's (a
+        no-op on the CPU)."""
+        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
     def _place(self, state: dict[str, torch.Tensor]) -> Net:
         model = Net(torch.Generator(), use_bn=self.use_bn)
         model.load_state_dict(state)
-        return model.to(self.device).eval().requires_grad_(False)
+        with self.on_stream():
+            return model.to(self.device).eval().requires_grad_(False)
 
     def _variant_weights(self, name: str, state: dict, model: Net):
         """A variant's weights for a served state: int8 quantizes, f32 and
         bf16 share the placed model."""
         if name.split(VERSION_SEP)[0] != "int8":
             return model
-        return qparams_to(quantize_params(state), self.device)
+        with self.on_stream():
+            return qparams_to(quantize_params(state), self.device)
 
     def _build_variant(self, name: str, state: dict) -> _Variant:
         if name == "bf16":
@@ -376,8 +397,8 @@ class InferenceEngine:
         host array or tensor; packed mode with ``seg=None`` runs the whole
         buffer as one live segment.  The variant's weights are read once."""
         params = v.params
-        x = torch.as_tensor(staged).to(self.device, non_blocking=True)
-        with torch.inference_mode():
+        with self.on_stream(), torch.inference_mode():
+            x = torch.as_tensor(staged).to(self.device, non_blocking=True)
             if not self.packed:
                 return v.predict(params, x)
             if seg is None:
@@ -389,13 +410,15 @@ class InferenceEngine:
         """Run every (variant, bucket) rung once — cuDNN's algorithm
         choice, the kernel build and the first launch all happen here, not
         on a request.  ``on_rung(dtype, bucket, rungs_done)`` fires after
-        each.  Returns the rungs in order."""
+        each.  Returns the rungs in order.  Each rung waits on this
+        engine's stream only, never on the whole card."""
         done: list[tuple[str, int]] = []
         for name, v in self._variants.items():
             for b in self.buckets:
                 self._run_variant(v, np.zeros((b, *INPUT_SHAPE), np.float32))
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                if self.stream is not None:
+                    self.stream.synchronize()
+                self.rungs_run += 1
                 done.append((name, b))
                 if on_rung is not None:
                     on_rung(name, b, len(done))
@@ -430,9 +453,11 @@ class InferenceEngine:
         if not pending:
             return results
         x, bucket = self._parity_slice()
-        ref = self._run_variant(self._variants[DEFAULT_DTYPE], x).cpu().numpy()
+        with self.on_stream():  # the copies back wait on the forwards
+            ref = self._run_variant(self._variants[DEFAULT_DTYPE], x).cpu().numpy()
+            outs = {v.name: self._run_variant(v, x).cpu().numpy() for v in pending}
         for v in pending:
-            out = self._run_variant(v, x).cpu().numpy()
+            out = outs[v.name]
             max_diff = float(np.abs(out - ref).max())
             argmax_ok = bool((out.argmax(axis=1) == ref.argmax(axis=1)).all())
             base = v.name.split(VERSION_SEP)[0]
@@ -546,8 +571,9 @@ class InferenceEngine:
                 f"{[k for k in self._variants if VERSION_SEP in k]}"
             )
         x, bucket = self._parity_slice()
-        ref = self._run_variant(self._variants[DEFAULT_DTYPE], x).cpu().numpy()
-        out = self._run_variant(v, x).cpu().numpy()
+        with self.on_stream():
+            ref = self._run_variant(self._variants[DEFAULT_DTYPE], x).cpu().numpy()
+            out = self._run_variant(v, x).cpu().numpy()
         return {
             "version": version,
             "rows": int(bucket),
@@ -590,7 +616,8 @@ class InferenceEngine:
                 f"variant {v.name!r} has not passed its parity gate "
                 "(engine.verify_parity); refusing to serve it"
             )
-        result = DeviceResult(self._run_variant(v, staged, seg=seg_ids))
+        with self.on_stream():  # the read-back copy and its event too
+            result = DeviceResult(self._run_variant(v, staged, seg=seg_ids))
         if self.metrics is not None:
             self.metrics.record_batch(n, bucket)
         return result

@@ -25,7 +25,17 @@ observation where a short run's exposition must already carry it:
 - per dtype variant: ``serving_dtype_requests_total{dtype=}``,
   ``serving_dtype_latency_seconds{dtype=}``, and the engine's
   ``serving_variant_verified{dtype=}`` gauge; the canary's
-  ``serving_circuit_state{replica=}`` (circuit.py).
+  ``serving_circuit_state{replica=}`` (circuit.py);
+- the replica pool (serving/pool.py, router.py):
+  ``serving_request_retries_total``, ``serving_replica_inflight{replica=}``
+  (pool batchers write it instead of ``serving_inflight_batches``),
+  ``serving_hedges_total{outcome=}``, and beside them, registered by the
+  router and the supervisor, ``serving_hedge_dispatches_total{replica=}``,
+  ``serving_replica_drain_seconds``,
+  ``serving_router_decisions_total{policy=,replica=}``,
+  ``serving_router_shape_decisions_total{policy=,shape_class=}`` and
+  ``serving_replica_restarts_total{replica=}``; the snapshot's
+  ``replicas`` block is the router's per-replica state.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from __future__ import annotations
 import time
 
 from ..obs.registry import Registry, percentile
+
+HEDGE_OUTCOMES = ("won", "lost", "cancelled")
 
 _OUTCOMES = ("admitted", "completed", "rejected", "timed_out", "failed")
 
@@ -90,6 +102,13 @@ class ServingMetrics:
             "serving_inflight_batches",
             help="batches launched on the device, result not yet read back",
         )
+        # Not an outcome: a retried request still leaves through one.
+        self._retries = self.registry.counter(
+            "serving_request_retries_total",
+            help="transparent handler resubmissions after a replica "
+            "drain race or death (pool mode); the client saw no error",
+        )
+        self._hedges: dict[str, object] = {}
         self._dtype_count: dict[str, object] = {}
         self._dtype_latency: dict[str, object] = {}
         self._qos_count: dict[str, object] = {}
@@ -127,6 +146,10 @@ class ServingMetrics:
     def batches(self) -> int:
         return self._batches.value
 
+    @property
+    def retried(self) -> int:
+        return self._retries.value
+
     # -- family registration (before the first observation) ---------------------
 
     def ensure_qos(self, qos: str) -> None:
@@ -151,6 +174,22 @@ class ServingMetrics:
                 "QoS class (lowest class first under pressure)",
                 qos=qos,
             )
+
+    def ensure_hedges(self) -> None:
+        """The hedge outcome family (the router's hedger registers it when
+        hedging is on)."""
+        if self._hedges:
+            return
+        with self.registry.locked():
+            for outcome in HEDGE_OUTCOMES:
+                self._hedges[outcome] = self.registry.counter(
+                    "serving_hedges_total",
+                    help="hedged dispatches by outcome: won = the hedge's "
+                    "completion was the client-visible one, lost = the "
+                    "primary answered first, cancelled = a due hedge was "
+                    "abandoned before or without a decisive dispatch",
+                    outcome=outcome,
+                )
 
     def ensure_wire(self) -> None:
         """Both wire formats and both byte directions."""
@@ -236,8 +275,37 @@ class ServingMetrics:
     def record_stall(self, stall_s: float) -> None:
         self._stall.observe(stall_s)
 
-    def set_inflight(self, depth: int) -> None:
-        self._inflight.set(depth)
+    def record_retry(self, n: int = 1) -> None:
+        self._retries.inc(n)
+
+    def set_inflight(self, depth: int, replica: str | None = None) -> None:
+        """Launched-not-yet-read batches; a pool batcher (``replica``)
+        writes its own ``serving_replica_inflight{replica=}`` series, since
+        N batchers on one unlabeled gauge would race."""
+        if replica is None:
+            self._inflight.set(depth)
+            return
+        self.registry.gauge(
+            "serving_replica_inflight",
+            help="per-replica batches launched on the device, result not "
+            "yet read back (pool mode)",
+            replica=replica,
+        ).set(depth)
+
+    def record_hedge(self, outcome: str) -> None:
+        self.ensure_hedges()
+        self._hedges[outcome].inc()
+
+    def qos_p99_s(self, qos: str, min_samples: int = 20) -> float | None:
+        """One QoS class's p99 latency (seconds) from its reservoir, the
+        hedger's delay; None until ``min_samples`` observations exist."""
+        hist = self._qos_latency.get(qos)
+        if hist is None:
+            return None
+        window = hist.values()
+        if len(window) < min_samples:
+            return None
+        return percentile(sorted(window), 99)
 
     def record_model_request(self, model: str, version: str, latency_s: float) -> None:
         """One request served by registry route (model, version)."""
@@ -306,10 +374,12 @@ class ServingMetrics:
         inflight: int | None = None,
         max_inflight: int | None = None,
         linger_ms: float | None = None,
+        replicas: dict | None = None,
     ) -> dict:
         """One consistent dict of everything (the /metrics JSON payload).
         Passed values are owned by the batcher and engine; ``queue_depth``
-        is mirrored into a gauge so the Prometheus surface carries it."""
+        is mirrored into a gauge so the Prometheus surface carries it.
+        ``replicas`` is the router's per-replica block (pool mode)."""
         with self.registry.locked():
             lat = sorted(self._latency.values())
             by_dtype = {
@@ -328,6 +398,8 @@ class ServingMetrics:
                 for name in self._qos_count
             }
             cache = {o: c.value for o, c in self._cache.items()}
+            hedges = {o: c.value for o, c in self._hedges.items()}
+            retried = self.retried
             wire = {f: c.value for f, c in self._wire_requests.items()}
             wire_bytes = {d: c.value for d, c in self._wire_bytes.items()}
             fills = self._fill.values()
@@ -343,6 +415,7 @@ class ServingMetrics:
         snap = {
             "uptime_s": uptime,
             "requests": requests,
+            "retries": retried,
             "batches": batches,
             "samples": {"real": real, "dispatched": dispatched},
             "batch_occupancy_pct": occupancy,
@@ -385,6 +458,8 @@ class ServingMetrics:
                 }
                 for name, (count, window, shed) in sorted(by_qos.items())
             }
+        if hedges:
+            snap["hedges"] = dict(sorted(hedges.items()))
         if cache:
             lookups = sum(cache.values())
             snap["cache"] = {
@@ -412,6 +487,8 @@ class ServingMetrics:
             snap["pipeline"]["max_inflight"] = max_inflight
         if linger_ms is not None:
             snap["pipeline"]["linger_ms"] = linger_ms
+        if replicas is not None:
+            snap["replicas"] = replicas
         if buckets is not None:
             snap["buckets"] = list(buckets)
         for name, help_text, value in gauges:
@@ -456,6 +533,14 @@ class ServingMetrics:
                 f"  qos [{name}]: {q['requests']} ok, {q['shed']} shed, "
                 f"p50 {q['p50_ms']:.2f} ms / p95 {q['p95_ms']:.2f} ms / "
                 f"p99 {q['p99_ms']:.2f} ms"
+            )
+        if s.get("hedges"):
+            h = s["hedges"]
+            placed = h.get("won", 0) + h.get("lost", 0)
+            lines.append(
+                f"  hedges: {h.get('won', 0)} won / {h.get('lost', 0)} lost "
+                f"/ {h.get('cancelled', 0)} cancelled"
+                + (f" (win rate {h.get('won', 0) / placed:.1%})" if placed else "")
             )
         if "cache" in s:
             c = s["cache"]

@@ -27,8 +27,17 @@
   ``?format=prom`` or ``Accept: text/plain``, the same registry as
   Prometheus text.
 - ``GET /healthz`` — liveness plus the warmed/dtype/device summary (and
-  the rollout block with a registry).
-- ``GET /readyz`` — 200 once warmed, else 503.
+  the rollout block with a registry; each replica's state in pool mode).
+- ``GET /readyz`` — 200 once warmed, else 503; in pool mode 200 while at
+  least one replica is routable, with ``routable_replicas`` and each
+  replica's health and circuit.
+
+Pool mode (``make_server(pool, metrics, batcher=router)``): a request
+flushed off a draining or dead replica (:class:`RejectedError` /
+:class:`ReplicaDeadError` at ``result()``) never ran, so the handler
+resubmits it on the REMAINING deadline budget, at most 1 + replicas
+attempts, and the client sees exactly one outcome
+(``serving_request_retries_total`` counts the resubmissions).
 
 Status mapping: 400 malformed input, 503 admission rejected (queue full,
 shed or draining), 504 deadline expired, 500 engine failure, 408 a body
@@ -121,6 +130,7 @@ class ServingHandler(BaseHTTPRequestHandler):
         srv: ServingHTTPServer = self.server  # type: ignore[assignment]
         url = urlsplit(self.path)
         engine = srv.engine
+        stats = getattr(srv.batcher, "replica_stats", None)  # pool mode
         if url.path == "/healthz":
             health = {
                 "status": "ok",
@@ -129,14 +139,30 @@ class ServingHandler(BaseHTTPRequestHandler):
                 "buckets": list(engine.buckets),
                 "dtypes": {d: engine.variant_verified(d) for d in engine.dtypes},
             }
+            if stats is not None:
+                health["replicas"] = {name: s["state"] for name, s in stats().items()}
             if srv.rollout is not None:
                 health["rollout"] = srv.rollout.describe()
             self._send_json(200, health)
         elif url.path == "/readyz":
-            ready = bool(engine.warmed)
-            self._send_json(200 if ready else 503, {
-                "status": "ready" if ready else "unready", "warmed": engine.warmed,
-            })
+            # Readiness, not liveness: can a request succeed right now?
+            # In pool mode, only while some replica is routable.
+            payload: dict = {}
+            if stats is not None:
+                n = srv.batcher.routable_count()
+                ready = n > 0
+                by_name = stats()
+                payload["routable_replicas"] = n
+                payload["replicas"] = {
+                    name: "healthy" if s["state"] == "active" else s["state"]
+                    for name, s in by_name.items()
+                }
+                payload["circuits"] = {name: s["circuit"] for name, s in by_name.items()}
+            else:
+                ready = bool(engine.warmed)
+                payload["warmed"] = engine.warmed
+            payload["status"] = "ready" if ready else "unready"
+            self._send_json(200 if ready else 503, payload)
         elif url.path == "/metrics":
             wants_prom = (
                 parse_qs(url.query).get("format", [""])[0] == "prom"
@@ -321,8 +347,7 @@ class ServingHandler(BaseHTTPRequestHandler):
         # A claimed flight resolves on every exit path: a failure wakes the
         # joiners with the error and caches nothing.
         try:
-            logits = srv.batcher.submit(
-                x, dtype=submit_dtype, qos=qos, timeout_ms=deadline_ms).result()
+            logits = self._submit_with_retry(srv, x, submit_dtype, qos, deadline_ms)
         except RejectedError as e:
             if flight is not None:
                 cache.fail(key, flight, e)
@@ -349,6 +374,34 @@ class ServingHandler(BaseHTTPRequestHandler):
             cache.complete(key, flight, logits)
         observe(True)
         self._reply_logits(reply, reply_json, logits, binary, return_log_probs)
+
+    @staticmethod
+    def _submit_with_retry(srv, x, dtype, qos, deadline_ms):
+        """Submit and wait.  In pool mode a request flushed off a draining
+        or dead replica never produced a result, so it is resubmitted (the
+        router places it on a surviving replica) on the remaining budget,
+        at most 1 + replicas attempts; the rejection that survives them is
+        the client's one outcome and is counted here.  A single engine
+        that flushes is shutting down: one attempt."""
+        replicas = getattr(srv.batcher, "replicas", None)
+        attempts = 1 + len(replicas) if replicas else 1
+        budget_s = deadline_ms / 1e3 if deadline_ms else srv.batcher.timeout_s
+        t0 = time.perf_counter()
+        for attempt in range(attempts):
+            remaining_ms = deadline_ms if attempt == 0 else max(
+                0.0, 1e3 * (budget_s - (time.perf_counter() - t0)))
+            request = srv.batcher.submit(x, dtype=dtype, qos=qos, timeout_ms=remaining_ms)
+            if attempt:
+                # Counted after the submit: a resubmission refused at
+                # admission never ran, and its 503 is the outcome.
+                srv.batcher.record_retry()
+            try:
+                return request.result()
+            except RejectedError:
+                if attempt + 1 == attempts:
+                    if attempts > 1:
+                        srv.metrics.record_rejected()
+                    raise
 
     @staticmethod
     def _reply_logits(reply, reply_json, logits, binary, return_log_probs):
@@ -393,12 +446,16 @@ class ServingHTTPServer(ThreadingHTTPServer):
         metrics.ensure_wire()
 
     def snapshot(self) -> dict:
+        # Pool mode: the router's depth/in-flight sums and its per-replica
+        # block.
+        stats = getattr(self.batcher, "replica_stats", None)
         return self.metrics.snapshot(
             queue_depth=self.batcher.depth(),
             buckets=self.engine.buckets,
             inflight=self.batcher.inflight(),
             max_inflight=self.batcher.max_inflight,
             linger_ms=self.batcher.current_linger_ms,
+            replicas=stats() if stats is not None else None,
         )
 
 
@@ -411,6 +468,7 @@ def make_server(
     response_cache: int | ResponseCache | None = None,
     sink=None,
     rollout=None,
+    batcher=None,
     **batcher_kwargs,
 ) -> ServingHTTPServer:
     """Engine + metrics + a started :class:`MicroBatcher` -> a server ready
@@ -418,7 +476,11 @@ def make_server(
     ``server.server_address[1]``).  ``response_cache`` is an entry
     capacity or a built :class:`ResponseCache`; ``rollout`` a
     :class:`~.rollout.RolloutController`.  Stop with ``server.shutdown()``,
-    then ``server.batcher.stop(drain=True)`` and ``server.server_close()``."""
+    then ``server.batcher.stop(drain=True)`` and ``server.server_close()``.
+
+    ``batcher`` injects a started admission front instead: the pool's
+    :class:`~.router.Router`, with the :class:`~.pool.EnginePool` as
+    ``engine`` (its batcher settings go to the pool's ``start()``)."""
     if isinstance(response_cache, int):
         response_cache = ResponseCache(
             response_cache, model_digest=engine.weights_digest, metrics=metrics,
@@ -426,7 +488,12 @@ def make_server(
         )
     if rollout is not None and rollout.cache is None:
         rollout.cache = response_cache
-    batcher = MicroBatcher(engine, metrics=metrics, sink=sink, **batcher_kwargs).start()
+    injected = batcher is not None
+    if injected and batcher_kwargs:
+        raise ValueError("pass batcher kwargs to the pool's start(), not make_server, "
+                         "when injecting a router")
+    if not injected:
+        batcher = MicroBatcher(engine, metrics=metrics, sink=sink, **batcher_kwargs).start()
     try:
         return ServingHTTPServer(
             (host, port), engine, batcher, metrics,
@@ -434,5 +501,6 @@ def make_server(
             sink=sink, rollout=rollout,
         )
     except BaseException:
-        batcher.stop(drain=False)
+        if not injected:
+            batcher.stop(drain=False)
         raise

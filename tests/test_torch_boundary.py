@@ -298,9 +298,7 @@ def test_vit_cli_accepts_ported_flags(flags, dest, value):
 
 SERVING_NOT_PORTED = [
     ["--aot-cache", "x"], ["--cache-dir", "x"], ["--serial-warmup"], ["--no-device-stage"],
-    ["--replicas", "2"], ["--replica-shapes", "tp4,dp"], ["--router-policy", "cost"],
-    ["--hedge"], ["--hedge-delay-ms", "5"], ["--no-supervise"], ["--stall-timeout-s", "5"],
-    ["--restart-budget", "3"], ["--fleet", "2"], ["--fleet-base-port", "9000"],
+    ["--fleet", "2"], ["--fleet-base-port", "9000"],
     ["--fleet-restart-budget", "3"], ["--fleet-heartbeat-timeout-s", "10"],
     ["--fleet-ready-timeout-s", "300"], ["--autoscale"], ["--scale-high", "8"],
     ["--scale-low", "1"], ["--scale-min", "1"], ["--scale-max", "4"],
@@ -310,7 +308,7 @@ SERVING_NOT_PORTED = [
 
 @pytest.mark.parametrize("argv", SERVING_NOT_PORTED, ids=[a[0] for a in SERVING_NOT_PORTED])
 def test_serving_refuses_flags_not_ported_yet(argv, capsys):
-    """The pool, the fleet and the compile/ analogue: argparse takes each
+    """The fleet and the compile/ analogue: argparse takes each
     flag (no unknown-flag exit), and the CLI refuses it by name, exit 2,
     before anything is built (no card needed)."""
     from pytorch_mnist_ddp_tpu_torch.serving.__main__ import build_parser as serving_parser
@@ -319,6 +317,65 @@ def test_serving_refuses_flags_not_ported_yet(argv, capsys):
     assert cli_main(argv + ["--warmup-only"]) == 2
     out = capsys.readouterr().out
     assert out.startswith(f"error: {argv[0]} is not ported to the PyTorch/CUDA serving CLI")
+
+
+SERVING_POOL_FLAGS = [
+    (["--replicas", "2"], "replicas", 2),
+    (["--replica-shapes", "dp,dp"], "replica_shapes", "dp,dp"),
+    (["--router-policy", "least-loaded"], "router_policy", "least-loaded"),
+    (["--hedge"], "hedge", True),
+    (["--hedge-delay-ms", "5"], "hedge_delay_ms", 5.0),
+    (["--no-supervise"], "no_supervise", True),
+    (["--stall-timeout-s", "2"], "stall_timeout_s", 2.0),
+    (["--restart-budget", "1"], "restart_budget", 1),
+]
+
+
+@pytest.mark.parametrize("flags,dest,value", SERVING_POOL_FLAGS,
+                         ids=[f[0][0] for f in SERVING_POOL_FLAGS])
+def test_serving_accepts_the_pool_flags(flags, dest, value, capsys):
+    """Each pool flag parses to its value, and a two-replica CPU pool with
+    it warms and passes its gate."""
+    from pytorch_mnist_ddp_tpu_torch.serving.__main__ import build_parser as serving_parser
+
+    assert getattr(serving_parser().parse_args(flags), dest) == value
+    argv = ["--device", "cpu", "--warmup-only", "--buckets", "1", "--dtypes", "f32,int8",
+            "--int8-impl", "dot"] + (["--replicas", "2"] if dest != "replicas" else []) + flags
+    assert cli_main(argv) == 0
+    out = capsys.readouterr().out
+    assert "x 2 replicas (devices ['cpu', 'cpu'])" in out
+    assert "[r1] int8 bucket    1: ready" in out and "parity gate [int8]: PASS" in out
+
+
+@pytest.mark.parametrize("shapes", ["tp2,dp", "vtp2,dp", "ep2,dp", "pp2,dp"])
+def test_serving_refuses_sharded_replica_shapes(shapes, capsys):
+    """A --replica-shapes entry other than dp exits 2 by name before
+    anything is built: sharded replicas are not ported yet."""
+    assert cli_main(["--replicas", "2", "--replica-shapes", shapes, "--warmup-only"]) == 2
+    out = capsys.readouterr().out
+    assert out.startswith(f"error: --replica-shapes {shapes!r}: ['{shapes.split(',')[0]}']")
+    assert "sharded replicas" in out and "not ported" in out
+
+
+def test_serving_pool_refusals_of_the_jax_cli(capsys):
+    """The JAX CLI's pool refusals: a hedge needs two replicas, shapes need
+    --replicas, a malformed shape is named."""
+    for argv, expect in (
+        (["--hedge"], "error: --hedge/--hedge-delay-ms need --replicas >= 2"),
+        (["--replicas", "1", "--hedge-delay-ms", "3"], "error: --hedge/--hedge-delay-ms need"),
+        (["--replica-shapes", "dp"], "error: --replica-shapes needs --replicas"),
+        (["--replicas", "2", "--replica-shapes", "xp3"], "error: --replica-shapes 'xp3':"),
+    ):
+        assert cli_main(argv + ["--warmup-only"]) == 2
+        assert capsys.readouterr().out.startswith(expect)
+
+
+def test_serving_pool_without_a_card_raises():
+    """--replicas 2 on the default device raises without a card instead of
+    running the pool on the CPU."""
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        cli_main(["--replicas", "2", "--warmup-only", "--buckets", "1"])
 
 
 def test_serving_accepts_the_flags_of_this_slice(tmp_path, capsys):
