@@ -152,7 +152,7 @@ Phases, one JSON line each:
                 it can read the rank's launch counts): the banner, epoch-1
                 accuracy, row 3 once a step, and mnist_cnn.pt (module. keys)
                 torch.equal to mnist.py's fit() with the same flags; then
-                100 profiled steps of that world's step in this process
+                40 profiled steps of that world's step in this process
                 (the all-reduce's own time); and two ranks sharing the card
                 over gloo, 20 fixed steps plain, --pallas-opt and --syncbn
                 --pallas-opt: the ranks equal, within the CPU trajectory
@@ -178,7 +178,7 @@ Phases, one JSON line each:
                 column-major view; and at n = 8 at the shapes past one
                 K-pass or h-tile;
 12. train_profile — where a training step's time goes: the loader alone,
-                then 100 steps, plain and --pallas-opt, under
+                then 40 steps, plain and --pallas-opt, under
                 torch.profiler (wall and device-busy time per step), and
                 --pallas-opt again without deterministic cuDNN and under
                 --bf16 with and without it; seconds for 300 of the
@@ -194,7 +194,7 @@ Phases, one JSON line each:
                 the synthetic sets (epoch-1 accuracy floor) and of --sp 1
                 --allow-degree-1 --flash and --bf16 --flash cut to 100
                 steps, launches equal to the attention calls;
-15. vit_profile — where a ViT step's time goes: 20 steps, plain, --flash,
+15. vit_profile — where a ViT step's time goes: 10 steps, plain, --flash,
                 --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
                 torch.profiler;
 16. times     — flash_attention in both modes and both dtypes, its plain
@@ -295,7 +295,50 @@ Phases, one JSON line each:
                 the guarded, telemetered run beside the flagless one (both
                 before the child processes start), a snapshot's device
                 time, checkpoint_write_seconds, the restart's wall
-                seconds.
+                seconds;
+21. compile   — the startup path (compile/: the kernel-library store
+                behind --aot-cache, Programs, the startup overlap) on a
+                store made fresh under the work directory, in processes
+                of their own on 20's IDX set, this script their wrapper
+                (``--compile-cli`` runs a CLI's body and writes what only
+                that process sees: nvcc runs, libraries loaded and where
+                from, their sha256, launches, the seconds from its start
+                to its first "Train Epoch" or "warmup verified" line):
+                (a) cold: mnist --epochs 1 --pallas-opt --aot-cache D
+                --serve-prewarm --save-model gives miss for adadelta and
+                int8_head and runs nvcc twice, while this process runs
+                the flagless and flagless --fused references (their
+                library the build directory's store, the build phase's);
+                then, together: (b) the same
+                command again: hits only, no nvcc run, the libraries (a)
+                built (same sha256), its stdout and mnist_cnn.pt byte-equal
+                to (a)'s and the flagless run's, row 3 once a step; (b')
+                --fused --pallas-opt --aot-cache D: a hit, its stdout the
+                flagless --fused run's, its startup_overlap_ratio
+                recorded; (c) in a process of its own
+                (``--compile-serve``, on a host without nvcc: neither
+                PATH nor CUDA_HOME finds one) the serving CLI's main with
+                --warmup-only --dtypes f32,int8 --aot-cache D loads
+                int8_head as a hit and runs nvcc 0 times, then an engine
+                answers at every bucket; in another (no nvcc either) a
+                --replicas 2 pool on D loads it as a hit, and each replica's int8 answers are
+                the engine's (np.array_equal); (d) the engine on a copy of D
+                whose int8_head header was tampered, and on another copy
+                with fail:aot_load:count=1 installed in its process: each
+                a fallback, nvcc once, the entry rewritten (a new library
+                file, its header this environment's, its sha256 the
+                file's), every answer the handoff engine's; (e) a second
+                pool warmed with --serial-warmup (the replicas in turn)
+                answers as the first, and an engine with
+                --no-device-stage as the default engine, at every rung
+                (f32 and int8).  Row 1
+                launches on the path = the int8 rungs, gates and answers
+                the processes ran (plus the CLI's rungs and gate), row 3's
+                = the runs' steps.  Readings: seconds to torch imported,
+                to the card's context, to the first step and to an
+                engine's warmup end, cold and warm,
+                compile_seconds_total per program, each library's load or
+                build seconds, the fused run's overlap ratio.
 
 Every phase line carries its ``seconds``.  Then the ``kernels`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Launch
@@ -314,7 +357,8 @@ the references apart); flash_attention and adadelta again over 19 (the
 ranks' and the launcher's processes included; the uninterrupted runs the
 resumed ones are held to apart); adadelta again over 20 (this process's
 runs; the killed processes and the launcher's rank count nothing, the
-flagless and uninterrupted references apart).
+flagless and uninterrupted references apart); int8_head and adadelta
+again over 21 (counted by its processes; the flagless runs apart).
 Latencies, seconds per epoch and images/s are smoke readings of this
 script's own work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -336,6 +380,8 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+
+PROCESS_START = time.perf_counter()  # the compile phase's processes time from here
 
 # InferenceEngine.from_seed weights (torch.Generator).  Random weights give
 # near-uniform logits, and the int8 gate rightly refuses argmax ties inside
@@ -378,11 +424,26 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 ADADELTA_N = (1, 37, 1024, 33000, 300000, 1199882)
 ADADELTA_TOL = 1e-6  # kernel vs plain: same IEEE ops in the same order
 TRAIN_STEPS = 20  # train_step phase
-PROFILE_STEPS = 100  # train_profile phase
+PROFILE_STEPS = 40  # train_profile phase
+# A torch.profiler window drops the device records of the first launches
+# it sees: none in a fresh process, more as the process goes on, always
+# the first ones (fused (e) once read row 3 97 times in 100 replays).  So
+# each window first launches PROFILE_PREFIX_KERNELS sleep kernels, which
+# take the loss (profile_window's prefix_records_lost) and are left out of
+# its counts, and idles PROFILE_MARGIN_S before its first step and after
+# its last.
+PROFILE_PREFIX_KERNELS = 2048
+PROFILE_MARGIN_S = 0.1
+# Host events that put work on the device, each with the correlation id
+# of the device records it made.
+LAUNCH_EVENTS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
+SLEEP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 # vit_profile phase: a ViT step holds ~960 device and ~7,000 host events,
 # and reading a 100-step window back took ~50 s a way (PR 12); 20 steps
-# give the same per-step readings.
-VIT_PROFILE_STEPS = 20
+# give the same per-step readings.  The windows are readings, and reading
+# them back is most of their phases' time, so 10 ViT steps (20 before),
+# and 40 CNN steps in train_profile and ddp (100 before), keep the time.
+VIT_PROFILE_STEPS = 10
 # train_profile's determinism cost: the --pallas-opt steps over this many
 # of an epoch's batches, with and without deterministic cuDNN, in turns.
 ABBA_STEPS = 300
@@ -393,7 +454,7 @@ EPOCH1_MIN_ACCURACY = 0.95
 # DDP_RANK_BATCH a rank, held to one rank at twice the batch within the
 # CPU trajectory gates of tests/test_torch_train.py.
 DDP_BATCH = 200
-DDP_PROFILE_STEPS = 100
+DDP_PROFILE_STEPS = 40
 DDP_STEPS = 20
 DDP_RANK_BATCH = 32
 DDP_WAYS = (("plain", False, False), ("pallas_opt", True, False),
@@ -641,6 +702,9 @@ POOL_READ_PER_CLIENT = 20  # the latency readings, with 1 and 2 replicas
 POOL_BUCKETED_LADDER = (1, 2, 4, 8, 128)  # (a): one client's 1..8 rows, and 128
 POOL_BUCKETED_ROWS = 624  # (b) bucketed: 8 clients x 78 rows, each request rows of its own
 DOT_TOL = 5e-4  # --int8-impl dot vs pallas log-probs (the conv ulp)
+# compile: the processes of each group start together; each process's own
+# timeout
+COMPILE_PROC_TIMEOUT_S = 600
 
 
 _CLOCK = {"last": time.perf_counter()}
@@ -1332,17 +1396,29 @@ def profile_window(torch, window, step_once, find: str | None = None) -> dict:
     """Wall and device-busy time per step of ``step_once(x, y, w)`` over the
     batches of ``window`` under torch.profiler, with the top device ops;
     with ``find``, also the ops whose name holds it (``found``: calls and
-    microseconds per call, on the device and on the host)."""
+    microseconds per call, on the device and on the host).  The steps'
+    records alone are counted, and the wall time is theirs:
+    ``prefix_records_lost`` says how many of the sleep kernels' records
+    the profiler dropped, ``launches_without_a_device_record`` how many of
+    the steps' launches lost theirs."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PREFIX_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for x, y, w in window:
             step_once(x, y, w)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device_us, kernels, top, found = 0.0, 0, [], {}
+        time.sleep(PROFILE_MARGIN_S)
+    device_us, kernels, top, found, uneven, prefix = 0.0, 0, [], {}, {}, 0
     for evt in prof.key_averages():
+        if evt.device_type.name == "CUDA" and SLEEP_KERNEL in evt.key:
+            prefix += evt.count
+            continue
         if find is not None and find in evt.key.lower():
             side = "device" if evt.device_type.name == "CUDA" else "host"
             us = getattr(evt, "device_time_total" if side == "device" else "cpu_time_total")
@@ -1356,14 +1432,27 @@ def profile_window(torch, window, step_once, find: str | None = None) -> dict:
         device_us += us
         kernels += evt.count
         top.append((us, evt.key[:60], evt.count))
+        if evt.count % len(window):
+            uneven[evt.key[:60]] = evt.count
     top.sort(reverse=True)
+    # the steps' launches: those after the idle margin that follows the prefix
+    events = prof.events()
+    launches = sorted((e.time_range.start, e.id) for e in events
+                      if e.device_type.name != "CUDA" and e.name.startswith(LAUNCH_EVENTS))
+    first = next((i + 1 for i, (a, b) in enumerate(zip(launches, launches[1:]))
+                  if b[0] - a[0] > PROFILE_MARGIN_S * 5e5), 0)
+    recorded = {e.id for e in events if e.device_type.name == "CUDA"}
+    lost = [i for i, (_, cid) in enumerate(launches[first:]) if cid not in recorded]
     steps = len(window)
     extra = {} if find is None else {"found": found}
     return {**extra,
+        "prefix_records_lost": PROFILE_PREFIX_KERNELS - prefix,
+        "launches_without_a_device_record": len(lost), "lost_launch_positions": lost[:8],
         "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": device_us / 1e3 / steps if device_us else None,
         "device_idle_share": 1 - device_us / 1e6 / wall if device_us else None,
         "device_ops_per_step": kernels / steps,
+        "uneven_device_ops": uneven,
         "top_device_ops": [{"name": k, "ms_per_step": us / 1e3 / steps, "count": c}
                            for us, k, c in top[:6]],
     }
@@ -1450,6 +1539,19 @@ def load_tool(name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def waited_process(proc, t0: float, timeout: float = 600) -> tuple:
+    """``proc``'s exit code, stdout, stderr and the wall seconds from
+    ``t0`` to its exit.  A child still running after ``timeout`` seconds
+    is killed and reaped, and the wait raises ``TimeoutExpired``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return proc.returncode, out, err, time.perf_counter() - t0
 
 
 def free_port() -> int:
@@ -1663,8 +1765,10 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     launcher at --batch-size 200 --pallas-opt --save-model for one epoch
     of the synthetic 60k set: the banner, accuracy, row 3 once a step, and
     mnist_cnn.pt (module. keys) torch.equal to mnist.py's fit() with the
-    same flags in this process; then a profiled window of the same step in
-    an NCCL world of one here.  (2) Two ranks sharing the card over gloo,
+    same flags in this process; then, once every process of the phase has
+    ended, a profiled window of the same step in an NCCL world of one here.
+    (2) Two ranks sharing the card over gloo (their processes run beside
+    (1)'s),
     DDP_STEPS fixed steps three ways (plain, --pallas-opt, --syncbn
     --pallas-opt): the ranks equal; within the CPU trajectory gates of a
     one-rank run at twice the batch over the same global batches, after
@@ -1693,22 +1797,46 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     references = {k: 0 for k in af.LAUNCHES}
     start = dict(af.LAUNCHES)
 
-    # (1) the launcher, --nproc_per_node=1: an NCCL world of one
+    # (1) the launcher, --nproc_per_node=1: an NCCL world of one; (2)'s two
+    # gloo ranks start beside it, and fit()'s reference runs here meanwhile
     counts = os.path.join(workdir, "counts")
     flags = ["--batch-size", str(DDP_BATCH), "--epochs", "1", "--pallas-opt"]
     here = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
          "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
          "--ddp-rank", counts, *flags, "--save-model"],
-        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
-    launcher_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"launcher leg exited {proc.returncode}: {proc.stderr[-2000:]}")
+        cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    images, labels = synthetic_mnist("train", DDP_STEPS * 2 * DDP_RANK_BATCH)
+    xs = normalize(images).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH, 28, 28, 1)
+    ys = labels.astype(np.int64).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH)
+    np.savez(os.path.join(workdir, "batches.npz"), xs=xs, ys=ys)
+    vit_idx_root(np, workdir, name="fused_idx")  # the ranks' --fused refusal
+    ctx = multiprocessing.get_context("spawn")
+    init_file = os.path.join(workdir, "gloo_rdzv")
+    t_gloo = time.perf_counter()
+    procs = [ctx.Process(target=ddp_gloo_rank, args=(r, init_file, workdir)) for r in (0, 1)]
+    for p in procs:
+        p.start()
+    with ThreadPoolExecutor(1) as pool:
+        launcher_done = pool.submit(waited_process, proc, t0)
+        alone = fit_run(flags)
+        rc, stdout, stderr, launcher_s = launcher_done.result()
+    for p in procs:
+        p.join(timeout=300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(timeout=10)
+    gloo_s = time.perf_counter() - t_gloo
+    check(not alive and [p.exitcode for p in procs] == [0, 0],
+          f"gloo ranks exited {[p.exitcode for p in procs]}")
+    check(rc == 0, f"launcher leg exited {rc}: {stderr[-2000:]}")
     with open(counts + ".rank0") as f:
         rank0 = json.load(f)
-    lines = proc.stdout.splitlines()
+    lines = stdout.splitlines()
     banner = distributed_init_banner(0, "env://", 0, 1)
     tests = [TEST_LINE.match(ln) for ln in lines if ln.startswith("Test set")]
     train = [TRAIN_LINE.match(ln) for ln in lines if ln.startswith("Train Epoch")]
@@ -1723,7 +1851,6 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     check(rank0["timings"]["epoch1_test_accuracy"] == acc1, "the chief's line off its timings")
     saved = torch.load(os.path.join(workdir, "mnist_cnn.pt"), weights_only=True)
     check(all(k.startswith("module.") for k in saved), "mnist_cnn.pt without module. keys")
-    alone = fit_run(flags)
     want = {k: v.cpu() for k, v in alone["model"].state_dict().items()}
     got = load_inference_state(os.path.join(workdir, "mnist_cnn.pt"))
     equal = sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
@@ -1745,27 +1872,8 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
             "logged_losses": [float(m.group(5)) for m in train],
             "equal_to_mnist_fit": equal, "backend": rank0["backends"][0], "profile": profile}
 
-    # (2) two gloo ranks sharing cuda:0, against one rank at twice the batch
-    images, labels = synthetic_mnist("train", DDP_STEPS * 2 * DDP_RANK_BATCH)
-    xs = normalize(images).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH, 28, 28, 1)
-    ys = labels.astype(np.int64).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH)
-    np.savez(os.path.join(workdir, "batches.npz"), xs=xs, ys=ys)
-    vit_idx_root(np, workdir, name="fused_idx")  # the ranks' --fused refusal
-    ctx = multiprocessing.get_context("spawn")
-    init_file = os.path.join(workdir, "gloo_rdzv")
-    t0 = time.perf_counter()
-    procs = [ctx.Process(target=ddp_gloo_rank, args=(r, init_file, workdir)) for r in (0, 1)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=300)
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
-        p.kill()
-        p.join(timeout=10)
-    gloo_s = time.perf_counter() - t0
-    check(not alive and [p.exitcode for p in procs] == [0, 0],
-          f"gloo ranks exited {[p.exitcode for p in procs]}")
+    # (2) the two gloo ranks (run beside (1)), against one rank at twice
+    # the batch
     ranks = [torch.load(os.path.join(workdir, f"gloo_rank{r}.pt"), weights_only=False)
              for r in (0, 1)]
     check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks),
@@ -2893,16 +3001,24 @@ def vit_parallel_phase(torch, np, workdir: str, sp1_cut: dict) -> tuple[dict, di
     main0 = dict(fa.LAUNCHES)
     legs, launches = {}, {k: 0 for k in fa.LAUNCHES}
 
-    # (b) an NCCL world of one through the launcher
+    # (b) an NCCL world of one through the launcher, (c) + (e) two gloo
+    # ranks sharing the card and (d) four: three worlds of their own
+    # processes, started together
     counts = os.path.join(workdir, "vit_counts")
+    vit_idx_root(np, workdir, VIT_CUT_ROWS, "vit_cut_idx")  # (e)'s epoch
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
          "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
          "--vit-rank", counts, batches, *VIT_PAR_NCCL],
-        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
-    nccl_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"vit launcher leg exited {proc.returncode}: {proc.stderr[-2000:]}")
+        cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    with ThreadPoolExecutor(3) as pool:
+        nccl_done = pool.submit(waited_process, proc, t0)
+        two_done = pool.submit(gloo_world, 2, workdir, batches, VIT_PAR_TWO, epoch=True)
+        four_done = pool.submit(gloo_world, 4, workdir, batches, VIT_PAR_FOUR, epoch=False)
+        rc, _, err, nccl_s = nccl_done.result()
+        (two, two_s), (four, four_s) = two_done.result(), four_done.result()
+    check(rc == 0, f"vit launcher leg exited {rc}: {err[-2000:]}")
     nccl = torch.load(counts + ".rank0", weights_only=False)
     check(nccl["backend"] == "nccl", f"vit launcher leg formed {nccl['backend']}")
     for leg in VIT_PAR_NCCL:
@@ -2915,10 +3031,6 @@ def vit_parallel_phase(torch, np, workdir: str, sp1_cut: dict) -> tuple[dict, di
         torch.equal(got["losses"], alone["losses"])
         and all(torch.equal(got["state"][k], alone["state"][k]) for k in alone["state"]))
 
-    # (c) + (e) two gloo ranks sharing the card; (d) four
-    vit_idx_root(np, workdir, VIT_CUT_ROWS, "vit_cut_idx")  # (e)'s epoch
-    two, two_s = gloo_world(2, workdir, batches, VIT_PAR_TWO, epoch=True)
-    four, four_s = gloo_world(4, workdir, batches, VIT_PAR_FOUR, epoch=False)
     check(all(r["backend"] == "gloo" and r["device"] == 0 for r in two + four),
           "vit gloo ranks not gloo on cuda:0")
     for leg in VIT_PAR_TWO:
@@ -3042,7 +3154,8 @@ def vit_family_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     repeat to the first run, no collective called; (b) two gloo ranks
     sharing the card, 20 steps of --experts 8 --flash (4 experts a rank,
     both all-to-alls real), --zero --flash and --pp, f32 and --bf16; (c)
-    four: --experts 8 --flash (2 a rank) and --pp on a 2 x 2 grid; each
+    four: --experts 8 --flash (2 a rank) and --pp on a 2 x 2 grid (the
+    three worlds' processes run at once); each
     leg's replicated leaves bit-equal on every rank after every step and
     held at the trajectory gates to its reference in this process: the
     MoE legs to the same routing groups, --zero to the single-device
@@ -3075,17 +3188,23 @@ def vit_family_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
     legs, launches = {}, {k: 0 for k in fa.LAUNCHES}
 
-    # (a) an NCCL world of one through the launcher
+    # (a) an NCCL world of one through the launcher, (b) two gloo ranks
+    # sharing the card and (c) four: three worlds of their own processes,
+    # started together
     counts = os.path.join(workdir, "fam_counts")
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
          "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
          "--vit-rank", counts, batches, *VIT_FAM_NCCL],
-        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
-    nccl_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"vit_family launcher leg exited {proc.returncode}: "
-                                f"{proc.stderr[-2000:]}")
+        cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    with ThreadPoolExecutor(3) as pool:
+        nccl_done = pool.submit(waited_process, proc, t0)
+        two_done = pool.submit(gloo_world, 2, workdir, batches, VIT_FAM_TWO, epoch=False)
+        four_done = pool.submit(gloo_world, 4, workdir, batches, VIT_FAM_FOUR, epoch=False)
+        rc, _, err, nccl_s = nccl_done.result()
+        (two, two_s), (four, four_s) = two_done.result(), four_done.result()
+    check(rc == 0, f"vit_family launcher leg exited {rc}: {err[-2000:]}")
     nccl = torch.load(counts + ".rank0", weights_only=False)
     check(nccl["backend"] == "nccl", f"vit_family launcher leg formed {nccl['backend']}")
 
@@ -3107,9 +3226,6 @@ def vit_family_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     legs["nccl1_zero_flash"]["ok"]["no_collective"] = not nccl["collectives"]
     legs["nccl1_zero_flash"]["collectives"] = nccl["collectives"]
 
-    # (b) two gloo ranks sharing the card; (c) four
-    two, two_s = gloo_world(2, workdir, batches, VIT_FAM_TWO, epoch=False)
-    four, four_s = gloo_world(4, workdir, batches, VIT_FAM_FOUR, epoch=False)
     check(all(r["backend"] == "gloo" and r["device"] == 0 for r in two + four),
           "vit_family gloo ranks not gloo on cuda:0")
     data = np.load(batches)
@@ -3599,10 +3715,13 @@ def train_state_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     # --tp 2 / --pp legs and --tp 2 --save-model; (c) four: --tp 2 on 2 x 2
     refs = {bf16: cnn_dp_reference(torch, np, batches, bf16) for bf16 in (False, True)}
     mid = at("mid.npz")
-    two, two_s = state_gloo_world(2, workdir, {
-        "legs": STATE_TWO, "batches": batches, "reshard": (root, mid),
-        "tp_save": (root, at("tp2.pt"))})
-    four, four_s = state_gloo_world(4, workdir, {"legs": STATE_FOUR, "batches": batches})
+    with ThreadPoolExecutor(2) as pool:  # the two worlds' processes at once
+        two_done = pool.submit(state_gloo_world, 2, workdir, {
+            "legs": STATE_TWO, "batches": batches, "reshard": (root, mid),
+            "tp_save": (root, at("tp2.pt"))})
+        four_done = pool.submit(state_gloo_world, 4, workdir,
+                                {"legs": STATE_FOUR, "batches": batches})
+        (two, two_s), (four, four_s) = two_done.result(), four_done.result()
     check(all(r["backend"] == "gloo" for r in two + four), "train_state ranks not gloo")
     legs = {}
     for ranks, names in ((two, STATE_TWO), (four, STATE_FOUR)):
@@ -3773,10 +3892,6 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
                             runs=20)
 
     procs, pool = {}, ThreadPoolExecutor(3)
-
-    def waited(proc, t0):  # (exit code, stdout, stderr, wall seconds to its exit)
-        out, err = proc.communicate(timeout=600)
-        return proc.returncode, out, err, time.perf_counter() - t0
     for name, cmd in (
             ("b", [*cli, *two, *ckpt, "--save-state", at("b.npz"), "--telemetry-dir",
                    at("b_tel"), "--chaos", f"kill:step:after={RESILIENCE_KILL_AFTER}"]),
@@ -3790,7 +3905,7 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
-        procs[name] = pool.submit(waited, proc, t0)
+        procs[name] = pool.submit(waited_process, proc, t0)
 
     # (a) the baseline
     reg_a = Registry()
@@ -3898,6 +4013,418 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
           "seconds": time.perf_counter() - t_phase})
     for name, checks in ok.items():
         check(all(checks.values()), f"resilience {name}: {checks}")
+    return launches, references
+
+
+def _stamped_stdout(marks: dict):
+    """This process's stdout, noting in ``marks`` (text -> None) the
+    seconds from the process's start to the first write holding each
+    text; everything written passes through unchanged."""
+    real = sys.stdout
+
+    class Stamped(io.TextIOBase):
+        def write(self, text):
+            for key, at in marks.items():
+                if at is None and key in text:
+                    marks[key] = time.perf_counter() - PROCESS_START
+            return real.write(text)
+
+        def flush(self):
+            real.flush()
+
+    return real, Stamped()
+
+
+def _timed_library_loads() -> dict:
+    """Times each library's first load in this process (its build, or its
+    load from the store): ``ops._build.library`` wrapped in place."""
+    from pytorch_mnist_ddp_tpu_torch.ops import _build
+
+    seconds: dict = {}
+    library = _build.library
+
+    def timed(name, store=None):
+        t0 = time.perf_counter()
+        lib = library(name, store=store)
+        seconds.setdefault(name, time.perf_counter() - t0)
+        return lib
+
+    _build.library = timed
+    return seconds
+
+
+def _startup_marks() -> dict:
+    """Seconds from this process's start to torch imported and to the
+    card's context ready (the first step or warmup then pays neither)."""
+    import torch
+
+    marks = {"torch_imported_s": time.perf_counter() - PROCESS_START}
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    marks["cuda_ready_s"] = time.perf_counter() - PROCESS_START
+    return marks
+
+
+def _library_report() -> dict:
+    """What this process built and loaded: nvcc runs, loads, and each
+    library's origin (its store's outcome), file and sha256."""
+    import hashlib
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.ops import _build
+
+    libraries = {}
+    for name, lib in dict(_build._loaded).items():
+        with open(lib._name, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        libraries[name] = {"origin": _build.origin(name), "sha256": digest,
+                           "file": os.path.basename(lib._name)}
+    return {"builds": _build.BUILDS, "loads": _build.LOADS, "libraries": libraries}
+
+
+def compile_cli_program(argv: list[str]) -> int:
+    """``chip_smoke.py --compile-cli OUT MODULE <flags>``: the compile
+    phase's wrapper of a CLI.  ``mnist`` runs mnist.py's body
+    (``mnist.run`` under ``run_cli``, what ``-m
+    pytorch_mnist_ddp_tpu_torch.mnist`` runs, with fit's timings), and
+    ``serving`` the serving CLI's ``main``; stdout is the CLI's own.  Then
+    it writes to OUT what only this process sees: nvcc runs, libraries
+    and their origins and sha256, launches, the seconds from its start to
+    its first "Train Epoch" and "warmup verified" lines, each library's
+    first load."""
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+
+    out, module, flags = argv[0], argv[1], argv[2:]
+    startup = _startup_marks()
+    marks = {"Train Epoch": None, "warmup verified": None}
+    seconds = _timed_library_loads()
+    timings: dict = {}
+    real, sys.stdout = _stamped_stdout(marks)
+    try:
+        if module == "mnist":
+            from pytorch_mnist_ddp_tpu_torch import mnist
+
+            args = mnist.build_parser().parse_args(flags)
+            mnist.run_cli(args, lambda: mnist.run(args, timings))
+            rc = 0
+        else:
+            from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as serve
+
+            rc = serve(flags)
+    finally:
+        sys.stdout.flush()
+        sys.stdout = real
+    with open(out, "w") as f:
+        json.dump({**_library_report(), "rc": rc, "first_line_s": marks, **startup,
+                   "library_seconds": seconds,
+                   "launches": {**af.LAUNCHES, "int8_head": ih.LAUNCHES},
+                   "timings": {k: timings.get(k) for k in (
+                       "startup_overlap_ratio", "compile_s", "restore_s", "data_s",
+                       "epoch_steps")}}, f)
+    return rc
+
+
+def compile_serve_program(argv: list[str]) -> int:
+    """``chip_smoke.py --compile-serve OUT STORE MODE``: engines of the
+    full-width CNN (seed-SEED weights, --dtypes f32,int8, the kernel head)
+    on the kernel-library store STORE, in a process of their own, each
+    answering seeded rows at every bucket of the ladder (OUT.npz), OUT
+    the process's report.  MODE ``handoff``: first the serving CLI's
+    ``main`` with --warmup-only --dtypes f32,int8 --aot-cache STORE (its
+    stdout, its launches and the seconds to its return kept; it loads
+    int8_head), then the default engine and one without device staging
+    (held to the default at every rung); ``pool``: a --replicas 2 pool,
+    each replica's answers kept, and a second one warmed serially
+    (--serial-warmup: the replicas in turn), held to the first at every
+    rung; ``tampered``: the default engine alone (the caller tampered the
+    store's entry); ``fault``: the same with fail:aot_load:count=1
+    installed in this process first."""
+    import numpy as np
+    import torch
+
+    from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.serving import faults
+    from pytorch_mnist_ddp_tpu_torch.serving.engine import PARITY_SEED, InferenceEngine
+    from pytorch_mnist_ddp_tpu_torch.serving.pool import EnginePool
+
+    out, store, mode = argv
+    startup = _startup_marks()
+    seconds = _timed_library_loads()
+    # the answers are compared across processes: no cuDNN choice by timing
+    torch.backends.cudnn.deterministic = True
+    injector = (faults.install(faults.FaultInjector("fail:aot_load:count=1")).start()
+                if mode == "fault" else None)
+    raw = np.random.RandomState(PARITY_SEED + 1).randint(0, 256, (128, 28, 28)).astype(np.uint8)
+    x = normalize(raw)
+
+    def answers(engine) -> dict:
+        return {f"{dt}_{b}": engine.predict_logits(x[:b], dtype=dt)
+                for dt in ("f32", "int8") for b in engine.buckets}
+
+    def engine(**kwargs):
+        return InferenceEngine.from_seed(SEED, dtypes=("int8",), aot_cache=store, **kwargs)
+
+    report: dict = {"mode": mode, **startup}
+    kept: dict = {}
+    engines = []
+    if mode == "handoff":
+        from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as serve
+
+        out_cli = io.StringIO()
+        with contextlib.redirect_stdout(out_cli):
+            rc = serve(["--warmup-only", "--dtypes", "f32,int8", "--aot-cache", store])
+        report["cli"] = {**_library_report(), "rc": rc, "stdout": out_cli.getvalue(),
+                         "int8_head_launches": ih.LAUNCHES,
+                         "done_s": time.perf_counter() - PROCESS_START}
+        ih.LAUNCHES = 0
+    if mode == "pool":
+        pool = EnginePool.from_seed(SEED, replicas=POOL_REPLICAS, dtypes=("int8",),
+                                    aot_cache=store)
+        pool.warmup()
+        pool.verify_parity(raise_on_failure=True)
+        report["warmup_done_s"] = time.perf_counter() - PROCESS_START
+        engines = list(pool.engines)
+        for i, e in enumerate(engines):
+            kept.update({f"r{i}_{k}": v for k, v in answers(e).items()})
+        serial = EnginePool.from_seed(SEED, replicas=POOL_REPLICAS, dtypes=("int8",),
+                                      aot_cache=store)
+        serial.warmup(parallel=False)
+        serial.verify_parity(raise_on_failure=True)
+        engines += serial.engines
+        report["serial_warmup_equal"] = all(
+            np.array_equal(got[k], kept[f"r{i}_{k}"])
+            for i, got in enumerate(answers(e) for e in serial.engines) for k in got)
+    else:
+        default = engine()
+        default.warmup()
+        gate = default.verify_parity()["int8"]
+        report["warmup_done_s"] = time.perf_counter() - PROCESS_START
+        check(gate["passed"], f"compile-serve {mode}: int8 gate failed: {gate}")
+        engines = [default]
+        kept = answers(default)
+        if mode == "handoff":
+            unstaged = engine(device_stage=False)
+            unstaged.warmup()
+            unstaged.verify_parity()
+            engines.append(unstaged)
+            got = answers(unstaged)
+            report["no_device_stage_equal"] = all(np.array_equal(got[k], kept[k]) for k in kept)
+    n = len(engines[0].buckets)
+    report.update(_library_report(), library_seconds=seconds,
+                  int8_head_launches=ih.LAUNCHES,
+                  # each engine: its int8 rungs, its gate, one answer a bucket
+                  int8_head_expected=len(engines) * (2 * n + 1),
+                  fired=injector.fired_counts() if injector is not None else {})
+    np.savez(out + ".npz", **kept)
+    with open(out, "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def compile_phase(torch, np, workdir: str, smi: str) -> tuple[dict, dict]:
+    """The compile phase (module docstring, 21).  Returns the path's
+    int8_head and adadelta_delta launches, counted by its processes, and
+    apart those of the flagless references."""
+    import os
+    import shutil
+
+    from pytorch_mnist_ddp_tpu_torch.compile import ExecutableStore
+    from pytorch_mnist_ddp_tpu_torch.compile.aot import _sha256
+    from pytorch_mnist_ddp_tpu_torch.mnist import build_parser
+    from pytorch_mnist_ddp_tpu_torch.ops import _build
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.trainer import fit
+
+    t_phase = time.perf_counter()
+    root = vit_idx_root(np, workdir)
+    at = functools.partial(os.path.join, workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    store = at("aot")
+    train = ["--epochs", "1", "--pallas-opt", "--data-root", root]
+
+    # The serving host of the handoff has no toolkit: nvcc_path() raises
+    # there, so a process that needed nvcc for a hit would fail.
+    no_nvcc = {**env, "CUDA_HOME": at("no_toolkit"), "CUDA_PATH": at("no_toolkit"),
+               "PATH": os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
+                                       if not os.path.exists(os.path.join(d, "nvcc")))}
+
+    def start(name: str, kind: str, *argv, toolkit: bool = True) -> tuple:
+        run_dir = at(name)
+        os.makedirs(run_dir)
+        cmd = [sys.executable, os.path.join(here, "chip_smoke.py"), f"--compile-{kind}",
+               at(f"{name}.json"), *argv]
+        return name, subprocess.Popen(cmd, cwd=run_dir, env=env if toolkit else no_nvcc,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)
+
+    def finish(group) -> dict:
+        """Each process's report and stdout; whichever way this ends, no
+        process of the group is left running."""
+        done = {}
+        try:
+            for name, proc in group:
+                rc, stdout, stderr, _ = waited_process(proc, 0.0, COMPILE_PROC_TIMEOUT_S)
+                check(rc == 0, f"compile ({name}) exited {rc}: {stderr[-3000:]}")
+                with open(at(f"{name}.json")) as f:
+                    done[name] = {**json.load(f), "stdout": stdout}
+        finally:
+            for _, proc in group:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        return done
+
+    def saved(name: str) -> bytes:
+        with open(at(name, "mnist_cnn.pt"), "rb") as f:
+            return f.read()
+
+    def flagless(name: str, *flags) -> str:
+        """mnist.py's body with ``flags`` in this process (its libraries
+        the build phase's); its stdout."""
+        os.makedirs(at(name))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            fit(build_parser().parse_args(list(flags)), "cuda",
+                save_path=at(name, "mnist_cnn.pt"))
+        return out.getvalue()
+
+    def prom(name: str) -> list[str]:
+        with open(at(f"{name}_tel", "metrics.prom")) as f:
+            return f.read().splitlines()
+
+    def origins(run: dict) -> dict:
+        return {k: v["origin"] for k, v in run["libraries"].items()}
+
+    def loaded(run: dict, name: str, key: str):
+        return run["libraries"].get(name, {}).get(key)
+
+    # (a) cold, in a process of its own; the two flagless references run
+    # in this process meanwhile
+    cold_run = [start("a", "cli", "mnist", *train, "--save-model", "--aot-cache", store,
+                      "--serve-prewarm", "--telemetry-dir", at("a_tel"))]
+    before = dict(af.LAUNCHES)
+    t0 = time.perf_counter()
+    stdout = {"flagless": flagless("flagless", *train, "--save-model"),
+              "flagless_fused": flagless("flagless_fused", "--fused", *train)}
+    flagless_s = time.perf_counter() - t0
+    references = {k: af.LAUNCHES[k] - before[k] for k in before}
+    runs = finish(cold_run)
+    cold = {name: ExecutableStore(store).entry(name) for name in ("adadelta", "int8_head")}
+    for name, tamper in (("tampered", True), ("fault", False)):
+        shutil.copytree(store, at(f"aot_{name}"))
+        if tamper:
+            header = ExecutableStore(at("aot_tampered")).header_path("int8_head")
+            with open(header) as f:
+                entry = json.load(f)
+            with open(header, "w") as f:
+                json.dump({**entry, "torch_version": "0.0.0"}, f)
+    # (b)-(e) together
+    runs.update(finish([
+        start("b", "cli", "mnist", *train, "--save-model", "--aot-cache", store,
+              "--serve-prewarm", "--telemetry-dir", at("b_tel")),
+        start("fused", "cli", "mnist", "--fused", *train, "--aot-cache", store),
+        start("handoff", "serve", store, "handoff", toolkit=False),
+        start("pool", "serve", store, "pool", toolkit=False),
+        start("tampered", "serve", at("aot_tampered"), "tampered"),
+        start("fault", "serve", at("aot_fault"), "fault")]))
+    answers = {name: dict(np.load(at(f"{name}.json.npz"))) for name in
+               ("handoff", "pool", "tampered", "fault")}
+    a, b, steps = runs["a"], runs["b"], VIT_PAR_STEPS
+    ok = {}
+    ok["a_cold"] = {
+        "misses": origins(a) == {"adadelta": "miss", "int8_head": "miss"},
+        "two_nvcc_runs": a["builds"] == 2,
+        "outcome_counter": 'aot_executables_total{outcome="miss"} 2' in prom("a"),
+        "delta_once_a_step": a["launches"]["adadelta_delta"] == steps,
+        "entries_written": all(e is not None for e in cold.values()),
+        "flagless_from_the_build_store": _build.origin("adadelta") in ("hit", "miss")
+        and os.path.dirname(_build._loaded["adadelta"]._name)
+        == _build.build_store().directory,
+        "flagless_delta_once_a_step": references["adadelta_delta"] == 2 * steps}
+    ok["b_warm"] = {
+        "hits": origins(b) == {"adadelta": "hit", "int8_head": "hit"},
+        "no_nvcc_run": b["builds"] == 0,
+        "outcome_counter": 'aot_executables_total{outcome="hit"} 2' in prom("b"),
+        "the_cold_libraries": all(
+            loaded(b, n, "sha256") == loaded(a, n, "sha256") == cold[n]["sha256"]
+            for n in cold),
+        "stdout_equal": b["stdout"] == a["stdout"] == stdout["flagless"] != "",
+        "model_equal": saved("b") == saved("a") == saved("flagless"),
+        "delta_once_a_step": b["launches"]["adadelta_delta"] == steps}
+    fused, serving = runs["fused"], runs["handoff"]["cli"]
+    ok["b_fused"] = {
+        "hit": origins(fused) == {"adadelta": "hit"} and fused["builds"] == 0,
+        "stdout_equal": fused["stdout"] == stdout["flagless_fused"] != "",
+        "delta_once_a_step": fused["launches"]["adadelta_delta"] == steps,
+        "overlap_ratio_recorded": isinstance(fused["timings"]["startup_overlap_ratio"], float)}
+    handoff, pool = runs["handoff"], runs["pool"]
+    ref = answers["handoff"]
+    int8_keys = [k for k in ref if k.startswith("int8_")]
+    ok["c_handoff"] = {
+        "cli_no_nvcc_run": serving["rc"] == 0 and serving["builds"] == 0
+        and origins(serving) == {"int8_head": "hit"}
+        and ", 0 nvcc builds (AOT cache " in serving["stdout"],
+        # the CLI's warmup (8 int8 rungs) and gate
+        "cli_int8_launches": serving["int8_head_launches"] == 9,
+        "engines_no_nvcc_run": handoff["builds"] == 0,
+        "pool_hit": pool["builds"] == 0 and origins(pool) == {"int8_head": "hit"},
+        "the_cold_library": all(loaded(r, "int8_head", "sha256") == cold["int8_head"]["sha256"]
+                                for r in (serving, handoff, pool)),
+        "replicas_equal_engine": all(
+            np.array_equal(answers["pool"][f"r{i}_{k}"], ref[k])
+            for i in range(POOL_REPLICAS) for k in int8_keys),
+        "int8_launches": all(r["int8_head_launches"] == r["int8_head_expected"]
+                             for r in (handoff, pool))}
+    ok["d_fallback"] = {}
+    for name in ("tampered", "fault"):
+        run, rewritten = runs[name], ExecutableStore(at(f"aot_{name}"))
+        entry = rewritten.entry("int8_head")
+        ok["d_fallback"][name] = {
+            "fallback": origins(run) == {"int8_head": "fallback"} and run["builds"] == 1,
+            "rewritten": entry["file"] != cold["int8_head"]["file"]
+            and entry["file"] == loaded(run, "int8_head", "file")
+            and entry["sha256"] == _sha256(at(f"aot_{name}", entry["file"]))
+            and all(entry[k] == v for k, v in rewritten.material("int8_head").items()),
+            "fired": run["fired"] == ({"fail:aot_load:count=1": 1} if name == "fault" else {}),
+            "answers_equal": all(np.array_equal(answers[name][k], ref[k]) for k in ref),
+            "int8_launches": run["int8_head_launches"] == run["int8_head_expected"]}
+    ok["e_variants"] = {"serial_warmup": pool["serial_warmup_equal"],
+                        "no_device_stage": handoff["no_device_stage_equal"]}
+    launches = {
+        "int8_head": serving["int8_head_launches"] + sum(
+            runs[n]["int8_head_launches"] for n in ("handoff", "pool", "tampered", "fault")),
+        "adadelta_delta": sum(runs[n]["launches"]["adadelta_delta"]
+                              for n in ("a", "b", "fused"))}
+    compile_seconds = {name: [ln for ln in prom(name) if ln.startswith("compile_seconds_total")]
+                       for name in ("a", "b")}
+    record = {
+        "nvidia_smi": smi,
+        "first_step_s": {"cold": a["first_line_s"]["Train Epoch"],
+                         "warm": b["first_line_s"]["Train Epoch"]},
+        "torch_imported_s": {n: r["torch_imported_s"] for n, r in runs.items()},
+        "cuda_ready_s": {n: r["cuda_ready_s"] for n, r in runs.items()},
+        "flagless_in_process_s": flagless_s,
+        "warmup_done_s": {"cold_tampered": runs["tampered"]["warmup_done_s"],
+                          "cold_fault": runs["fault"]["warmup_done_s"],
+                          "warm_cli_warmup_and_gate": serving["done_s"],
+                          "warm_engine_after_the_cli": handoff["warmup_done_s"],
+                          "warm_pool": pool["warmup_done_s"]},
+        "compile_seconds_total": compile_seconds,
+        "library_seconds": {n: runs[n]["library_seconds"] for n in runs},
+        "fused": fused["timings"],
+        "library_bytes": {n: e["bytes"] for n, e in cold.items()},
+        "concurrent": {"a": ["this process: flagless, flagless_fused"],
+                       "b": ["fused", "handoff", "pool", "tampered", "fault"]}}
+    emit({"phase": "compile", "steps_an_epoch": steps, "checks": ok, "record": record,
+          "launches": launches, "reference_launches": references,
+          "seconds": time.perf_counter() - t_phase})
+    for name, checks in ok.items():
+        flat = checks if name != "d_fallback" else {f"{k}.{c}": v for k, d in checks.items()
+                                                    for c, v in d.items()}
+        check(all(flat.values()), f"compile {name}: {checks}")
     return launches, references
 
 
@@ -4179,7 +4706,9 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
           f"fused (e): the capture recorded {run.recorded}")
     check(on_device == counted == FUSED_PROFILE_STEPS,
           f"fused (e): row 3 on the device {on_device} times, counted {counted}, "
-          f"in {FUSED_PROFILE_STEPS} replays")
+          f"in {FUSED_PROFILE_STEPS} replays ({profile['device_ops_per_step']} device "
+          f"ops a replay, {profile['launches_without_a_device_record']} launches with no "
+          f"device record, {profile['prefix_records_lost']} of the prefix's lost)")
     local = since(start)
     emit({"phase": "fused", "captured_vs_eager": captured, "cli": cli, "prefetch": prefetch,
           "mnist_ddp": ddp, "profile_pallas_opt": profile, "launches": path,
@@ -5624,15 +6153,24 @@ def main() -> int:
         res_launches, res_references = resilience_phase(torch, np, workdir)
     check(res_launches["adadelta_delta"] > 0, "the resilience path never launched "
           "adadelta_delta")
+
+    # 21. compile: the startup path, a fresh kernel-library store; rows 1
+    # and 3 counted by its processes, the flagless references apart
+    with tempfile.TemporaryDirectory() as workdir:
+        comp_launches, comp_references = compile_phase(torch, np, workdir, smi)
+    for k in ("int8_head", "adadelta_delta"):
+        check(comp_launches[k] > 0, f"the compile path never launched {k}")
     top = by_n[str(TIMED_ROWS[-1])]
     kernels = [{
         "name": "int8_head", "route": "cuda",
         "source": "pytorch_mnist_ddp_tpu_torch/csrc/int8_head.cu",
         "replaces": "pytorch_mnist_ddp_tpu/ops/pallas_infer.py:61",
-        "launches": launches + stack_launches["int8_head"] + pool_launches["int8_head"],
+        "launches": (launches + stack_launches["int8_head"] + pool_launches["int8_head"]
+                     + comp_launches["int8_head"]),
         "launches_by_phase": {"engine_server": launches,
                               "serving_stack": stack_launches["int8_head"],
-                              "pool": pool_launches["int8_head"]},
+                              "pool": pool_launches["int8_head"],
+                              "compile": comp_launches["int8_head"]},
         "serving_stack_reference_launches": stack_references["int8_head"],
         "pool_reference_launches": pool_references["int8_head"],
         "max_abs_err": max(kernel_err.values()),
@@ -5650,15 +6188,18 @@ def main() -> int:
             "source": "pytorch_mnist_ddp_tpu_torch/csrc/adadelta.cu",
             "replaces": ADADELTA_REPLACES[name],
             "launches": (train_launches[name] + fused_launches[name] + ddp_launches[name]
-                         + state_launches[name] + res_launches[name]),
+                         + state_launches[name] + res_launches[name]
+                         + comp_launches.get(name, 0)),
             "launches_by_phase": {**{phase: n[name] for phase, n in by_phase.items()},
                                   "fused": fused_launches[name], "ddp": ddp_launches[name],
                                   "train_state": state_launches[name],
-                                  "resilience": res_launches[name]},
+                                  "resilience": res_launches[name],
+                                  "compile": comp_launches.get(name, 0)},
             "fused_reference_launches": fused_references[name],
             "ddp_reference_launches": ddp_references[name],
             "train_state_reference_launches": state_references[name],
             "resilience_reference_launches": res_references[name],
+            "compile_reference_launches": comp_references.get(name, 0),
             "max_abs_err": adadelta_err[name], **t,
         })
     train_shape = FLASH_MAIN["train"]
@@ -5700,4 +6241,8 @@ if __name__ == "__main__":
         sys.exit(state_rank_program(sys.argv[2:]))
     if sys.argv[1:2] == ["--fused-rank"]:
         sys.exit(fused_rank_program(sys.argv[2:]))
+    if sys.argv[1:2] == ["--compile-cli"]:
+        sys.exit(compile_cli_program(sys.argv[2:]))
+    if sys.argv[1:2] == ["--compile-serve"]:
+        sys.exit(compile_serve_program(sys.argv[2:]))
     sys.exit(main())

@@ -20,7 +20,13 @@ Prometheus file; the resilient runtime's flags (``--checkpoint-every-steps``,
 ``--anomaly-*``, ``--step-timeout-s``/``--stall-abort``) and ``--chaos``
 (a fault schedule, ``serving/faults.py``) are the JAX CLI's, with its
 defaults; an exhausted anomaly budget ends the run with one diagnostic
-on stderr and exit 70.
+on stderr and exit 70.  ``--aot-cache DIR`` keeps the run's kernel
+libraries in a gated store (``compile/aot.py``; point it only at a
+directory you own: a library runs code when loaded), ``--serve-prewarm``
+adds the serving engine's, so a server on the same directory runs
+``nvcc`` zero times, and ``--compile-cache-dir DIR`` moves the ungated
+build directory (``utils/compile_cache.py``); the printed lines and the
+saved files are the same with and without them.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import sys
 from .resilience import EXIT_ANOMALY, AnomalyBudgetExhausted
 from .serving import faults
 from .trainer import fit
+from .utils.compile_cache import enable_persistent_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -181,6 +188,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "continuation with FP-level drift (reductions "
                         "re-associate), not bit-equality; without this "
                         "flag the world-fingerprint mismatch is refused")
+    p.add_argument("--aot-cache", type=str, default=None, metavar="DIR",
+                   help="keep the run's kernel libraries (the --pallas-opt "
+                        "update's) in a gated store in DIR (compile/aot.py "
+                        "ExecutableStore): a warm start loads them with no "
+                        "nvcc run, rebuilding on any source/toolkit/torch/"
+                        "card mismatch; use a directory you own (a library "
+                        "runs code when loaded)")
+    p.add_argument("--serve-prewarm", action="store_true", default=False,
+                   help="(per-batch, with --aot-cache) also build the kernel "
+                        "library the serving engine's default configuration "
+                        "launches (int8_head, --int8-impl pallas) into the "
+                        "store: a server on the same --aot-cache then runs "
+                        "nvcc zero times (the train-to-serve handoff)")
+    p.add_argument("--compile-cache-dir", type=str, default=None,
+                   metavar="DIR",
+                   help="directory the kernel libraries are built into and "
+                        "loaded from (default: build/torch_kernels in the "
+                        "checkout); naming one explicitly also sets it up "
+                        "on the CPU, where nothing is built")
     p.add_argument("--prefetch-depth", type=int, default=2, metavar="N",
                    help="input batches assembled and copied to the device "
                         "ahead of the step loop (per-batch path; "
@@ -217,11 +243,20 @@ def run_cli(args, body) -> None:
             faults.uninstall()
 
 
+def run(args, timings: dict | None = None):
+    """The CLI's body for parsed ``args``: the build directory, then the
+    run; returns ``fit``'s model and state (``timings`` is ``fit``'s)."""
+    device = "cpu" if args.no_accel else None
+    # Before the first library loads (the JAX CLI's order).
+    enable_persistent_cache(args.compile_cache_dir, force=args.compile_cache_dir is not None,
+                            device=device)
+    # The reference saves to mnist_cnn.pt (mnist.py:133).
+    return fit(args, device, save_path="mnist_cnn.pt", timings=timings)
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    # The reference saves to mnist_cnn.pt (mnist.py:133).
-    run_cli(args, lambda: fit(args, "cpu" if args.no_accel else None,
-                              save_path="mnist_cnn.pt"))
+    run_cli(args, lambda: run(args))
 
 
 if __name__ == "__main__":

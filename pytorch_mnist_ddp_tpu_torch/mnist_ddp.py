@@ -14,8 +14,9 @@ refused with ``--pallas-opt``, with the JAX trainer's text.  ``--tp N``
 shards the dense head over N ranks of a model group (``parallel/tp.py``)
 and ``--pp`` pipelines the two stages over two (``parallel/pp.py``); both
 need a world of more than one rank and refuse what the JAX trainer
-refuses with them.  The telemetry, resilience and ``--chaos`` flags are
-``mnist.py``'s; ``--loss-guard`` is refused on more than one process,
+refuses with them.  The telemetry, resilience, ``--chaos`` and startup
+(``--aot-cache``, ``--serve-prewarm``, ``--compile-cache-dir``; every
+rank shares the one store) flags are ``mnist.py``'s; ``--loss-guard`` is refused on more than one process,
 with the JAX trainer's text.  ``RANK``/``WORLD_SIZE``
 (the launcher's) or ``SLURM_PROCID`` in the environment make this process
 one rank of a world (``parallel/distributed.py``): NCCL on the card,
@@ -35,6 +36,7 @@ from .mnist import build_parser as mnist_parser
 from .mnist import run_cli
 from .parallel.distributed import init_distributed_mode
 from .trainer import fit
+from .utils.compile_cache import enable_persistent_cache
 from .utils.logging import total_time_line
 
 
@@ -81,6 +83,8 @@ def run(args, timings: dict | None = None):
     """The CLI's body for parsed ``args``: form the world, train, save;
     returns ``fit``'s model and state (``timings`` is ``fit``'s)."""
     device = "cpu" if args.no_accel else None
+    enable_persistent_cache(args.compile_cache_dir, force=args.compile_cache_dir is not None,
+                            device=device)
     dist = init_distributed_mode(args.dist_url, args.rdzv_timeout_s, args.rdzv_attempts,
                                  device=device)
     # The reference saves mnist_cnn.pt distributed and mnist_cnn_.pt not

@@ -1,7 +1,8 @@
 """Serving CLI: ``python -m pytorch_mnist_ddp_tpu_torch.serving``.
 
 The JAX package's serving CLI: its flags, refusals and lines (the warmup
-lines aside: they count rungs, the port has no traces to count).
+lines aside: they count rungs and kernel libraries, the port has no
+traces or executables to count).
 Startup order: validate the flags (a config error fails before the
 engine is built), load the checkpoint, the registry's default version or
 seed-init weights, warm every (dtype, bucket) rung, gate the
@@ -17,9 +18,18 @@ replica i on ``cuda:(i % device_count)`` each on its own CUDA stream
 ``--hedge``/``--hedge-delay-ms``) and the replica supervisor
 (``--no-supervise``, ``--stall-timeout-s``, ``--restart-budget``).
 ``--replica-shapes`` takes all-``dp`` plans; a sharded entry (tpK, vtpK,
-epK, ppK) is refused by name (exit 2).  The fleet and the ``compile/``
-analogue are not ported yet: their flags parse and are refused with an
-explicit error (exit 2).
+epK, ppK) is refused by name (exit 2).
+
+The startup flags (``compile/``): ``--aot-cache DIR`` keeps the built
+kernel libraries in a gated store (``compile/aot.py``; a warm start runs
+no ``nvcc``; point it only at a directory you own: a library runs code
+when loaded), shared by every replica; ``--cache-dir DIR`` moves the
+build directory, a store of the same kind that reports no outcome
+(``utils/compile_cache.py``); ``--serial-warmup`` warms a pool's
+replicas one after another instead of together (one engine always warms
+its rungs in turn, on its one stream); ``--no-device-stage`` stages
+batches in pageable memory with a blocking copy.  The fleet is not ported yet: its
+flags parse and are refused with an explicit error (exit 2).
 """
 
 from __future__ import annotations
@@ -31,15 +41,13 @@ import threading
 
 # Flags of the JAX CLI this port refuses, by the part they belong to.
 NOT_PORTED = {
-    "the compile/ analogue (CUDA-graph capture, the AOT store, warm start)": (
-        "--aot-cache", "--cache-dir", "--serial-warmup", "--no-device-stage"),
     "the serving fleet": (
         "--fleet", "--fleet-base-port", "--fleet-restart-budget",
         "--fleet-heartbeat-timeout-s", "--fleet-ready-timeout-s", "--autoscale",
         "--scale-high", "--scale-low", "--scale-min", "--scale-max",
         "--scale-window-s", "--scale-cooldown-s"),
 }
-_SWITCHES = ("--serial-warmup", "--no-device-stage", "--autoscale")
+_SWITCHES = ("--autoscale",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -173,6 +181,35 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--warmup-only", action="store_true",
         help="warm every rung, run the parity gates, exit without serving",
+    )
+    parser.add_argument(
+        "--aot-cache", default=None, metavar="DIR",
+        help="keep the built kernel libraries in DIR (compile/aot.py "
+        "ExecutableStore, shared by every replica, its hits and misses "
+        "counted): a warm start loads them with no nvcc run, behind a "
+        "gate that rebuilds on any source/torch/driver/card mismatch; "
+        "use a directory you own",
+    )
+    parser.add_argument(
+        "--cache-dir", default=None,
+        help="the build directory's store, where the kernel libraries are "
+        "built and loaded without --aot-cache (default: build/torch_kernels "
+        "in the checkout); naming one "
+        "explicitly also sets it up on the CPU, where nothing is built "
+        "— same operator-intent semantics as the trainer CLIs' "
+        "--compile-cache-dir",
+    )
+    parser.add_argument(
+        "--serial-warmup", action="store_true",
+        help="warm a pool's replicas one after another instead of "
+        "concurrently; slower startup, deterministic build order (one "
+        "engine warms its rungs in turn either way: it has one stream)",
+    )
+    parser.add_argument(
+        "--no-device-stage", action="store_true",
+        help="stage padded batches in pageable host memory and copy them "
+        "to the card blocking, instead of from pinned buffers by a "
+        "non_blocking copy on the engine's stream (the default)",
     )
     parser.add_argument(
         "--replicas", type=int, default=None, metavar="N",
@@ -327,9 +364,17 @@ def main(argv: list[str] | None = None) -> int:
     from ..liveness import Heartbeat
     from ..obs.events import open_sink
     from ..obs.spans import span
+    from ..ops import _build
+    from ..utils.compile_cache import enable_persistent_cache
     from .engine import InferenceEngine
     from .metrics import ServingMetrics
     from .server import make_server
+
+    if args.cache_dir is not None:
+        # Before the first library loads, or the warmup misses it.
+        cache_dir = enable_persistent_cache(args.cache_dir, force=True, device=args.device)
+        print(f"persistent compile cache: {cache_dir}" if cache_dir else
+              "persistent compile cache: disabled (cache dir not writable)")
 
     factory = InferenceEngine
     pool_kwargs = {}
@@ -350,6 +395,8 @@ def main(argv: list[str] | None = None) -> int:
         packed=args.packed,
         metrics=metrics,
         int8_impl=args.int8_impl,
+        aot_cache=args.aot_cache,
+        device_stage=not args.no_device_stage,
         **pool_kwargs,
     )
     registry = entry = canary_version = None
@@ -392,19 +439,40 @@ def main(argv: list[str] | None = None) -> int:
     if sink:
         print(f"serving telemetry: {sink.path}")
     where = (f"x {engine.n_replicas} replicas (devices {[str(d) for d in engine.devices]})"
-             if pool_mode else f"on {engine.device}")
+             if pool_mode else
+             f"serially on {engine.device}")
+    store_note = ""
+    if args.aot_cache:
+        store_note = f" ({'shared ' if pool_mode else ''}AOT cache {args.aot_cache})"
     print(
         f"warming buckets {list(engine.buckets)} x dtypes {list(engine.dtypes)} {where}"
         + (" (packed)" if engine.packed else "")
         + (" (BatchNorm checkpoint)" if engine.use_bn else "")
+        + store_note
     )
 
     def on_rung(dtype, bucket, done, replica=None):
         tag = f"[{replica}] " if replica else ""
         print(f"  {tag}{dtype:>4s} bucket {bucket:4d}: ready ({done} rungs warmed)", flush=True)
 
+    builds = _build.BUILDS
+    # The warmup span, and the compile service's per-library and per-rung
+    # compile spans, land in the JSONL telemetry (and on the registry
+    # /metrics serves), so a cold start's cost is observable.
     with span("warmup", sink=sink, registry=metrics.registry):
-        engine.warmup(on_rung=on_rung)
+        engine.warmup(on_rung=on_rung, sink=sink, **(
+            {"parallel": not args.serial_warmup} if pool_mode else {}))
+    n_replicas = engine.n_replicas if pool_mode else 1
+    libraries = engine.libraries
+    print(
+        f"warmup verified: {n_replicas * len(engine.buckets) * len(engine.dtypes)} rungs "
+        f"({len(engine.buckets)} buckets x {len(engine.dtypes)} dtypes"
+        + (f" x {n_replicas} replicas" if pool_mode else "")
+        + f"), {len(libraries)} kernel libraries ready"
+        + (" (" + ", ".join(f"{lib}: {_build.origin(lib)}" for lib in libraries) + ")"
+           if libraries else "")
+        + f", {_build.BUILDS - builds} nvcc builds" + store_note
+    )
     gates = engine.verify_parity(sink=sink)
     for name, result in gates.items():
         print(

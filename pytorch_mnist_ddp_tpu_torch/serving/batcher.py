@@ -344,13 +344,15 @@ class MicroBatcher:
         self._window = threading.Semaphore(max_inflight)
         self._completions: queue.Queue[_InFlight | None] = queue.Queue()
         # One spare slot beyond the window: batch N+1 stages while the
-        # window is still full.
+        # window is still full.  Pinned on the card unless the engine's
+        # device staging is off (--no-device-stage).
         device = getattr(engine, "device", None)
         self._staging = StagingPool(
             engine.buckets,
             INPUT_SHAPE,
             slots=max_inflight + 1,
-            pin=device is not None and device.type == "cuda",
+            pin=(device is not None and device.type == "cuda"
+                 and getattr(engine, "device_stage", True)),
         )
         # Packed-split reassembly (completion worker only): id(request)
         # -> [request, out buffer, rows filled].

@@ -47,6 +47,27 @@ work, a completion wait measures its own batch only, and warmup waits on
 the engine's stream, not on the whole card.  ``torch.cuda.Stream`` hands
 out a card's 32 pooled streams in turn, so 32 streams taken later an
 engine's stream comes round again; the pool refuses replicas that share one.
+
+Warmup (``compile/``): every (variant, bucket) rung is a
+:class:`~..compile.Program` named as the JAX engine's warmup jobs
+(``predict_step[{bucket}]`` for f32, ``predict_step[{dtype}][{bucket}]``
+for the others): the kernel libraries it launches (``int8_head`` for the
+int8 variant under ``int8_impl="pallas"`` on the card; none on the CPU or
+for f32/bf16), loaded through the ``aot_cache`` store when there is one,
+and a warm step that runs the rung once and waits on the engine's stream.
+The rungs run in ladder order on the calling thread: one engine has one
+stream, and at most one library (``int8_head``), which its first int8
+rung loads, so it has nothing to build concurrently; that choice is the
+replica pool's (``EnginePool.warmup``, ``--serial-warmup``).  Each rung
+is a ``compile`` span and lands on ``compile_seconds_total{fn=}``.  A
+canary twin shares its base variant's Programs (the JAX engine's shared
+grid), so ``install_version`` runs no rung and adds no store entry:
+libraries do not depend on weights.
+
+Device staging (``device_stage``, on by default, as the JAX engine's auto
+default is on for one process): a batch goes from a pinned host buffer to
+the card by a ``non_blocking`` copy on the engine's stream.  Off
+(``--no-device-stage``), the buffers are pageable and the copy blocks.
 """
 
 from __future__ import annotations
@@ -58,10 +79,13 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from ..compile import ExecutableStore, Program
+from ..compile.service import timed
 from ..data.transforms import normalize
 from ..device import resolve_device
 from ..models.net import CONV_IMPLS, INPUT_SHAPE, NUM_CLASSES, Net
 from ..models.quant import INT8_IMPLS, qparams_to, quantize_params
+from ..ops import _build
 from ..utils.checkpoint import jax_stats_from_torch, load_inference_state
 from ..utils.convert import BN_LAYERS, LAYERS, has_bn, jax_state_from_torch
 from .buckets import (
@@ -167,14 +191,15 @@ class DeviceResult:
 
 
 class _Variant:
-    __slots__ = ("name", "predict", "params", "verified", "parity")
+    __slots__ = ("name", "predict", "params", "verified", "parity", "libraries")
 
-    def __init__(self, name, predict, params, verified=False):
+    def __init__(self, name, predict, params, verified=False, libraries=()):
         self.name = name
         self.predict = predict
         self.params = params
         self.verified = verified
         self.parity: dict | None = None
+        self.libraries = tuple(libraries)  # kernel libraries its forward launches
 
 
 class InferenceEngine:
@@ -208,6 +233,15 @@ class InferenceEngine:
         ``"dot"`` (library GEMMs).
     version:
         The registry version of the served weights (``""`` without one).
+    aot_cache:
+        Directory of the kernel-library store (``compile/aot.py``), or an
+        ``ExecutableStore`` to share (the replica pool passes one to every
+        engine): a warm start loads the libraries with no ``nvcc`` run.
+        Omitted = the build directory (``ops/_build.py``).
+    device_stage:
+        Stage batches in pinned buffers and copy them ``non_blocking`` on
+        the engine's stream (the default); False = pageable buffers and a
+        blocking copy.
     """
 
     def __init__(
@@ -223,9 +257,12 @@ class InferenceEngine:
         metrics: ServingMetrics | None = None,
         int8_impl: str = "pallas",
         version: str = "",
+        aot_cache: str | ExecutableStore | None = None,
+        device_stage: bool = True,
     ):
         self.version = str(version)
         self.device = resolve_device(device)
+        self.device_stage = bool(device_stage)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         # Warmup rungs run, ever: a pool's restart or add must run none.
         self.rungs_run = 0
@@ -266,6 +303,12 @@ class InferenceEngine:
         self._shapes = {k: tuple(v.shape) for k, v in state.items()}
         self._model = self._place(state)
         self.metrics = metrics
+        self.store = aot_cache
+        if aot_cache is not None and not isinstance(aot_cache, ExecutableStore):
+            self.store = ExecutableStore(
+                aot_cache, registry=metrics.registry if metrics is not None else None)
+        # (base variant, bucket) -> its warmup Program; canary twins share them
+        self._programs: dict[tuple[str, int], Program] = {}
         make_default = make_packed_predict_step if self.packed else make_predict_step
         self._variants: dict[str, _Variant] = {
             DEFAULT_DTYPE: _Variant(
@@ -282,9 +325,8 @@ class InferenceEngine:
         self.warmed = False
         # Direct-call staging (predict_logits): one slot per bucket, read
         # back before the next chunk stages.
-        self._staging = StagingPool(
-            self.buckets, INPUT_SHAPE, slots=1, pin=self.device.type == "cuda"
-        )
+        self._staging = StagingPool(self.buckets, INPUT_SHAPE, slots=1,
+                                    pin=self.device.type == "cuda" and self.device_stage)
 
     # -- weights ------------------------------------------------------------------
 
@@ -337,8 +379,10 @@ class InferenceEngine:
                     "serve BN checkpoints at f32 or bf16"
                 )
             make = make_packed_int8_predict_step if self.packed else make_int8_predict_step
+            kernel = self.int8_impl == "pallas" and self.device.type == "cuda"
             return _Variant(name, make(self.int8_impl),
-                            self._variant_weights(name, state, self._model))
+                            self._variant_weights(name, state, self._model),
+                            libraries=("int8_head",) if kernel else ())
         raise ValueError(
             f"unknown serving dtype {name!r}; have {(DEFAULT_DTYPE, *VARIANT_DTYPES)}"
         )
@@ -362,6 +406,11 @@ class InferenceEngine:
         return cls(net.state_dict(), **kwargs)
 
     # -- variant surface --------------------------------------------------------
+
+    @property
+    def libraries(self) -> tuple[str, ...]:
+        """The kernel libraries this engine's forwards launch."""
+        return tuple(sorted({lib for v in self._variants.values() for lib in v.libraries}))
 
     @property
     def dtypes(self) -> tuple[str, ...]:
@@ -398,27 +447,48 @@ class InferenceEngine:
         buffer as one live segment.  The variant's weights are read once."""
         params = v.params
         with self.on_stream(), torch.inference_mode():
-            x = torch.as_tensor(staged).to(self.device, non_blocking=True)
+            x = torch.as_tensor(staged).to(self.device, non_blocking=self.device_stage)
             if not self.packed:
                 return v.predict(params, x)
             if seg is None:
                 seg = np.zeros(len(x), np.int32)
-            seg = torch.as_tensor(seg).to(self.device, non_blocking=True)
+            seg = torch.as_tensor(seg).to(self.device, non_blocking=self.device_stage)
             return v.predict(params, x, seg)
 
-    def warmup(self, on_rung=None) -> list[tuple[str, int]]:
-        """Run every (variant, bucket) rung once — cuDNN's algorithm
-        choice, the kernel build and the first launch all happen here, not
-        on a request.  ``on_rung(dtype, bucket, rungs_done)`` fires after
-        each.  Returns the rungs in order.  Each rung waits on this
-        engine's stream only, never on the whole card."""
+    def _warm_rung(self, name: str, b: int) -> None:
+        """A rung's warm step: variant ``name`` once on a zero batch of
+        ``b`` rows, waited on this engine's stream only."""
+        self._run_variant(self._variants[name], np.zeros((b, *INPUT_SHAPE), np.float32))
+        if self.stream is not None:
+            self.stream.synchronize()
+        self.rungs_run += 1
+
+    def _program_for(self, name: str, b: int) -> Program:
+        """The (variant, bucket) rung as a :class:`~..compile.Program`; a
+        canary twin's is its base variant's."""
+        base = name.split(VERSION_SEP)[0]
+        prog = self._programs.get((base, b))
+        if prog is None:
+            label = f"predict_step[{b}]" if base == DEFAULT_DTYPE else f"predict_step[{base}][{b}]"
+            prog = Program(label, self._variants[base].libraries, warm=self._warm_rung,
+                           example_args=(base, b), store=self.store)
+            self._programs[(base, b)] = prog
+        return prog
+
+    def warmup(self, on_rung=None, sink=None) -> list[tuple[str, int]]:
+        """Build every (variant, bucket) rung's Program once, in ladder
+        order: its kernel libraries (through the store with ``aot_cache``),
+        then its warm step (cuDNN's plan choice and the first launch happen
+        here, not on a request), which waits on this engine's stream only.
+        ``on_rung(dtype, bucket, rungs_done)`` fires after each.  ``sink``
+        takes the ``compile`` spans.  Returns the rungs in order."""
+        registry = self.metrics.registry if self.metrics is not None else None
         done: list[tuple[str, int]] = []
-        for name, v in self._variants.items():
+        for name in self._variants:
             for b in self.buckets:
-                self._run_variant(v, np.zeros((b, *INPUT_SHAPE), np.float32))
-                if self.stream is not None:
-                    self.stream.synchronize()
-                self.rungs_run += 1
+                prog = self._program_for(name, b)
+                if not prog.built:
+                    timed(prog.name, prog.build, registry=registry, sink=sink)
                 done.append((name, b))
                 if on_rung is not None:
                     on_rung(name, b, len(done))
@@ -544,6 +614,7 @@ class InferenceEngine:
             variants[key] = _Variant(
                 key, base.predict, self._variant_weights(name, state, model),
                 verified=base.verified if verified is None else verified,
+                libraries=base.libraries,
             )
         # One reference swap: a reader sees the old table or the new one.
         self._variants = variants

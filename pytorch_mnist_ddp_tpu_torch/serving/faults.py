@@ -9,9 +9,11 @@ flag installs a :class:`FaultInjector`.  The trainer sites are ``step``
 ``ckpt_save`` (inside the mid-epoch checkpointer's rotate-to-publish
 window, ``resilience/checkpoint.py``).  The serving sites parse and
 fire as in the JAX package: the batcher (``serving/batcher.py``) calls
-``launch`` once a dispatch and ``complete`` once a read-back; ``warmup``
-and ``aot_load`` belong to the replica pool and the ``compile/``
-analogue, which the port does not have yet.
+``launch`` once a dispatch and ``complete`` once a read-back, the
+replica pool (``serving/pool.py``) ``warmup`` once a replica's warmup,
+and the kernel-library store (``compile/aot.py``) ``aot_load`` once it
+reads a stored entry, before the gate: a fired clause makes that load a
+``fallback`` (a fresh build that rewrites the entry).
 
 Triggers are counted in events (``after=``/``count=``), so a schedule
 fires at the same events on every run; the only randomness (``p=``)

@@ -12,6 +12,13 @@ admission surface.
   owns a CUDA stream, so two replicas sharing a card each stage, compute
   and read back on their own stream.  The checkpoint is read once on the
   host; each engine places its own copy of the weights.
+- **One shared store.**  With ``aot_cache`` every replica's engine
+  loads its kernel libraries through one
+  :class:`~..compile.ExecutableStore`: the first replica to need a
+  library loads (or builds) it, the others reuse the process's copy, so a
+  warm pool start runs no ``nvcc`` and records one outcome a library.  A
+  store entry is a library, not a (replica, dtype, bucket) rung, so the
+  JAX pool's store sizing (``_check_store_sizing``) has no counterpart.
 - **Elasticity.**  ``drain(name)`` delegates to the router (unroutable
   first, then the batcher's drain); the engine stays warm, so ``add(name)``
   builds only a fresh batcher: no warmup rung, no kernel build, no parity
@@ -39,6 +46,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from ..compile import ExecutableStore
 from ..liveness import BackoffLadder
 from .batcher import MicroBatcher
 from .devices import parse_replica_shapes, plan_replica_devices, replica_devices, visible_devices
@@ -373,6 +381,8 @@ class EnginePool:
     with ``replicas``; only ``dp`` entries are ported).  Replicas that
     share a card must each get a stream of their own, and PyTorch hands
     out 32 a card in turn: more replicas than that on one card raise.
+    ``aot_cache`` (a directory or a store) is shared by every replica;
+    ``device_stage`` is each engine's.
     """
 
     def __init__(
@@ -390,6 +400,8 @@ class EnginePool:
         packed: bool = False,
         int8_impl: str = "pallas",
         replica_shapes=None,
+        aot_cache: str | ExecutableStore | None = None,
+        device_stage: bool = True,
     ):
         pool = visible_devices(device)
         if replica_shapes is not None:
@@ -404,11 +416,15 @@ class EnginePool:
         else:
             assigned = replica_devices(replicas, pool)
         self.metrics = metrics if metrics is not None else ServingMetrics()
+        self.store = aot_cache
+        if aot_cache is not None and not isinstance(aot_cache, ExecutableStore):
+            self.store = ExecutableStore(aot_cache, registry=self.metrics.registry)
         self.engines = [
             InferenceEngine(
                 state_dict, device=dev, buckets=buckets, max_bucket=max_bucket,
                 compute_dtype=compute_dtype, conv_impl=conv_impl, dtypes=tuple(dtypes),
                 packed=packed, metrics=self.metrics, int8_impl=int8_impl, version=version,
+                aot_cache=self.store, device_stage=device_stage,
             )
             for dev in assigned
         ]
@@ -480,6 +496,10 @@ class EnginePool:
         return self.engines[0].packed
 
     @property
+    def libraries(self) -> tuple[str, ...]:
+        return self.engines[0].libraries
+
+    @property
     def use_bn(self) -> bool:
         return self.engines[0].use_bn
 
@@ -525,20 +545,27 @@ class EnginePool:
 
     # -- lifecycle ------------------------------------------------------------------
 
-    def warmup(self, on_rung=None) -> None:
-        """Warm every replica's dtype x bucket grid, the replicas
-        concurrently (each on its own stream).  ``on_rung(dtype, bucket,
-        pool_rungs, replica=name)`` reports progress across the whole
-        grid.  The ``warmup`` fault point fires once per replica first, so
-        a failed warmup surfaces instead of leaving an unwarmed replica to
-        serve."""
+    def warmup(self, on_rung=None, parallel: bool = True, sink=None) -> None:
+        """Warm every replica's dtype x bucket grid: with ``parallel``
+        (the default) the replicas concurrently, each on its own stream
+        (two replicas' first int8 rungs then load ``int8_head`` once, on
+        its per-source lock); without it (``--serial-warmup``) one
+        replica after another.  ``on_rung(dtype, bucket, pool_rungs,
+        replica=name)`` reports progress across the whole grid; ``sink``
+        takes the ``compile`` spans.  The ``warmup`` fault point fires
+        once per replica first, so a failed warmup surfaces instead of
+        leaving an unwarmed replica to serve."""
+        if not parallel or len(self.engines) == 1:
+            for i, engine in enumerate(self.engines):
+                self._warm_one(i, engine, on_rung, sink)
+            return
         with ThreadPoolExecutor(max_workers=len(self.engines)) as pool:
-            futures = [pool.submit(self._warm_one, i, engine, on_rung)
+            futures = [pool.submit(self._warm_one, i, engine, on_rung, sink)
                        for i, engine in enumerate(self.engines)]
             for f in futures:
                 f.result()  # the first warmup failure, raised here
 
-    def _warm_one(self, i: int, engine: InferenceEngine, on_rung) -> None:
+    def _warm_one(self, i: int, engine: InferenceEngine, on_rung, sink) -> None:
         name = _replica_name(i)
         fault_point("warmup", name)
 
@@ -546,7 +573,7 @@ class EnginePool:
             with self._rung_lock:  # one report at a time across replicas
                 on_rung(dtype, bucket, self.rungs_run(), replica=name)
 
-        engine.warmup(on_rung=None if on_rung is None else report)
+        engine.warmup(on_rung=None if on_rung is None else report, sink=sink)
 
     def verify_parity(self, tol=None, raise_on_failure: bool = False,
                       sink=None) -> dict[str, dict]:

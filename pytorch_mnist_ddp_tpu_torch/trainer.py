@@ -36,6 +36,19 @@ set, when a fault injector is installed (``--chaos``,
 ``serving/faults.py``), or when the supervising launcher exported a
 heartbeat file; a run with none of these builds no runtime and no sink,
 and its step loop reads nothing more from the device than before.
+
+Startup (``compile/``, the JAX trainer's): before step 0 the per-batch
+data-parallel path builds, inside a ``startup`` span and through
+:func:`~.compile.build_programs`, the :class:`~.compile.Program` of each
+step that launches a kernel library: ``train_step`` (``adadelta``) under
+``--pallas-opt`` on the card, and with ``--serve-prewarm`` the serving
+engine's ``int8_head``.  ``eval_step`` launches none, so unlike the JAX
+trainer's it has no Program and no ``compile_seconds_total`` label.  ``--fused`` runs the checkpoint's restore onto
+the card, the dataset's upload and the library's load as
+:class:`~.compile.StartupTasks` and records ``startup_overlap_ratio``.
+``--aot-cache DIR`` takes the libraries from a gated store
+(``compile/aot.py``).  The printed lines and the saved files are the same
+with and without these flags.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ import time
 
 import torch
 
+from .compile import CompileService, ExecutableStore, Program, StartupTasks, build_programs
 from .data.loader import DataLoader
 from .data.mnist import MNIST
 from .device import resolve_device
@@ -625,6 +639,27 @@ def _refuse_resilience(args, world: DistState, num_model: int) -> None:
         )
 
 
+def _refuse_serve_prewarm(args, num_model: int) -> None:
+    """The JAX trainer's refusals of ``--serve-prewarm``, with its texts:
+    the handoff needs a store and rides the per-batch data-parallel
+    loop."""
+    if not getattr(args, "serve_prewarm", False):
+        return
+    if not getattr(args, "aot_cache", None):
+        raise ValueError(
+            "--serve-prewarm persists the serving predict grid as "
+            "serialized AOT executables; add --aot-cache DIR"
+        )
+    if getattr(args, "fused", False):
+        raise ValueError(
+            "--serve-prewarm rides the per-batch step loop; drop --fused"
+        )
+    if num_model > 1:
+        raise ValueError(
+            "--serve-prewarm rides the DP paths; drop --tp/--pp"
+        )
+
+
 def _host_state(model: Net, state: TrainState, zero: bool, world: DistState) -> TrainArchive:
     """The training state as an archive holds it, on the host: the
     parameters, the accumulators (ZeRO's chunks gathered per leaf, a
@@ -688,7 +723,9 @@ def _elastic_archive(args) -> str | None:
 def _fit(args, device, save_path, timings, world: DistState,
          registry=None, telemetry: Telemetry | None = None) -> tuple[Net, TrainState]:
     tp_degree, pp_on = _model_axis(args, world)
-    _refuse_resilience(args, world, tp_degree if tp_degree > 1 else 2 if pp_on else 1)
+    num_model = tp_degree if tp_degree > 1 else 2 if pp_on else 1
+    _refuse_resilience(args, world, num_model)
+    _refuse_serve_prewarm(args, num_model)
     if getattr(args, "pregather", False) and not getattr(args, "fused", False):
         raise ValueError("--pregather is the fused input path; add --fused")
     fused = bool(getattr(args, "fused", False)) and not args.dry_run
@@ -743,16 +780,21 @@ def _fit(args, device, save_path, timings, world: DistState,
     loaders = make_loaders(args, device, timings, shard, registry,
                            telemetry.events if telemetry is not None else None)
     seeds = split_streams(args.seed)
-    model = Net(torch.Generator().manual_seed(seeds["init"]), use_bn=syncbn).to(device)
-    if params is not None:
-        model.load_state_dict(params)
-    if world.distributed:
-        broadcast_from_chief([*model.parameters(), *model.buffers()])
-    if grid is not None:
-        step_fn, eval_fn = _model_axis_steps(args, model, grid, tp_degree > 1, seeds["dropout"],
-                                             compute_dtype)
-        state = TrainState(opt=adadelta_init(dict(model.named_parameters())), step=step0)
-    else:
+
+    def restore():
+        """The model and its training state on the device (from the
+        archive or checkpoint when one was given, rank 0's on every
+        rank), and the steps over them."""
+        model = Net(torch.Generator().manual_seed(seeds["init"]), use_bn=syncbn).to(device)
+        if params is not None:
+            model.load_state_dict(params)
+        if world.distributed:
+            broadcast_from_chief([*model.parameters(), *model.buffers()])
+        if grid is not None:
+            steps = _model_axis_steps(args, model, grid, tp_degree > 1, seeds["dropout"],
+                                      compute_dtype)
+            return model, TrainState(opt=adadelta_init(dict(model.named_parameters())),
+                                     step=step0), *steps
         state = make_train_state(model, use_pallas=use_pallas, zero=zero, world=world)
         state.step = step0
         if archive is not None:
@@ -767,14 +809,43 @@ def _fit(args, device, save_path, timings, world: DistState,
         step_fn = make_train_step(use_pallas=use_pallas, dropout_seed=seeds["dropout"],
                                   compute_dtype=compute_dtype, conv_impl=conv_impl,
                                   world=world)
-        eval_fn = make_eval_step(compute_dtype, conv_impl, world)
+        return model, state, step_fn, make_eval_step(compute_dtype, conv_impl, world)
+
+    obs_registry = telemetry.registry if telemetry is not None else registry
+    obs_sink = telemetry.events if telemetry is not None else None
+    store = (ExecutableStore(args.aot_cache, registry=obs_registry, sink=obs_sink)
+             if getattr(args, "aot_cache", None) else None)
+    on_card = device.type == "cuda"
+    startup_span = (telemetry.span("startup") if telemetry is not None
+                    else contextlib.nullcontext())
+    kernel = ("adadelta",) if use_pallas and on_card else ()
     if fused:
-        run = FusedRun(model, state, *loaders, dropout_seed=seeds["dropout"],
-                       use_pallas=use_pallas, compute_dtype=compute_dtype,
-                       conv_impl=conv_impl, world=world,
-                       pregather=bool(getattr(args, "pregather", False)))
+        with startup_span:
+            run = _fused_startup(
+                restore, Program("fused_run", kernel, store=store), timings, obs_registry,
+                obs_sink, device,
+                lambda model, state: FusedRun(
+                    model, state, *loaders, dropout_seed=seeds["dropout"],
+                    use_pallas=use_pallas, compute_dtype=compute_dtype,
+                    conv_impl=conv_impl, world=world,
+                    pregather=bool(getattr(args, "pregather", False))))
+        model, state = run.model, run.train.state
         run_fused_epochs(args, run, loaders, timings, epoch0, world, telemetry)
     else:
+        model, state, step_fn, eval_fn = restore()
+        if grid is None:
+            # The JAX trainer builds its steps' Programs before step 0 on
+            # the data-parallel paths; the model axis keeps lazy loads.
+            # Only a step that launches a kernel library has anything to
+            # build (eval_step never does, nor any step on the CPU).
+            programs = [Program("train_step", kernel, store=store)]
+            if getattr(args, "serve_prewarm", False):
+                programs.append(Program("predict_step[int8]",
+                                        ("int8_head",) if on_card else (), store=store))
+            programs = [p for p in programs if p.libraries]
+            with startup_span:
+                if programs:
+                    build_programs(programs, registry=obs_registry, sink=obs_sink)
         runtime = _make_runtime(args, world, zero, loaders[0].global_batch, extras, telemetry)
         if telemetry is not None and extras.get("epoch_in_progress", 0):
             # the counters go on from the killed run's totals
@@ -813,6 +884,37 @@ def _fit(args, device, save_path, timings, world: DistState,
             save_train_state(host.params, host.opt, host.step, args.save_state,
                              epoch=epoch0 + args.epochs, batch_stats=host.batch_stats)
     return model, state
+
+
+def _fused_startup(restore, program: Program, timings: dict | None, registry, sink,
+                   device: torch.device, make_run) -> FusedRun:
+    """The fused path's startup as :class:`~.compile.StartupTasks` (the
+    JAX trainer's): ``restore`` (the model and state onto the device),
+    ``fused_run`` (the program's kernel library, a ``compile`` job) and
+    ``data`` (the dataset's upload, ``make_run(model, state)``, which
+    waits on the restore) run concurrently and meet before the first
+    epoch.  ``timings`` gains ``startup_overlap_ratio``, ``compile_s``,
+    ``restore_s`` and ``data_s``."""
+
+    def on_device(fn):
+        def task():
+            # A thread starts on card 0: a rank's card is its own.
+            with (torch.cuda.device(device) if device.type == "cuda"
+                  else contextlib.nullcontext()):
+                return fn()
+        return task
+
+    with CompileService(max_workers=3, registry=registry, sink=sink) as svc:
+        tasks = StartupTasks(svc, registry=registry, sink=sink)
+        tasks.add("restore", on_device(restore))
+        tasks.add("fused_run", program.build, kind="compile")
+        tasks.add("data", on_device(lambda: make_run(*tasks.result("restore")[:2])))
+        run = tasks.result("data")
+        ratio = tasks.rendezvous()
+    if timings is not None:
+        timings.update(startup_overlap_ratio=ratio, compile_s=tasks.duration("fused_run"),
+                       restore_s=tasks.duration("restore"), data_s=tasks.duration("data"))
+    return run
 
 
 def _model_axis_steps(args, model: Net, grid: RankGrid, tp_on: bool, dropout_seed: int,

@@ -139,13 +139,18 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "1", "--allow-degree-1"])
 
 
-NOT_PORTED = ["--aot-cache=x", "--serve-prewarm", "--compile-cache-dir=x"]
+STARTUP_FLAGS = [(["--aot-cache=x"], "aot_cache", "x"), (["--serve-prewarm"], "serve_prewarm", True),
+                 (["--compile-cache-dir=x"], "compile_cache_dir", "x")]
 
 
-@pytest.mark.parametrize("flag", NOT_PORTED)
-def test_train_cli_refuses_flags_not_ported_yet(flag):
-    with pytest.raises(SystemExit):
-        train_parser().parse_args([flag])
+@pytest.mark.parametrize("flags,dest,value", STARTUP_FLAGS, ids=[d for _, d, _ in STARTUP_FLAGS])
+def test_train_cli_accepts_the_startup_flags(flags, dest, value):
+    """mnist.py's --aot-cache, --serve-prewarm and --compile-cache-dir
+    (compile/) are ported, with the JAX CLI's defaults."""
+    assert getattr(train_parser().parse_args(flags), dest) == value
+    defaults = train_parser().parse_args([])
+    assert (defaults.aot_cache, defaults.serve_prewarm, defaults.compile_cache_dir) == (
+        None, False, None)
 
 
 @pytest.mark.parametrize(
@@ -190,10 +195,14 @@ def test_train_cli_accepts_ported_flags(flags, dest, value):
         None, 0, 30.0, False, 10.0, 3, 0.5, 0.0, False, None, 0)
 
 
-@pytest.mark.parametrize("flag", NOT_PORTED)
-def test_ddp_cli_refuses_flags_not_ported_yet(flag):
-    with pytest.raises(SystemExit):
-        ddp_parser().parse_args([flag])
+@pytest.mark.parametrize("flags,dest,value", STARTUP_FLAGS, ids=[d for _, d, _ in STARTUP_FLAGS])
+def test_ddp_cli_accepts_the_startup_flags(flags, dest, value):
+    """mnist_ddp.py takes the same three startup flags, with the JAX CLI's
+    defaults (every rank of a launch shares the one --aot-cache)."""
+    assert getattr(ddp_parser().parse_args(flags), dest) == value
+    defaults = ddp_parser().parse_args([])
+    assert (defaults.aot_cache, defaults.serve_prewarm, defaults.compile_cache_dir) == (
+        None, False, None)
 
 
 @pytest.mark.parametrize(
@@ -239,12 +248,12 @@ def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
             args.rdzv_attempts, args.syncbn) == (0, 1, "env://", None, None, False)
     mnist_dests = {a.dest for a in train_parser()._actions}
     assert mnist_dests <= {a.dest for a in ddp_parser()._actions}
-    # every flag of the JAX CLIs but the compile/ ones
+    # every flag of the JAX CLI
     import mnist as jax_cli  # noqa: PLC0415 -- the root JAX CLI, imported here only
 
     jax_flags = {o for a in jax_cli.build_parser()._actions for o in a.option_strings}
     port_flags = {o for a in train_parser()._actions for o in a.option_strings}
-    assert jax_flags - port_flags == {f.split("=")[0] for f in NOT_PORTED}
+    assert jax_flags - port_flags == set()
     jax_defaults = vars(jax_cli.build_parser().parse_args([]))
     port_defaults = vars(train_parser().parse_args([]))
     assert {k: v for k, v in jax_defaults.items() if k in port_defaults} == {
@@ -297,7 +306,6 @@ def test_vit_cli_accepts_ported_flags(flags, dest, value):
 
 
 SERVING_NOT_PORTED = [
-    ["--aot-cache", "x"], ["--cache-dir", "x"], ["--serial-warmup"], ["--no-device-stage"],
     ["--fleet", "2"], ["--fleet-base-port", "9000"],
     ["--fleet-restart-budget", "3"], ["--fleet-heartbeat-timeout-s", "10"],
     ["--fleet-ready-timeout-s", "300"], ["--autoscale"], ["--scale-high", "8"],
@@ -308,15 +316,58 @@ SERVING_NOT_PORTED = [
 
 @pytest.mark.parametrize("argv", SERVING_NOT_PORTED, ids=[a[0] for a in SERVING_NOT_PORTED])
 def test_serving_refuses_flags_not_ported_yet(argv, capsys):
-    """The fleet and the compile/ analogue: argparse takes each
-    flag (no unknown-flag exit), and the CLI refuses it by name, exit 2,
-    before anything is built (no card needed)."""
+    """The fleet: argparse takes each flag (no unknown-flag exit), and the
+    CLI refuses it by name, exit 2, before anything is built (no card
+    needed)."""
     from pytorch_mnist_ddp_tpu_torch.serving.__main__ import build_parser as serving_parser
 
     serving_parser().parse_args(argv)
     assert cli_main(argv + ["--warmup-only"]) == 2
     out = capsys.readouterr().out
     assert out.startswith(f"error: {argv[0]} is not ported to the PyTorch/CUDA serving CLI")
+
+
+SERVING_STARTUP_FLAGS = [
+    (["--aot-cache", "{d}/aot"], "aot_cache", "{d}/aot"),
+    (["--cache-dir", "{d}/kernels"], "cache_dir", "{d}/kernels"),
+    (["--serial-warmup"], "serial_warmup", True),
+    (["--no-device-stage"], "no_device_stage", True),
+]
+
+
+@pytest.mark.parametrize("flags,dest,value", SERVING_STARTUP_FLAGS,
+                         ids=[f[0][0] for f in SERVING_STARTUP_FLAGS])
+@pytest.mark.parametrize("replicas", [[], ["--replicas", "2"]], ids=["engine", "pool"])
+def test_serving_accepts_the_startup_flags(flags, dest, value, replicas, tmp_path, capsys,
+                                           monkeypatch):
+    """Each compile/ flag parses to its value (off by default), and one
+    engine and a pool of two warm and pass their gates with it on the
+    CPU, printing the JAX CLI's warmup lines in the port's terms."""
+    from pytorch_mnist_ddp_tpu_torch.serving.__main__ import build_parser as serving_parser
+
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)  # --cache-dir moves it
+    flags = [f.format(d=tmp_path) for f in flags]
+    value = value.format(d=tmp_path) if isinstance(value, str) else value
+    assert getattr(serving_parser().parse_args(flags), dest) == value
+    assert getattr(serving_parser().parse_args([]), dest) in (None, False)
+    argv = ["--device", "cpu", "--warmup-only", "--buckets", "1,2", "--dtypes", "f32,int8",
+            *replicas, *flags]
+    assert cli_main(argv) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "parity gate [int8]: PASS" in "\n".join(out)
+    rungs = 2 * 2 * (2 if replicas else 1)
+    verified = [ln for ln in out if ln.startswith("warmup verified: ")]
+    assert verified and verified[0].startswith(
+        f"warmup verified: {rungs} rungs (2 buckets x 2 dtypes"
+        + (" x 2 replicas)" if replicas else ")") + ", 0 kernel libraries ready, 0 nvcc builds")
+    [warming] = [ln for ln in out if ln.startswith("warming buckets")]
+    if not replicas:  # one engine warms its rungs in turn, flag or not
+        assert "serially on cpu" in warming
+    if dest == "aot_cache":
+        assert warming.endswith(f"({'shared ' if replicas else ''}AOT cache {value})")
+        assert os.listdir(value) == []  # the CPU loads no library
+    if dest == "cache_dir":
+        assert f"persistent compile cache: {value}" in out and os.path.isdir(value)
 
 
 SERVING_POOL_FLAGS = [
@@ -428,13 +479,22 @@ def test_build_lists_sources_and_names_missing_nvcc(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
-def test_build_target_tracks_the_source():
-    target = _build._target("int8_head")
-    assert target.parent == _build.BUILD_DIR
-    assert target == _build._target("int8_head")  # stable for one source
-    assert target.name.startswith("int8_head-") and target.suffix == ".so"
-    other = _build._target("adadelta")
-    assert other.name.startswith("adadelta-") and other != target
+def test_build_target_tracks_the_source(monkeypatch, tmp_path):
+    """The build directory is a store: an entry's key is stable for one
+    source and changes with it (the environment fixed: no card here)."""
+    from pytorch_mnist_ddp_tpu_torch.compile import aot
+
+    monkeypatch.setattr(aot, "_environment", lambda: {"device_kind": "fixed"})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    store = _build.build_store()
+    target = store.header_path("int8_head")
+    assert os.path.dirname(target) == str(tmp_path)
+    assert target == store.header_path("int8_head")  # stable for one source
+    assert os.path.basename(target).startswith("int8_head-") and target.endswith(".json")
+    other = store.header_path("adadelta")
+    assert os.path.basename(other).startswith("adadelta-") and other != target
+    monkeypatch.setattr(aot, "source_digest", lambda: "an edited source")
+    assert store.header_path("int8_head") != target
 
 
 def test_builds_of_different_sources_run_concurrently(monkeypatch, tmp_path):
@@ -443,23 +503,29 @@ def test_builds_of_different_sources_run_concurrently(monkeypatch, tmp_path):
     import threading
     import time
 
+    from pytorch_mnist_ddp_tpu_torch.compile import aot
+
+    monkeypatch.setattr(aot, "_environment", lambda: {"device_kind": "fixed"})
+    monkeypatch.setattr(aot, "_nvcc_version", lambda: "fixed")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(_build, "_locks", {})
+    monkeypatch.setattr(_build, "_origins", {})
     compiled, running, peak = [], [0], [0]
     guard = threading.Lock()
 
-    def fake_compile(name, target):
+    def fake_build(name, out):
         with guard:
             running[0] += 1
             peak[0] = max(peak[0], running[0])
         time.sleep(0.2)
-        target.write_bytes(b"")
+        pathlib.Path(out).write_bytes(name.encode())
         with guard:
             running[0] -= 1
             compiled.append(name)
+        return ""
 
-    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(_build, "nvcc_build", fake_build)
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
     results = []
     threads = [threading.Thread(target=lambda n=n: results.append(_build.library(n)))

@@ -222,3 +222,37 @@ def test_bucket_helpers_reject_like_jax(name, args):
         getattr(jax_buckets, name)(*args)
     with pytest.raises(ValueError):
         getattr(buckets, name)(*args)
+
+
+def test_an_answer_moves_with_its_bucket_no_more_than_in_jax(jax_params, state):
+    """Does an answer depend on the bucket it is served in?  The same 16
+    seeded rows through each package's engine at bucket 16, and at bucket
+    128 both zero-padded and beside 112 other rows; the port's spread
+    between the two buckets, f32 and int8, stays within JAX's own.  (On
+    this CPU both spreads are 0.0: the card's cuDNN sums differ by batch
+    shape, which the CPU cannot show.)"""
+    from pytorch_mnist_ddp_tpu.parallel.mesh import make_mesh
+    from pytorch_mnist_ddp_tpu.serving.engine import InferenceEngine as JaxEngine
+
+    jax_engine = JaxEngine({"params": jax_params}, mesh=make_mesh(1, devices=jax.devices()[:1]),
+                           buckets=(16, 128), dtypes=("int8",))
+    port = InferenceEngine(state, device="cpu", buckets=(16, 128), dtypes=("int8",))
+    for engine in (jax_engine, port):
+        engine.warmup()
+        engine.verify_parity()
+    raw = np.random.RandomState(5).randint(0, 256, (128, 28, 28)).astype(np.uint8)
+    x = jax_normalize(raw)
+    padded = np.zeros_like(x)
+    padded[:16] = x[:16]
+
+    def served(engine, staged, dtype):
+        out = engine.launch(staged.copy(), 16, dtype=dtype)
+        return np.asarray(out.wait() if hasattr(out, "wait") else out)[:16]
+
+    for dtype in ("f32", "int8"):
+        spread = {}
+        for name, engine in (("jax", jax_engine), ("port", port)):
+            small = served(engine, x[:16], dtype)
+            spread[name] = max(float(np.abs(served(engine, big, dtype) - small).max())
+                               for big in (padded, x))
+        assert spread["port"] <= spread["jax"], (dtype, spread)

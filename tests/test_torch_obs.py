@@ -240,8 +240,19 @@ def test_fused_path_counts_from_its_one_read_an_epoch(tmp_path):
                                        str(tmp_path)]), "cpu", timings=timings)
     assert timings["host_syncs"] == 2
     assert _counters(tmp_path) == {"train_steps_total": "10", "train_samples_total": "640"}
-    names = [e["event"] for e in _events(tmp_path)]
+    events = _events(tmp_path)
+    # the startup (compile/): the restore, the library load and the upload
+    # as startup tasks, then one startup_overlap event; the run's own
+    # events after it as before
+    startup = ("startup", "compile", "startup_task")
+    names = [e["event"] for e in events
+             if e.get("span") not in startup and e["event"] != "startup_overlap"]
     assert names == ["span_start", "eval", "eval", "span_end", "run_complete"]
+    assert {(e["span"], e.get("fn")) for e in events
+            if e["event"] == "span_end" and e["span"] in startup} == {
+        ("startup", None), ("compile", "fused_run"), ("startup_task", "restore"),
+        ("startup_task", "data")}
+    assert [e["event"] for e in events].count("startup_overlap") == 1
     assert out.getvalue().count("Test set:") == 2
 
 

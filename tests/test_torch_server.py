@@ -251,7 +251,7 @@ def test_cli_warmup_only_passes_the_int8_gate():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "parity gate [int8]: PASS" in proc.stdout
-    assert "warming buckets [1, 2, 4] x dtypes ['f32', 'int8'] on cpu" in proc.stdout
+    assert "warming buckets [1, 2, 4] x dtypes ['f32', 'int8'] serially on cpu" in proc.stdout
     assert proc.stdout.count(": ready (") == 6
 
 

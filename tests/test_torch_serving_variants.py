@@ -312,7 +312,7 @@ def test_cli_warmup_only_gates_every_variant_with_telemetry(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = proc.stdout.splitlines()
-    assert "warming buckets [1, 2, 4] x dtypes ['f32', 'bf16', 'int8'] on cpu" in lines
+    assert "warming buckets [1, 2, 4] x dtypes ['f32', 'bf16', 'int8'] serially on cpu" in lines
     assert sum(" ready (" in line for line in lines) == 9
     assert any(line.startswith("parity gate [bf16]: PASS") for line in lines)
     assert any(line.startswith("parity gate [int8]: PASS") for line in lines)
