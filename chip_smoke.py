@@ -181,7 +181,7 @@ Phases, one JSON line each:
                 then 40 steps, plain and --pallas-opt, under
                 torch.profiler (wall and device-busy time per step), and
                 --pallas-opt again without deterministic cuDNN and under
-                --bf16 with and without it; seconds for 300 of the
+                --bf16 with and without it; seconds for 100 of the
                 --pallas-opt steps with and without it, in turns;
 13. vit_step  — the ViT (vit_mnist.py defaults), 20 train steps from one set
                 of weights on fixed batches, seven ways: plain, --flash,
@@ -338,7 +338,33 @@ Phases, one JSON line each:
                 to the card's context, to the first step and to an
                 engine's warmup end, cold and warm,
                 compile_seconds_total per program, each library's load or
-                build seconds, the fused run's overlap ratio.
+                build seconds, the fused run's overlap ratio;
+22. fleet     — the serving fleet (serving/fleet.py): ``python -m
+                pytorch_mnist_ddp_tpu_torch.serving --fleet 2 --dtypes
+                f32,int8 --int8-impl pallas --aot-cache D`` on 21's store
+                D, a process of its own on a host without nvcc (neither
+                PATH nor CUDA_HOME finds one; the backends and every
+                replacement inherit that), seed-12 weights, beside it a
+                --fleet 1 for the readings: (a) every backend active with
+                compiles 0, its int8 gate passed and int8_head a store hit
+                with 0 nvcc builds; 16 seeded requests one at a time, f32
+                and int8, JSON and the binary wire, each answer equal
+                (np.array_equal) to a single engine's in this process at
+                the same bucket; (b) b1 SIGKILLed under 8 closed-loop
+                clients: every request one 200, b1 replaced in a new
+                process that builds nothing (compiles 0),
+                fleet_backend_restarts_total{backend="b1"} 1; (c) at
+                once, the fleet of one's b0 SIGSTOPped: its heartbeat
+                goes stale, the supervisor's incident says so and b0 is
+                replaced; both fronts exit 0 on SIGTERM.  Every answer
+                under load, (b)'s and the readings', within HTTP_TOL
+                (same argmax) of the single engine's for its rows at one
+                of the ladder's buckets.  Readings: each backend's and
+                front's seconds to ready, client p50/p99 and requests/s
+                with one and two backends under the same 8 clients in
+                six 4 s windows (1, 2, 2, 1, 1, 2 backends), the seconds
+                from the kill and the stop to the replacement being
+                active.
 
 Every phase line carries its ``seconds``.  Then the ``kernels`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Launch
@@ -358,7 +384,11 @@ ranks' and the launcher's processes included; the uninterrupted runs the
 resumed ones are held to apart); adadelta again over 20 (this process's
 runs; the killed processes and the launcher's rank count nothing, the
 flagless and uninterrupted references apart); int8_head and adadelta
-again over 21 (counted by its processes; the flagless runs apart).
+again over 21 (counted by its processes; the flagless runs apart);
+int8_head again over 22 (each backend process's own count, written to a
+file by LAUNCH_COUNTER_SITE; a SIGKILLed process loses its last 50 ms;
+a SIGTERMed one's must equal its telemetry's int8 rungs, gate and int8
+batches; the reference engine apart).
 Latencies, seconds per epoch and images/s are smoke readings of this
 script's own work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -445,8 +475,9 @@ SLEEP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 # and 40 CNN steps in train_profile and ddp (100 before), keep the time.
 VIT_PROFILE_STEPS = 10
 # train_profile's determinism cost: the --pallas-opt steps over this many
-# of an epoch's batches, with and without deterministic cuDNN, in turns.
-ABBA_STEPS = 300
+# of an epoch's batches, with and without deterministic cuDNN, in turns
+# (300 before the fleet phase came; a reading).
+ABBA_STEPS = 100
 TRAIN_STEP_RTOL = 1e-5  # three optimizer paths, deterministic cuDNN
 EPOCH1_MIN_ACCURACY = 0.95
 # ddp phase: the reference's headline batch (README.md:42) in an NCCL world
@@ -705,6 +736,19 @@ DOT_TOL = 5e-4  # --int8-impl dot vs pallas log-probs (the conv ulp)
 # compile: the processes of each group start together; each process's own
 # timeout
 COMPILE_PROC_TIMEOUT_S = 600
+# fleet phase: two backends and one, warm off the compile phase's store
+FLEET_BACKENDS = 2
+# --fleet-heartbeat-timeout-s: under it, (c)'s stopped backend is found by
+# its heartbeat before its third missed /readyz probe (a probe a second:
+# 0.5 s apart, 0.5 s to time out)
+FLEET_HEARTBEAT_S = 1.5
+FLEET_READY_S = 180.0  # bring-up, and a replacement's
+FLEET_REQUESTS = 16  # (a): seeded requests, one at a time
+FLEET_KILL_AFTER = 40  # (b): answers before the kill, and again after
+# the readings: 8 closed-loop clients for FLEET_READ_S a window, on the
+# fleet of one and the fleet of two in this order
+FLEET_READ_S = 4.0
+FLEET_READ_ORDER = (1, 2, 2, 1, 1, 2)
 
 
 _CLOCK = {"last": time.perf_counter()}
@@ -4223,6 +4267,16 @@ def compile_serve_program(argv: list[str]) -> int:
     return 0
 
 
+def no_nvcc_env(env: dict, missing: str) -> dict:
+    """``env`` on a host without the CUDA toolkit: CUDA_HOME and CUDA_PATH
+    name the directory ``missing`` and no PATH entry holds nvcc."""
+    import os
+
+    return {**env, "CUDA_HOME": missing, "CUDA_PATH": missing,
+            "PATH": os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
+                                    if not os.path.exists(os.path.join(d, "nvcc")))}
+
+
 def compile_phase(torch, np, workdir: str, smi: str) -> tuple[dict, dict]:
     """The compile phase (module docstring, 21).  Returns the path's
     int8_head and adadelta_delta launches, counted by its processes, and
@@ -4247,9 +4301,7 @@ def compile_phase(torch, np, workdir: str, smi: str) -> tuple[dict, dict]:
 
     # The serving host of the handoff has no toolkit: nvcc_path() raises
     # there, so a process that needed nvcc for a hit would fail.
-    no_nvcc = {**env, "CUDA_HOME": at("no_toolkit"), "CUDA_PATH": at("no_toolkit"),
-               "PATH": os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
-                                       if not os.path.exists(os.path.join(d, "nvcc")))}
+    no_nvcc = no_nvcc_env(env, at("no_toolkit"))
 
     def start(name: str, kind: str, *argv, toolkit: bool = True) -> tuple:
         run_dir = at(name)
@@ -5172,39 +5224,58 @@ def serving_stack_phase(torch, np, workdir: str) -> tuple[dict, dict]:
 
 
 def pool_clients(url: str, ref: dict, n_clients: int, per_client: int, seed: int,
-                 dtypes=("f32", "int8"), progress=None, allow_503: bool = False) -> dict:
+                 dtypes=("f32", "int8"), progress=None, allow_503: bool = False,
+                 stop=None) -> dict:
     """``n_clients`` closed-loop JSON clients, ``per_client`` requests each
     of 1..12 rows of the phase's rows (dtypes in turn); every answer held
-    to ``ref`` within HTTP_TOL with the same argmax.  With ``allow_503`` a
-    503 is an outcome too (every retry of the request met a failing
-    replica).  Returns the request ids answered, the client latencies, the
-    503s, the failures and the largest error per dtype."""
+    to ``ref`` within HTTP_TOL with the same argmax.  Where ``ref`` has
+    ``by_bucket`` ({dtype: {bucket: every row's log-probs staged at that
+    bucket}}), an answer is held to the bucket of those that can carry its
+    rows whose log-probs it is nearest: a coalesced batch runs at a bucket
+    the client cannot see.  With ``allow_503`` a 503 is an outcome too
+    (every retry of the request met a failing replica).  A set ``stop``
+    event ends each client before its next request.  Returns the request
+    ids answered, the client latencies, the 503s, the failures, the
+    largest error per dtype and, with ``by_bucket``, the requests per
+    bucket held to."""
+    import collections
+
     import numpy as np
 
     raw = ref["raw"]
     lock = threading.Lock()
     answered, latencies, bad, rejected = [], [], [], []
     worst = {dt: 0.0 for dt in dtypes}
+    held_at = collections.Counter()
 
     def client(c: int) -> None:
         for j in range(per_client):
+            if stop is not None and stop.is_set():
+                return
             size = 1 + (c + j + seed) % 12
             off = (7 * c + 13 * j + seed) % (len(raw) - size)
             dtype = dtypes[(c + j) % len(dtypes)]
             t0 = time.perf_counter()
             status, body, _ = http_post(url + "/predict", predict_body(raw[off:off + size], dtype))
             ms = 1e3 * (time.perf_counter() - t0)
-            ok, err = status == 200, None
+            ok, err, bucket = status == 200, None, None
             if ok:
                 got = log_probs(body)
-                want = ref[dtype][off:off + size]
-                err = float(np.abs(got - want).max())
-                ok = err <= HTTP_TOL and bool((got.argmax(1) == want.argmax(1)).all())
+                wants = ({b: a[off:off + size] for b, a in ref["by_bucket"][dtype].items()
+                          if b >= size} if "by_bucket" in ref
+                         else {None: ref[dtype][off:off + size]})
+                fits = {b: w for b, w in wants.items() if w.shape == got.shape}
+                ok = bool(fits)
+                if ok:
+                    err, bucket = min((float(np.abs(got - w).max()), b) for b, w in fits.items())
+                    ok = err <= HTTP_TOL and bool((got.argmax(1) == fits[bucket].argmax(1)).all())
             with lock:
                 answered.append((c, j))
                 latencies.append(ms)
                 if err is not None:
                     worst[dtype] = max(worst[dtype], err)
+                if ok and bucket is not None:
+                    held_at[bucket] += 1
                 if status == 503 and allow_503:
                     rejected.append((c, j))
                 elif not ok:
@@ -5216,7 +5287,7 @@ def pool_clients(url: str, ref: dict, n_clients: int, per_client: int, seed: int
     with ThreadPoolExecutor(n_clients) as pool:
         list(pool.map(client, range(n_clients)))
     return {"answered": answered, "latencies_ms": latencies, "bad": bad, "rejected": rejected,
-            "max_abs_err": worst}
+            "max_abs_err": worst, "requests_by_bucket": dict(sorted(held_at.items()))}
 
 
 def pool_phase(torch, np, workdir: str, device: str = "cuda") -> tuple[dict, dict]:
@@ -5819,7 +5890,463 @@ def two_stream_head_us(torch, q: dict, feats, streams, calls: int = BACK_TO_BACK
             "two_streams_us_per_call": statistics.median(run(streams) for _ in range(reps))}
 
 
+def children_of(pid: int) -> dict[int, str]:
+    """The live processes whose parent is ``pid``: pid -> command line."""
+    import os
+
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) == pid and fields[0] != "Z":
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    out[int(entry)] = f.read().replace(b"\0", b" ").decode()
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+def free_ports(k: int) -> int:
+    """The first of ``k`` consecutive TCP ports on 127.0.0.1 that no one
+    listens on now."""
+    import socket
+
+    while True:
+        base = free_port()
+        try:
+            for p in range(base + 1, base + k):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+
+
+# The fleet phase's launch counter, written as sitecustomize.py into a
+# directory on the fronts' PYTHONPATH, which their backends inherit.  A
+# process that has imported ops/int8_head writes that module's own count,
+# LAUNCHES (one a launch, at the launch), to <dir>/int8_head.<pid> every
+# 50 ms and at exit; it never imports the module, so the front stays free
+# of torch.  A SIGKILL loses what the process launched in its last 50 ms.
+# A sitecustomize further down sys.path still runs.
+LAUNCH_COUNTER_SITE = """\
+import atexit
+import importlib.machinery
+import importlib.util
+import os
+import sys
+import threading
+import time
+
+_DIR = os.environ.get("CHIP_SMOKE_LAUNCH_DIR")
+
+
+def _dump():
+    mod = sys.modules.get("pytorch_mnist_ddp_tpu_torch.ops.int8_head")
+    if mod is None:
+        return
+    path = os.path.join(_DIR, "int8_head.%d" % os.getpid())
+    tmp = "%s.tmp%d" % (path, threading.get_ident())
+    with open(tmp, "w") as f:
+        f.write(str(mod.LAUNCHES))
+    os.replace(tmp, path)
+
+
+def _loop():
+    while True:
+        time.sleep(0.05)
+        _dump()
+
+
+if _DIR:
+    atexit.register(_dump)
+    threading.Thread(target=_loop, name="launch-counter", daemon=True).start()
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or os.curdir) != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+"""
+
+
+def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
+    """The fleet phase (module docstring, 22): the serving CLI's --fleet on
+    the card, every backend on the compile phase's store ``store`` and on
+    a host without nvcc.  Returns row 1's launches on the path, read from
+    each backend process's own counter (LAUNCH_COUNTER_SITE), and apart
+    those of the in-process reference engine."""
+    import os
+    import signal
+
+    from pytorch_mnist_ddp_tpu_torch.obs.events import read_events
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.serving import wire
+    from pytorch_mnist_ddp_tpu_torch.serving.engine import PARITY_SEED, InferenceEngine
+    from pytorch_mnist_ddp_tpu_torch.serving.server import decode_instances
+
+    t_phase = time.perf_counter()
+    at = functools.partial(os.path.join, workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    counter_dir = at("launch_counter")
+    os.makedirs(counter_dir)
+    with open(os.path.join(counter_dir, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_COUNTER_SITE)
+    path = [here, counter_dir, *filter(None, [os.environ.get("PYTHONPATH")])]
+    env = no_nvcc_env({**os.environ, "CHIP_SMOKE_LAUNCH_DIR": counter_dir,
+                       "PYTHONPATH": os.pathsep.join(path)}, at("no_toolkit"))
+
+    def text(path: str) -> str:
+        with open(path, errors="replace") as f:
+            return f.read()
+
+    def metrics(url: str) -> dict:
+        return json.loads(get(url + "/metrics"))
+
+    def ready(port: int) -> bool:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=0.5) as r:
+                return r.status == 200
+        except OSError:
+            return False
+
+    fronts: dict[int, dict] = {}
+    seen: dict[int, str] = {}  # every backend process met: pid -> command line
+
+    def start(n: int) -> None:
+        port, base = free_port(), free_ports(n)
+        tel, log = at(f"fleet{n}_tel"), at(f"fleet{n}.log")
+        cmd = [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.serving", "--fleet", str(n),
+               "--dtypes", "f32,int8", "--int8-impl", "pallas", "--aot-cache", store,
+               "--seed", str(SEED), "--timeout-ms", str(POOL_TIMEOUT_MS),
+               "--port", str(port), "--fleet-base-port", str(base),
+               "--fleet-heartbeat-timeout-s", str(FLEET_HEARTBEAT_S),
+               "--fleet-ready-timeout-s", str(FLEET_READY_S), "--telemetry-dir", tel]
+        handle = open(log, "w")
+        fronts[n] = {"proc": subprocess.Popen(cmd, cwd=workdir, env=env, stdout=handle,
+                                              stderr=subprocess.STDOUT),
+                     "handle": handle, "url": f"http://127.0.0.1:{port}", "base": base,
+                     "tel": tel, "log": log, "t0": time.perf_counter()}
+
+    def backend_pids(n: int) -> dict[str, int]:
+        fr = fronts[n]
+        found = {}
+        for pid, cmd in children_of(fr["proc"].pid).items():
+            for i in range(n):
+                if "pytorch_mnist_ddp_tpu_torch.serving" in cmd and f"--port {fr['base'] + i} " \
+                        in cmd + " ":
+                    found[f"b{i}"] = pid
+                    seen[pid] = cmd
+        return found
+
+    def stop_front(n: int) -> int | None:
+        """SIGTERM the front (it drains and grace-stops its backends); one
+        still running after a minute is killed.  Its exit code."""
+        fr = fronts[n]
+        if "rc" not in fr:
+            backend_pids(n)
+            fr["rc"] = None
+            try:
+                fr["proc"].send_signal(signal.SIGTERM)
+                fr["rc"] = fr["proc"].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                fr["proc"].kill()
+                fr["proc"].wait()
+            finally:
+                fr["handle"].close()
+        return fr["rc"]
+
+    def active_since(url: str, name: str, t0: float, what: str) -> float:
+        """Seconds from ``t0`` until the front reads backend ``name``
+        active again after one replacement."""
+        while True:
+            snap = metrics(url)
+            sup = (snap["fleet"]["supervisor"] or {}).get("backends", {}).get(name, {})
+            if snap["backends"][name]["state"] == "active" and sup.get("restarts") == 1:
+                return time.perf_counter() - t0
+            check(time.perf_counter() - t0 < FLEET_READY_S, f"fleet: {what}: {snap['backends']}")
+            time.sleep(0.02)
+
+    ok: dict = {}
+    record: dict = {}
+    launches, references = {"int8_head": 0}, {"int8_head": 0}
+    try:
+        # Setup: the two-backend fleet the checks run on, and beside it a
+        # fleet of one for the readings (each front a process of its own,
+        # started together)
+        for n in (1, FLEET_BACKENDS):
+            start(n)
+        backend_ready_s, front_ready_s = {}, {}
+        pending = {(n, i) for n in fronts for i in range(n)}
+        while pending or len(front_ready_s) < len(fronts):
+            for n, fr in fronts.items():
+                rc = fr["proc"].poll()
+                check(rc is None, f"fleet {n} exited {rc}: {text(fr['log'])[-3000:]}")
+                waited = time.perf_counter() - fr["t0"]
+                check(waited < FLEET_READY_S, f"fleet {n} not up after {waited:.0f} s: "
+                      f"{text(fr['log'])[-3000:]}")
+                for i in range(n):
+                    if (n, i) in pending and ready(fr["base"] + i):
+                        backend_ready_s[f"fleet{n}_b{i}"] = time.perf_counter() - fr["t0"]
+                        pending.discard((n, i))
+                if n not in front_ready_s and "fleet front on" in text(fr["log"]):
+                    front_ready_s[f"fleet{n}"] = time.perf_counter() - fr["t0"]
+            time.sleep(0.05)
+        record["seconds_to_ready"] = {"backends": backend_ready_s, "fronts": front_ready_s}
+        for n in fronts:
+            check(len(backend_pids(n)) == n, f"fleet {n}: backends {backend_pids(n)}")
+
+        # The reference: a single engine in this process on the same seed,
+        # cuDNN as the serving CLI leaves it; its launches counted apart
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = False
+        before = ih.LAUNCHES
+        try:
+            single = InferenceEngine.from_seed(SEED, dtypes=("int8",))
+            single.warmup()
+            check(single.verify_parity()["int8"]["passed"], "fleet: the reference engine's gate")
+            raw = np.random.RandomState(PARITY_SEED + 20).randint(
+                0, 256, (320, 28, 28)).astype(np.uint8)
+            x = decode_instances({"instances": raw.tolist()})
+            ref = {"raw": raw, **{dt: single.predict_logits(x, dtype=dt)
+                                  for dt in ("f32", "int8")}}
+            # Every row staged at every bucket, in batches of exactly the
+            # bucket (the last one filled up with the first rows): a row's
+            # answer depends on its bucket, not on its batch-mates
+            ref["by_bucket"] = {dt: {} for dt in ("f32", "int8")}
+            for b in single.buckets:
+                idx = np.arange(-(-len(x) // b) * b) % len(x)
+                for dt in ("f32", "int8"):
+                    ref["by_bucket"][dt][b] = np.concatenate([
+                        single.predict_logits(x[idx[i:i + b]], dtype=dt)
+                        for i in range(0, len(idx), b)])[:len(x)]
+            rs = np.random.RandomState(PARITY_SEED + 21)
+            seeded = []
+            for i in range(FLEET_REQUESTS):
+                size = int(rs.randint(1, 13))
+                off = int(rs.randint(0, len(raw) - size))
+                dtype = ("f32", "int8")[i % 2]
+                seeded.append((off, size, dtype, (i // 2) % 2 == 1,
+                               single.predict_logits(x[off:off + size], dtype=dtype)))
+            rungs = len(single.buckets)  # the CLI's default ladder, as the backends'
+            del single
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+            references["int8_head"] = ih.LAUNCHES - before
+
+        url = fronts[FLEET_BACKENDS]["url"]
+        tel = fronts[FLEET_BACKENDS]["tel"]
+        names = [f"b{i}" for i in range(FLEET_BACKENDS)]
+        backend_log = lambda name: text(os.path.join(tel, f"backend-{name}.log"))  # noqa: E731
+
+        # (a) every backend active off the store, its gate passed, and the
+        # front's answers the single engine's at the same bucket
+        snap = metrics(url)
+        equal = {}
+        for i, (off, size, dtype, binary, want) in enumerate(seeded):
+            rows = raw[off:off + size]
+            if binary:
+                status, body, _ = http_post(url + "/predict", wire.encode_request(
+                    rows.astype(np.float32), dtype=dtype), wire.WIRE_REQUEST_TYPE)
+                got = wire.decode_response(body) if status == 200 else None
+            else:
+                status, body, _ = http_post(url + "/predict", predict_body(rows, dtype))
+                got = log_probs(body) if status == 200 else None
+            equal[f"{i}:{dtype}:{'binary' if binary else 'json'}:{size}"] = (
+                got is not None and bool(np.array_equal(got, want)))
+        ok["a_serving"] = {
+            "active": sorted(snap["backends"]) == names
+            and all(b["state"] == "active" for b in snap["backends"].values()),
+            "compiles_0": all(b["compiles"] == 0 for b in snap["backends"].values()),
+            "gates_pass": all("parity gate [int8]: PASS" in backend_log(n) for n in names),
+            "no_nvcc_store_hit": all(", 0 nvcc builds" in backend_log(n)
+                                     and "(int8_head: hit)" in backend_log(n) for n in names),
+            "answers_equal_single_engine": all(equal.values())}
+        if not all(equal.values()):
+            record["a_unequal"] = [k for k, v in equal.items() if not v]
+
+        # Readings: 8 closed-loop clients for FLEET_READ_S on the fleet of
+        # one and the fleet of two in turn, every answer held to its bucket
+        windows, pooled = [], {n: [] for n in fronts}
+        for k, n in enumerate(FLEET_READ_ORDER):
+            ended = threading.Event()
+            timer = threading.Timer(FLEET_READ_S, ended.set)
+            t0 = time.perf_counter()
+            timer.start()
+            run = pool_clients(fronts[n]["url"], ref, POOL_CLIENTS, 1 << 20, seed=6 + k,
+                               stop=ended)
+            secs = time.perf_counter() - t0
+            check(not run["bad"], f"fleet reading {k} with {n} backends: {run['bad'][:5]}")
+            lat = run["latencies_ms"]
+            pooled[n] += lat
+            windows.append({"backends": n, "requests": len(lat), "seconds": secs,
+                            "rps": len(lat) / secs, "max_abs_err": run["max_abs_err"],
+                            "requests_by_bucket": run["requests_by_bucket"],
+                            "client_p50_ms": float(np.percentile(lat, 50)),
+                            "client_p99_ms": float(np.percentile(lat, 99))})
+        readings = {"windows": windows}
+        for n in fronts:
+            mine = [w for w in windows if w["backends"] == n]
+            readings[f"backends_{n}"] = {
+                "windows": len(mine), "requests": len(pooled[n]),
+                "rps": [w["rps"] for w in mine],
+                "rps_mean": sum(w["rps"] for w in mine) / len(mine),
+                "client_p50_ms": float(np.percentile(pooled[n], 50)),
+                "client_p99_ms": float(np.percentile(pooled[n], 99)),
+                "client_p99_ms_by_window": [w["client_p99_ms"] for w in mine]}
+        record["readings"] = readings
+
+        # (b) and (c) together, their replacements starting side by side:
+        # (b) the two-backend fleet's b1 SIGKILLed under 8 closed-loop
+        # clients, every request one 200, b1 replaced off the store; (c)
+        # the fleet of one's b0 SIGSTOPped when the clients start: its
+        # heartbeat goes stale, the supervisor records that and replaces it
+        pids = backend_pids(FLEET_BACKENDS)
+        stopped = backend_pids(1)["b0"]
+        stop = threading.Event()
+        answered = [0]
+        kill = {}
+
+        def progress(k: int) -> None:
+            answered[0] = k
+            if k >= FLEET_KILL_AFTER and not kill:
+                kill["t"] = time.perf_counter()
+                kill["at"] = k
+                os.kill(pids["b1"], signal.SIGKILL)
+
+        with ThreadPoolExecutor(1) as runner:
+            t_stop = time.perf_counter()
+            os.kill(stopped, signal.SIGSTOP)
+            drive = runner.submit(pool_clients, url, ref, POOL_CLIENTS, 1 << 20, seed=8,
+                                  progress=progress, stop=stop)
+            try:
+                poll(lambda: bool(kill) or drive.done(), "(b) the kill", FLEET_READY_S)
+                check(bool(kill), "(b) the clients ended before the kill")
+                kill_to_active = active_since(url, "b1", kill["t"], "(b) b1 not replaced")
+                after = answered[0]
+                poll(lambda: answered[0] >= after + FLEET_KILL_AFTER or drive.done(),
+                     "(b) answers after the replacement", FLEET_READY_S)
+            finally:
+                stop.set()
+            run = drive.result()
+        stop_to_active = active_since(fronts[1]["url"], "b0", t_stop, "(c) b0 not replaced")
+        prom = get(url + "/metrics?format=prom").decode()
+        snap = metrics(url)
+        b1_log = backend_log("b1")
+        ok["b_kill"] = {
+            "every_request_one_200": not run["bad"] and not run["rejected"]
+            and len(run["answered"]) >= kill["at"] + FLEET_KILL_AFTER,
+            "restarts_1": 'fleet_backend_restarts_total{backend="b1"} 1' in prom,
+            "replacement_compiles_0": snap["backends"]["b1"]["compiles"] == 0,
+            "replacement_no_nvcc": b1_log.count("warmup verified: ") == 2
+            and b1_log.count(", 0 nvcc builds") == 2,
+            "a_new_process": backend_pids(FLEET_BACKENDS).get("b1") not in (None, pids["b1"])}
+        lat = run["latencies_ms"]
+        record["b_kill"] = {"requests": len(lat), "killed_after": kill["at"],
+                            "kill_to_active_s": kill_to_active,
+                            "max_abs_err": run["max_abs_err"],
+                            "requests_by_bucket": run["requests_by_bucket"],
+                            "client_p50_ms": float(np.percentile(lat, 50)),
+                            "client_p99_ms": float(np.percentile(lat, 99)),
+                            "client_max_ms": float(max(lat))}
+        incidents = {n: [(e["event"], e["backend"], e.get("reason"))
+                         for e in read_events(os.path.join(fronts[n]["tel"],
+                                                           "events-fleet.jsonl"))
+                         if e["event"] in ("backend_death", "backend_replace", "backend_eject")]
+                     for n in fronts}
+        record["incidents"] = incidents
+        ok["c_hang"] = {
+            "stop_is_a_heartbeat_incident": incidents[1] == [
+                ("backend_death", "b0", "heartbeat"), ("backend_replace", "b0", None)],
+            "kill_is_a_dead_incident": incidents[FLEET_BACKENDS] == [
+                ("backend_death", "b1", "dead"), ("backend_replace", "b1", None)],
+            "stopped_process_gone": stopped not in children_of(fronts[1]["proc"].pid),
+            "replacement_compiles_0": metrics(fronts[1]["url"])["backends"]["b0"]["compiles"]
+            == 0}
+        record["c_hang"] = {"stop_to_active_s": stop_to_active}
+        for n in fronts:
+            record[f"fleet{n}_exit"] = stop_front(n)
+        ok["exit"] = {"fronts_exit_0": record["fleet1_exit"] == record["fleet2_exit"] == 0}
+
+        # Row 1 on the path: each backend process's own counter, and beside
+        # it what the process's telemetry (one run_id a process) implies,
+        # its int8 rungs and gate and the int8 batches it served
+        counts = {}
+        for entry in os.listdir(counter_dir):
+            kind, _, pid = entry.partition(".")
+            if kind == "int8_head" and pid.isdigit():
+                with open(os.path.join(counter_dir, entry)) as f:
+                    counts[int(pid)] = int(f.read())
+        killed = {stopped, pids["b1"]}  # (c)'s stopped b0 and (b)'s b1
+        processes, unpaired = {}, {}
+        for n, names_n in ((1, ["b0"]), (FLEET_BACKENDS, names)):
+            for i, name in enumerate(names_n):
+                told = {}  # run_id -> counts, in the order the processes ran
+                for e in read_events(os.path.join(fronts[n]["tel"], name, "events-rank0.jsonl")):
+                    c = told.setdefault(e["run_id"], {"rungs": 0, "gates": 0, "batches": 0})
+                    c["rungs"] += (e["event"] == "span_end" and e["span"] == "compile"
+                                   and e.get("fn", "").startswith("predict_step[int8]"))
+                    c["gates"] += e["event"] == "parity_gate" and e["dtype"] == "int8"
+                    c["batches"] += (e["event"] == "serving_batch"
+                                     and e["dtype"].split("@")[0] == "int8")
+                # the backend's processes in the order they ran: a killed one first
+                procs = sorted((pid for pid, cmd in seen.items()
+                                if f"--port {fronts[n]['base'] + i} " in cmd + " "),
+                               key=lambda pid: pid not in killed)
+                key = f"fleet{n}_{name}"
+                if len(procs) != len(told):
+                    unpaired[key] = {"processes": procs, "telemetry_runs": list(told.values())}
+                processes[key] = [{"pid": pid, "ended": "killed" if pid in killed else "SIGTERM",
+                                   "launches": counts.get(pid), **c}
+                                  for pid, c in zip(procs, told.values())]
+        record["int8_head_by_process"] = processes
+        if unpaired:
+            record["int8_head_unpaired"] = unpaired
+        every = [p for runs in processes.values() for p in runs]
+        ok["launches"] = {
+            "every_process_counted": set(counts) == set(seen),
+            # the fleet of one's b0 and the fleet of two's b1 were replaced
+            "processes_by_backend": not unpaired
+            and [len(runs) for runs in processes.values()] == [2, 1, 2],
+            "one_gate_a_process": all(p["gates"] == 1 for p in every),
+            "rungs_a_process": all(p["rungs"] == rungs for p in every),
+            "int8_batches": all(sum(p["batches"] for p in runs) > 0
+                                for runs in processes.values()),
+            "counted_its_warmup_and_gate": all((p["launches"] or 0) >= rungs + 1 for p in every),
+            # one launch a rung, one for the gate, one an int8 batch
+            "counter_is_its_telemetry_on_sigterm": all(
+                p["launches"] == p["rungs"] + p["gates"] + p["batches"]
+                for p in every if p["ended"] == "SIGTERM")}
+        launches["int8_head"] = sum(counts.values())
+    finally:
+        for n in fronts:
+            stop_front(n)
+        # A backend a front left behind (the front was killed, or a
+        # stopped backend outlived it): still the same command line, so
+        # not a reused pid
+        for pid, cmd in seen.items():
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    if f.read().replace(b"\0", b" ").decode() != cmd:
+                        continue
+                os.kill(pid, signal.SIGCONT)
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                continue
+    emit({"phase": "fleet", "backends": FLEET_BACKENDS, "checks": ok, "record": record,
+          "launches": launches, "reference_launches": references,
+          "seconds": time.perf_counter() - t_phase})
+    for name, checks in ok.items():
+        check(all(checks.values()), f"fleet {name}: {checks}")
+    return launches, references
+
+
 def main() -> int:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6155,24 +6682,33 @@ def main() -> int:
           "adadelta_delta")
 
     # 21. compile: the startup path, a fresh kernel-library store; rows 1
-    # and 3 counted by its processes, the flagless references apart
+    # and 3 counted by its processes, the flagless references apart.
+    # 22. fleet: the serving fleet's backends on that store; row 1 counted
+    # from their telemetry, the reference engine apart
     with tempfile.TemporaryDirectory() as workdir:
         comp_launches, comp_references = compile_phase(torch, np, workdir, smi)
-    for k in ("int8_head", "adadelta_delta"):
-        check(comp_launches[k] > 0, f"the compile path never launched {k}")
+        for k in ("int8_head", "adadelta_delta"):
+            check(comp_launches[k] > 0, f"the compile path never launched {k}")
+        fleet_dir = os.path.join(workdir, "fleet")
+        os.makedirs(fleet_dir)
+        fleet_launches, fleet_references = fleet_phase(torch, np, fleet_dir,
+                                                       os.path.join(workdir, "aot"))
+    check(fleet_launches["int8_head"] > 0, "the fleet path never launched int8_head")
     top = by_n[str(TIMED_ROWS[-1])]
     kernels = [{
         "name": "int8_head", "route": "cuda",
         "source": "pytorch_mnist_ddp_tpu_torch/csrc/int8_head.cu",
         "replaces": "pytorch_mnist_ddp_tpu/ops/pallas_infer.py:61",
         "launches": (launches + stack_launches["int8_head"] + pool_launches["int8_head"]
-                     + comp_launches["int8_head"]),
+                     + comp_launches["int8_head"] + fleet_launches["int8_head"]),
         "launches_by_phase": {"engine_server": launches,
                               "serving_stack": stack_launches["int8_head"],
                               "pool": pool_launches["int8_head"],
-                              "compile": comp_launches["int8_head"]},
+                              "compile": comp_launches["int8_head"],
+                              "fleet": fleet_launches["int8_head"]},
         "serving_stack_reference_launches": stack_references["int8_head"],
         "pool_reference_launches": pool_references["int8_head"],
+        "fleet_reference_launches": fleet_references["int8_head"],
         "max_abs_err": max(kernel_err.values()),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"],

@@ -28,8 +28,16 @@ build directory, a store of the same kind that reports no outcome
 (``utils/compile_cache.py``); ``--serial-warmup`` warms a pool's
 replicas one after another instead of together (one engine always warms
 its rungs in turn, on its one stream); ``--no-device-stage`` stages
-batches in pageable memory with a blocking copy.  The fleet is not ported yet: its
-flags parse and are refused with an explicit error (exit 2).
+batches in pageable memory with a blocking copy.
+
+``--fleet N`` makes this process the fleet's front (serving/fleet.py):
+it imports no torch, spawns N backends (this CLI without the front's
+flags, each on its own port, all on one ``--aot-cache`` store: the
+operator's or a scratch one for the run), routes ``/predict`` under
+``--router-policy``, replaces a dead or wedged backend
+(``--fleet-restart-budget``, ``--fleet-heartbeat-timeout-s``,
+``--fleet-ready-timeout-s``) and, with ``--autoscale``, adds and drains
+backends between ``--scale-low`` and ``--scale-high``.
 """
 
 from __future__ import annotations
@@ -38,16 +46,6 @@ import argparse
 import signal
 import sys
 import threading
-
-# Flags of the JAX CLI this port refuses, by the part they belong to.
-NOT_PORTED = {
-    "the serving fleet": (
-        "--fleet", "--fleet-base-port", "--fleet-restart-budget",
-        "--fleet-heartbeat-timeout-s", "--fleet-ready-timeout-s", "--autoscale",
-        "--scale-high", "--scale-low", "--scale-min", "--scale-max",
-        "--scale-window-s", "--scale-cooldown-s"),
-}
-_SWITCHES = ("--autoscale",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -259,22 +257,66 @@ def build_parser() -> argparse.ArgumentParser:
         help="consecutive failed supervisor restarts before a replica "
         "is permanently ejected from the pool",
     )
-    for part, flags in NOT_PORTED.items():
-        for flag in flags:
-            kwargs = (dict(action="store_const", const=True) if flag in _SWITCHES
-                      else dict(metavar="X"))
-            parser.add_argument(flag, default=None,
-                                help=f"not ported yet ({part}); refused", **kwargs)
+    parser.add_argument(
+        "--fleet", type=int, default=None, metavar="N",
+        help="run a multi-PROCESS serving fleet: this process becomes a "
+        "torch-free front on --port that spawns N backend serving "
+        "processes (each this same CLI on --fleet-base-port+i, sharing one "
+        "AOT cache so replacements warm-start), routes /predict to them by "
+        "--router-policy, liveness-probes and REPLACES dead or wedged "
+        "backends under a seeded backoff restart budget, and (with "
+        "--autoscale) adds/drains whole backends from the load signal",
+    )
+    parser.add_argument(
+        "--fleet-base-port", type=int, default=None, metavar="PORT",
+        help="first backend port with --fleet (default --port + 1; "
+        "backend i listens on base+i, a replacement reuses its port)",
+    )
+    parser.add_argument(
+        "--fleet-restart-budget", type=int, default=3,
+        help="consecutive failed backend replacements before a backend "
+        "is permanently ejected from the fleet",
+    )
+    parser.add_argument(
+        "--fleet-heartbeat-timeout-s", type=float, default=10.0,
+        help="a backend whose dispatch-loop heartbeat file is older "
+        "than this is treated as wedged and replaced (0 disables; "
+        "process death and /readyz probes still apply)",
+    )
+    parser.add_argument(
+        "--fleet-ready-timeout-s", type=float, default=300.0,
+        help="bring-up bound per backend (a cold start builds the kernel "
+        "libraries; a warm start off the store runs no nvcc)",
+    )
+    parser.add_argument(
+        "--autoscale", action="store_true",
+        help="with --fleet: add a backend when the smoothed per-backend "
+        "backlog breaches --scale-high for --scale-window-s, drain the "
+        "newest at --scale-low (drain -> settle -> kill, nothing "
+        "lost), with cooldown hysteresis and --scale-min/--scale-max "
+        "bounds",
+    )
+    parser.add_argument(
+        "--scale-high", type=float, default=8.0, metavar="DEPTH",
+        help="autoscaler high-water mark: smoothed mean backlog "
+        "(queue depth + in-flight) per active backend",
+    )
+    parser.add_argument(
+        "--scale-low", type=float, default=1.0, metavar="DEPTH",
+        help="autoscaler low-water mark (must be < --scale-high; the "
+        "gap is the hysteresis band)",
+    )
+    parser.add_argument("--scale-min", type=int, default=1)
+    parser.add_argument("--scale-max", type=int, default=4)
+    parser.add_argument(
+        "--scale-window-s", type=float, default=2.0,
+        help="a watermark breach must sustain this long before acting",
+    )
+    parser.add_argument(
+        "--scale-cooldown-s", type=float, default=10.0,
+        help="minimum quiet time after any scale event",
+    )
     return parser
-
-
-def _not_ported(args) -> str | None:
-    for part, flags in NOT_PORTED.items():
-        for flag in flags:
-            if getattr(args, flag[2:].replace("-", "_")) is not None:
-                return (f"error: {flag} is not ported to the PyTorch/CUDA "
-                        f"serving CLI yet ({part}); run without it")
-    return None
 
 
 def _parse_qos_weights(spec: str) -> tuple[dict[str, int] | None, str | None]:
@@ -300,12 +342,9 @@ def _parse_qos_weights(spec: str) -> tuple[dict[str, int] | None, str | None]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    raw_argv = list(sys.argv[1:]) if argv is None else list(argv)
+    args = build_parser().parse_args(raw_argv)
 
-    refused = _not_ported(args)
-    if refused:
-        print(refused)
-        return 2
     if args.response_cache is not None and args.response_cache < 1:
         print(f"error: --response-cache must be >= 1, got {args.response_cache}")
         return 2
@@ -321,6 +360,39 @@ def main(argv: list[str] | None = None) -> int:
         if not 0.0 < args.canary <= 100.0:
             print(f"error: --canary must be in (0, 100], got {args.canary:g}")
             return 2
+    if args.fleet is not None:
+        # The front is a control plane and a proxy: no engine, no
+        # checkpoint, no torch.  It comes up at once and keeps working
+        # when a backend (the part that owns the card) is what broke.
+        # Delegate before anything imports torch.
+        if args.fleet < 1:
+            print(f"error: --fleet must be >= 1, got {args.fleet}")
+            return 2
+        if args.autoscale and args.scale_low >= args.scale_high:
+            print(
+                f"error: --scale-low {args.scale_low:g} must be < "
+                f"--scale-high {args.scale_high:g} (the hysteresis band)"
+            )
+            return 2
+        if args.autoscale and not (
+            1 <= args.scale_min <= args.fleet <= args.scale_max
+        ):
+            # Before the backends' bring-up, not after it: the
+            # autoscaler would refuse these only once every backend warmed.
+            print(
+                f"error: need 1 <= --scale-min ({args.scale_min}) <= "
+                f"--fleet ({args.fleet}) <= --scale-max ({args.scale_max})"
+            )
+            return 2
+        if args.warmup_only:
+            # Passed through, every backend would warm and exit 0, and the
+            # front would report an opaque bring-up failure.
+            print("error: --warmup-only is a backend concern; run it "
+                  "without --fleet")
+            return 2
+        from .fleet import run_fleet
+
+        return run_fleet(args, raw_argv)
     dtypes = [d.strip() for d in args.dtypes.split(",") if d.strip()]
     if args.bf16 and any(d != "f32" for d in dtypes):
         print(
@@ -367,6 +439,7 @@ def main(argv: list[str] | None = None) -> int:
     from ..ops import _build
     from ..utils.compile_cache import enable_persistent_cache
     from .engine import InferenceEngine
+    from .fleet import ENV_FLEET_HEARTBEAT_FILE
     from .metrics import ServingMetrics
     from .server import make_server
 
@@ -495,9 +568,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.warmup_only:
         sink.close()
         return 0
-    # A supervisor that exported SERVE_HEARTBEAT_FILE reads the dispatch
+    # A fleet front that exported the heartbeat file reads the dispatch
     # loop's beats by the file's age; without it nothing is built.
-    hb = Heartbeat.from_env("SERVE_HEARTBEAT_FILE")
+    hb = Heartbeat.from_env(ENV_FLEET_HEARTBEAT_FILE)
     rollout = None
     if registry is not None:
         from .rollout import RolloutController
@@ -585,6 +658,7 @@ def main(argv: list[str] | None = None) -> int:
         sink.close()
         print(metrics.report_lines(
             queue_depth=server.batcher.depth(),
+            compiles=_build.BUILDS,
             buckets=engine.buckets,
             inflight=server.batcher.inflight(),
             max_inflight=server.batcher.max_inflight,

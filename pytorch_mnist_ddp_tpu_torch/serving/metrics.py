@@ -35,7 +35,12 @@ observation where a short run's exposition must already carry it:
   ``serving_router_decisions_total{policy=,replica=}``,
   ``serving_router_shape_decisions_total{policy=,shape_class=}`` and
   ``serving_replica_restarts_total{replica=}``; the snapshot's
-  ``replicas`` block is the router's per-replica state.
+  ``replicas`` block is the router's per-replica state;
+- the fleet front (serving/fleet.py): ``fleet_scale_events_total
+  {direction=}`` (:meth:`ensure_fleet`) and, registered by the fleet,
+  ``fleet_backends{state=}``, ``fleet_route_decisions_total{backend=}``,
+  ``fleet_backend_restarts_total{backend=}``; the snapshot's
+  ``compiles`` counts kernel libraries built with nvcc.
 """
 
 from __future__ import annotations
@@ -173,6 +178,19 @@ class ServingMetrics:
                 help="requests load-shed from the admission queue per "
                 "QoS class (lowest class first under pressure)",
                 qos=qos,
+            )
+
+    def ensure_fleet(self) -> None:
+        """Pre-register the fleet front's families (serving/fleet.py) so a
+        short run's exposition carries them before the first scale event
+        or restart.  The per-backend restart counters register as each
+        backend joins (``Fleet._register``); here live the families no
+        backend owns."""
+        for direction in ("up", "down"):
+            self.registry.counter(
+                "fleet_scale_events_total",
+                help="autoscaler actions by direction",
+                direction=direction,
             )
 
     def ensure_hedges(self) -> None:
@@ -370,6 +388,7 @@ class ServingMetrics:
     def snapshot(
         self,
         queue_depth: int | None = None,
+        compiles: int | None = None,
         buckets: tuple[int, ...] | None = None,
         inflight: int | None = None,
         max_inflight: int | None = None,
@@ -379,7 +398,9 @@ class ServingMetrics:
         """One consistent dict of everything (the /metrics JSON payload).
         Passed values are owned by the batcher and engine; ``queue_depth``
         is mirrored into a gauge so the Prometheus surface carries it.
-        ``replicas`` is the router's per-replica block (pool mode)."""
+        ``compiles`` is the kernel libraries this process built with nvcc
+        (the fleet front: its backends' sum).  ``replicas`` is the
+        router's per-replica block (pool mode)."""
         with self.registry.locked():
             lat = sorted(self._latency.values())
             by_dtype = {
@@ -489,6 +510,8 @@ class ServingMetrics:
             snap["pipeline"]["linger_ms"] = linger_ms
         if replicas is not None:
             snap["replicas"] = replicas
+        if compiles is not None:
+            snap["compiles"] = compiles
         if buckets is not None:
             snap["buckets"] = list(buckets)
         for name, help_text, value in gauges:
@@ -561,5 +584,10 @@ class ServingMetrics:
             lines.append(
                 f"  dtype [{name}]: {d['requests']} ok, p50 {d['p50_ms']:.2f} ms "
                 f"/ p99 {d['p99_ms']:.2f} ms"
+            )
+        if "compiles" in s:
+            lines.append(
+                f"  compiles: {s['compiles']}"
+                + (f" (buckets {s['buckets']})" if "buckets" in s else "")
             )
         return "\n".join(lines)

@@ -59,6 +59,7 @@ import numpy as np
 from ..data.transforms import normalize
 from ..models.net import INPUT_SHAPE
 from ..obs.registry import render_prometheus
+from ..ops import _build
 from . import wire
 from .batcher import MicroBatcher, RejectedError, RequestTimeout
 from .cache import COALESCED, HIT, FlightTimeout, ResponseCache
@@ -447,10 +448,12 @@ class ServingHTTPServer(ThreadingHTTPServer):
 
     def snapshot(self) -> dict:
         # Pool mode: the router's depth/in-flight sums and its per-replica
-        # block.
+        # block.  ``compiles``: the kernel libraries this process built
+        # with nvcc (0 on a warm start off the store, and on the CPU).
         stats = getattr(self.batcher, "replica_stats", None)
         return self.metrics.snapshot(
             queue_depth=self.batcher.depth(),
+            compiles=_build.BUILDS,
             buckets=self.engine.buckets,
             inflight=self.batcher.inflight(),
             max_inflight=self.batcher.max_inflight,

@@ -305,26 +305,70 @@ def test_vit_cli_accepts_ported_flags(flags, dest, value):
             defaults.step_stats) == (None, None, None, False)
 
 
-SERVING_NOT_PORTED = [
-    ["--fleet", "2"], ["--fleet-base-port", "9000"],
-    ["--fleet-restart-budget", "3"], ["--fleet-heartbeat-timeout-s", "10"],
-    ["--fleet-ready-timeout-s", "300"], ["--autoscale"], ["--scale-high", "8"],
-    ["--scale-low", "1"], ["--scale-min", "1"], ["--scale-max", "4"],
-    ["--scale-window-s", "2"], ["--scale-cooldown-s", "10"],
+SERVING_FLEET_FLAGS = [
+    (["--fleet", "2"], "fleet", None, 2),
+    (["--fleet-base-port", "9000"], "fleet_base_port", None, 9000),
+    (["--fleet-restart-budget", "1"], "fleet_restart_budget", 3, 1),
+    (["--fleet-heartbeat-timeout-s", "2.5"], "fleet_heartbeat_timeout_s", 10.0, 2.5),
+    (["--fleet-ready-timeout-s", "60"], "fleet_ready_timeout_s", 300.0, 60.0),
+    (["--autoscale"], "autoscale", False, True),
+    (["--scale-high", "12"], "scale_high", 8.0, 12.0),
+    (["--scale-low", "0.5"], "scale_low", 1.0, 0.5),
+    (["--scale-min", "2"], "scale_min", 1, 2),
+    (["--scale-max", "6"], "scale_max", 4, 6),
+    (["--scale-window-s", "0.5"], "scale_window_s", 2.0, 0.5),
+    (["--scale-cooldown-s", "3"], "scale_cooldown_s", 10.0, 3.0),
 ]
 
 
-@pytest.mark.parametrize("argv", SERVING_NOT_PORTED, ids=[a[0] for a in SERVING_NOT_PORTED])
-def test_serving_refuses_flags_not_ported_yet(argv, capsys):
-    """The fleet: argparse takes each flag (no unknown-flag exit), and the
-    CLI refuses it by name, exit 2, before anything is built (no card
-    needed)."""
+@pytest.mark.parametrize("argv,dest,default,value", SERVING_FLEET_FLAGS,
+                         ids=[a[0][0] for a in SERVING_FLEET_FLAGS])
+def test_serving_accepts_the_fleet_flags(argv, dest, default, value):
+    """Each fleet flag parses to the JAX CLI's default and, given, to its
+    value, the type the JAX CLI gives it."""
+    from pytorch_mnist_ddp_tpu.serving.__main__ import build_parser as jax_serving_parser
     from pytorch_mnist_ddp_tpu_torch.serving.__main__ import build_parser as serving_parser
 
-    serving_parser().parse_args(argv)
-    assert cli_main(argv + ["--warmup-only"]) == 2
-    out = capsys.readouterr().out
-    assert out.startswith(f"error: {argv[0]} is not ported to the PyTorch/CUDA serving CLI")
+    port, jax = serving_parser(), jax_serving_parser()
+    assert getattr(port.parse_args([]), dest) == getattr(jax.parse_args([]), dest) == default
+    got = getattr(port.parse_args(argv), dest)
+    assert got == getattr(jax.parse_args(argv), dest) == value
+    assert type(got) is type(value)
+
+
+SERVING_FLEET_PREFLIGHT = [
+    (["--fleet", "0"], "error: --fleet must be >= 1, got 0"),
+    (["--fleet", "2", "--autoscale", "--scale-low", "8"],
+     "error: --scale-low 8 must be < --scale-high 8 (the hysteresis band)"),
+    (["--fleet", "5", "--autoscale"],
+     "error: need 1 <= --scale-min (1) <= --fleet (5) <= --scale-max (4)"),
+    (["--fleet", "2", "--warmup-only"],
+     "error: --warmup-only is a backend concern; run it without --fleet"),
+]
+
+
+@pytest.mark.parametrize("argv,line", SERVING_FLEET_PREFLIGHT,
+                         ids=["fleet_0", "scale_low", "scale_bounds", "warmup_only"])
+def test_serving_fleet_preflight_refusals(argv, line, capsys):
+    """The JAX CLI's four pre-flight refusals of --fleet: exit 2 with its
+    message, before any backend is spawned."""
+    assert cli_main(argv) == 2
+    assert capsys.readouterr().out.splitlines() == [line]
+
+
+def test_serving_cli_takes_every_flag_of_the_jax_cli():
+    """JAX's serving flags minus the port's is the empty set, and each
+    flag both take has the same default but --int8-impl (the port's
+    default is its kernel)."""
+    from pytorch_mnist_ddp_tpu.serving.__main__ import build_parser as jax_serving_parser
+    from pytorch_mnist_ddp_tpu_torch.serving.__main__ import build_parser as serving_parser
+
+    options = lambda p: {o for a in p._actions for o in a.option_strings}  # noqa: E731
+    assert options(jax_serving_parser()) - options(serving_parser()) == set()
+    jax_defaults = vars(jax_serving_parser().parse_args([]))
+    port_defaults = vars(serving_parser().parse_args([]))
+    assert {k: v for k, v in jax_defaults.items() if port_defaults[k] != v} == {
+        "int8_impl": "dot"}
 
 
 SERVING_STARTUP_FLAGS = [
