@@ -246,7 +246,8 @@ Phases, one JSON line each:
                 steps, --pp to the single-device plain steps), the MoE
                 legs' routing flips and smallest gate margin recorded;
                 (d) one --experts 8 --flash epoch through vit_mnist.fit
-                (epoch-1 accuracy floor, ms a step, row 4 at its formula);
+                in this process while (a)-(c)'s processes run (epoch-1
+                accuracy floor, ms a step, row 4 at its formula);
 19. train_state — 20-step epochs on a seeded IDX set, TF32 off: (a) the
                 ViT's --save-state then --resume-state, --flash and --sp 1
                 --allow-degree-1 --flash, torch.equal to two epochs without
@@ -345,26 +346,48 @@ Phases, one JSON line each:
                 D, a process of its own on a host without nvcc (neither
                 PATH nor CUDA_HOME finds one; the backends and every
                 replacement inherit that), seed-12 weights, beside it a
-                --fleet 1 for the readings: (a) every backend active with
+                --fleet 1 for (c): (a) every backend active with
                 compiles 0, its int8 gate passed and int8_head a store hit
-                with 0 nvcc builds; 16 seeded requests one at a time, f32
-                and int8, JSON and the binary wire, each answer equal
-                (np.array_equal) to a single engine's in this process at
-                the same bucket; (b) b1 SIGKILLed under 8 closed-loop
+                with 0 nvcc builds; 16 seeded requests one at a time to
+                each front, f32 and int8, JSON and the binary wire, each
+                answer equal (np.array_equal) to a single engine's in this
+                process at the same bucket; (b) b1 SIGKILLed under 8 closed-loop
                 clients: every request one 200, b1 replaced in a new
                 process that builds nothing (compiles 0),
                 fleet_backend_restarts_total{backend="b1"} 1; (c) at
                 once, the fleet of one's b0 SIGSTOPped: its heartbeat
                 goes stale, the supervisor's incident says so and b0 is
                 replaced; both fronts exit 0 on SIGTERM.  Every answer
-                under load, (b)'s and the readings', within HTTP_TOL
-                (same argmax) of the single engine's for its rows at one
-                of the ladder's buckets.  Readings: each backend's and
-                front's seconds to ready, client p50/p99 and requests/s
-                with one and two backends under the same 8 clients in
-                six 4 s windows (1, 2, 2, 1, 1, 2 backends), the seconds
-                from the kill and the stop to the replacement being
-                active.
+                under load within HTTP_TOL (same argmax) of the single
+                engine's for its rows at one of the ladder's buckets.
+                Readings: each backend's and front's seconds to ready,
+                client p50/p99 of (b), the seconds from the kill and the
+                stop to the replacement being active (the throughput
+                readings with one and two backends are 23 (c)'s);
+23. loadgen   — the port's operator tools (``python -m
+                pytorch_mnist_ddp_tpu_torch.tools.serve_loadgen`` and
+                ``.tools.slo_gate``) on 22's store D, in the same work
+                directory, on a host without nvcc; three parts started
+                together: (a) the SLO gate in a process of its own on
+                cuda:0 (its committed protocol: two dp replicas on their
+                own streams, packed, the steady, recovery and swap rounds,
+                each a loadgen process): exit 0, every budget met, its
+                verdict row appended to build/loadgen/BENCH_slo.json, no
+                library built; (b) in this process, a two-replica pool of
+                --dtype int8 --int8-impl pallas off D under 8 closed-loop
+                clients for 3 s (the pool's rate R), then --ab-tail at an
+                offered 1.2 R, --qos-mix interactive=0.8,batch=0.2: no
+                lost or duplicated response, the compile firewall held
+                in both rungs; (c) --fleet-sweep 1,2 on real backend
+                processes off D (--dtype int8 --int8-impl pallas, an
+                open-loop 100 requests/s), with its kill round: lost 0,
+                transport errors 0, the front's compiles 0 in every rung,
+                the killed backend replaced with compiles 0, and every
+                backend process a store hit with 0 nvcc builds.
+                Readings: (b)'s closed-loop rate and p50/p99 and the
+                per-class p50/p99 with QoS off and on; (c)'s requests/s
+                and p50/p99 at 1 and 2 backends and the replacement's
+                seconds; (a)'s measured values beside the budgets.
 
 Every phase line carries its ``seconds``.  Then the ``kernels`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Launch
@@ -388,7 +411,8 @@ again over 21 (counted by its processes; the flagless runs apart);
 int8_head again over 22 (each backend process's own count, written to a
 file by LAUNCH_COUNTER_SITE; a SIGKILLed process loses its last 50 ms;
 a SIGTERMed one's must equal its telemetry's int8 rungs, gate and int8
-batches; the reference engine apart).
+batches; the reference engine apart); int8_head again over 23 ((b)'s in
+this process, (a)'s and (c)'s processes' own counts as in 22).
 Latencies, seconds per epoch and images/s are smoke readings of this
 script's own work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -745,10 +769,16 @@ FLEET_HEARTBEAT_S = 1.5
 FLEET_READY_S = 180.0  # bring-up, and a replacement's
 FLEET_REQUESTS = 16  # (a): seeded requests, one at a time
 FLEET_KILL_AFTER = 40  # (b): answers before the kill, and again after
-# the readings: 8 closed-loop clients for FLEET_READ_S a window, on the
-# fleet of one and the fleet of two in this order
-FLEET_READ_S = 4.0
-FLEET_READ_ORDER = (1, 2, 2, 1, 1, 2)
+# loadgen phase: the port's load generator and SLO gate on the fleet's store
+LOADGEN_CLIENTS = 8  # (b) the closed loop that sets the offered rate
+LOADGEN_CLOSED_S = 3.0
+LOADGEN_CLOSED_PLAN = 600  # its pre-encoded bodies, cycled
+LOADGEN_OVERLOAD = 1.2  # (b) the ab-tail's offered rate over the closed loop's
+LOADGEN_TAIL_S = 4.0  # (b) each rung's trace
+LOADGEN_MIX = "interactive=0.8,batch=0.2"
+LOADGEN_FLEET_RATE = 100.0  # (c) offered requests/s at 1 and 2 backends
+LOADGEN_FLEET_REQUESTS = 400
+LOADGEN_PROC_TIMEOUT_S = 400
 
 
 _CLOCK = {"last": time.perf_counter()}
@@ -3234,7 +3264,7 @@ def vit_family_phase(torch, np, workdir: str) -> tuple[dict, dict]:
 
     # (a) an NCCL world of one through the launcher, (b) two gloo ranks
     # sharing the card and (c) four: three worlds of their own processes,
-    # started together
+    # started together, (d) run beside them
     counts = os.path.join(workdir, "fam_counts")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
@@ -3246,6 +3276,19 @@ def vit_family_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         nccl_done = pool.submit(waited_process, proc, t0)
         two_done = pool.submit(gloo_world, 2, workdir, batches, VIT_FAM_TWO, epoch=False)
         four_done = pool.submit(gloo_world, 4, workdir, batches, VIT_FAM_FOUR, epoch=False)
+        # (d) one epoch of --experts 8 --flash on the single device, in this
+        # process while the worlds' processes run
+        args = vit_mnist.build_parser().parse_args(VIT_FAM_EPOCH)
+        timings: dict = {}
+        before = dict(fa.LAUNCHES)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            vit_mnist.fit(args, vit_mnist.resolve_mode_flags(args), "cuda", timings=timings)
+        epoch_launches = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        steps = sum(timings["epoch_steps"])
+        eval_batches = -(-timings["test_size"] // args.test_batch_size)
+        depth = ViTConfig().depth
+        want_epoch = depth * (steps + eval_batches)
         rc, _, err, nccl_s = nccl_done.result()
         (two, two_s), (four, four_s) = two_done.result(), four_done.result()
     check(rc == 0, f"vit_family launcher leg exited {rc}: {err[-2000:]}")
@@ -3290,18 +3333,6 @@ def vit_family_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         for k in launches:
             launches[k] += r["launches"][k]
 
-    # (d) one epoch of --experts 8 --flash on the single device
-    args = vit_mnist.build_parser().parse_args(VIT_FAM_EPOCH)
-    timings: dict = {}
-    before = dict(fa.LAUNCHES)
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        vit_mnist.fit(args, vit_mnist.resolve_mode_flags(args), "cuda", timings=timings)
-    epoch_launches = {k: fa.LAUNCHES[k] - before[k] for k in before}
-    steps = sum(timings["epoch_steps"])
-    eval_batches = -(-timings["test_size"] // args.test_batch_size)
-    depth = ViTConfig().depth
-    want_epoch = depth * (steps + eval_batches)
     for k in launches:
         launches[k] += epoch_launches[k]
     acc1 = timings["epoch1_test_accuracy"]
@@ -5910,28 +5941,41 @@ def children_of(pid: int) -> dict[int, str]:
 
 
 def free_ports(k: int) -> int:
-    """The first of ``k`` consecutive TCP ports on 127.0.0.1 that no one
-    listens on now."""
+    """The first of ``k`` consecutive TCP ports on 127.0.0.1 free now, below
+    the ephemeral range: backends bind them seconds later, and meanwhile
+    every client connection on the host takes an ephemeral port as its
+    source port."""
+    import random
     import socket
 
-    while True:
-        base = free_port()
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    for base in random.Random().sample(range(10000, low - k), 200):
+        ports = set(range(base, base + k))
+        if ports & _HANDED_OUT:  # an earlier call's, maybe not bound yet
+            continue
         try:
-            for p in range(base + 1, base + k):
+            for p in ports:
                 with socket.socket() as s:
                     s.bind(("127.0.0.1", p))
-            return base
         except OSError:
             continue
+        _HANDED_OUT.update(ports)
+        return base
+    raise RuntimeError(f"no {k} consecutive free ports under {low}")
 
 
-# The fleet phase's launch counter, written as sitecustomize.py into a
-# directory on the fronts' PYTHONPATH, which their backends inherit.  A
-# process that has imported ops/int8_head writes that module's own count,
-# LAUNCHES (one a launch, at the launch), to <dir>/int8_head.<pid> every
-# 50 ms and at exit; it never imports the module, so the front stays free
-# of torch.  A SIGKILL loses what the process launched in its last 50 ms.
-# A sitecustomize further down sys.path still runs.
+_HANDED_OUT: set[int] = set()
+
+
+# The fleet and loadgen phases' launch counter, written as sitecustomize.py
+# into a directory on the PYTHONPATH of the processes they start, which
+# those processes' backends inherit.  A process that has imported
+# ops/int8_head writes that module's own count, LAUNCHES (one a launch,
+# at the launch), to <dir>/int8_head.<pid> every 50 ms and at exit; it
+# never imports the module, so a front stays free of torch.  A SIGKILL
+# loses what the process launched in its last 50 ms.  A sitecustomize
+# further down sys.path still runs.
 LAUNCH_COUNTER_SITE = """\
 import atexit
 import importlib.machinery
@@ -6075,8 +6119,8 @@ def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
     launches, references = {"int8_head": 0}, {"int8_head": 0}
     try:
         # Setup: the two-backend fleet the checks run on, and beside it a
-        # fleet of one for the readings (each front a process of its own,
-        # started together)
+        # fleet of one for (c) (each front a process of its own, started
+        # together)
         for n in (1, FLEET_BACKENDS):
             start(n)
         backend_ready_s, front_ready_s = {}, {}
@@ -6142,21 +6186,22 @@ def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
         names = [f"b{i}" for i in range(FLEET_BACKENDS)]
         backend_log = lambda name: text(os.path.join(tel, f"backend-{name}.log"))  # noqa: E731
 
-        # (a) every backend active off the store, its gate passed, and the
+        # (a) every backend active off the store, its gate passed, and each
         # front's answers the single engine's at the same bucket
         snap = metrics(url)
         equal = {}
-        for i, (off, size, dtype, binary, want) in enumerate(seeded):
-            rows = raw[off:off + size]
-            if binary:
-                status, body, _ = http_post(url + "/predict", wire.encode_request(
-                    rows.astype(np.float32), dtype=dtype), wire.WIRE_REQUEST_TYPE)
-                got = wire.decode_response(body) if status == 200 else None
-            else:
-                status, body, _ = http_post(url + "/predict", predict_body(rows, dtype))
-                got = log_probs(body) if status == 200 else None
-            equal[f"{i}:{dtype}:{'binary' if binary else 'json'}:{size}"] = (
-                got is not None and bool(np.array_equal(got, want)))
+        for n, fr in fronts.items():
+            for i, (off, size, dtype, binary, want) in enumerate(seeded):
+                rows = raw[off:off + size]
+                if binary:
+                    status, body, _ = http_post(fr["url"] + "/predict", wire.encode_request(
+                        rows.astype(np.float32), dtype=dtype), wire.WIRE_REQUEST_TYPE)
+                    got = wire.decode_response(body) if status == 200 else None
+                else:
+                    status, body, _ = http_post(fr["url"] + "/predict", predict_body(rows, dtype))
+                    got = log_probs(body) if status == 200 else None
+                equal[f"fleet{n}:{i}:{dtype}:{'binary' if binary else 'json'}:{size}"] = (
+                    got is not None and bool(np.array_equal(got, want)))
         ok["a_serving"] = {
             "active": sorted(snap["backends"]) == names
             and all(b["state"] == "active" for b in snap["backends"].values()),
@@ -6167,37 +6212,6 @@ def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
             "answers_equal_single_engine": all(equal.values())}
         if not all(equal.values()):
             record["a_unequal"] = [k for k, v in equal.items() if not v]
-
-        # Readings: 8 closed-loop clients for FLEET_READ_S on the fleet of
-        # one and the fleet of two in turn, every answer held to its bucket
-        windows, pooled = [], {n: [] for n in fronts}
-        for k, n in enumerate(FLEET_READ_ORDER):
-            ended = threading.Event()
-            timer = threading.Timer(FLEET_READ_S, ended.set)
-            t0 = time.perf_counter()
-            timer.start()
-            run = pool_clients(fronts[n]["url"], ref, POOL_CLIENTS, 1 << 20, seed=6 + k,
-                               stop=ended)
-            secs = time.perf_counter() - t0
-            check(not run["bad"], f"fleet reading {k} with {n} backends: {run['bad'][:5]}")
-            lat = run["latencies_ms"]
-            pooled[n] += lat
-            windows.append({"backends": n, "requests": len(lat), "seconds": secs,
-                            "rps": len(lat) / secs, "max_abs_err": run["max_abs_err"],
-                            "requests_by_bucket": run["requests_by_bucket"],
-                            "client_p50_ms": float(np.percentile(lat, 50)),
-                            "client_p99_ms": float(np.percentile(lat, 99))})
-        readings = {"windows": windows}
-        for n in fronts:
-            mine = [w for w in windows if w["backends"] == n]
-            readings[f"backends_{n}"] = {
-                "windows": len(mine), "requests": len(pooled[n]),
-                "rps": [w["rps"] for w in mine],
-                "rps_mean": sum(w["rps"] for w in mine) / len(mine),
-                "client_p50_ms": float(np.percentile(pooled[n], 50)),
-                "client_p99_ms": float(np.percentile(pooled[n], 99)),
-                "client_p99_ms_by_window": [w["client_p99_ms"] for w in mine]}
-        record["readings"] = readings
 
         # (b) and (c) together, their replacements starting side by side:
         # (b) the two-backend fleet's b1 SIGKILLed under 8 closed-loop
@@ -6342,6 +6356,206 @@ def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
     for name, checks in ok.items():
         check(all(checks.values()), f"fleet {name}: {checks}")
     return launches, references
+
+
+def loadgen_phase(torch, np, workdir: str, store: str, smi: str, device: str = "cuda") -> dict:
+    """The loadgen phase (module docstring, 23): the SLO gate (a) and the
+    fleet sweep (c) in processes of their own, started together, and
+    meanwhile (b) in this process.  Returns row 1's launches on the path:
+    (b)'s from ops/int8_head.LAUNCHES, (a)'s and (c)'s from each process's
+    own counter (LAUNCH_COUNTER_SITE)."""
+    import contextlib
+    import io
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.tools import serve_loadgen as lg
+
+    t_phase = time.perf_counter()
+    at = functools.partial(os.path.join, workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    reports = os.path.join(here, "build", "loadgen")
+    counter_dir = at("launch_counter")
+    os.makedirs(counter_dir)
+    with open(os.path.join(counter_dir, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_COUNTER_SITE)
+    path = [here, counter_dir, *filter(None, [os.environ.get("PYTHONPATH")])]
+    env = no_nvcc_env({**os.environ, "CHIP_SMOKE_LAUNCH_DIR": counter_dir,
+                       "PYTHONPATH": os.pathsep.join(path)}, at("no_toolkit"))
+    int8 = ["--device", device, "--dtype", "int8", "--int8-impl", "pallas", "--aot-cache", store]
+
+    def text(path: str) -> str:
+        with open(path, errors="replace") as f:
+            return f.read()
+
+    def report(name: str) -> dict:
+        with open(os.path.join(reports, name)) as f:
+            return json.load(f)
+
+    procs: dict[str, dict] = {}
+
+    def start(name: str, argv: list[str]) -> None:
+        handle = open(at(f"{name}.log"), "w")
+        procs[name] = {"proc": subprocess.Popen([sys.executable, "-m", *argv], cwd=here, env=env,
+                                                stdout=handle, stderr=subprocess.STDOUT),
+                       "handle": handle, "log": at(f"{name}.log"), "t0": time.perf_counter()}
+
+    def finish(name: str) -> int | None:
+        p = procs[name]
+        if "rc" not in p:
+            try:
+                p["rc"] = p["proc"].wait(timeout=max(1.0, LOADGEN_PROC_TIMEOUT_S
+                                                     - (time.perf_counter() - p["t0"])))
+            except subprocess.TimeoutExpired:
+                p["proc"].kill()
+                p["rc"] = p["proc"].wait()
+            p["seconds"] = time.perf_counter() - p["t0"]
+            p["handle"].close()
+        return p["rc"]
+
+    ok: dict = {}
+    record: dict = {"nvidia_smi": smi}
+    launches = {"int8_head": 0}
+    try:
+        start("gate", ["pytorch_mnist_ddp_tpu_torch.tools.slo_gate", "--device", device,
+                       "--workdir", at("gate"), "--keep"])
+        start("fleet", ["pytorch_mnist_ddp_tpu_torch.tools.serve_loadgen", *int8,
+                        "--fleet-sweep", "1,2", "--open-loop",
+                        "--rate", str(LOADGEN_FLEET_RATE),
+                        "--requests", str(LOADGEN_FLEET_REQUESTS),
+                        "--fleet-base-port", str(free_ports(2)),
+                        "--telemetry-dir", at("fleet_tel")])
+
+        # (b) in this process: the pool's closed-loop rate, then the tail
+        # A/B at 1.2 times it, so the queue stays deep
+        before = ih.LAUNCHES
+        out = io.StringIO()
+        args = lg.build_parser().parse_args(
+            [*int8, "--replicas", "2", "--requests", str(LOADGEN_CLOSED_PLAN)])
+        with contextlib.redirect_stdout(out):
+            server, sink, url = lg._spin_self_serve(args, replicas=2)
+        try:
+            plan = lg.build_plan(args)
+            lock = threading.Lock()
+            closed = {"latencies_ms": [], "statuses": {}}
+            stop_at = time.perf_counter() + LOADGEN_CLOSED_S
+
+            def client(c: int) -> None:
+                i = c
+                while time.perf_counter() < stop_at:
+                    k = i % len(plan["bodies"])
+                    i += LOADGEN_CLIENTS
+                    t0 = time.perf_counter()
+                    status, data = lg.fetch_raw(url + "/predict", plan["bodies"][k],
+                                                plan["headers"][k], timeout=30.0)
+                    lg._decode_reply(plan["wire"], status, data)
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    with lock:
+                        closed["latencies_ms"].append(ms)
+                        closed["statuses"][status] = closed["statuses"].get(status, 0) + 1
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(LOADGEN_CLIENTS) as pool:
+                list(pool.map(client, range(LOADGEN_CLIENTS)))
+            closed_s = time.perf_counter() - t0
+        finally:
+            lg._teardown_self_serve(server, sink)
+        lat = closed["latencies_ms"]
+        rate = closed["statuses"].get(200, 0) / closed_s
+        record["b_closed_loop"] = {
+            "clients": LOADGEN_CLIENTS, "seconds": closed_s, "requests": len(lat),
+            "statuses": {str(k): v for k, v in closed["statuses"].items()}, "rps": rate,
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99))}
+        offered = LOADGEN_OVERLOAD * rate
+        tail_path = os.path.join(reports, "BENCH_tail.json")
+        with contextlib.redirect_stdout(out):
+            tail_rc = lg.main([*int8, "--ab-tail", "--open-loop", "--rate", f"{offered:.1f}",
+                               "--requests", str(int(offered * LOADGEN_TAIL_S)),
+                               "--replicas", "2", "--qos-mix", LOADGEN_MIX,
+                               "--tail-report", tail_path])
+        launches_b = ih.LAUNCHES - before
+        tail = report("BENCH_tail.json")
+        ok["b_pool"] = {
+            "closed_loop_all_200": set(closed["statuses"]) == {200},
+            "ab_tail_exit_0": tail_rc == 0,
+            "nothing_lost_or_duplicated": all(
+                r["lost"] == r["transport_errors"] == r["duplicates"] == 0
+                for r in tail["rungs"]),
+            "firewall_held": all(r["additional_compiles"] == 0 for r in tail["rungs"]),
+            "row1_launched": launches_b > 0}
+        record["b_ab_tail"] = {
+            "offered_rps": tail["offered_rate_rps"], "requests": tail["requests"],
+            "rungs": {r["label"]: {
+                "goodput_rps": r["goodput_rps"], "rejected": r["rejected"],
+                "timed_out": r["timed_out"], "hedges": r["server_hedges"],
+                "p50_ms": r["latency_ms"]["p50"], "p99_ms": r["latency_ms"]["p99"],
+                "by_class": {q: {k: v[k] for k in ("requests", "ok", "rejected", "timed_out",
+                                                   "p50", "p95", "p99")}
+                             for q, v in (r["qos_latency_ms"] or {}).items()}}
+                for r in tail["rungs"]},
+            "goodput_ratio_tail_vs_baseline": tail["goodput_ratio_tail_vs_baseline"]}
+        if not all(ok["b_pool"].values()):
+            record["b_stdout_tail"] = out.getvalue()[-3000:]
+
+        # (a) the gate and (c) the fleet sweep, waited on
+        gate_rc, fleet_rc = finish("gate"), finish("fleet")
+        gate_log, fleet_log = text(procs["gate"]["log"]), text(procs["fleet"]["log"])
+        with open(os.path.join(reports, "BENCH_slo.json")) as f:
+            row = json.load(f)[-1]
+        ok["a_gate"] = {
+            "exit_0": gate_rc == 0, "pass_line": "SLO GATE: PASS" in gate_log,
+            "row_passed": row["pass"] and not row["failures"] and row["device"] == device,
+            "no_library_built": row["measured"]["library_builds"] == 0}
+        record["a_gate"] = {"seconds": procs["gate"]["seconds"], "measured": row["measured"],
+                            "budgets": row["budgets"]}
+        fleet = report("BENCH_fleet.json")
+        kill = fleet["recovery_under_kill"] or {}
+        tel = at("fleet_tel")
+        backend_logs = sorted(name for name in os.listdir(tel) if name.startswith("backend-"))
+        warm = [ln for name in backend_logs for ln in text(os.path.join(tel, name)).splitlines()
+                if "warmup verified: " in ln]
+        ok["c_fleet"] = {
+            "exit_0": fleet_rc == 0, "real_backends": fleet["backend_kind"] == "process",
+            "compiles_0_every_rung": all(r["additional_compiles"] == 0 for r in fleet["sweep"]),
+            "kill_lost_0": kill.get("lost") == 0 and kill.get("transport_errors") == 0,
+            "killed_backend_replaced": bool(kill.get("replaced")),
+            "replacement_compiles_0": kill.get("replacement_compiles") == 0,
+            # 1 + 2 backends in the sweep, 2 in the kill round and the replacement
+            "every_backend_a_store_hit": len(warm) == 6 and all(
+                "(int8_head: hit)" in ln and ", 0 nvcc builds" in ln for ln in warm)}
+        record["c_fleet"] = {
+            "seconds": procs["fleet"]["seconds"], "offered_rps": fleet["offered_rate_rps"],
+            "sweep": [{k: r[k] for k in ("backends", "goodput_rps", "answered_rps", "wall_s",
+                                         "p50_ms", "p99_ms", "rejected", "timed_out")}
+                      for r in fleet["sweep"]],
+            "kill": {k: kill.get(k) for k in ("killed", "kill_at_s", "rejected",
+                                              "rejected_rate", "mean_replacement_s",
+                                              "goodput_rps")}}
+        if not all(ok["c_fleet"].values()):
+            record["c_log_tail"] = fleet_log[-3000:]
+        if not all(ok["a_gate"].values()):
+            record["a_log_tail"] = gate_log[-3000:]
+
+        # Row 1 on the path: (b) in this process, and each other process's
+        # own counter (the gate's loadgens serve f32 and launch none)
+        counts = {}
+        for entry in os.listdir(counter_dir):
+            kind, _, pid = entry.partition(".")
+            if kind == "int8_head" and pid.isdigit():
+                with open(os.path.join(counter_dir, entry)) as f:
+                    counts[int(pid)] = int(f.read())
+        launches["int8_head"] = launches_b + sum(counts.values())
+        record["int8_head"] = {"b_in_process": launches_b, "by_process": counts}
+        ok["launches"] = {"fleet_backends_counted": sum(counts.values()) > 0}
+    finally:
+        for name in procs:
+            finish(name)
+    emit({"phase": "loadgen", "checks": ok, "record": record, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    for name, checks in ok.items():
+        check(all(checks.values()), f"loadgen {name}: {checks}")
+    return launches
 
 
 def main() -> int:
@@ -6684,28 +6898,36 @@ def main() -> int:
     # 21. compile: the startup path, a fresh kernel-library store; rows 1
     # and 3 counted by its processes, the flagless references apart.
     # 22. fleet: the serving fleet's backends on that store; row 1 counted
-    # from their telemetry, the reference engine apart
+    # from their telemetry, the reference engine apart.  23. loadgen: the
+    # load generator and the SLO gate on that store; row 1 counted in this
+    # process and by the other processes
     with tempfile.TemporaryDirectory() as workdir:
         comp_launches, comp_references = compile_phase(torch, np, workdir, smi)
         for k in ("int8_head", "adadelta_delta"):
             check(comp_launches[k] > 0, f"the compile path never launched {k}")
-        fleet_dir = os.path.join(workdir, "fleet")
-        os.makedirs(fleet_dir)
-        fleet_launches, fleet_references = fleet_phase(torch, np, fleet_dir,
+        for name in ("fleet", "loadgen"):
+            os.makedirs(os.path.join(workdir, name))
+        fleet_launches, fleet_references = fleet_phase(torch, np, os.path.join(workdir, "fleet"),
                                                        os.path.join(workdir, "aot"))
+        ih.LAUNCHES = 0
+        loadgen_launches = loadgen_phase(torch, np, os.path.join(workdir, "loadgen"),
+                                         os.path.join(workdir, "aot"), smi)
     check(fleet_launches["int8_head"] > 0, "the fleet path never launched int8_head")
+    check(loadgen_launches["int8_head"] > 0, "the loadgen path never launched int8_head")
     top = by_n[str(TIMED_ROWS[-1])]
     kernels = [{
         "name": "int8_head", "route": "cuda",
         "source": "pytorch_mnist_ddp_tpu_torch/csrc/int8_head.cu",
         "replaces": "pytorch_mnist_ddp_tpu/ops/pallas_infer.py:61",
         "launches": (launches + stack_launches["int8_head"] + pool_launches["int8_head"]
-                     + comp_launches["int8_head"] + fleet_launches["int8_head"]),
+                     + comp_launches["int8_head"] + fleet_launches["int8_head"]
+                     + loadgen_launches["int8_head"]),
         "launches_by_phase": {"engine_server": launches,
                               "serving_stack": stack_launches["int8_head"],
                               "pool": pool_launches["int8_head"],
                               "compile": comp_launches["int8_head"],
-                              "fleet": fleet_launches["int8_head"]},
+                              "fleet": fleet_launches["int8_head"],
+                              "loadgen": loadgen_launches["int8_head"]},
         "serving_stack_reference_launches": stack_references["int8_head"],
         "pool_reference_launches": pool_references["int8_head"],
         "fleet_reference_launches": fleet_references["int8_head"],

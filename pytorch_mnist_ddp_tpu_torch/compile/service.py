@@ -15,7 +15,9 @@ service starts no device.
 Every job is timed and reported:
 
 - ``compile_seconds_total{fn=<name>}``: registry counter accumulating
-  wall seconds per named job (a library's build or load, a warmup rung);
+  wall seconds per named job (a library's build or load, a warmup rung),
+  and ``compile_programs_total{fn=<name>}`` counting the jobs (a serving
+  process's rungs built: the load generator's compile firewall);
 - a ``compile`` span (``obs/spans.py``) with the job name as the ``fn``
   field, so the JSONL telemetry shows what was built when, for how long.
 """
@@ -34,7 +36,8 @@ from ..obs.spans import span
 def timed(name: str, call: Callable[[], Any], kind: str = "compile", registry=None,
           sink=None) -> Any:
     """Run ``call()`` in a ``kind`` span with ``fn=name``; a ``compile``
-    job's wall seconds also land on ``compile_seconds_total{fn=name}``.
+    job's wall seconds also land on ``compile_seconds_total{fn=name}``,
+    and the job on ``compile_programs_total{fn=name}``.
     The service runs every job through here, and the serial paths call
     it inline."""
     t0 = time.perf_counter()
@@ -46,6 +49,11 @@ def timed(name: str, call: Callable[[], Any], kind: str = "compile", registry=No
             help="wall seconds spent building executables, per program",
             fn=name,
         ).inc(time.perf_counter() - t0)
+        registry.counter(
+            "compile_programs_total",
+            help="programs built, one a compile_seconds_total observation",
+            fn=name,
+        ).inc()
     return out
 
 

@@ -59,7 +59,11 @@ The rungs run in ladder order on the calling thread: one engine has one
 stream, and at most one library (``int8_head``), which its first int8
 rung loads, so it has nothing to build concurrently; that choice is the
 replica pool's (``EnginePool.warmup``, ``--serial-warmup``).  Each rung
-is a ``compile`` span and lands on ``compile_seconds_total{fn=}``.  A
+is a ``compile`` span and lands on ``compile_seconds_total{fn=}`` and
+``compile_programs_total{fn=}``.  A rung that a request reaches before
+its warmup builds there, on the dispatch thread (:meth:`launch`), as the
+JAX engine traces an unwarmed bucket on its first call: the same span
+and counters, which the load generator's compile firewall reads.  A
 canary twin shares its base variant's Programs (the JAX engine's shared
 grid), so ``install_version`` runs no rung and adds no store entry:
 libraries do not depend on weights.
@@ -74,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import threading
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -266,6 +271,7 @@ class InferenceEngine:
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         # Warmup rungs run, ever: a pool's restart or add must run none.
         self.rungs_run = 0
+        self._late_build = threading.Lock()  # a rung built on a request's path
         if self.device.type == "cuda":
             # cuDNN runs f32 convolutions in TF32 by default (about three
             # decimal digits), which would put the f32 variant — the
@@ -495,6 +501,14 @@ class InferenceEngine:
         self.warmed = True
         return done
 
+    def _build_late(self, prog: Program) -> None:
+        """Build a rung no warmup built, on the request's path (module
+        docstring): its span and counters move, as a JAX retrace does."""
+        with self._late_build:
+            if not prog.built:
+                timed(prog.name, prog.build,
+                      registry=self.metrics.registry if self.metrics is not None else None)
+
     # -- parity gate ------------------------------------------------------------
 
     def _parity_slice(self) -> tuple[np.ndarray, int]:
@@ -687,6 +701,9 @@ class InferenceEngine:
                 f"variant {v.name!r} has not passed its parity gate "
                 "(engine.verify_parity); refusing to serve it"
             )
+        prog = self._program_for(v.name, bucket)
+        if not prog.built:
+            self._build_late(prog)
         with self.on_stream():  # the read-back copy and its event too
             result = DeviceResult(self._run_variant(v, staged, seg=seg_ids))
         if self.metrics is not None:

@@ -40,7 +40,10 @@ observation where a short run's exposition must already carry it:
   {direction=}`` (:meth:`ensure_fleet`) and, registered by the fleet,
   ``fleet_backends{state=}``, ``fleet_route_decisions_total{backend=}``,
   ``fleet_backend_restarts_total{backend=}``; the snapshot's
-  ``compiles`` counts kernel libraries built with nvcc.
+  ``compiles`` counts kernel libraries built with nvcc;
+- the rungs built (``compile/service.timed``): ``compile_seconds_total
+  {fn=}`` and ``compile_programs_total{fn=}``; a server's snapshot
+  carries their sum and the libraries built and loaded as ``programs``.
 """
 
 from __future__ import annotations
@@ -154,6 +157,18 @@ class ServingMetrics:
     @property
     def retried(self) -> int:
         return self._retries.value
+
+    def programs_built(self) -> int:
+        """Programs this registry saw built (``compile_programs_total``
+        summed over ``fn``): a serving process's warmed rungs, plus any
+        rung a request reached unwarmed."""
+        with self.registry.locked():
+            return int(sum(
+                metric.value
+                for name, _, _, children in self.registry.collect()
+                if name == "compile_programs_total"
+                for _, metric in children
+            ))
 
     # -- family registration (before the first observation) ---------------------
 
@@ -394,13 +409,17 @@ class ServingMetrics:
         max_inflight: int | None = None,
         linger_ms: float | None = None,
         replicas: dict | None = None,
+        programs: dict | None = None,
     ) -> dict:
         """One consistent dict of everything (the /metrics JSON payload).
         Passed values are owned by the batcher and engine; ``queue_depth``
         is mirrored into a gauge so the Prometheus surface carries it.
         ``compiles`` is the kernel libraries this process built with nvcc
         (the fleet front: its backends' sum).  ``replicas`` is the
-        router's per-replica block (pool mode)."""
+        router's per-replica block (pool mode).  ``programs`` is the
+        server's ``{"rungs", "library_builds", "library_loads"}``: the
+        rung Programs built and the kernel libraries built and loaded,
+        which a request at an unwarmed rung would move."""
         with self.registry.locked():
             lat = sorted(self._latency.values())
             by_dtype = {
@@ -512,6 +531,8 @@ class ServingMetrics:
             snap["replicas"] = replicas
         if compiles is not None:
             snap["compiles"] = compiles
+        if programs is not None:
+            snap["programs"] = programs
         if buckets is not None:
             snap["buckets"] = list(buckets)
         for name, help_text, value in gauges:

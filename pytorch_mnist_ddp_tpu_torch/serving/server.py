@@ -449,7 +449,8 @@ class ServingHTTPServer(ThreadingHTTPServer):
     def snapshot(self) -> dict:
         # Pool mode: the router's depth/in-flight sums and its per-replica
         # block.  ``compiles``: the kernel libraries this process built
-        # with nvcc (0 on a warm start off the store, and on the CPU).
+        # with nvcc (0 on a warm start off the store, and on the CPU);
+        # ``programs``: what a request at an unwarmed rung would move.
         stats = getattr(self.batcher, "replica_stats", None)
         return self.metrics.snapshot(
             queue_depth=self.batcher.depth(),
@@ -459,6 +460,8 @@ class ServingHTTPServer(ThreadingHTTPServer):
             max_inflight=self.batcher.max_inflight,
             linger_ms=self.batcher.current_linger_ms,
             replicas=stats() if stats is not None else None,
+            programs={"rungs": self.metrics.programs_built(),
+                      "library_builds": _build.BUILDS, "library_loads": _build.LOADS},
         )
 
 

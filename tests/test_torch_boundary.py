@@ -8,11 +8,14 @@ tensors.
 
 from __future__ import annotations
 
+import argparse
 import ast
+import json
 import os
 import pathlib
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
@@ -28,6 +31,10 @@ from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser as ddp_parser
 from pytorch_mnist_ddp_tpu_torch.mnist_ddp import main as ddp_cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as cli_main
 from pytorch_mnist_ddp_tpu_torch.serving.engine import InferenceEngine
+from pytorch_mnist_ddp_tpu_torch.serving.metrics import ServingMetrics
+from pytorch_mnist_ddp_tpu_torch.serving.server import make_server
+from pytorch_mnist_ddp_tpu_torch.tools import serve_loadgen, slo_gate
+from pytorch_mnist_ddp_tpu_torch.tools.serve_loadgen import main as loadgen_main
 from pytorch_mnist_ddp_tpu_torch.trainer import fit
 from pytorch_mnist_ddp_tpu_torch.vit_mnist import build_parser as vit_parser
 from pytorch_mnist_ddp_tpu_torch.vit_mnist import fit as vit_fit
@@ -105,7 +112,7 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize(
     "entry",
     ["engine", "from_seed", "cli", "trainer", "train_cli", "vit_fit", "vit_cli",
-     "vit_sp_cli", "vit_tp_cli", "ddp_cli", "ddp_tp_cli", "vit_state_cli"],
+     "vit_sp_cli", "vit_tp_cli", "ddp_cli", "ddp_tp_cli", "vit_state_cli", "loadgen"],
 )
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     _no_card()
@@ -133,6 +140,8 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             ddp_cli_main(["--dry-run", "--epochs", "1", "--tp", "2", "--step-stats"])
         elif entry == "vit_state_cli":
             vit_cli_main(["--epochs", "1", "--save-state", "s.npz", "--profile", "p"])
+        elif entry == "loadgen":
+            loadgen_main(["--requests", "1"])
         elif entry == "vit_tp_cli":
             vit_cli_main(["--dry-run", "--epochs", "1", "--sp", "2", "--tp", "2", "--flash"])
         else:
@@ -617,3 +626,95 @@ def test_a_flagless_run_builds_no_runtime_and_no_sink_and_reads_no_more(monkeypa
     fit(train_parser().parse_args(args), "cpu")
     # 2 steps, one log line (batch 0); one eval batch of two numbers
     assert len(reads) == 1 + 2
+
+
+# -- the operator tools (tools/serve_loadgen.py, tools/slo_gate.py) ------------
+
+TOOL_MODULES = ("tools/__init__.py", "tools/serve_loadgen.py", "tools/slo_gate.py")
+_PARSE_ARGS = argparse.ArgumentParser.parse_args
+
+
+def test_the_tools_join_the_scans():
+    """Both scans above walk the package, the tools included; and the
+    tools import torch only inside the functions that serve."""
+    scanned = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    assert set(TOOL_MODULES) <= scanned
+    for name in TOOL_MODULES:
+        body = ast.parse((PKG / name).read_text()).body
+        top = {alias.name for node in body if isinstance(node, ast.Import)
+               for alias in node.names}
+        top |= {node.module for node in body
+                if isinstance(node, ast.ImportFrom) and node.module}
+        assert not {n for n in top if n.split(".")[0] in FORBIDDEN_ROOTS + ("torch",)}, name
+
+
+def test_loadgen_url_mode_runs_with_torch_poisoned(tmp_path):
+    """``--url`` drives a server with no torch in the driving process (the
+    server here is this test process's, on the CPU)."""
+    engine = InferenceEngine.from_seed(1, device="cpu", buckets=(4, 8))
+    engine.warmup()
+    server = make_server(engine, ServingMetrics(), port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN_ROOTS + ('torch',)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from pytorch_mnist_ddp_tpu_torch.tools.serve_loadgen import main\n"
+        f"rc = main(['--url', {url!r}, '--requests', '12', '--max-request', '4',\n"
+        "            '--open-loop', '--rate', '200', '--wire', 'binary',\n"
+        "            '--qos-mix', 'interactive=0.5,batch=0.5', '--report', 'r.json'])\n"
+        "assert not [m for m, v in sys.modules.items() if m.startswith('torch') and v]\n"
+        "sys.exit(rc)\n"
+    )
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                              text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    finally:
+        server.shutdown()
+        server.batcher.stop(drain=True)
+        server.server_close()
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "zero additional compiles (bucket firewall held)" in proc.stdout
+    report = json.loads((tmp_path / "r.json").read_text())
+    assert report["status_counts"] == {"200": 12}
+
+
+def _report_defaults(parser_main, argv: list[str], monkeypatch) -> dict:
+    """The parsed defaults of a tool's report flags (its main, stopped at
+    the parse)."""
+    seen = {}
+
+    def stop(self, args=None, namespace=None):
+        seen.update(vars(_PARSE_ARGS(self, args, namespace)))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(SystemExit):
+        parser_main(argv)
+    return seen
+
+
+def test_the_tools_write_under_build_loadgen_and_leave_the_bench_files(tmp_path, monkeypatch,
+                                                                        capsys):
+    tracked = {p.name: p.read_bytes() for p in ROOT.glob("BENCH_*.json")}
+    assert tracked  # the JAX tools' committed reports
+    loadgen = _report_defaults(loadgen_main, [], monkeypatch)
+    gate = _report_defaults(slo_gate.main, [], monkeypatch)
+    monkeypatch.undo()
+    paths = [v for k, v in loadgen.items() if k == "report" or k.endswith("_report")]
+    assert len(paths) == 6 and gate["device"] == loadgen["device"] == "cuda"
+    for path in paths + [gate["trajectory"]]:
+        assert os.path.dirname(path) == os.path.join("build", "loadgen"), path
+    monkeypatch.chdir(tmp_path)
+    torch.set_num_threads(1)
+    assert loadgen_main(["--device", "cpu", "--requests", "8", "--buckets", "4,8",
+                         "--max-request", "4"]) == 0
+    assert loadgen_main(["--device", "cpu", "--replicas-sweep", "1", "--requests", "8",
+                         "--buckets", "4,8", "--max-request", "4"]) == 0
+    assert sorted(os.listdir(tmp_path / "build" / "loadgen")) == [
+        "BENCH_serving.json", "BENCH_serving_scaleout.json"]
+    slo_gate._write_trajectory(gate["trajectory"], {"pass": True})
+    assert (tmp_path / gate["trajectory"]).exists()
+    assert {p.name: p.read_bytes() for p in ROOT.glob("BENCH_*.json")} == tracked
+    assert serve_loadgen.REPORT_DIR == os.path.join("build", "loadgen")

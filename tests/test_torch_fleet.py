@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import random
 import signal
 import socket
 import subprocess
@@ -958,6 +959,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _free_backend_ports(k: int) -> int:
+    """The first of ``k`` consecutive ports free now, below the ephemeral
+    range: the backends bind them seconds later, and meanwhile any
+    client connection on the host may take an ephemeral port as its
+    source port."""
+    low = int(pathlib.Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    for base in random.Random().sample(range(10000, low - k), 200):
+        try:
+            for p in range(base, base + k):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+    raise RuntimeError(f"no {k} consecutive free ports under {low}")
+
+
 def _children(pid: int) -> dict[int, str]:
     """The processes whose parent is ``pid``: their command lines."""
     out = {}
@@ -980,7 +998,7 @@ def test_cli_fleet_replaces_a_killed_backend_with_the_front_poisoned(tmp_path):
     is SIGKILLed under 4 closed-loop clients.  Every request gets exactly
     one 200, b1 is replaced on its port (restarts 1, compiles 0), and
     SIGTERM drains the fleet with exit 0."""
-    port, base = _free_port(), _free_port()
+    port, base = _free_port(), _free_backend_ports(2)
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     tel = tmp_path / "tel"
     proc = subprocess.Popen(
