@@ -106,6 +106,29 @@ Phases, one JSON line each:
                 took, and the int8 batches the telemetry records for r0
                 and r1, summed, up to the batches a supervisor abort
                 caught in flight (at most 3 an abort);
+5d. sharded   — sharded replicas (serving/sharded.py) on the one card
+                through an explicit device list (``devices=[cuda:0] * k``:
+                the k shards run one after another on the card, each on a
+                stream of its own; a correctness run, not a sharding
+                speed): EnginePool.from_seed(12) of tp4 and pp2 (the CNN),
+                vtp4 (ViTConfig()), ep2 (4 experts, capacity factor 4.0)
+                and JAX's mixed tp4,dp at the default ladder; every
+                sharded replica passes its parity gate at
+                SHARDED_PARITY_TOL at warmup (pp at 0.0 against the
+                single-device forward a microbatch at a time); one
+                closed-loop client sends requests of 1..12 rows through the
+                router, each answer held to a single-device engine at the
+                bucket it was served in (the dp CNN engine for tp and a dp
+                replica, the family's single-device forward for vtp, ep
+                and pp) within its kind's tolerance, argmax identical; the
+                serving CLI's --replicas 2 --replica-shapes tp2,dp exits 2
+                with the JAX planner's error (one card); no kernel
+                launches on the path (f32 only).  Readings: each gate's
+                gap, the smallest top-1 margin of the parity slice, ep's
+                expert_load and imbalance after the requests, pp's gap
+                against the whole-bucket forward, ms a 128-row batch
+                beside the dp engine's (or the family's single-device
+                forward's) on the same card;
 6. train_step — 20 train steps from one set of weights on fixed batches,
                 dropout off, deterministic cuDNN, three times: the plain
                 update, the fused kernel (per-parameter state) and the
@@ -152,7 +175,7 @@ Phases, one JSON line each:
                 it can read the rank's launch counts): the banner, epoch-1
                 accuracy, row 3 once a step, and mnist_cnn.pt (module. keys)
                 torch.equal to mnist.py's fit() with the same flags; then
-                40 profiled steps of that world's step in this process
+                20 profiled steps of that world's step in this process
                 (the all-reduce's own time); and two ranks sharing the card
                 over gloo, 20 fixed steps plain, --pallas-opt and --syncbn
                 --pallas-opt: the ranks equal, within the CPU trajectory
@@ -178,7 +201,7 @@ Phases, one JSON line each:
                 column-major view; and at n = 8 at the shapes past one
                 K-pass or h-tile;
 12. train_profile — where a training step's time goes: the loader alone,
-                then 40 steps, plain and --pallas-opt, under
+                then 20 steps, plain and --pallas-opt, under
                 torch.profiler (wall and device-busy time per step), and
                 --pallas-opt again without deterministic cuDNN and under
                 --bf16 with and without it; seconds for 100 of the
@@ -478,7 +501,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 ADADELTA_N = (1, 37, 1024, 33000, 300000, 1199882)
 ADADELTA_TOL = 1e-6  # kernel vs plain: same IEEE ops in the same order
 TRAIN_STEPS = 20  # train_step phase
-PROFILE_STEPS = 40  # train_profile phase
+PROFILE_STEPS = 20  # train_profile phase
 # A torch.profiler window drops the device records of the first launches
 # it sees: none in a fresh process, more as the process goes on, always
 # the first ones (fused (e) once read row 3 97 times in 100 replays).  So
@@ -496,7 +519,8 @@ SLEEP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 # and reading a 100-step window back took ~50 s a way (PR 12); 20 steps
 # give the same per-step readings.  The windows are readings, and reading
 # them back is most of their phases' time, so 10 ViT steps (20 before),
-# and 40 CNN steps in train_profile and ddp (100 before), keep the time.
+# and 20 CNN steps in train_profile and ddp (100, then 40 before; cut when
+# the sharded phase came), keep the time.
 VIT_PROFILE_STEPS = 10
 # train_profile's determinism cost: the --pallas-opt steps over this many
 # of an epoch's batches, with and without deterministic cuDNN, in turns
@@ -509,7 +533,7 @@ EPOCH1_MIN_ACCURACY = 0.95
 # DDP_RANK_BATCH a rank, held to one rank at twice the batch within the
 # CPU trajectory gates of tests/test_torch_train.py.
 DDP_BATCH = 200
-DDP_PROFILE_STEPS = 40
+DDP_PROFILE_STEPS = 20
 DDP_STEPS = 20
 DDP_RANK_BATCH = 32
 DDP_WAYS = (("plain", False, False), ("pallas_opt", True, False),
@@ -740,6 +764,14 @@ STACK_SWAP_PER_CLIENT = 30
 # pool: two replicas of the full-width CNN on cuda:0, each on its own
 # stream; closed-loop JSON clients of 1..12 rows (f32 and int8 in turn).
 POOL_REPLICAS = 2
+# sharded phase: JAX's sharded kinds (tests/test_sharded.py KINDS) and its
+# mixed example, each a pool on cuda:0 repeated k times.  Seed 12's smallest
+# top-1 margins over the 128-row parity slice are ~0.1 (CNN), ~7.6e-3 (ViT)
+# and ~0.15 (MoE ViT), its smallest gate-probability margin ~8.5e-5: far
+# past the 1e-5 gates and the ~1e-7 sums they allow (CPU scan).
+SHARDED_SPECS = ("tp4", "vtp4", "ep2", "pp2", "tp4,dp")
+SHARDED_REQUESTS = 24  # sizes 1..12, twice
+SHARDED_TIMED_RUNS = 30
 POOL_CLIENTS = 8
 POOL_PER_CLIENT = 12  # (b) per policy
 POOL_SUPERVISOR_PER_CLIENT = 8  # (d)
@@ -5863,6 +5895,165 @@ def bucketed_round(bucketed, single, reference, xb, raw_b, launched: dict, sink,
             "client_p99_ms": float(np.percentile(lat, 99))}
 
 
+def sharded_phase(torch, np, smi: str, device: str = "cuda") -> dict:
+    """Sharded replicas on one card (the module docstring's 5d): every
+    pool of SHARDED_SPECS over ``[device] * k``, its gates, a closed-loop
+    client's answers held to a single-device engine at their bucket, the
+    CLI's refusal of a plan the card cannot hold, and the readings.  No
+    kernel launches: the counters must not move."""
+    import contextlib
+    import io
+
+    from pytorch_mnist_ddp_tpu_torch.data.transforms import normalize
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.serving import sharded
+    from pytorch_mnist_ddp_tpu_torch.serving.__main__ import main as serve_main
+    from pytorch_mnist_ddp_tpu_torch.serving.buckets import bucket_for
+    from pytorch_mnist_ddp_tpu_torch.serving.devices import parse_replica_shapes
+    from pytorch_mnist_ddp_tpu_torch.serving.engine import PARITY_SEED, InferenceEngine
+    from pytorch_mnist_ddp_tpu_torch.serving.metrics import ServingMetrics
+    from pytorch_mnist_ddp_tpu_torch.serving.pool import EnginePool
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+    counts = lambda: (ih.LAUNCHES, dict(af.LAUNCHES), dict(fa.LAUNCHES))  # noqa: E731
+    before = counts()
+    raw = np.random.RandomState(PARITY_SEED + 19).randint(0, 256, (256, 28, 28)).astype(np.uint8)
+    rows = normalize(raw)
+    single = InferenceEngine.from_seed(SEED, device=dev)  # the dp CNN engine
+    single.warmup()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def ms_per_batch(fn) -> float:
+        for _ in range(5):
+            fn()
+        times = []
+        for _ in range(SHARDED_TIMED_RUNS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times))
+
+    def margin(logp) -> float:
+        top = np.sort(logp, axis=1)
+        return float((top[:, -1] - top[:, -2]).min())
+
+    def padded(x, bucket):
+        out = np.zeros((bucket, *x.shape[1:]), np.float32)
+        out[:len(x)] = x
+        return out
+
+    x128 = rows[:128]
+    single_ms = ms_per_batch(lambda: single.launch(x128, 128).wait())
+    out: dict = {}
+    for spec in SHARDED_SPECS:
+        need = sum(k for _, k in parse_replica_shapes(spec))
+        metrics = ServingMetrics()
+        t0 = time.perf_counter()
+        pool = EnginePool.from_seed(SEED, replica_shapes=spec, devices=[dev] * need,
+                                    metrics=metrics)
+        pool.warmup()  # every sharded replica's gate; a failing one raises
+        warm_s = time.perf_counter() - t0
+        refs = {}
+        for eng in pool.engines:
+            if eng.shard_kind != "dp":
+                refs[eng.shard_kind] = sharded.reference_fn(eng.shard_kind, eng._vit_cfg,
+                                                            eng.pp_microbatches)
+        router = pool.start(router_policy="cost", linger_ms=1.0)
+        worst: dict = {}
+        served: dict = {}
+        answer_margin = math.inf
+        try:
+            for j in range(SHARDED_REQUESTS):
+                n = 1 + j % 12
+                off = (37 * j) % (len(rows) - n)
+                x = rows[off:off + n]
+                req = router.submit(x)
+                got = np.asarray(req.result())
+                name = req.completed_by
+                eng = pool.engines[int(name[1:])]
+                bucket = bucket_for(n, eng.buckets)
+                xb = padded(x, bucket)
+                if eng.shard_kind in ("dp", "tp"):
+                    want = single.launch(xb, n).wait()[:n]
+                else:
+                    with eng.on_stream():
+                        want = refs[eng.shard_kind](eng._host_served, torch.from_numpy(xb).to(
+                            eng.device)).cpu().numpy()[:n]
+                tol = sharded.SHARDED_PARITY_TOL.get(eng.shard_kind, 0.0)
+                err = float(np.abs(got - want).max())
+                check(err <= tol, f"sharded {spec} {name} ({eng.shard_kind}) x{n} at bucket "
+                      f"{bucket}: off the single-device engine by {err} > {tol}")
+                check((got.argmax(1) == want.argmax(1)).all(), f"sharded {spec} {name} argmax")
+                key = f"{name}:{eng.shard_kind}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                served[key] = served.get(key, 0) + 1
+                answer_margin = min(answer_margin, margin(want))
+        finally:
+            pool.stop()
+        check(sum(served.values()) == SHARDED_REQUESTS, f"sharded {spec}: served {served}")
+        for i, eng in enumerate(pool.engines):
+            if eng.shard_kind == "dp":
+                continue
+            kind, gate = eng.shard_kind, eng.parity_report["f32"]
+            check(gate["passed"] and gate["tolerance"] == sharded.SHARDED_PARITY_TOL[kind],
+                  f"sharded {spec} r{i} gate {gate}")
+            x_slice, _ = eng._parity_slice()
+            xt = torch.from_numpy(x_slice).to(eng.device)
+            with eng.on_stream():
+                ref_slice = refs[kind](eng._host_served, xt).cpu().numpy()
+            row = {"spec": spec, "replica": f"r{i}", "devices": len(eng.mesh.devices),
+                   "buckets": [eng.buckets[0], eng.buckets[-1]], "warmup_and_gate_s": warm_s,
+                   "gate": gate, "parity_slice_min_top1_margin": margin(ref_slice),
+                   "requests_min_top1_margin": answer_margin,
+                   "max_abs_vs_single_device": worst, "served_by": served}
+            if kind == "ep":
+                loads = metrics.expert_load_snapshot()
+                row["expert_load"] = loads
+                row["expert_imbalance"] = sharded.expert_imbalance(list(loads.values()))
+                check(sum(loads.values()) > 0, f"sharded {spec}: no expert load recorded")
+            if kind == "pp":
+                whole = sharded.reference_fn("pp", None)(eng._host_served, xt).cpu().numpy()
+                gap = float(np.abs(whole - ref_slice).max())
+                row["whole_bucket_anchor_gap"] = gap
+                check(gap <= 1e-5 and (whole.argmax(1) == ref_slice.argmax(1)).all(),
+                      f"pp: the whole-bucket forward off the microbatch anchor by {gap}")
+            row["ms_per_batch_128"] = ms_per_batch(lambda: eng.launch(x128, 128).wait())
+            if kind in ("tp", "pp"):
+                row["dp_engine_ms_per_batch_128"] = single_ms
+            else:
+                model = sharded.single_device_model(kind, eng._host_served, eng._vit_cfg).to(eng.device)
+                x128t = torch.from_numpy(x128).to(eng.device)
+
+                def forward():
+                    with eng.on_stream(), torch.inference_mode():
+                        model(x128t)
+                    sync()
+
+                row["single_device_forward_ms_per_batch_128"] = ms_per_batch(forward)
+            out[spec if spec not in out else f"{spec}/r{i}"] = row
+    buf = io.StringIO()
+    argv = ["--replicas", "2", "--replica-shapes", "tp2,dp", "--warmup-only"]
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(argv + ([] if device == "cuda" else ["--device", "cpu"]))
+    cli = buf.getvalue().strip()
+    check(rc == 2 and "needs 3 devices but only 1 are visible" in cli,
+          f"the CLI did not refuse tp2,dp on one device: rc {rc}, {cli!r}")
+    sync()
+    check(counts() == before, f"the sharded path launched a kernel: {before} -> {counts()}")
+    emit({"phase": "sharded", "nvidia_smi": smi,
+          "note": "k shards serialized on one card through an explicit device list: a "
+                  "correctness run, not a sharding speed",
+          "kinds": out, "cli_refusal": {"argv": argv, "exit": rc, "line": cli},
+          "kernel_launches": 0, "seconds": time.perf_counter() - t_phase})
+    return out
+
+
 def stream_overlap(trace: dict) -> dict:
     """Device kernels per stream in a Chrome trace, and how long kernels of
     two different streams ran at the same time."""
@@ -6794,6 +6985,10 @@ def main() -> int:
     ih.LAUNCHES = 0
     with tempfile.TemporaryDirectory() as workdir:
         pool_launches, pool_references = pool_phase(torch, np, workdir)
+
+    # 5d. sharded: the sharded replicas on the card through an explicit
+    # device list; f32 only, so no kernel of the table runs on this path
+    sharded_phase(torch, np, smi)
 
     # 6-9. the training path; adadelta launch counts cover these four
     for k in af.LAUNCHES:

@@ -27,6 +27,13 @@ is averaged over the group forward (JAX's ``pmean``) with each rank's own
 term taking the gradient (:func:`~.mesh.mean_forward`).  The objective is
 ``nll + AUX_LOSS_WEIGHT * aux`` (:func:`ep_train_forward`); the step
 reports the nll.
+
+Serving (:func:`make_ep_predict_step`, an ``epK`` replica) runs the same
+routing over ``k`` shards in one process (:class:`~.mesh.Lockstep`): the
+rows split over the shards, each shard routes its own rows (one routing
+group, as each rank's above), and the two all-to-alls are row slices of
+the packed slots handed between the shards' streams.  It also returns the
+per-expert counts of kept tokens (JAX's ``_moe_mlp_ep_with_load``).
 """
 
 from __future__ import annotations
@@ -42,11 +49,20 @@ from ..models.moe import (
     route,
     scatter_to_slots,
 )
-from ..models.vit import ViT, ViTConfig, vit_moe_forward
+from ..models.vit import (
+    ViT,
+    ViTConfig,
+    attn_sublayer,
+    embed_tokens,
+    patchify,
+    tokens_to_logp,
+    vit_moe_forward,
+)
+from ..ops.attention import full_attention
 from ..ops.flash_attention import select_attention
 from ..utils.convert import ep_split_dim, gather_vit_state, shard_vit_state
 from .ddp import make_forward_eval_step, make_forward_train_step
-from .mesh import Group, RankGrid, all_gather, all_to_all, mean_forward
+from .mesh import Group, Lockstep, RankGrid, all_gather, all_to_all, mean_forward
 
 AUX_LOSS_WEIGHT = 0.01  # the Switch weighting of the balance loss (JAX ep.py:50)
 
@@ -146,3 +162,70 @@ def make_ep_eval_step(cfg: ViTConfig, grid: RankGrid = RankGrid(), use_flash: bo
     check_expert_divisibility(cfg, grid.data.size)
     return make_forward_eval_step(
         lambda model, x: ep_vit_forward(model, x, grid.data, use_flash)[0], grid.data)
+
+
+def ep_predict(shards: list[ViT], x: torch.Tensor, cfg: ViTConfig,
+               lock: Lockstep) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE ViT's expert-parallel serving forward (JAX
+    ``make_ep_predict_step``) over ``lock``'s shards, ``shards[i]`` cut by
+    :func:`shard_ep` for member ``i``: ``(log_probs, expert_load)``, both on
+    the first device.  Row block ``i`` of ``x`` is shard ``i``'s; each
+    block's MoE layer routes each shard's ``b_i * t`` tokens as one group
+    (capacity per group, :func:`~..models.moe.capacity_for`), hop 1 hands
+    expert block ``j`` of every shard's packed slots to shard ``j``
+    (source-major along the slots), the local experts run, and hop 2 hands
+    each source its slots back (``[E, C, d]``, device-major).
+    ``expert_load`` is the float32 ``[E]`` count of kept tokens, summed
+    over the blocks on each shard, then over the shards in order; a dropped
+    token counts for no expert."""
+    size, num = lock.size, cfg.num_experts
+    per = num // size
+    tokens = []
+    for i, xi in enumerate(lock.scatter_rows(x)):
+        with lock.on(i):
+            tokens.append(embed_tokens(shards[i], patchify(xi, cfg), shards[i].pos_embed))
+    loads = [None] * size
+    for layer in range(cfg.depth):
+        routed = []
+        for i, model in enumerate(shards):
+            with lock.on(i):
+                block = model.blocks[layer]
+                tokens[i] = attn_sublayer(block, tokens[i], cfg, full_attention)
+                b, t, d = tokens[i].shape
+                flat = block.ln2(tokens[i]).reshape(b * t, d)
+                cap = capacity_for(b * t, num, cfg.capacity_factor)
+                slot, kept, gate_prob, _ = route(block.moe.gate, flat, num, cap)
+                count = torch.bincount(slot // cap, minlength=num + 1)[:num].float()
+                loads[i] = count if loads[i] is None else loads[i] + count
+                routed.append((slot, kept, gate_prob, cap,
+                               scatter_to_slots(flat, slot, kept, num, cap)))  # [E, C, d]
+        # hop 1: expert block j of every source to member j -> [E/S, S*C, d]
+        outs = []
+        for j, model in enumerate(shards):
+            pieces = [lock.send(r[4][j * per:(j + 1) * per], i, j) for i, r in enumerate(routed)]
+            with lock.on(j):
+                outs.append(expert_ffn(model.blocks[layer].moe, torch.cat(pieces, 1)))
+        # hop 2: source i's slots back to member i -> [E, C, d]
+        for i, (slot, kept, gate_prob, cap, _) in enumerate(routed):
+            pieces = [lock.send(out[:, i * cap:(i + 1) * cap], j, i) for j, out in enumerate(outs)]
+            with lock.on(i):
+                y = gather_from_slots(torch.cat(pieces, 0), slot, kept, gate_prob)
+                tokens[i] = tokens[i] + y.reshape(tokens[i].shape).to(tokens[i].dtype)
+    logps = []
+    for i, model in enumerate(shards):
+        with lock.on(i):
+            logps.append(tokens_to_logp(model, model.ln_f(tokens[i]).float().mean(dim=1)))
+    return lock.gather(logps), lock.psum(loads)
+
+
+def make_ep_predict_step(cfg: ViTConfig, lock: Lockstep):
+    """``predict_fn(shards, x) -> (log_probs, expert_load)`` over ``lock``'s
+    shards; JAX's refusals (the expert count must divide, no ``remat``)."""
+    check_expert_divisibility(cfg, lock.size)
+    if cfg.remat:
+        raise ValueError("the EP serving forward does not support cfg.remat")
+
+    def predict(shards, x):
+        return ep_predict(shards, x, cfg, lock)
+
+    return predict

@@ -45,10 +45,15 @@ from the host (a CUDA tensor fails with ``writev ...: Bad address``,
 gloo group goes through a host copy each way, and :data:`STAGED` counts
 those passes and their bytes.  Which transport runs is fixed by the
 group's backend and the tensor's device; nothing switches between them.
+
+:class:`Lockstep` is the other way to run ``k`` shards: one process steps
+them all, each on a stream of its own device, and its collectives are
+copies between those streams (the sharded serving replicas).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
@@ -359,3 +364,94 @@ def mean_forward(x: torch.Tensor, group: Group) -> torch.Tensor:
 def count_once(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``x`` as it is; its gradient kept on member 0 only."""
     return x if group.size == 1 else _CountOnce.apply(x, group)
+
+
+# -- one controller over k shards -------------------------------------------------
+
+def _on(stream):
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+class Lockstep:
+    """``k`` shards stepped by one controller: the single-process
+    counterpart of a ``shard_map`` over a ``k``-device mesh, which the
+    sharded serving replicas run (``serving/sharded.py``).  Shard ``i``
+    works on ``devices[i]`` on a CUDA stream of its own (none on the CPU);
+    the controller is whatever stream is current on ``devices[0]`` when a
+    collective is called (the engine's), and holds the replica's inputs,
+    its replicated activations and its answers.
+
+    The collectives are explicit copies between streams: :meth:`psum` sums
+    the shards' parts in shard order on the controller, :meth:`gather`
+    concatenates them there, :meth:`to_shards` hands a controller value to
+    every shard, and :meth:`send` moves a tensor from shard ``i`` to shard
+    ``j`` (EP's all-to-all slices, PP's hop to the next stage).  Each
+    hand-off makes the reader's stream wait on the writer's (an event), and
+    a tensor read on a stream it was not made on is marked used there
+    (``record_stream``), so the caching allocator does not hand its memory
+    out before the reader is done.  Call the collectives outside
+    :meth:`on` blocks: they read the controller's stream as current.
+    """
+
+    def __init__(self, devices):
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.streams = tuple(torch.cuda.Stream(d) if d.type == "cuda" else None
+                             for d in self.devices)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def on(self, i: int):
+        """A context in which shard ``i``'s stream is current."""
+        return _on(self.streams[i])
+
+    def _controller(self):
+        dev = self.devices[0]
+        return torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    @staticmethod
+    def _hop(t: torch.Tensor, src, device: torch.device, dst) -> torch.Tensor:
+        """``t``, written on stream ``src``, as a tensor stream ``dst`` may
+        read on ``device``.  A copy between cards runs on ``src`` behind a
+        two-way barrier with ``dst`` (PyTorch's cross-device copy)."""
+        if dst is not None and src is not None and dst != src:
+            dst.wait_stream(src)
+        if t.device == device:
+            if dst is not None:
+                t.record_stream(dst)
+            return t
+        with _on(src), _on(dst):
+            return t.to(device, non_blocking=True)
+
+    def to_shard(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """A controller value handed to shard ``i``."""
+        return self._hop(t, self._controller(), self.devices[i], self.streams[i])
+
+    def to_shards(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """A replicated controller value handed to every shard."""
+        return [self.to_shard(t, i) for i in range(self.size)]
+
+    def scatter_rows(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Row block ``i`` of a controller value to shard ``i`` (the data
+        axis; the row count must divide)."""
+        return [self.to_shard(block, i) for i, block in enumerate(t.chunk(self.size))]
+
+    def send(self, t: torch.Tensor, i: int, j: int) -> torch.Tensor:
+        """Shard ``i``'s ``t`` handed to shard ``j``."""
+        return self._hop(t, self.streams[i], self.devices[j], self.streams[j])
+
+    def to_controller(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """Shard ``i``'s ``t`` handed to the controller."""
+        return self._hop(t, self.streams[i], self.devices[0], self._controller())
+
+    def psum(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The shards' parts summed in shard order on the controller."""
+        total = self.to_controller(parts[0], 0)
+        for i in range(1, self.size):
+            total = total + self.to_controller(parts[i], i)
+        return total
+
+    def gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The shards' row blocks concatenated on the controller."""
+        return torch.cat([self.to_controller(p, i) for i, p in enumerate(parts)])

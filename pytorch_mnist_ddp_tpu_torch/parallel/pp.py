@@ -16,6 +16,11 @@ divided by the data degree (JAX's stage ``psum`` then data ``pmean``), and
 every rank applies the same plain Adadelta update.  Dropout draws a
 stream per microbatch and stage (JAX's per-microbatch keys; the masks'
 geometry differs from the data-parallel step's, as in JAX).
+
+Serving (:func:`make_pp_predict_step`, a ``pp2`` replica) runs the two
+stages in one process (:class:`~.mesh.Lockstep`): microbatch ``j``'s
+boundary goes from stage 0's stream to stage 1's while stage 0 runs
+microbatch ``j + 1``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from ..ops.adadelta import adadelta_update
 from ..ops.loss import nll_loss
 from ..utils.rng import fold_replica_step, fold_step
 from .ddp import TrainState, reduce_grads
-from .mesh import RankGrid, all_reduce_
+from .mesh import Lockstep, RankGrid, all_reduce_
 from .pipeline import make_pipeline
 
 NUM_STAGES = 2
@@ -103,3 +108,41 @@ def make_pp_train_step(grid: RankGrid, num_micro: int = 2, dropout: bool = True,
         return loss
 
     return train_step
+
+
+def pp_predict(stages: list[Net], x: torch.Tensor, num_micro: int,
+               lock: Lockstep) -> torch.Tensor:
+    """The 2-stage pipeline's serving forward (JAX ``make_pp_predict_step``):
+    ``x`` (on the first device) in ``num_micro`` microbatches, each through
+    stage 0 (``Net.features``) on ``stages[0]``'s device, its ``[mb,
+    9216]`` boundary handed to stage 1 (``Net.head``) on ``stages[1]``'s
+    (the ppermute), the rows gathered in order on the first device.  Each
+    stage holds the whole model, as JAX replicates it; the same ops in the
+    same order as the single-device forward, a microbatch at a time."""
+    n = x.shape[0]
+    if n % num_micro:
+        raise ValueError(f"batch {n} not divisible by {num_micro} microbatches")
+    mb = n // num_micro
+    first, second = stages
+    x0 = lock.to_shard(x, 0)
+    outs = []
+    for j in range(num_micro):
+        with lock.on(0):
+            act = first.features(x0[j * mb:(j + 1) * mb])
+        act = lock.send(act, 0, 1)
+        with lock.on(1):
+            outs.append(second.head(act))
+    return torch.cat([lock.to_controller(o, 1) for o in outs])
+
+
+def make_pp_predict_step(lock: Lockstep, num_micro: int = 2):
+    """``predict_fn(stages, x) -> log_probs`` over ``lock``'s two stages."""
+    if lock.size != NUM_STAGES:
+        raise ValueError(f"pipeline needs a {NUM_STAGES}-wide 'model' axis, got {lock.size}")
+    if num_micro < 1:
+        raise ValueError(f"num_micro must be >= 1, got {num_micro}")
+
+    def predict(stages, x):
+        return pp_predict(stages, x, num_micro, lock)
+
+    return predict

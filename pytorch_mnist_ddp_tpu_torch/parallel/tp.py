@@ -25,6 +25,10 @@ runs on local shards (elementwise, so sharded state is exact).  With
 Dropout: the conv stage's mask is the data shard's (every model member of
 it draws the same), fc1's is the member's own; the seeds are the port's
 (an expected divergence from JAX's keys).
+
+Serving (:func:`make_tp_predict_step`, a ``tpK`` replica) runs the same
+layers over ``k`` shards in one process (:class:`~.mesh.Lockstep`), the
+fc2 sum an explicit one in shard order.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from ..ops.adadelta import adadelta_update
 from ..ops.loss import nll_loss
 from ..utils.rng import fold_replica_step, fold_step
 from .ddp import TrainState, make_forward_eval_step, reduce_grads
-from .mesh import Group, RankGrid, all_gather, reduce_backward, reduce_forward
+from .mesh import Group, Lockstep, RankGrid, all_gather, reduce_backward, reduce_forward
 
 # The leaf's split dim in torch's [out, in] layout (JAX's param_specs: fc1
 # kernel P(None, model) and bias P(model); fc2 kernel P(model, None)).
@@ -148,3 +152,31 @@ def make_tp_eval_step(grid: RankGrid, compute_dtype: torch.dtype = torch.float32
     model, summed over the data group (JAX ``make_tp_eval_step``)."""
     return make_forward_eval_step(
         lambda model, x: tp_forward(model, x, grid.model, None, compute_dtype), grid.data)
+
+
+def tp_predict(shards: list[Net], x: torch.Tensor, lock: Lockstep) -> torch.Tensor:
+    """The CNN's tensor-parallel serving forward (JAX ``make_tp_predict_step``)
+    over ``lock``'s shards, ``shards[i]`` cut by :func:`shard_state` for
+    member ``i`` and placed on ``lock.devices[i]``; ``x`` and the log-probs
+    on the first device.  The conv stage is replicated (every member of
+    JAX's model axis computes it alike), so it runs once on the first
+    device and goes to every shard; each shard's fc1 columns, relu and fc2
+    rows give partial logits, summed in shard order (the psum), then fc2's
+    bias and the float32 log_softmax."""
+    feats = shards[0].features(x)
+    parts = []
+    for i, (model, f) in enumerate(zip(shards, lock.to_shards(feats))):
+        with lock.on(i):
+            h = F.relu(_linear(model.fc1, f))
+            parts.append(F.linear(h, model.fc2.weight))
+    logits = lock.psum(parts) + shards[0].fc2.bias
+    return F.log_softmax(logits.float(), dim=-1)
+
+
+def make_tp_predict_step(lock: Lockstep):
+    """``predict_fn(shards, x) -> log_probs`` over ``lock``'s shards."""
+
+    def predict(shards, x):
+        return tp_predict(shards, x, lock)
+
+    return predict

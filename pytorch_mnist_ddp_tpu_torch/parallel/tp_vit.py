@@ -22,6 +22,10 @@ the group (:func:`~.mesh.reduce_backward`, the psum JAX's VMA inserts).
 So every replicated leaf gets the whole gradient on every member alike,
 every sharded leaf its own slice's, and the step sums them only over the
 data x seq ranks (``parallel/ddp.py``).
+
+Serving (:func:`make_vit_tp_predict_step`, a ``vtpK`` replica) runs the
+same blocks over ``k`` shards in one process (:class:`~.mesh.Lockstep`),
+the two sums of each block explicit ones in shard order.
 """
 
 from __future__ import annotations
@@ -30,10 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from ..models.vit import Block, ViT, ViTConfig, dense, embed_tokens, patchify, tokens_to_logp
+from ..ops.attention import full_attention
 from ..ops.flash_attention import select_attention
 from ..utils.convert import gather_vit_state, shard_vit_state
 from .ddp import make_forward_eval_step, make_forward_train_step
-from .mesh import Group, RankGrid, all_gather, reduce_backward, reduce_forward
+from .mesh import Group, Lockstep, RankGrid, all_gather, reduce_backward, reduce_forward
 
 
 def check_head_divisibility(cfg: ViTConfig, num_model: int) -> None:
@@ -126,3 +131,50 @@ def make_vit_tp_eval_step(cfg: ViTConfig, grid: RankGrid = RankGrid(), use_flash
     check_head_divisibility(cfg, grid.model.size)
     return make_forward_eval_step(
         lambda model, x: tp_vit_forward(model, x, grid.model, use_flash), grid.data)
+
+
+def vit_tp_predict(shards: list[ViT], x: torch.Tensor, cfg: ViTConfig,
+                   lock: Lockstep) -> torch.Tensor:
+    """The ViT's tensor-parallel serving forward (JAX
+    ``make_vit_tp_predict_step``) over ``lock``'s shards, ``shards[i]`` cut
+    by :func:`shard_vit_tp` for member ``i``; ``x`` and the log-probs on the
+    first device.  The residual stream is replicated, so it lives once, on
+    the first device: each block hands ``ln1`` of it to every shard, whose
+    heads attend and project into a partial sum, summed in shard order
+    before proj's bias and the residual add; then ``ln2`` the same way
+    through each shard's MLP features and mlp_out's sum.  Two sums a block,
+    as JAX's two psums."""
+    heads_local = cfg.heads // lock.size
+    first = shards[0]
+    tokens = embed_tokens(first, patchify(x, cfg), first.pos_embed)
+    b, t, _ = tokens.shape
+    for layer, block in enumerate(first.blocks):
+        parts = []
+        for i, h in enumerate(lock.to_shards(block.ln1(tokens))):
+            with lock.on(i):
+                local = shards[i].blocks[layer]
+                qkv = dense(h, local.qkv).reshape(b, t, heads_local, 3, cfg.head_dim)
+                attn = full_attention(qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :])
+                attn = attn.reshape(b, t, heads_local * cfg.head_dim)
+                parts.append(F.linear(attn, local.proj.weight))
+        tokens = tokens + (lock.psum(parts) + block.proj.bias)
+        parts = []
+        for i, h in enumerate(lock.to_shards(block.ln2(tokens))):
+            with lock.on(i):
+                local = shards[i].blocks[layer]
+                h = F.gelu(dense(h, local.mlp_in), approximate="tanh")
+                parts.append(F.linear(h, local.mlp_out.weight))
+        tokens = tokens + (lock.psum(parts) + block.mlp_out.bias)
+    tokens = first.ln_f(tokens)
+    return tokens_to_logp(first, tokens.float().mean(dim=1))
+
+
+def make_vit_tp_predict_step(cfg: ViTConfig, lock: Lockstep):
+    """``predict_fn(shards, x) -> log_probs`` over ``lock``'s shards; the
+    head and MLP widths must divide by their count."""
+    check_head_divisibility(cfg, lock.size)
+
+    def predict(shards, x):
+        return vit_tp_predict(shards, x, cfg, lock)
+
+    return predict

@@ -17,8 +17,12 @@ replica i on ``cuda:(i % device_count)`` each on its own CUDA stream
 (``0`` = one per visible card), behind the router (``--router-policy``,
 ``--hedge``/``--hedge-delay-ms``) and the replica supervisor
 (``--no-supervise``, ``--stall-timeout-s``, ``--restart-budget``).
-``--replica-shapes`` takes all-``dp`` plans; a sharded entry (tpK, vtpK,
-epK, ppK) is refused by name (exit 2).
+``--replica-shapes`` gives each replica's shape (``tp4,dp``: a tensor-
+parallel replica over four cards beside a dp one; serving/sharded.py),
+planned over the visible cards as JAX plans them: a plan that needs more
+cards than there are exits 2 with JAX's planner error, before anything is
+built.  Each sharded replica passes its parity gate against the
+single-device forward before the socket opens.
 
 The startup flags (``compile/``): ``--aot-cache DIR`` keeps the built
 kernel libraries in a gated store (``compile/aot.py``; a warm start runs
@@ -218,9 +222,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--replica-shapes", default=None, metavar="SPEC",
-        help="with --replicas: comma-separated per-replica shard shape; "
-        "only 'dp' (one whole model on one device) is ported, sharded "
-        "shapes (tpK, vtpK, epK, ppK) are refused",
+        help="with --replicas: comma-separated per-replica shard shape, "
+        "e.g. 'tp4,dp,dp,dp,dp' — tp/vtp/ep/pp replicas span disjoint "
+        "k-card blocks of the visible cards and are parity-gated against "
+        "the single-device reference at warmup; count must match the "
+        "replica count",
     )
     parser.add_argument(
         "--router-policy", default="cost", choices=("roundrobin", "least-loaded", "cost"),
@@ -418,17 +424,13 @@ def main(argv: list[str] | None = None) -> int:
             print("error: --replica-shapes needs --replicas (a sharded "
                   "replica is a pool member)")
             return 2
-        from .devices import SHARDED_NOT_PORTED, parse_replica_shapes
+        from .devices import parse_replica_shapes, plan_replica_meshes, visible_devices
 
         try:
-            shapes = parse_replica_shapes(args.replica_shapes)
+            plan_replica_meshes(parse_replica_shapes(args.replica_shapes),
+                                visible_devices(args.device))
         except ValueError as e:
             print(f"error: --replica-shapes {args.replica_shapes!r}: {e}")
-            return 2
-        sharded = [f"{kind}{k}" for kind, k in shapes if kind != "dp"]
-        if sharded:
-            print(f"error: --replica-shapes {args.replica_shapes!r}: {sharded}: "
-                  f"{SHARDED_NOT_PORTED}")
             return 2
 
     import torch
@@ -532,9 +534,24 @@ def main(argv: list[str] | None = None) -> int:
     # The warmup span, and the compile service's per-library and per-rung
     # compile spans, land in the JSONL telemetry (and on the registry
     # /metrics serves), so a cold start's cost is observable.
-    with span("warmup", sink=sink, registry=metrics.registry):
-        engine.warmup(on_rung=on_rung, sink=sink, **(
-            {"parallel": not args.serial_warmup} if pool_mode else {}))
+    from .engine import ParityError
+
+    try:
+        with span("warmup", sink=sink, registry=metrics.registry):
+            engine.warmup(on_rung=on_rung, sink=sink, **(
+                {"parallel": not args.serial_warmup} if pool_mode else {}))
+    except ParityError as e:
+        print(f"refusing to serve: {e}")
+        sink.close()
+        return 1
+    for i, replica in enumerate(engine.engines if pool_mode else ()):
+        gate = replica.parity_report.get("f32")
+        if replica.shard_kind != "dp" and gate is not None:
+            print(
+                f"parity gate [r{i} {replica.shard_kind}{gate['devices']}]: PASS "
+                f"(max|dlogp| {gate['max_abs_logit_diff']:.2e} <= {gate['tolerance']:g} "
+                f"vs the single-device forward, argmax_identical=True, {gate['rows']} rows)"
+            )
     n_replicas = engine.n_replicas if pool_mode else 1
     libraries = engine.libraries
     print(

@@ -23,37 +23,53 @@ import torch
 DEFAULT_MAX_BUCKET = 128
 
 
-def pow2_buckets(max_bucket: int = DEFAULT_MAX_BUCKET) -> tuple[int, ...]:
-    """The power-of-two ladder 1, 2, 4, ... up to ``max_bucket``."""
-    if max_bucket < 1:
-        raise ValueError(f"need max_bucket >= 1, got {max_bucket}")
-    out = [1]
-    while out[-1] * 2 <= max_bucket:
-        out.append(out[-1] * 2)
+def pow2_buckets(max_bucket: int = DEFAULT_MAX_BUCKET, min_bucket: int = 1) -> tuple[int, ...]:
+    """The power-of-two ladder from ``min_bucket`` (rounded up to a power
+    of two: an EP replica's buckets must split over its ``k`` row shards)
+    up to ``max_bucket``."""
+    if min_bucket < 1 or max_bucket < min_bucket:
+        raise ValueError(
+            f"need 1 <= min_bucket <= max_bucket, got {min_bucket}..{max_bucket}"
+        )
+    b = 1
+    while b < min_bucket:
+        b *= 2
+    out = []
+    while b <= max_bucket:
+        out.append(b)
+        b *= 2
+    if not out:
+        raise ValueError(f"no power of two in [{min_bucket}, {max_bucket}]")
     return tuple(out)
 
 
-def validate_buckets(buckets: Sequence[int]) -> tuple[int, ...]:
+def validate_buckets(buckets: Sequence[int], n_shards: int = 1) -> tuple[int, ...]:
     """Sorted, deduplicated ladder; every bucket a positive power of two
-    (a free-form ladder would reintroduce unbounded warmed shapes)."""
+    (a free-form ladder would reintroduce unbounded warmed shapes) that
+    splits over the replica's ``n_shards`` row shards."""
     out = sorted(set(int(b) for b in buckets))
     if not out:
         raise ValueError("empty bucket list")
     for b in out:
         if b < 1 or (b & (b - 1)):
             raise ValueError(f"bucket {b} is not a positive power of two")
+        if b % n_shards:
+            raise ValueError(f"bucket {b} not divisible by the {n_shards}-way data axis")
     return tuple(out)
 
 
-def packed_capacities(max_bucket: int) -> tuple[int, ...]:
+def packed_capacities(max_bucket: int, n_shards: int = 1) -> tuple[int, ...]:
     """The rows-capacity ladder for packed batch formation: one rung,
-    ``max_bucket`` rounded up to a power of two, so a packed engine takes
-    exactly the request sizes its bucketed twin does."""
+    ``max_bucket`` rounded up to a power of two (and to the row shards), so
+    a packed engine takes exactly the request sizes its bucketed twin
+    does.  Idempotent."""
     if max_bucket < 1:
         raise ValueError(f"need max_bucket >= 1, got {max_bucket}")
     top = 1
-    while top < max_bucket:
+    while top < max(max_bucket, n_shards):
         top *= 2
+    if top % n_shards:
+        raise ValueError(f"capacity {top} not divisible by the {n_shards}-way data axis")
     return (top,)
 
 

@@ -1,20 +1,29 @@
-"""Replica planning for the serving pool: which card each replica runs on.
+"""Replica planning for the serving pool: which cards each replica runs on.
 
 The JAX package's ``parallel/mesh.py`` replica functions
 (``replica_devices``, ``parse_shard_kind``, ``parse_replica_shapes``,
-``plan_replica_meshes``), with their error messages, for ``dp`` plans:
-each replica is one whole model on one device, and the plan returns torch
-devices instead of meshes.  A replica count beyond the visible cards wraps
-round-robin (replica ``i`` on ``cuda:(i % device_count)``), so a pool of two
-runs on one card, each replica on a CUDA stream of its own.
+``replica_mesh``, ``plan_replica_meshes``), with their error messages.  A
+``dp`` replica is one whole model on one device; a replica count beyond the
+visible cards wraps round-robin (replica ``i`` on ``cuda:(i %
+device_count)``), so a pool of two runs on one card, each replica on a CUDA
+stream of its own.
 
-The sharded shapes (``tpK``, ``vtpK``, ``epK``, ``ppK``) parse as in the
-JAX package and are then refused: a sharded replica spans K distinct
-cards and is not ported yet.
+A sharded replica (``tpK``, ``vtpK``, ``epK``, ``ppK``) spans ``K``
+devices: its :class:`ReplicaMesh` holds the kind, ``K``, the ordered device
+list and the sizes of JAX's ``(data, model)`` axes.  TP and PP ride the
+model axis (``(1, K)``: every shard sees the whole batch), EP the data axis
+(``(K, 1)``: the rows split over the expert shards).  A plan gives the
+multi-device replicas disjoint consecutive blocks of the visible devices and
+refuses one that needs more than there are ("multi-device replicas never
+share chips").  The planners take an explicit device list and, as JAX's,
+do not ask its entries to be distinct: a list of one card ``K`` times runs
+the shards one after another on that card (a correctness run, not a
+sharding speed).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -23,11 +32,19 @@ from ..device import resolve_device
 
 SHARD_KINDS = ("dp", "tp", "vtp", "ep", "pp")
 
-SHARDED_NOT_PORTED = (
-    "sharded replicas (tp/vtp/ep/pp, one replica over K cards) are not "
-    "ported to the PyTorch/CUDA pool yet; every --replica-shapes entry "
-    "must be dp"
-)
+
+@dataclass(frozen=True)
+class ReplicaMesh:
+    """One replica's devices: ``kind`` and ``k`` (``"tp"``, 4), the ordered
+    device list (shard ``i`` on ``devices[i]``; the replica's inputs and
+    answers live on ``devices[0]``) and JAX's ``data`` x ``model`` axis
+    sizes."""
+
+    kind: str
+    k: int
+    devices: tuple[torch.device, ...]
+    data: int = 1
+    model: int = 1
 
 
 def visible_devices(device: str | torch.device | None = None) -> list[torch.device]:
@@ -97,13 +114,57 @@ def parse_replica_shapes(spec) -> list[tuple[str, int]]:
     return [parse_shard_kind(p) for p in parts]
 
 
-def plan_replica_devices(
+def replica_mesh(kind: str, k: int, devices: Sequence[torch.device]) -> ReplicaMesh:
+    """The mesh one replica of shape ``(kind, k)`` dispatches on, over the
+    first ``k`` of ``devices`` (JAX ``replica_mesh``)."""
+    if len(devices) < k:
+        raise ValueError(
+            f"replica shape {kind}{k} needs {k} devices, got {len(devices)}"
+        )
+    devs = tuple(torch.device(d) for d in devices[:k])
+    if kind == "dp":
+        return ReplicaMesh("dp", 1, devs[:1])
+    if kind in ("tp", "vtp"):
+        return ReplicaMesh(kind, k, devs, data=1, model=k)
+    if kind == "ep":
+        return ReplicaMesh(kind, k, devs, data=k, model=1)
+    if kind == "pp":
+        from ..parallel.pp import NUM_STAGES
+
+        if k != NUM_STAGES:
+            raise ValueError(
+                f"pipeline replicas are {NUM_STAGES}-stage, got pp{k}"
+            )
+        return ReplicaMesh(kind, k, devs, data=1, model=k)
+    raise ValueError(f"unknown shard kind {kind!r}")
+
+
+def plan_replica_meshes(
     shapes: Sequence[tuple[str, int]],
     devices: Sequence[torch.device] | None = None,
-) -> list[torch.device]:
-    """One device per entry of an all-``dp`` plan, wrapping round-robin;
-    any other kind raises (:data:`SHARDED_NOT_PORTED`)."""
-    sharded = [f"{kind}{k}" for kind, k in shapes if kind != "dp"]
-    if sharded:
-        raise ValueError(f"replica plan entries {sharded}: {SHARDED_NOT_PORTED}")
-    return replica_devices(len(shapes), devices)
+) -> list[tuple[str, int, ReplicaMesh]]:
+    """Consecutive device blocks for a replica-shape plan, each replica's
+    mesh: ``[(kind, k, mesh), ...]`` (JAX ``plan_replica_meshes``).  An
+    all-``dp`` plan wraps round-robin as :func:`replica_devices` does; a
+    plan with a multi-device replica takes disjoint blocks and raises when
+    it needs more devices than ``devices`` holds."""
+    pool = list(devices if devices is not None else visible_devices())
+    if not pool:
+        raise ValueError("no devices visible to this process")
+    if all(k == 1 for _, k in shapes):
+        assigned = replica_devices(len(shapes), pool)
+        return [(kind, 1, replica_mesh(kind, 1, [dev]))
+                for (kind, _), dev in zip(shapes, assigned)]
+    need = sum(k for _, k in shapes)
+    if need > len(pool):
+        raise ValueError(
+            f"replica plan {[f'{kind}{k}' for kind, k in shapes]} needs "
+            f"{need} devices but only {len(pool)} are visible; "
+            "multi-device replicas never share chips"
+        )
+    out: list[tuple[str, int, ReplicaMesh]] = []
+    cursor = 0
+    for kind, k in shapes:
+        out.append((kind, k, replica_mesh(kind, k, pool[cursor:cursor + k])))
+        cursor += k
+    return out

@@ -72,6 +72,20 @@ Device staging (``device_stage``, on by default, as the JAX engine's auto
 default is on for one process): a batch goes from a pinned host buffer to
 the card by a ``non_blocking`` copy on the engine's stream.  Off
 (``--no-device-stage``), the buffers are pageable and the copy blocks.
+
+Sharded replicas (``shard_kind`` ``"tp"``/``"vtp"``/``"ep"``/``"pp"`` over
+a ``mesh`` from ``serving/devices.py``): the engine is one replica over
+``k`` devices, its default forward the kind's (``serving/sharded.py``) over
+``k`` shard copies of the model, each shard on a stream of its own device,
+the batch staged and the answer read back on ``mesh.devices[0]`` on the
+engine's stream.  The JAX engine's refusals hold (f32 only, no BatchNorm
+tree, the reference conv, the kind's model family), and the default
+variant starts UNVERIFIED: :meth:`verify_sharded_parity` holds it to the
+family's single-device forward before :meth:`launch` serves it.  An EP
+dispatch also returns the per-expert kept-token counts, read into the
+``serving_expert_load`` gauges one dispatch late (:meth:`flush_expert_load`
+reads the last one).  A sharded replica serves its weights as built: the
+registry's swap and canary refuse it.
 """
 
 from __future__ import annotations
@@ -91,8 +105,10 @@ from ..device import resolve_device
 from ..models.net import CONV_IMPLS, INPUT_SHAPE, NUM_CLASSES, Net
 from ..models.quant import INT8_IMPLS, qparams_to, quantize_params
 from ..ops import _build
+from ..parallel.mesh import Lockstep
 from ..utils.checkpoint import jax_stats_from_torch, load_inference_state
-from ..utils.convert import BN_LAYERS, LAYERS, has_bn, jax_state_from_torch
+from ..utils.convert import BN_LAYERS, LAYERS, has_bn, jax_state_from_torch, jax_vit_tree_from_torch
+from . import sharded
 from .buckets import (
     DEFAULT_MAX_BUCKET,
     StagingPool,
@@ -100,6 +116,7 @@ from .buckets import (
     pow2_buckets,
     validate_buckets,
 )
+from .devices import SHARD_KINDS, ReplicaMesh, replica_mesh
 from .metrics import ServingMetrics
 from .predict import (
     make_int8_predict_step,
@@ -142,9 +159,11 @@ def _tree_leaves(tree: Mapping[str, Any]) -> list[np.ndarray]:
 
 
 def _served_tree(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
-    """A CNN state dict as the JAX serving engine's served tree: the param
-    tree in JAX layout (``utils/convert.py``), and for a BatchNorm state
-    with running averages ``{"params": ..., "batch_stats": ...}``."""
+    """A state dict as the JAX serving engine's served tree: the param tree
+    in JAX layout (``utils/convert.py``; a ViT's too), and for a BatchNorm
+    state with running averages ``{"params": ..., "batch_stats": ...}``."""
+    if any(str(k).startswith("blocks.") for k in state):
+        return jax_vit_tree_from_torch(state)
     params = jax_state_from_torch(state)
     stats = jax_stats_from_torch(state) if has_bn(state) else {}
     return {"params": params, "batch_stats": stats} if stats else params
@@ -166,6 +185,11 @@ def weights_digest(state: Mapping[str, torch.Tensor]) -> str:
 class UnverifiedVariantError(RuntimeError):
     """A variant was asked to serve before (or after failing) its parity
     gate."""
+
+
+class ParityError(AssertionError):
+    """``verify_sharded_parity(raise_on_failure=True)`` found the gate
+    failing."""
 
 
 class DeviceResult:
@@ -247,6 +271,18 @@ class InferenceEngine:
         Stage batches in pinned buffers and copy them ``non_blocking`` on
         the engine's stream (the default); False = pageable buffers and a
         blocking copy.
+    shard_kind / mesh:
+        ``"dp"`` (the default) is one whole model on ``device``; a sharded
+        kind needs a :class:`~.devices.ReplicaMesh` of its kind
+        (``devices.replica_mesh``) and serves over its devices, inputs and
+        answers on the first (module docstring); ``device`` is then not
+        passed.  Every bucket must split over the mesh's data axis.
+    vit_cfg:
+        The ``vtp``/``ep`` model config (default ``sharded.default_vit_cfg``;
+        EP's holds capacity-factor headroom so routing drops no token).
+    pp_microbatches:
+        The pipeline's microbatch count (``pp``); every bucket must divide
+        by it.
     """
 
     def __init__(
@@ -264,9 +300,32 @@ class InferenceEngine:
         version: str = "",
         aot_cache: str | ExecutableStore | None = None,
         device_stage: bool = True,
+        shard_kind: str = "dp",
+        mesh: ReplicaMesh | None = None,
+        vit_cfg=None,
+        pp_microbatches: int = 2,
     ):
         self.version = str(version)
-        self.device = resolve_device(device)
+        self.shard_kind = str(shard_kind)
+        if self.shard_kind not in SHARD_KINDS:
+            raise ValueError(f"unknown shard kind {self.shard_kind!r}; have {SHARD_KINDS}")
+        is_sharded = self.shard_kind != "dp"
+        if is_sharded and mesh is None:
+            raise ValueError(
+                f"shard kind {self.shard_kind!r} needs an explicit replica "
+                "mesh (serving.devices.replica_mesh); defaulting to one "
+                "device would silently serve the wrong topology"
+            )
+        if mesh is None:
+            mesh = replica_mesh("dp", 1, [resolve_device(device)])
+        elif device is not None:
+            raise ValueError("pass device or mesh, not both")
+        elif mesh.kind != self.shard_kind:
+            raise ValueError(f"shard kind {self.shard_kind!r} on a {mesh.kind!r} replica mesh")
+        # Asking for a card without one raises, for every shard's device.
+        self.mesh = ReplicaMesh(mesh.kind, mesh.k, tuple(resolve_device(d) for d in mesh.devices),
+                                mesh.data, mesh.model)
+        self.device = self.mesh.devices[0]
         self.device_stage = bool(device_stage)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         # Warmup rungs run, ever: a pool's restart or add must run none.
@@ -279,14 +338,26 @@ class InferenceEngine:
             # for convs and matmuls, process-wide.
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        n_shards = self.mesh.data
         if buckets is None:
-            buckets = pow2_buckets(max_bucket or DEFAULT_MAX_BUCKET)
+            buckets = pow2_buckets(max_bucket or DEFAULT_MAX_BUCKET, n_shards)
         elif max_bucket is not None:
             raise ValueError("pass buckets or max_bucket, not both")
-        self.buckets = validate_buckets(buckets)
+        self.buckets = validate_buckets(buckets, n_shards)
         self.packed = bool(packed)
         if self.packed:
-            self.buckets = packed_capacities(self.buckets[-1])
+            self.buckets = packed_capacities(self.buckets[-1], n_shards)
+        self.pp_microbatches = int(pp_microbatches)
+        if self.shard_kind == "pp":
+            if self.pp_microbatches < 1:
+                raise ValueError(f"pp_microbatches must be >= 1, got {self.pp_microbatches}")
+            bad = [b for b in self.buckets if b % self.pp_microbatches]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} do not divide by {self.pp_microbatches} "
+                    "pipeline microbatches; every warmed rung must split "
+                    "evenly into the microbatch schedule"
+                )
         if int8_impl not in INT8_IMPLS:
             raise ValueError(f"unknown int8 impl {int8_impl!r} (want dot|pallas)")
         if conv_impl not in CONV_IMPLS:
@@ -294,6 +365,12 @@ class InferenceEngine:
         self.int8_impl = int8_impl
         self.conv_impl = conv_impl
         compute_dtype = compute_dtype or torch.float32
+        self._vit_cfg = None
+        if is_sharded:
+            self._refuse_for_sharded(state_dict, dtypes, conv_impl, compute_dtype)
+            if self.shard_kind in ("vtp", "ep"):
+                self._vit_cfg = vit_cfg if vit_cfg is not None else sharded.default_vit_cfg(
+                    self.shard_kind)
         if dtypes and compute_dtype != torch.float32:
             raise ValueError(
                 "a non-f32 default compute_dtype cannot anchor the "
@@ -301,13 +378,31 @@ class InferenceEngine:
                 "request the reduced-precision path via dtypes=('bf16',) "
                 "instead"
             )
-        state = self._served_state(state_dict)
+        state = (self._served_state(state_dict) if self._vit_cfg is None else
+                 {k: v.detach().to("cpu", torch.float32).contiguous()
+                  for k, v in state_dict.items()})
         self.use_bn = has_bn(state)
         # Content address of the served weights (the response cache's
         # key), hashed once on the host.
         self.weights_digest = weights_digest(state)
         self._shapes = {k: tuple(v.shape) for k, v in state.items()}
-        self._model = self._place(state)
+        # A sharded replica: the host weights (the gate's reference reads
+        # them), its shards' streams and its shard models.
+        self._host_served = state
+        self._lockstep = Lockstep(self.mesh.devices) if is_sharded else None
+        self._reference_fn = None
+        self._pending_expert_load: DeviceResult | None = None
+        if is_sharded:
+            default_fn = sharded.build_predict_fn(
+                self.shard_kind, self._lockstep, vit_cfg=self._vit_cfg,
+                pp_microbatches=self.pp_microbatches, packed=self.packed)
+            self._model = None
+            default_params = sharded.place_params(self.shard_kind, state, self.mesh,
+                                                  self._vit_cfg, self._lockstep)
+        else:
+            make_default = make_packed_predict_step if self.packed else make_predict_step
+            default_fn = make_default(compute_dtype, conv_impl)
+            self._model = default_params = self._place(state)
         self.metrics = metrics
         self.store = aot_cache
         if aot_cache is not None and not isinstance(aot_cache, ExecutableStore):
@@ -315,14 +410,11 @@ class InferenceEngine:
                 aot_cache, registry=metrics.registry if metrics is not None else None)
         # (base variant, bucket) -> its warmup Program; canary twins share them
         self._programs: dict[tuple[str, int], Program] = {}
-        make_default = make_packed_predict_step if self.packed else make_predict_step
+        # The dp default is the parity reference itself; a sharded default
+        # is served only once verify_sharded_parity passes it.
         self._variants: dict[str, _Variant] = {
-            DEFAULT_DTYPE: _Variant(
-                DEFAULT_DTYPE,
-                make_default(compute_dtype, conv_impl),
-                self._model,
-                verified=True,  # the parity reference itself
-            )
+            DEFAULT_DTYPE: _Variant(DEFAULT_DTYPE, default_fn, default_params,
+                                    verified=not is_sharded)
         }
         for name in dtypes or ():
             if name == DEFAULT_DTYPE or name in self._variants:
@@ -335,6 +427,30 @@ class InferenceEngine:
                                     pin=self.device.type == "cuda" and self.device_stage)
 
     # -- weights ------------------------------------------------------------------
+
+    def _refuse_for_sharded(self, state_dict, dtypes, conv_impl, compute_dtype) -> None:
+        """The JAX engine's refusals of a sharded replica, with its words."""
+        if dtypes:
+            raise ValueError(
+                f"sharded replicas serve f32 only; dtypes="
+                f"{tuple(dtypes)} cannot ride shard kind "
+                f"{self.shard_kind!r} (the parity anchor is the "
+                "single-device f32 forward; mix precisions at the "
+                "POOL level with heterogeneous replicas instead)"
+            )
+        if has_bn(state_dict):
+            raise ValueError(
+                f"shard kind {self.shard_kind!r} has no BN-aware "
+                "sharded forward; serve BN checkpoints on DP replicas"
+            )
+        if conv_impl != "conv":
+            raise ValueError(
+                f"shard kind {self.shard_kind!r} serves the reference "
+                f"conv impl only; got conv_impl={conv_impl!r}"
+            )
+        if compute_dtype != torch.float32:
+            raise ValueError("sharded replicas serve f32 only; drop compute_dtype")
+        sharded.validate_family(self.shard_kind, state_dict)
 
     @staticmethod
     def _served_state(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -354,6 +470,13 @@ class InferenceEngine:
                 state[key] = (state_dict[key].detach().to("cpu", torch.float32).contiguous()
                               if key in state_dict else init(features))
         return state
+
+    @property
+    def streams(self) -> tuple:
+        """Every CUDA stream this engine puts work on: its own, then its
+        shards' (none on the CPU)."""
+        shards = self._lockstep.streams if self._lockstep is not None else ()
+        return tuple(s for s in (self.stream, *shards) if s is not None)
 
     def on_stream(self):
         """A context in which torch's current stream is this engine's (a
@@ -407,9 +530,13 @@ class InferenceEngine:
         """Fresh torch-default-init weights from ``torch.Generator`` seed
         ``seed`` — the no-checkpoint path of smoke runs and load tests.
         (torch's and JAX's generators differ: these are not the JAX
-        package's seed-``seed`` weights.)"""
-        net = Net(torch.Generator().manual_seed(seed))
-        return cls(net.state_dict(), **kwargs)
+        package's seed-``seed`` weights.)  A sharded ``shard_kind`` seeds
+        the family it serves: the ViT for vtp, the MoE ViT for ep, the CNN
+        otherwise."""
+        kind = kwargs.get("shard_kind", "dp")
+        if kind in ("vtp", "ep") and kwargs.get("vit_cfg") is None:
+            kwargs["vit_cfg"] = sharded.default_vit_cfg(kind)
+        return cls(sharded.seed_params(kind, seed, kwargs.get("vit_cfg")), **kwargs)
 
     # -- variant surface --------------------------------------------------------
 
@@ -455,11 +582,31 @@ class InferenceEngine:
         with self.on_stream(), torch.inference_mode():
             x = torch.as_tensor(staged).to(self.device, non_blocking=self.device_stage)
             if not self.packed:
-                return v.predict(params, x)
-            if seg is None:
-                seg = np.zeros(len(x), np.int32)
-            seg = torch.as_tensor(seg).to(self.device, non_blocking=self.device_stage)
-            return v.predict(params, x, seg)
+                out = v.predict(params, x)
+            else:
+                if seg is None:
+                    seg = np.zeros(len(x), np.int32)
+                seg = torch.as_tensor(seg).to(self.device, non_blocking=self.device_stage)
+                out = v.predict(params, x, seg)
+            if self.shard_kind == "ep":
+                out, load = out
+                self._stash_expert_load(load)
+            return out
+
+    def _stash_expert_load(self, load: torch.Tensor) -> None:
+        """An EP dispatch's expert counts: read back behind the batch on the
+        engine's stream, recorded into the gauges at the next dispatch (by
+        then it is on the host), so the dispatch thread never waits on its
+        own batch for them."""
+        self.flush_expert_load()
+        self._pending_expert_load = DeviceResult(load)
+
+    def flush_expert_load(self) -> None:
+        """Record the last EP dispatch's expert counts (the one-dispatch lag
+        would otherwise hold them back): the drain and shutdown hook."""
+        prev, self._pending_expert_load = self._pending_expert_load, None
+        if prev is not None and self.metrics is not None:
+            self.metrics.record_expert_load(prev.wait())
 
     def _warm_rung(self, name: str, b: int) -> None:
         """A rung's warm step: variant ``name`` once on a zero batch of
@@ -498,6 +645,9 @@ class InferenceEngine:
                 done.append((name, b))
                 if on_rung is not None:
                     on_rung(name, b, len(done))
+        # The warm steps' zero batches routed somewhere; keep that out of
+        # the expert-load gauges.
+        self._pending_expert_load = None
         self.warmed = True
         return done
 
@@ -568,11 +718,75 @@ class InferenceEngine:
                 sink.emit("parity_gate", **v.parity)
         return results
 
+    def verify_sharded_parity(self, tol: float | None = None, raise_on_failure: bool = False,
+                              sink=None) -> dict:
+        """Gate a sharded replica against the single-device forward of its
+        model family (JAX ``verify_sharded_parity``): the parity slice
+        through the sharded forward at a warmed bucket and through the
+        reference (``sharded.reference_fn``) on the host weights, both on
+        the replica's first device.  It passes iff ``max |logp_sharded -
+        logp_reference| <= tol`` (default ``sharded.SHARDED_PARITY_TOL``,
+        pp at exactly 0.0) AND argmax is identical on every row.  Passing
+        makes the default variant servable, failing refuses it.  ``{}`` on
+        a dp engine.  Returns (and records in :attr:`parity_report`) the
+        result; ``raise_on_failure`` raises :class:`ParityError`."""
+        if self.shard_kind == "dp":
+            return {}
+        v = self._variants[DEFAULT_DTYPE]
+        x, bucket = self._parity_slice()
+        if self._reference_fn is None:
+            self._reference_fn = sharded.reference_fn(self.shard_kind, self._vit_cfg,
+                                                      self.pp_microbatches)
+        with self.on_stream():
+            out = self._run_variant(v, x).cpu().numpy()
+            ref = self._reference_fn(self._host_served,
+                                     torch.from_numpy(x).to(self.device)).cpu().numpy()
+        max_diff = float(np.abs(out - ref).max())
+        argmax_ok = bool((out.argmax(axis=1) == ref.argmax(axis=1)).all())
+        tolerance = float(sharded.SHARDED_PARITY_TOL[self.shard_kind] if tol is None else tol)
+        passed = argmax_ok and max_diff <= tolerance
+        v.verified = passed
+        v.parity = {
+            "dtype": v.name,
+            "shard_kind": self.shard_kind,
+            "devices": len(self.mesh.devices),
+            "rows": int(bucket),
+            "max_abs_logit_diff": max_diff,
+            "tolerance": tolerance,
+            "argmax_identical": argmax_ok,
+            "passed": passed,
+        }
+        if self.metrics is not None:
+            self.metrics.registry.gauge(
+                "serving_variant_verified",
+                help="1 = the dtype variant passed its parity gate and "
+                "may serve; 0 = refused",
+                dtype=f"{v.name}/{self.shard_kind}",
+            ).set(1.0 if passed else 0.0)
+        if sink:
+            sink.emit("parity_gate", **v.parity)
+        if raise_on_failure and not passed:
+            raise ParityError(
+                f"sharded parity gate failed: {self.shard_kind} "
+                f"max|dlogp|={max_diff:.4g} (tol {tolerance:g}), "
+                f"argmax_identical={argmax_ok}"
+            )
+        return v.parity
+
     # -- the registry's swap surface (serving/registry.py, rollout.py) ---------
 
     def _prepare_weights(self, state_dict: Mapping[str, torch.Tensor]):
         """Validate and place incoming weights against the served ones:
-        the same BatchNorm-ness, keys and shapes."""
+        the same BatchNorm-ness, keys and shapes.  A sharded replica
+        refuses."""
+        if self.shard_kind != "dp":
+            raise ValueError(
+                f"weight publish into a sharded ({self.shard_kind}) "
+                "replica is not supported: a swap would have to re-place "
+                "the tree over the replica's shards and re-gate "
+                "parity mid-serve; drain the replica and rebuild it on "
+                "the new checkpoint instead"
+            )
         bn = has_bn(state_dict)
         if bn != self.use_bn:
             raise ValueError(

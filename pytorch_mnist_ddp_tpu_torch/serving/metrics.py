@@ -36,6 +36,10 @@ observation where a short run's exposition must already carry it:
   ``serving_router_shape_decisions_total{policy=,shape_class=}`` and
   ``serving_replica_restarts_total{replica=}``; the snapshot's
   ``replicas`` block is the router's per-replica state;
+- sharded replicas: ``serving_shard_devices{replica=}`` (the pool sets it
+  once a replica at construction) and, for EP replicas,
+  ``serving_expert_load{expert=}`` (the kept tokens a dispatch routed to
+  each expert, one dispatch late);
 - the fleet front (serving/fleet.py): ``fleet_scale_events_total
   {direction=}`` (:meth:`ensure_fleet`) and, registered by the fleet,
   ``fleet_backends{state=}``, ``fleet_route_decisions_total{backend=}``,
@@ -127,6 +131,7 @@ class ServingMetrics:
         self._cache: dict[str, object] = {}
         self._model_count: dict[tuple[str, str], object] = {}
         self._model_latency: dict[tuple[str, str], object] = {}
+        self._expert_load: dict[str, object] = {}
 
     # -- counter views --------------------------------------------------------
 
@@ -339,6 +344,43 @@ class ServingMetrics:
         if len(window) < min_samples:
             return None
         return percentile(sorted(window), 99)
+
+    def record_shard_devices(self, replica: str, devices: int) -> None:
+        """Devices in REPLICA's mesh (1 = a dp replica, k = a sharded one)."""
+        self.registry.gauge(
+            "serving_shard_devices",
+            help="devices in each replica's mesh (1 = plain DP, k = a "
+            "sharded TP/EP/PP replica spanning k devices)",
+            replica=replica,
+        ).set(devices)
+
+    def ensure_expert_load(self, num_experts: int) -> None:
+        """Register the per-expert load gauges before the first dispatch
+        records them (an EP pool's exposition carries the family)."""
+        if len(self._expert_load) >= num_experts:
+            return
+        with self.registry.locked():
+            for e in range(num_experts):
+                key = str(e)
+                if key not in self._expert_load:
+                    self._expert_load[key] = self.registry.gauge(
+                        "serving_expert_load",
+                        help="tokens routed to (and kept by) each expert "
+                        "in the most recent EP dispatch; max/mean across "
+                        "experts is the imbalance factor",
+                        expert=key,
+                    )
+
+    def record_expert_load(self, loads) -> None:
+        """Per-expert kept-token counts of one EP dispatch."""
+        loads = [float(v) for v in loads]
+        self.ensure_expert_load(len(loads))
+        for e, val in enumerate(loads):
+            self._expert_load[str(e)].set(val)
+
+    def expert_load_snapshot(self) -> dict[str, float]:
+        """The per-expert load gauges' values ({} without an EP replica)."""
+        return {k: g.value for k, g in sorted(self._expert_load.items())}
 
     def record_model_request(self, model: str, version: str, latency_s: float) -> None:
         """One request served by registry route (model, version)."""

@@ -1,5 +1,5 @@
-"""EnginePool: one InferenceEngine replica per device behind the router
-(the JAX package's ``serving/pool.py``, for ``dp`` replicas).
+"""EnginePool: InferenceEngine replicas behind the router (the JAX
+package's ``serving/pool.py``).
 
 Everything a single-engine deployment does — the bucket-warmed forward,
 the dtype variants behind their parity gates, the pipelined micro-batcher
@@ -33,8 +33,20 @@ The pool exposes the single-engine surface the server and the rollout
 controller read (``buckets``/``dtypes``/``variant_verified``/``warmed``/
 ``weights_digest``/``publish_weights``...), so ``make_server(pool,
 metrics, batcher=router)`` is the whole wiring difference between one
-replica and eight.  Sharded replica shapes (``tpK``/``vtpK``/``epK``/
-``ppK``) are refused (serving/devices.py).
+replica and eight.
+
+Heterogeneous pools (``replica_shapes="tp4,dp"``): each entry is one
+replica's shard topology, a sharded replica one engine over ``k``
+devices (serving/sharded.py), planned as JAX plans them
+(``devices.plan_replica_meshes``: disjoint consecutive blocks, too few
+devices refused).  Every sharded replica is held to the single-device
+forward by its parity gate at the end of :meth:`warmup` and cannot serve
+before that passes.  One pool serves one checkpoint, so the ViT kinds
+(``vtp``, ``ep``) do not mix with the CNN ones, nor ``vtp`` with ``ep``;
+a sharded plan serves f32 only; the ladder's floor rises to an EP
+replica's row shards and a pipeline's microbatches.  ``devices=`` (JAX's
+argument) gives the device list to plan over: ``[cuda:0] * k`` runs a
+``k``-way replica's shards one after another on one card.
 """
 
 from __future__ import annotations
@@ -49,7 +61,15 @@ import torch
 from ..compile import ExecutableStore
 from ..liveness import BackoffLadder
 from .batcher import MicroBatcher
-from .devices import parse_replica_shapes, plan_replica_devices, replica_devices, visible_devices
+from . import sharded
+from .buckets import DEFAULT_MAX_BUCKET, packed_capacities, pow2_buckets
+from .devices import (
+    parse_replica_shapes,
+    plan_replica_meshes,
+    replica_devices,
+    replica_mesh,
+    visible_devices,
+)
 from .engine import InferenceEngine, UnverifiedVariantError
 from .faults import fault_point
 from .metrics import ServingMetrics
@@ -59,21 +79,24 @@ from .router import Replica, Router
 def _check_own_streams(engines: Sequence[InferenceEngine]) -> None:
     """Raise if two replicas on one card got the same CUDA stream.
     ``torch.cuda.Stream`` takes the next of a card's 32 pooled streams, so
-    past 32 replicas a card two would share one and serialize behind each
-    other: a completion wait would then time the other replica's batch,
-    and the supervisor's stall check would blame the wrong replica."""
+    past 32 streams a card two replicas would share one and serialize
+    behind each other: a completion wait would then time the other
+    replica's batch, and the supervisor's stall check would blame the
+    wrong replica.  A sharded replica's shard streams count too."""
     seen: dict = {}
     for i, engine in enumerate(engines):
-        if engine.stream is None:
-            continue
-        key = (engine.device, engine.stream.cuda_stream)
-        if key in seen:
-            raise ValueError(
-                f"replicas {_replica_name(seen[key])} and {_replica_name(i)} share a "
-                f"CUDA stream on {engine.device}: PyTorch hands out 32 streams a card, "
-                "so serve at most 32 replicas a card"
-            )
-        seen[key] = i
+        for stream in getattr(engine, "streams", (engine.stream,)):
+            if stream is None:
+                continue
+            device = getattr(stream, "device", engine.device)
+            key = (device, stream.cuda_stream)
+            if key in seen:
+                raise ValueError(
+                    f"replicas {_replica_name(seen[key])} and {_replica_name(i)} share a "
+                    f"CUDA stream on {device}: PyTorch hands out 32 streams a card, "
+                    "so serve at most 32 replicas (and shards) a card"
+                )
+            seen[key] = i
 
 
 def _replica_name(i: int) -> str:
@@ -376,13 +399,14 @@ class EnginePool:
 
     Parameters mirror the engine's where they mean the same thing.
     ``replicas`` is the pool size (``None``: one per visible device of
-    ``device``; ``cuda:K`` pins every replica to card K), and
-    ``replica_shapes`` a plan such as ``"dp,dp"`` (its length must agree
-    with ``replicas``; only ``dp`` entries are ported).  Replicas that
-    share a card must each get a stream of their own, and PyTorch hands
-    out 32 a card in turn: more replicas than that on one card raise.
-    ``aot_cache`` (a directory or a store) is shared by every replica;
-    ``device_stage`` is each engine's.
+    ``device``; ``cuda:K`` pins every replica to card K), ``devices`` an
+    explicit device list to plan over instead, and ``replica_shapes`` a
+    plan such as ``"tp4,dp"`` (its length must agree with ``replicas``;
+    module docstring), with ``vit_cfg`` and ``pp_microbatches`` for its
+    sharded replicas.  Replicas that share a card must each get streams of
+    their own, and PyTorch hands out 32 a card in turn: more than that on
+    one card raise.  ``aot_cache`` (a directory or a store) is shared by
+    every replica; ``device_stage`` is each engine's.
     """
 
     def __init__(
@@ -402,8 +426,11 @@ class EnginePool:
         replica_shapes=None,
         aot_cache: str | ExecutableStore | None = None,
         device_stage: bool = True,
+        devices: Sequence[torch.device] | None = None,
+        vit_cfg=None,
+        pp_microbatches: int = 2,
     ):
-        pool = visible_devices(device)
+        pool = list(devices) if devices is not None else visible_devices(device)
         if replica_shapes is not None:
             shapes = parse_replica_shapes(replica_shapes)
             if replicas is not None and replicas != len(shapes):
@@ -412,24 +439,60 @@ class EnginePool:
                     f"{len(shapes)}-entry replica_shapes plan; pass one "
                     "or the other"
                 )
-            assigned = plan_replica_devices(shapes, pool)
+            kinds = {kind for kind, _ in shapes}
+            vit_kinds = kinds & {"vtp", "ep"}
+            if vit_kinds and kinds - vit_kinds:
+                raise ValueError(
+                    f"replica plan mixes the ViT families {sorted(vit_kinds)} "
+                    f"with CNN kinds {sorted(kinds - vit_kinds)}; one pool "
+                    "serves one checkpoint, so every replica must serve "
+                    "the same model family"
+                )
+            if len(vit_kinds) > 1:
+                raise ValueError(
+                    "replica plan mixes 'vtp' (dense ViT) and 'ep' "
+                    "(MoE-ViT); those are different param trees"
+                )
+            if kinds != {"dp"} and dtypes:
+                raise ValueError(
+                    f"sharded replica shapes serve f32 only; drop dtypes="
+                    f"{tuple(dtypes)} (the parity anchor is the single-"
+                    "device f32 forward)"
+                )
+            plans = [(kind, mesh) for kind, _, mesh in plan_replica_meshes(shapes, pool)]
         else:
-            assigned = replica_devices(replicas, pool)
+            plans = [("dp", replica_mesh("dp", 1, [dev])) for dev in replica_devices(replicas, pool)]
+        # The ladder's floor: an EP replica splits every bucket over its
+        # row shards, a pipeline into its microbatches.  Resolved once, so
+        # every replica warms the same rungs.
+        n_min = max([1] + [mesh.data for _, mesh in plans]
+                    + [int(pp_microbatches) for kind, _ in plans if kind == "pp"])
+        if buckets is None:
+            buckets = pow2_buckets(max_bucket or DEFAULT_MAX_BUCKET, n_min)
+            max_bucket = None
+        if packed:
+            buckets = packed_capacities(max(buckets), n_min)
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.store = aot_cache
         if aot_cache is not None and not isinstance(aot_cache, ExecutableStore):
             self.store = ExecutableStore(aot_cache, registry=self.metrics.registry)
         self.engines = [
             InferenceEngine(
-                state_dict, device=dev, buckets=buckets, max_bucket=max_bucket,
+                state_dict, mesh=mesh, shard_kind=kind, buckets=buckets, max_bucket=max_bucket,
                 compute_dtype=compute_dtype, conv_impl=conv_impl, dtypes=tuple(dtypes),
                 packed=packed, metrics=self.metrics, int8_impl=int8_impl, version=version,
-                aot_cache=self.store, device_stage=device_stage,
+                aot_cache=self.store, device_stage=device_stage, vit_cfg=vit_cfg,
+                pp_microbatches=pp_microbatches,
             )
-            for dev in assigned
+            for kind, mesh in plans
         ]
         _check_own_streams(self.engines)
         self.devices = [e.device for e in self.engines]
+        # The topology, scrapeable from the first exposition.
+        for i, engine in enumerate(self.engines):
+            self.metrics.record_shard_devices(_replica_name(i), len(engine.mesh.devices))
+            if engine.shard_kind == "ep":
+                self.metrics.ensure_expert_load(engine._vit_cfg.num_experts)
         self.router: Router | None = None
         self.supervisor: ReplicaSupervisor | None = None
         self._batcher_kwargs: dict = {}
@@ -449,10 +512,15 @@ class EnginePool:
     @classmethod
     def from_seed(cls, seed: int = 1, **kwargs) -> "EnginePool":
         """Seed-``seed`` weights from ``torch.Generator`` (the engine's
-        ``from_seed``), shared by every replica."""
-        from ..models.net import Net
-
-        return cls(Net(torch.Generator().manual_seed(seed)).state_dict(), **kwargs)
+        ``from_seed``), shared by every replica, of the family the replica
+        shapes imply: the CNN for dp/tp/pp, the ViT for vtp, the MoE ViT
+        for ep (the constructor refuses a plan that mixes them)."""
+        raw = kwargs.get("replica_shapes")
+        kinds = {kind for kind, _ in parse_replica_shapes(raw)} if raw else set()
+        family = "ep" if "ep" in kinds else "vtp" if "vtp" in kinds else "dp"
+        if family != "dp" and kwargs.get("vit_cfg") is None:
+            kwargs["vit_cfg"] = sharded.default_vit_cfg(family)
+        return cls(sharded.seed_params(family, seed, kwargs.get("vit_cfg")), **kwargs)
 
     # -- single-engine-compatible surface -----------------------------------------
 
@@ -554,16 +622,27 @@ class EnginePool:
         replica=name)`` reports progress across the whole grid; ``sink``
         takes the ``compile`` spans.  The ``warmup`` fault point fires
         once per replica first, so a failed warmup surfaces instead of
-        leaving an unwarmed replica to serve."""
+        leaving an unwarmed replica to serve.  Then every sharded replica's
+        parity gate (:meth:`_gate_sharded`)."""
         if not parallel or len(self.engines) == 1:
             for i, engine in enumerate(self.engines):
                 self._warm_one(i, engine, on_rung, sink)
-            return
-        with ThreadPoolExecutor(max_workers=len(self.engines)) as pool:
-            futures = [pool.submit(self._warm_one, i, engine, on_rung, sink)
-                       for i, engine in enumerate(self.engines)]
-            for f in futures:
-                f.result()  # the first warmup failure, raised here
+        else:
+            with ThreadPoolExecutor(max_workers=len(self.engines)) as pool:
+                futures = [pool.submit(self._warm_one, i, engine, on_rung, sink)
+                           for i, engine in enumerate(self.engines)]
+                for f in futures:
+                    f.result()  # the first warmup failure, raised here
+        self._gate_sharded(sink)
+
+    def _gate_sharded(self, sink) -> None:
+        """Every sharded replica against the single-device forward of its
+        family, right after warmup: it cannot take a request before this
+        passes, and a failing gate fails the pool start (ParityError)
+        instead of serving wrong answers fast."""
+        for engine in self.engines:
+            if engine.shard_kind != "dp":
+                engine.verify_sharded_parity(raise_on_failure=True, sink=sink)
 
     def _warm_one(self, i: int, engine: InferenceEngine, on_rung, sink) -> None:
         name = _replica_name(i)
@@ -635,7 +714,8 @@ class EnginePool:
             ).start()
         if self._sink is not None:
             self._sink.emit("pool_topology", replicas={
-                _replica_name(i): {"shard_kind": "dp", "device": str(engine.device)}
+                _replica_name(i): {"shard_kind": engine.shard_kind,
+                                   "devices": len(engine.mesh.devices)}
                 for i, engine in enumerate(self.engines)
             })
         return self.router
@@ -703,10 +783,19 @@ class EnginePool:
     def stop(self, drain: bool = True) -> None:
         """Supervisor first (a restart racing the shutdown would attach a
         batcher to a router tearing down), then the router's replicas.  The
-        engines stay warm: a stopped pool can :meth:`start` again."""
+        engines stay warm: a stopped pool can :meth:`start` again.  EP
+        replicas then record their last dispatch's expert counts, and the
+        sink gets the per-expert picture (``expert_load``)."""
         if self.supervisor is not None:
             self.supervisor.stop()
             self.supervisor = None
         if self.router is not None:
             self.router.stop(drain=drain)
             self.router = None
+        ep_engines = [e for e in self.engines if e.shard_kind == "ep"]
+        for engine in ep_engines:
+            engine.flush_expert_load()
+        if ep_engines and self._sink is not None:
+            loads = self.metrics.expert_load_snapshot()
+            self._sink.emit("expert_load", loads=loads,
+                            imbalance=sharded.expert_imbalance(list(loads.values())) or None)

@@ -46,8 +46,10 @@ the queue-aware router (``--router-policy``; replica i on
 ``cuda:(i % cards)``, each on its own CUDA stream), and
 ``--replicas-sweep 1,2,4`` runs the same workload against each count in
 turn, writing goodput vs. replicas at fixed p99 plus scaling efficiency
-to ``--scaleout-report``.  ``--replica-shapes`` takes ``dp`` entries only:
-a sharded entry is refused with the serving CLI's words (exit 2).
+to ``--scaleout-report``.  ``--replica-shapes`` (``tp4,dp``) reaches the
+pool as in the JAX tool; a plan that needs more devices than ``--device``
+shows is refused with the serving CLI's words (exit 2) before anything is
+built.
 
 Tail-latency mode: ``--qos-mix interactive=0.8,batch=0.2`` labels every
 request with a seeded QoS class (the ``/predict`` ``"qos"`` field) and the
@@ -2411,9 +2413,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--replica-shapes", default=None, metavar="SPEC",
         help="--self-serve pool mode: comma-separated per-replica shard "
-        "shape, e.g. 'dp,dp'; count must match --replicas.  Only dp "
-        "entries are ported: a sharded entry (tpK, vtpK, epK, ppK) is "
-        "refused, as by the serving CLI",
+        "shape, e.g. 'tp4,dp,dp,dp,dp'; count must match --replicas",
     )
     parser.add_argument(
         "--router-policy", default="cost",
@@ -2549,7 +2549,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    refusal = _lockwatch_gate() or _sharded_refusal(args.replica_shapes)
+    refusal = _lockwatch_gate() or _replica_plan_refusal(args.replica_shapes, args.device)
     if refusal:
         print(refusal)
         return 2
@@ -2768,20 +2768,18 @@ def _lockwatch_gate() -> str | None:
     )
 
 
-def _sharded_refusal(spec: str | None) -> str | None:
-    """A sharded ``--replica-shapes`` entry, refused with the serving
-    CLI's words (its exit code is the caller's: 2)."""
+def _replica_plan_refusal(spec: str | None, device: str | None) -> str | None:
+    """A ``--replica-shapes`` plan the pool would refuse (a malformed entry,
+    more devices than ``device`` shows), in the serving CLI's words (its
+    exit code is the caller's: 2)."""
     if not spec:
         return None
-    from ..serving.devices import SHARDED_NOT_PORTED, parse_replica_shapes
+    from ..serving.devices import parse_replica_shapes, plan_replica_meshes, visible_devices
 
     try:
-        shapes = parse_replica_shapes(spec)
+        plan_replica_meshes(parse_replica_shapes(spec), visible_devices(device))
     except ValueError as e:
         return f"error: --replica-shapes {spec!r}: {e}"
-    sharded = [f"{kind}{k}" for kind, k in shapes if kind != "dp"]
-    if sharded:
-        return f"error: --replica-shapes {spec!r}: {sharded}: {SHARDED_NOT_PORTED}"
     return None
 
 

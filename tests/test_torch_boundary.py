@@ -453,12 +453,19 @@ def test_serving_accepts_the_pool_flags(flags, dest, value, capsys):
 
 @pytest.mark.parametrize("shapes", ["tp2,dp", "vtp2,dp", "ep2,dp", "pp2,dp"])
 def test_serving_refuses_sharded_replica_shapes(shapes, capsys):
-    """A --replica-shapes entry other than dp exits 2 by name before
-    anything is built: sharded replicas are not ported yet."""
-    assert cli_main(["--replicas", "2", "--replica-shapes", shapes, "--warmup-only"]) == 2
+    """A sharded --replica-shapes plan that needs more devices than are
+    visible (three here; the CPU is one) exits 2 with the JAX planner's
+    error before anything is built."""
+    import jax
+    from pytorch_mnist_ddp_tpu.parallel.mesh import parse_replica_shapes, plan_replica_meshes
+
+    with pytest.raises(ValueError) as jax_err:
+        plan_replica_meshes(parse_replica_shapes(shapes), jax.devices()[:1])
+    assert cli_main(["--device", "cpu", "--replicas", "2", "--replica-shapes", shapes,
+                     "--warmup-only"]) == 2
     out = capsys.readouterr().out
-    assert out.startswith(f"error: --replica-shapes {shapes!r}: ['{shapes.split(',')[0]}']")
-    assert "sharded replicas" in out and "not ported" in out
+    assert out == f"error: --replica-shapes {shapes!r}: {jax_err.value}\n"
+    assert "needs 3 devices but only 1 are visible" in out
 
 
 def test_serving_pool_refusals_of_the_jax_cli(capsys):

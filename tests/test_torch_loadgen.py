@@ -12,7 +12,8 @@ serve_loadgen.py``) against the JAX package's ``tools/serve_loadgen.py``.
   ``--devicepath-ab``, ``--replicas-sweep``, the registry rounds and
   ``--fleet-sweep --fleet-fake`` meet their verdicts.
 - Refusals: each of the JAX parser's conflicts, exited as the JAX tool
-  exits; a sharded ``--replica-shapes`` and ``JAXLINT_LOCKWATCH=1``.
+  exits; a sharded ``--replica-shapes`` plan needing more devices than
+  the CPU's one (the JAX planner's error) and ``JAXLINT_LOCKWATCH=1``.
 
 One intra-op thread; buckets of at most 8 rows, a few dozen requests a
 round.
@@ -360,10 +361,17 @@ def test_conflicts_exit_as_the_jax_tools(case, capsys):
 
 @pytest.mark.parametrize("spec", ["tp2,dp", "dp,ep2", "pp2"])
 def test_a_sharded_replica_shape_is_refused(capsys, spec):
+    """A sharded plan that needs more devices than the one CPU is refused
+    with the serving CLI's words and the JAX planner's error (exit 2)."""
+    import jax
+    from pytorch_mnist_ddp_tpu.parallel.mesh import parse_replica_shapes, plan_replica_meshes
+
+    with pytest.raises(ValueError) as jax_err:
+        plan_replica_meshes(parse_replica_shapes(spec), jax.devices()[:1])
     rc = port.main([*CPU, "--replicas", str(len(spec.split(","))), "--replica-shapes", spec])
     out = capsys.readouterr().out
     assert rc == 2
-    assert out.startswith(f"error: --replica-shapes {spec!r}: [") and "must be dp" in out
+    assert out == f"error: --replica-shapes {spec!r}: {jax_err.value}\n"
 
 
 def test_lockwatch_is_refused_not_passed(capsys, monkeypatch):

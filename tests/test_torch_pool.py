@@ -44,7 +44,7 @@ from pytorch_mnist_ddp_tpu_torch.ops import int8_head
 from pytorch_mnist_ddp_tpu_torch.serving import faults
 from pytorch_mnist_ddp_tpu_torch.serving.devices import (
     parse_replica_shapes,
-    plan_replica_devices,
+    plan_replica_meshes,
     replica_devices,
     visible_devices,
 )
@@ -134,7 +134,8 @@ def test_replica_planning_wraps_like_jax():
     assert [d.index for d in replica_devices(7, cards)] == \
         [d.id for d in jmesh.replica_devices(7, jax.devices()[:3])]
     assert replica_devices(None, cards) == cards
-    assert plan_replica_devices(parse_replica_shapes("dp,dp,dp,dp"), cards[:1]) == [cards[0]] * 4
+    assert [mesh.devices for _, _, mesh in plan_replica_meshes(
+        parse_replica_shapes("dp,dp,dp,dp"), cards[:1])] == [(cards[0],)] * 4
     for spec in ("dp,dp", "tp4,dp", " DP ,pp2", ["vtp2", "ep4"]):
         assert parse_replica_shapes(spec) == jmesh.parse_replica_shapes(spec)
     for bad in ("tp", "dp2", "xp3", "tp0", ""):
@@ -143,8 +144,12 @@ def test_replica_planning_wraps_like_jax():
         with pytest.raises(ValueError) as jax_err:
             jmesh.parse_replica_shapes(bad)
         assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(ValueError, match="sharded replicas .* not ported"):
-        plan_replica_devices(parse_replica_shapes("tp2,dp"), cards)
+    with pytest.raises(ValueError) as port_err:
+        plan_replica_meshes(parse_replica_shapes("tp2,dp"), cards[:2])
+    with pytest.raises(ValueError) as jax_err:
+        jmesh.plan_replica_meshes(jmesh.parse_replica_shapes("tp2,dp"), jax.devices()[:2])
+    assert str(port_err.value) == str(jax_err.value)
+    assert "needs 3 devices but only 2 are visible" in str(port_err.value)
     with pytest.raises(ValueError, match="need >= 1 replica"):
         replica_devices(0, cards)
 
