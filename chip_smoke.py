@@ -217,6 +217,22 @@ Phases, one JSON line each:
                 the synthetic sets (epoch-1 accuracy floor) and of --sp 1
                 --allow-degree-1 --flash and --bf16 --flash cut to 100
                 steps, launches equal to the attention calls;
+14b. vit_fused — the ViT's --fused (parallel/fused_vit.py): (a)
+                WARMUP_STEPS eager and 20 replayed steps torch.equal (losses,
+                parameters, accumulators) to as many per-batch steps on the
+                loader's batches from the same weights, plain, --bf16,
+                --remat and --zero (a world of one); (b) vit_mnist.fit
+                --fused --timings-json for one full epoch at the CLI
+                defaults (epoch-1 accuracy >= 70%, one host read, 936
+                replays, every timings key, compile_s > 0, 0 < run_s <
+                wall), and on vit_train's 100-step cut: --fused and
+                --pregather torch.equal to the per-batch epoch, lines too,
+                and the CLI's --fused --zero --save-state in an NCCL world
+                of one through the launcher, its lines and archive the
+                per-batch epoch's; (c) tools/vit_bench.py --mode fused
+                --epochs 1, one JSON line with mfu in (0, 1); (d)
+                VIT_FUSED_PROFILE_STEPS replays under torch.profiler; no
+                kernel of the table launched;
 15. vit_profile — where a ViT step's time goes: 10 steps, plain, --flash,
                 --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
                 torch.profiler;
@@ -739,6 +755,9 @@ STATE_CURSOR = 12
 FUSED_CAPTURED = 20
 FUSED_LIMIT = 6400
 FUSED_PROFILE_STEPS = 100
+# vit_fused phase: (a) as fused's, (d) profiled replays
+VIT_FUSED_CAPTURED = 20
+VIT_FUSED_PROFILE_STEPS = 10
 # resilience phase: the checkpoint cadence and (b)'s kill, in steps
 RESILIENCE_CKPT = 7
 RESILIENCE_KILL_AFTER = 13
@@ -2485,6 +2504,185 @@ def vit_train_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, 
                                       "seeds": [1, 2, 3]},
           "legs": legs})
     return launches, bf16_launches, legs["sp1_flash"]
+
+
+def vit_fused_phase(torch, np, workdir: str) -> dict:
+    """The ViT's fused path on the card (docstring, 14b), TF32 off.
+    (c)'s bench and (b)'s NCCL world of one run in processes of their own,
+    started first and waited for before (d)'s profiled window.  Returns
+    the phase's record."""
+    import itertools
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch import vit_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.ops.adadelta import adadelta_init
+    from pytorch_mnist_ddp_tpu_torch.parallel import fused
+    from pytorch_mnist_ddp_tpu_torch.parallel.ddp import TrainState, make_forward_train_step
+    from pytorch_mnist_ddp_tpu_torch.parallel.fused_vit import make_fused_vit_run
+    from pytorch_mnist_ddp_tpu_torch.parallel.mesh import Group
+    from pytorch_mnist_ddp_tpu_torch.parallel.zero import zero_init
+
+    t_phase = time.perf_counter()
+    counts = lambda: {"int8_head": ih.LAUNCHES, **af.LAUNCHES, **fa.LAUNCHES}  # noqa: E731
+    start = counts()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cut = vit_idx_root(np, workdir, VIT_CUT_ROWS, "vit_cut_idx")
+    zero_archive = os.path.join(workdir, "fused_zero.npz")
+    t_procs = time.perf_counter()
+    procs = {
+        "bench": subprocess.Popen(
+            [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.vit_bench", "--mode",
+             "fused", "--epochs", "1"], cwd=workdir, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "nccl_zero": subprocess.Popen(
+            [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
+             "--nproc_per_node=1", f"--master_port={free_port()}", "-m",
+             "pytorch_mnist_ddp_tpu_torch.vit_mnist", "--fused", "--zero", "--epochs", "1",
+             "--data-root", cut, "--save-state", zero_archive], cwd=workdir, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    try:
+        # (a) captured against eager, from the same weights on the same batches
+        images, labels = synthetic_mnist("train")
+        loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
+        test_images, test_labels = synthetic_mnist("test", 1000)
+        test_loader = DataLoader(test_images, test_labels, 1000, torch.device("cuda"),
+                                 shuffle=False, mask_padding=True)
+        steps = fused.WARMUP_STEPS + VIT_FUSED_CAPTURED
+        init = ViT(generator=torch.Generator().manual_seed(SEED)).state_dict()
+
+        def fresh(cfg: ViTConfig, zero: bool):
+            model = ViT(cfg).cuda()
+            model.load_state_dict(init)
+            params = dict(model.named_parameters())
+            return model, TrainState(opt=zero_init(params, Group()) if zero
+                                     else adadelta_init(params))
+
+        captured = {}
+        for leg, cfg, zero in (("plain", ViTConfig(), False), ("bf16", ViTConfig(bf16=True), False),
+                               ("remat", ViTConfig(remat=True), False),
+                               ("zero", ViTConfig(), True)):
+            model, state = fresh(cfg, zero)
+            step = make_forward_train_step(lambda m, x: m(x))
+            eager = torch.stack([step(model, state, x, y, w, 1.0)
+                                 for x, y, w in itertools.islice(loader.epoch(1), steps)])
+            fmodel, fstate = fresh(cfg, zero)
+            run = make_fused_vit_run(fmodel, fstate, loader, test_loader).train
+            run.load(1, 1.0)
+            for _ in range(steps):
+                run.step()
+            torch.cuda.synchronize()
+            same = {"params": all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                                    fmodel.parameters())),
+                    "accumulators": same_opt(torch, state.opt, fstate.opt),
+                    "losses": torch.equal(eager, run.losses[:steps]),
+                    "step": state.step == fstate.step == steps}
+            captured[leg] = {"eager_steps": run.eager_steps, "replays": run.replays,
+                             "capture_s": run.capture_s, "torch_equal": same}
+            check(all(same.values()), f"vit_fused (a) {leg}: the captured steps off the eager: "
+                  f"{same}")
+            check(run.graph is not None and run.replays == VIT_FUSED_CAPTURED,
+                  f"vit_fused (a) {leg}: {run.replays} replays")
+        del loader
+
+        # (b) the CLI: one full epoch with --timings-json, then the cut epoch
+        # three ways
+        def fit(flags: list[str]) -> dict:
+            args = vit_mnist.build_parser().parse_args(flags)
+            timings: dict = {}
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                model, state = vit_mnist.fit(args, vit_mnist.resolve_mode_flags(args), "cuda",
+                                             timings=timings)
+            return {"wall": time.perf_counter() - t0, "timings": timings, "model": model,
+                    "state": state, "lines": log_lines(out.getvalue().splitlines())}
+
+        timings_path = os.path.join(workdir, "vit_timings.json")
+        full = fit(["--epochs", "1", "--fused", "--timings-json", timings_path])
+        with open(timings_path) as f:
+            written = json.load(f)
+        t = full["timings"]
+        acc1 = t["epoch1_test_accuracy"]
+        check(tuple(written) == vit_mnist.TIMINGS_KEYS, f"vit_fused (b): timings keys {written}")
+        check(written["compile_s"] > 0 and 0 < written["run_s"] < full["wall"],
+              f"vit_fused (b): compile_s {written['compile_s']}, run_s {written['run_s']}, "
+              f"wall {full['wall']}")
+        check(acc1 >= VIT_EPOCH1_MIN_ACCURACY, f"vit_fused (b): epoch-1 accuracy {acc1}")
+        check(t["host_syncs"] == 1 and t["replays"] == t["epoch_steps"][0] - fused.WARMUP_STEPS,
+              f"vit_fused (b): {t['host_syncs']} host reads, {t['replays']} replays in "
+              f"{t['epoch_steps']} steps")
+        per_batch_archive = os.path.join(workdir, "per_batch.npz")
+        cut_flags = ["--epochs", "1", "--data-root", cut]
+        per_batch = fit([*cut_flags, "--save-state", per_batch_archive])
+        gather = fit([*cut_flags, "--fused"])
+        pregather = fit([*cut_flags, "--fused", "--pregather"])
+        same_cut = {}
+        for name, r in (("fused", gather), ("pregather", pregather)):
+            same_cut[name] = {
+                "lines": r["lines"] == per_batch["lines"],
+                "params": all(torch.equal(a, b) for a, b in zip(r["model"].parameters(),
+                                                                per_batch["model"].parameters())),
+                "accumulators": same_opt(torch, r["state"].opt, per_batch["state"].opt),
+                "step": r["state"].step == per_batch["state"].step}
+        check(all(v for d in same_cut.values() for v in d.values()),
+              f"vit_fused (b): the cut epoch off the per-batch one: {same_cut}")
+    finally:
+        in_process_s = time.perf_counter() - t_phase
+        # the shorter first, so that each wait ends at its own process's exit
+        waited = {name: waited_process(procs[name], t_procs, timeout=300)
+                  for name in ("nccl_zero", "bench")}
+    rc, out, err, zero_s = waited["nccl_zero"]
+    check(rc == 0, f"vit_fused (b) the NCCL world of one exited {rc}: {err[-3000:]}")
+    same_nccl = {"lines": log_lines(out.splitlines()) == per_batch["lines"],
+                 "archive": same_archive(np, zero_archive, per_batch_archive)}
+    check(all(same_nccl.values()), f"vit_fused (b): --fused --zero in the NCCL world of one off "
+          f"the per-batch epoch: {same_nccl}")
+    # (c) the bench
+    rc, out, err, bench_s = waited["bench"]
+    lines = out.splitlines()
+    check(rc == 0 and len(lines) == 1, f"vit_fused (c): vit_bench exited {rc}: {out[-2000:]} "
+          f"{err[-2000:]}")
+    row = json.loads(lines[0])
+    check(0 < row.get("mfu", 0) < 1, f"vit_fused (c): vit_bench's row {row}")
+
+    # (d) where a replayed step's time goes, alone on the card
+    images, labels = synthetic_mnist("train")
+    loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
+    model = ViT(generator=torch.Generator().manual_seed(SEED)).cuda()
+    run = make_fused_vit_run(model, TrainState(opt=adadelta_init(dict(model.named_parameters()))),
+                             loader, test_loader).train
+    run.load(1, 1.0)
+    for _ in range(fused.WARMUP_STEPS + 10):  # the capture, then a few replays
+        run.step()
+    torch.cuda.synchronize()
+    profile = profile_window(torch, [(None, None, None)] * VIT_FUSED_PROFILE_STEPS,
+                             lambda *_: run.step())
+    check(run.replays == 10 + VIT_FUSED_PROFILE_STEPS, f"vit_fused (d): {run.replays} replays")
+    launched = {k: v - start[k] for k, v in counts().items()}
+    check(not any(launched.values()), f"vit_fused: a kernel of the table launched: {launched}")
+    record = {
+        "phase": "vit_fused", "captured_vs_eager": captured,
+        "cli": {"seconds_per_epoch": t["epoch_wall_s"], "wall_seconds": full["wall"],
+                "timings_json": written, "host_syncs_per_epoch": t["host_syncs"],
+                "replays": t["replays"], "epoch1_test_accuracy": acc1,
+                "cut_torch_equal_to_per_batch": same_cut,
+                "cut_seconds_per_epoch": {name: r["timings"]["epoch_wall_s"] for name, r in (
+                    ("per_batch", per_batch), ("fused", gather), ("pregather", pregather))},
+                "cut_per_batch_train_seconds": per_batch["timings"]["epoch_train_s"],
+                "nccl_world_of_one_zero": {**same_nccl, "process_seconds": zero_s}},
+        "vit_bench": {**row, "process_seconds": bench_s},
+        "profile_replay": profile, "launches": launched,
+        "in_process_seconds_before_the_wait": in_process_s,
+        "seconds": time.perf_counter() - t_phase}
+    emit(record)
+    return record
 
 
 def vit_profile_phase(torch) -> None:
@@ -6180,13 +6378,17 @@ _DIR = os.environ.get("CHIP_SMOKE_LAUNCH_DIR")
 
 
 def _dump():
-    mod = sys.modules.get("pytorch_mnist_ddp_tpu_torch.ops.int8_head")
-    if mod is None:
+    # None until the module has run as far as LAUNCHES: it sits in
+    # sys.modules from the start of its import, and an AttributeError here
+    # would end the loop's thread for good
+    count = getattr(sys.modules.get("pytorch_mnist_ddp_tpu_torch.ops.int8_head"), "LAUNCHES",
+                    None)
+    if count is None:
         return
     path = os.path.join(_DIR, "int8_head.%d" % os.getpid())
     tmp = "%s.tmp%d" % (path, threading.get_ident())
     with open(tmp, "w") as f:
-        f.write(str(mod.LAUNCHES))
+        f.write(str(count))
     os.replace(tmp, path)
 
 
@@ -7045,6 +7247,10 @@ def main() -> int:
     for k, v in vit_launches.items():
         check(v > 0, f"the ViT training path never launched {k}")
         check(vit_bf16_launches[k] > 0, f"the --bf16 ViT path never launched {k}")
+
+    # 14b. vit_fused: the ViT's --fused; no kernel of the table on its path
+    with tempfile.TemporaryDirectory() as workdir:
+        vit_fused_phase(torch, np, workdir)
 
     # 15. where a ViT step's time goes; 16. flash attention times
     vit_profile_phase(torch)

@@ -156,11 +156,14 @@ def apply_block(block: Block, x: torch.Tensor, cfg: ViTConfig,
 def run_blocks(blocks: nn.ModuleList, tokens: torch.Tensor, cfg: ViTConfig,
                attention_fn: AttentionFn) -> torch.Tensor:
     """Every block in order; with ``cfg.remat`` (and autograd on) each
-    block's activations are recomputed in backward."""
+    block's activations are recomputed in backward.  The blocks draw no
+    random numbers, so the generators' states are not kept for the
+    recompute: reading a CUDA generator's state is refused while a CUDA
+    graph is being captured (``parallel/fused_vit.py``)."""
     for block in blocks:
         if cfg.remat and torch.is_grad_enabled():
             tokens = checkpoint(apply_block, block, tokens, cfg, attention_fn,
-                                use_reentrant=False)
+                                use_reentrant=False, preserve_rng_state=False)
         else:
             tokens = apply_block(block, tokens, cfg, attention_fn)
     return tokens

@@ -45,8 +45,10 @@ def init_block_acc(
 
 
 def softmax_scale(head_dim: int, device: torch.device | str | None = None) -> torch.Tensor:
-    """``1 / sqrt(d)`` computed in float32, as ``block_update`` does."""
-    return 1.0 / torch.sqrt(torch.tensor(head_dim, dtype=torch.float32, device=device))
+    """``1 / sqrt(d)`` computed in float32, as ``block_update`` does.  ``d``
+    is filled on the device: a copy from the host could not be captured in
+    a CUDA graph (``parallel/fused_vit.py``)."""
+    return 1.0 / torch.sqrt(torch.full((), head_dim, dtype=torch.float32, device=device))
 
 
 def block_update(

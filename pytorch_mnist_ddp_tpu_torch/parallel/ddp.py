@@ -258,6 +258,40 @@ def make_forward_grads(
     return grads_of
 
 
+def make_forward_step_body(
+    forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
+    rho: float = 0.9,
+    eps: float = 1e-6,
+    grid: RankGrid = RankGrid(),
+    sharded: Callable[[str], bool] | None = None,
+) -> Callable[..., torch.Tensor]:
+    """``body(model, opt, x, y, w, lr, generator) -> loss``: one optimizer
+    step of ``forward`` on the device, :func:`make_step_body`'s
+    counterpart for the ViT family, shared by
+    :func:`make_forward_train_step` and the fused ViT
+    (``parallel/fused_vit.py``, which captures it in a CUDA graph).  This
+    rank's gradients (:func:`_local_grads`), then :func:`reduce_grads`
+    over ``grid.grad`` and the plain per-leaf Adadelta update, or with
+    ZeRO-1 accumulators :func:`~.zero.zero_update` over the data group;
+    ``opt``'s layout selects it.  ``lr`` is a number or a 0-d f32 tensor
+    on the device; the products are the same.  ``generator`` is unused
+    (the family has no dropout).  Nothing here reads the device from the
+    host."""
+
+    def body(model, opt, x, y, w, lr, generator=None) -> torch.Tensor:
+        params = dict(model.named_parameters())
+        loss, grads = _local_grads(forward, model, x, y, w)
+        if is_zero_state(opt):
+            flat = torch.cat([g.reshape(-1) for g in grads.values()])
+            zero_update(params, flat, opt, lr, grid.data, rho, eps)
+        else:
+            grads = reduce_grads(grads, grid.grad, grid.num_data, sharded)
+            adadelta_update(params, grads, opt, lr, rho, eps)
+        return loss
+
+    return body
+
+
 def make_forward_train_step(
     forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
     rho: float = 0.9,
@@ -269,17 +303,12 @@ def make_forward_train_step(
     :func:`make_forward_grads`' gradients and the plain Adadelta update in
     place.  With ZeRO-1 accumulators (``vit_mnist.py --zero``) this rank's
     own gradients go to :func:`~.zero.zero_update` over the data group
-    instead, as in :func:`make_train_step`."""
+    instead, as in :func:`make_train_step`.  The work is
+    :func:`make_forward_step_body`'s."""
+    body = make_forward_step_body(forward, rho, eps, grid, sharded)
 
     def train_step(model, state: TrainState, x, y, w, lr: float) -> torch.Tensor:
-        params = dict(model.named_parameters())
-        loss, grads = _local_grads(forward, model, x, y, w)
-        if is_zero_state(state.opt):
-            flat = torch.cat([g.reshape(-1) for g in grads.values()])
-            zero_update(params, flat, state.opt, lr, grid.data, rho, eps)
-        else:
-            grads = reduce_grads(grads, grid.grad, grid.num_data, sharded)
-            adadelta_update(params, grads, state.opt, lr, rho, eps)
+        loss = body(model, state.opt, x, y, w, lr)
         state.step += 1
         return loss
 

@@ -15,7 +15,10 @@ steps.  Here:
   form (``data/transforms.py``), then runs the per-batch step's own body
   (``parallel/ddp.py`` ``make_step_body``: dropout, the masked NLL, the
   gradient mean or ZeRO-1's update, the delta kernel under
-  ``--pallas-opt`` or the plain update);
+  ``--pallas-opt`` or the plain update).  The body and the eval forward
+  are arguments, the CNN's by default: ``parallel/fused_vit.py`` passes
+  the ViT's (``make_forward_step_body``), as JAX's ``fused_vit.py``
+  passes its step to ``fused.py``'s scan skeletons;
 - on the card, after :data:`WARMUP_STEPS` eager steps on a side stream,
   one step is captured into a ``torch.cuda.CUDAGraph`` and every later
   step replays it.  The graph reads the step's row of the tables through
@@ -50,13 +53,15 @@ ranks run the same steps eagerly.
 
 from __future__ import annotations
 
+import time
+from typing import Callable
+
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..data.loader import DataLoader
 from ..data.transforms import MNIST_MEAN, MNIST_STD
-from ..models.net import Net
 from ..ops import adadelta_flat
 from .ddp import TrainState, dropout_seed_of, make_forward_eval_step, make_step_body
 from .distributed import DistState
@@ -129,11 +134,16 @@ class FusedEpoch:
 
     On the card the step is captured in a CUDA graph after
     :data:`WARMUP_STEPS` eager steps; ``replays`` and ``eager_steps`` count
-    the two kinds.  The other arguments are :func:`~.ddp.make_train_step`'s."""
+    the two kinds, and ``capture_s`` is the seconds the capture took.
+    ``body`` is the step's work, ``body(model, opt, x, y, w, lr,
+    generator) -> loss`` (``parallel/ddp.py``); by default the CNN's,
+    :func:`~.ddp.make_step_body` of the arguments below, which are
+    :func:`~.ddp.make_train_step`'s.  Without ``dropout`` no generator is
+    made, passed or registered with the graph."""
 
     def __init__(
         self,
-        model: Net,
+        model: torch.nn.Module,
         state: TrainState,
         loader: DataLoader,
         dropout: bool = True,
@@ -145,6 +155,7 @@ class FusedEpoch:
         pregather: bool = False,
         rho: float = 0.9,
         eps: float = 1e-6,
+        body: Callable[..., torch.Tensor] | None = None,
     ) -> None:
         self.world = world or DistState()
         self.device = next(model.parameters()).device
@@ -166,12 +177,14 @@ class FusedEpoch:
                 torch.empty(self.num_batches, bs, *self.images.shape[1:], dtype=torch.uint8,
                             **on),
                 torch.empty(self.num_batches, bs, dtype=torch.int64, **on))
-        self.body = make_step_body(use_pallas, rho, eps, compute_dtype, conv_impl, self.world)
+        self.body = body or make_step_body(use_pallas, rho, eps, compute_dtype, conv_impl,
+                                           self.world)
         self.generator = torch.Generator(device=self.device) if dropout else None
         self.graph: torch.cuda.CUDAGraph | None = None
         self.recorded: dict[str, int] = {}
         self.eager_steps = 0
         self.replays = 0
+        self.capture_s = 0.0
         self._side = None
 
     def load(self, epoch: int, lr, perm=None) -> None:
@@ -215,6 +228,7 @@ class FusedEpoch:
         self.cursor.add_(1)
 
     def _capture(self) -> None:
+        t0 = time.perf_counter()
         adadelta_flat.take_captured()
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
@@ -223,6 +237,7 @@ class FusedEpoch:
             self._run_step()
         self.recorded = adadelta_flat.take_captured()
         self.graph = graph
+        self.capture_s = time.perf_counter() - t0
 
     def step(self) -> None:
         """The next step of the loaded epoch."""
@@ -268,20 +283,23 @@ class FusedEval:
     """The whole test set of ``loader`` on the device: ``__call__(model)``
     returns the per-batch ``(loss_sum, correct)`` rows ``[batches, 2]``
     over the real (weight-1) samples, summed over the ranks by one
-    all-reduce."""
+    all-reduce.  ``forward(model, x) -> log-probs`` is the eval forward;
+    by default the CNN's with ``compute_dtype`` and ``conv_impl``."""
 
     def __init__(self, loader: DataLoader, compute_dtype: torch.dtype = torch.float32,
                  conv_impl: str = "conv", world: DistState | None = None,
-                 device: torch.device | None = None) -> None:
+                 device: torch.device | None = None,
+                 forward: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor] | None = None,
+                 ) -> None:
         self.world = world or DistState()
         device = torch.device(device or loader.device)
         self.images, self.labels = device_put_dataset(loader.images, loader.labels, device)
         idx, w = loader.index_table(0)
         self.idx, self.w = torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
         self.eval_step = make_forward_eval_step(
-            lambda model, x: model(x, None, conv_impl, compute_dtype))
+            forward or (lambda model, x: model(x, None, conv_impl, compute_dtype)))
 
-    def __call__(self, model: Net) -> torch.Tensor:
+    def __call__(self, model: torch.nn.Module) -> torch.Tensor:
         rows = []
         for idx, w in zip(self.idx, self.w):
             x = normalize_dev(self.images.index_select(0, idx))
@@ -308,16 +326,17 @@ class FusedRun:
     """Training epochs and their evaluations over device-resident sets,
     one host read an epoch (``host_syncs`` counts them); the trainer's
     ``run_fused_epochs`` drives it over ``--epochs`` from the resumed
-    epoch on, at the host's StepLR values.  Keyword arguments are
+    epoch on, at the host's StepLR values.  ``eval_forward`` is
+    :class:`FusedEval`'s ``forward``; the other keyword arguments are
     :class:`FusedEpoch`'s."""
 
-    def __init__(self, model: Net, state: TrainState, train_loader: DataLoader,
-                 test_loader: DataLoader, **kwargs) -> None:
+    def __init__(self, model: torch.nn.Module, state: TrainState, train_loader: DataLoader,
+                 test_loader: DataLoader, eval_forward=None, **kwargs) -> None:
         self.model = model
         self.train = FusedEpoch(model, state, train_loader, **kwargs)
         self.eval = FusedEval(test_loader, kwargs.get("compute_dtype", torch.float32),
                               kwargs.get("conv_impl", "conv"), self.train.world,
-                              self.train.device)
+                              self.train.device, eval_forward)
         self.num_batches = self.train.num_batches
         self.host_syncs = 0
 

@@ -7,8 +7,11 @@
   rounds);
 - ``python -m pytorch_mnist_ddp_tpu_torch.tools.slo_gate``: the SLO gate,
   which replays ``slo_budgets.json``'s protocol through the load
-  generator and checks its budget table.
+  generator and checks its budget table;
+- ``python -m pytorch_mnist_ddp_tpu_torch.tools.vit_bench``: one JSON row
+  of a ViT CLI run (the JAX package's ``tools/vit_bench.py``): wall clock,
+  accuracy, and for ``--fused`` the ``--timings-json`` attribution and MFU.
 
-Neither imports torch at module level: ``serve_loadgen --url`` drives a
+None imports torch at module level: ``serve_loadgen --url`` drives a
 remote endpoint without it.
 """

@@ -369,7 +369,8 @@ def run_fused_epochs(
     dist: DistState = DistState(),
     telemetry: Telemetry | None = None,
 ) -> None:
-    """:func:`run_epochs` on the fused path (``parallel/fused.py``): each
+    """:func:`run_epochs` on the fused path (``parallel/fused.py``; the
+    ViT's ``vit_mnist.py --fused`` through ``parallel/fused_vit.py``): each
     epoch trains and evaluates on the device, and then rank 0 prints its
     train lines (``--log-interval``) and the test summary from the one
     host read, the per-batch run's lines byte for byte.  ``timings`` gains

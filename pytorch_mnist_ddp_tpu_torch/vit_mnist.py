@@ -4,6 +4,8 @@
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist [flags]
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --flash            # attention kernel
     python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --bf16 --flash     # bf16 trunk
+    python -m pytorch_mnist_ddp_tpu_torch.vit_mnist --fused [--pregather] [--zero] \\
+        [--timings-json PATH]                                          # CUDA-graph replay
     python -m pytorch_mnist_ddp_tpu_torch.parallel.launch --nproc_per_node=W \\
         -m pytorch_mnist_ddp_tpu_torch.vit_mnist --sp S [--sp-impl ulysses] [--tp M] [--flash]
     python -m pytorch_mnist_ddp_tpu_torch.parallel.launch --nproc_per_node=W \\
@@ -31,15 +33,22 @@ a ``(data, seq, model)`` grid of shape ``(W/(S*M), S, M)``
   axis, E/W a rank, tokens routed by two all-to-alls (``parallel/ep.py``;
   ``--flash``: the whole-forward kernel in every block);
 - ``--zero``: data parallelism with the Adadelta state sharded 1/W
-  (``parallel/zero.py``; ``--flash`` as the single device).
+  (``parallel/zero.py``; ``--flash`` as the single device);
+- ``--fused``: the data-parallel epochs over device-resident sets, every
+  rank on the data axis, each step replayed from one CUDA graph on the
+  card and one host read an epoch (``parallel/fused_vit.py``; with
+  ``--zero`` the sharded accumulators in the captured step; not with
+  ``--flash``, as in JAX); ``--pregather`` gathers each epoch's rows once,
+  ``--timings-json PATH`` writes JAX's attribution (:func:`run_fused`).
+  ``--dry-run`` demotes ``--fused`` to the per-batch loop, as in JAX.
 
 A parallel mode runs at degree 1 only with ``--allow-degree-1``; without
 the launcher the world is of one rank.  Rows go by data coordinate: every
 seq and model member of a data shard sees that shard's rows, ``--batch-size``
 and ``--test-batch-size`` of them a step.  ``--bf16`` runs any mode in
-bfloat16 (the kernel's bf16 mode under ``--flash``).  The flags are a
-subset of ``vit_mnist.py``'s with the same names, defaults and truth
-table; argparse refuses the others.  Only rank 0 prints, and its lines
+bfloat16 (the kernel's bf16 mode under ``--flash``).  The flags are
+``vit_mnist.py``'s, with the same names, defaults and truth table.  Only
+rank 0 prints, and its lines
 are the JAX CLI's (its own loss, as JAX prints its first shard's; under
 ``--pp`` its data shard's, summed over the stages); ``--save-model``
 writes ``vit_mnist.npz`` in the JAX package's params-tree format from
@@ -49,7 +58,8 @@ step, epochs) in the JAX package's archive format, and ``--resume-state``
 continues it: the schedule, the shuffle and the epoch numbering pick up
 where it stopped.  They ride the replicated-state paths, as in JAX: the
 single device, ``--zero`` (its chunks gathered per leaf on save, cut
-again on resume, so archives cross with plain runs) and ``--sp``.
+again on resume, so archives cross with plain runs), ``--sp`` and
+``--fused``.
 ``--profile DIR`` traces the run with ``torch.profiler``, ``--step-stats``
 prints one latency line an epoch.
 """
@@ -58,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import time
 
@@ -71,8 +82,9 @@ from .parallel import ep, pp_vit, sp, sp3, tp_vit
 from .parallel.ddp import TrainState, make_forward_eval_step, make_forward_train_step
 from .parallel.zero import per_leaf_opt_to_zero, zero_init, zero_opt_to_per_leaf
 from .parallel.distributed import DistState, destroy_distributed, form_world
+from .parallel.fused_vit import make_fused_vit_run
 from .parallel.mesh import RankGrid, make_rank_grid
-from .trainer import make_shard_loaders, run_epochs
+from .trainer import make_shard_loaders, run_epochs, run_fused_epochs
 from .utils.checkpoint import (
     TrainArchive,
     load_params_tree,
@@ -86,6 +98,9 @@ from .utils.profiling import trace
 from .utils.rng import split_streams
 
 SAVE_PATH = "vit_mnist.npz"
+# --timings-json's keys, JAX's (vit_mnist.py's fused branch)
+TIMINGS_KEYS = ("dataset", "compile_s", "data_s", "run_s", "train_size", "test_size", "epochs",
+                "n_shards", "depth", "dim", "epoch1_test_accuracy", "final_test_accuracy")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,8 +158,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zero", action="store_true", default=False,
                    help="ZeRO-1 data parallelism over every rank: batch "
                         "sharded on the data axis, Adadelta state sharded "
-                        "1/N (parallel/zero.py); mutually exclusive with "
-                        "--sp/--tp/--pp/--experts")
+                        "1/N (parallel/zero.py); composes with --fused "
+                        "(the sharded accumulators in the captured step); "
+                        "mutually exclusive with --sp/--tp/--pp/--experts")
     p.add_argument("--flash", action="store_true", default=False,
                    help="flash-attention CUDA kernel "
                         "(ops/flash_attention.py, csrc/flash_attention.cu): "
@@ -152,7 +168,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "--zero and --experts, under --sp-impl ulysses and "
                         "--tp (local head shards), the partial (ring-hop) "
                         "mode under the --sp ring and --sp --tp; not with "
-                        "--pp")
+                        "--pp/--fused")
     p.add_argument("--depth", type=int, default=2, metavar="N",
                    help="transformer blocks (default: 2)")
     p.add_argument("--dim", type=int, default=64, metavar="D",
@@ -163,7 +179,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true", default=False,
                    help="recompute each transformer block in backward "
                         "(torch.utils.checkpoint): one live block's "
-                        "activations instead of depth's, one extra forward")
+                        "activations instead of depth's, one extra forward "
+                        "— single-device, --zero, --sp, and --fused paths")
+    p.add_argument("--fused", action="store_true", default=False,
+                   help="whole-run fusion: the dataset on the device, each "
+                        "epoch's steps replayed from one CUDA graph, one "
+                        "host read an epoch (parallel/fused_vit.py); "
+                        "data-parallel only")
+    p.add_argument("--pregather", action="store_true", default=False,
+                   help="(--fused only) pre-permuted-epoch input path: "
+                        "one big gather per epoch + contiguous per-step "
+                        "slices (parallel/fused.py pregather; "
+                        "bit-identical batches)")
     p.add_argument("--save-model", action="store_true", default=False,
                    help="save the final params to vit_mnist.npz "
                         "(utils.checkpoint.save_params_tree)")
@@ -175,7 +202,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "into DIR (utils/profiling.trace; same surface as "
                         "the CNN CLI)")
     p.add_argument("--step-stats", action="store_true", default=False,
-                   help="print per-epoch host-side step-latency summaries")
+                   help="print per-epoch host-side step-latency summaries "
+                        "(per-batch paths; the fused whole-run has no "
+                        "per-step host boundary)")
+    p.add_argument("--timings-json", type=str, default=None, metavar="PATH",
+                   help="(--fused only) write a wall-clock attribution "
+                        "JSON to PATH: compile_s (the CUDA-graph capture) / "
+                        "data_s / run_s, plus accuracies and dataset "
+                        "provenance (tools/vit_bench.py reads it)")
     p.add_argument("--save-state", type=str, default=None, metavar="PATH",
                    help="save the FULL training state (params, Adadelta "
                         "accumulators, step/epoch counters) at the end — "
@@ -232,10 +266,24 @@ def resolve_mode_flags(args) -> tuple[bool, bool]:
             "--remat rides the single-device/--zero/--sp/--fused paths; "
             "drop --tp/--pp/--experts"
         )
-    if args.flash and args.pp:
+    if args.flash and (args.pp or args.fused):
         raise SystemExit(
             "--flash composes with every mode except the pipeline engine "
             "and the fused whole-run; drop --pp/--fused"
+        )
+    if args.pregather and not args.fused:
+        raise SystemExit("--pregather is the fused input path; add --fused")
+    if args.timings_json and not (args.fused and not args.dry_run):
+        # --dry-run demotes --fused to the per-batch loop, which writes no
+        # timings: exiting 0 without PATH would read as a missing run.
+        raise SystemExit(
+            "--timings-json needs the fused whole-run; "
+            + ("drop --dry-run" if args.fused else "add --fused")
+        )
+    if args.fused and (sp_on or tp_on or args.pp or args.experts > 0):
+        raise SystemExit(
+            "--fused is the data-parallel whole-run; drop --sp/--tp/--pp/"
+            "--experts"
         )
     return sp_on, tp_on
 
@@ -314,9 +362,11 @@ def build(args, device: torch.device, modes: tuple[bool, bool],
     ``--resume-state`` ``archive`` (its accumulators and step too, cut into
     this rank's chunks under ``--zero``), sharded under ``--tp`` and
     ``--experts``, and the branch's steps, in the JAX CLI's branch order.
-    Forms the grid's groups (collective over ``world``)."""
+    Under ``--fused`` (not with ``--dry-run``) every rank lies on the data
+    axis, as JAX's ``make_mesh(num_model=1)``.  Forms the grid's groups
+    (collective over ``world``)."""
     sp_on, tp_on = modes
-    data_parallel = args.experts > 0 or args.zero
+    data_parallel = args.experts > 0 or args.zero or (args.fused and not args.dry_run)
     minors = ([("seq", args.sp)] * sp_on + [("model", args.tp)] * tp_on
               + [("model", args.pp_stages)] * args.pp)
     if not minors and not data_parallel and world.world_size > 1:
@@ -353,13 +403,11 @@ def build(args, device: torch.device, modes: tuple[bool, bool],
     elif args.experts > 0:
         step_fn = ep.make_ep_train_step(cfg, grid, use_flash=args.flash)
         eval_fn = ep.make_ep_eval_step(cfg, grid, use_flash=args.flash)
-    elif args.zero:
-        state = TrainState(opt=zero_init(dict(model.named_parameters()), grid.data))
+    else:  # the single device, --zero and --fused: data parallelism over grid.data
+        if args.zero:
+            state = TrainState(opt=zero_init(dict(model.named_parameters()), grid.data))
         step_fn = make_forward_train_step(lambda m, x: m(x), grid=grid)
         eval_fn = make_forward_eval_step(lambda m, x: m(x), grid.data)
-    else:
-        step_fn = make_forward_train_step(lambda m, x: m(x))
-        eval_fn = make_forward_eval_step(lambda m, x: m(x))
     if restored is not None:  # the replicated-state paths alone
         state = TrainState(opt=per_leaf_opt_to_zero(restored, grid.data) if args.zero
                            else restored, step=archive.step)
@@ -382,18 +430,26 @@ def fit(
     ``trainer.run_epochs``'s.  ``--resume-state`` loads before any data
     or device work; ``--save-state`` writes after the last epoch, the
     chief alone (under ``--zero`` after a collective gather);
-    ``--profile`` traces the whole run."""
+    ``--profile`` traces the whole run.  ``--fused`` (not with
+    ``--dry-run``, which stays on the per-batch loop) runs
+    :func:`run_fused`."""
     check_state_flags(args, modes)
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     archive, epoch0 = (load_vit_train_state(args.resume_state) if args.resume_state
                        else (None, 0))
+    fused = args.fused and not args.dry_run
+    if fused and timings is None:
+        timings = {}
     with trace(args.profile, device):
         model, state, step_fn, eval_fn, grid = build(args, device, modes, world, archive)
         loaders = make_shard_loaders(args, device, grid.coords[0], grid.num_data, timings)
-        run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
-                   dry_run_eval=args.dry_run, epoch0=epoch0, dist=world)
+        if fused:
+            run_fused(args, device, model, state, grid, loaders, timings, epoch0, world)
+        else:
+            run_epochs(args, device, model, state, step_fn, eval_fn, loaders, timings,
+                       dry_run_eval=args.dry_run, epoch0=epoch0, dist=world)
         if args.save_model and save_path:
             # the gathers are collective
             if modes[1]:
@@ -412,6 +468,44 @@ def fit(
                 save_vit_train_state(params, opt, state.step, args.save_state,
                                      epoch=epoch0 + args.epochs)
     return model, state
+
+
+def run_fused(args, device: torch.device, model: ViT, state: TrainState, grid: RankGrid,
+              loaders, timings: dict, epoch0: int = 0, world: DistState = DistState()) -> None:
+    """``--fused``: the epochs over device-resident sets
+    (``parallel/fused_vit.py``), each step replayed from one CUDA graph on
+    the card, the lines printed by ``trainer.run_fused_epochs`` from one
+    host read an epoch, the per-batch run's byte for byte.  ``timings``
+    (:func:`~.trainer.make_shard_loaders`') gains JAX's attribution keys
+    (:data:`TIMINGS_KEYS`), which ``--timings-json`` writes from the chief:
+
+    - ``compile_s``: the CUDA-graph capture, the port's counterpart of
+      JAX's AOT lower+compile (this path builds no kernel library);
+    - ``data_s``: the upload of both sets and their tables, the device
+      synchronized;
+    - ``run_s``: each epoch's window from its first step to its host read
+      (training, evaluation and the read), summed over the epochs, less
+      ``compile_s``, which the first epoch's window holds; the prints
+      between epochs stay out, as JAX prints after its one call;
+    - ``dataset``: the loader's ``"idx"``/``"synthetic"`` label.
+
+    ``--step-stats`` prints nothing here, as in JAX: there is no step on
+    the host to time."""
+    t0 = time.perf_counter()
+    run = make_fused_vit_run(model, state, *loaders, grid, pregather=args.pregather)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    data_s = time.perf_counter() - t0
+    walls = timings.setdefault("epoch_wall_s", [])
+    first = len(walls)
+    run_fused_epochs(args, run, loaders, timings, epoch0, world)
+    compile_s = run.train.capture_s
+    timings.update(compile_s=compile_s, data_s=data_s, run_s=sum(walls[first:]) - compile_s,
+                   epochs=args.epochs, n_shards=grid.num_data, depth=model.cfg.depth,
+                   dim=model.cfg.dim)
+    if args.timings_json and world.is_chief:
+        with open(args.timings_json, "w") as f:
+            json.dump({k: timings[k] for k in TIMINGS_KEYS}, f)
 
 
 def main(argv: list[str] | None = None) -> None:

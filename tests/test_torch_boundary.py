@@ -276,15 +276,6 @@ def test_ddp_cli_takes_mnist_flags_and_the_ddp_ones():
 
 
 @pytest.mark.parametrize(
-    "flag",
-    ["--fused", "--pregather", "--timings-json=x"],
-)
-def test_vit_cli_refuses_flags_not_ported_yet(flag):
-    with pytest.raises(SystemExit):
-        vit_parser().parse_args([flag])
-
-
-@pytest.mark.parametrize(
     "flags, dest, value",
     [(["--bf16"], "bf16", True), (["--bf16", "--flash"], "bf16", True),
      (["--bf16", "--sp", "1", "--allow-degree-1", "--flash"], "bf16", True),
@@ -294,17 +285,21 @@ def test_vit_cli_refuses_flags_not_ported_yet(flag):
      (["--pp-stages=3"], "pp_stages", 3), (["--experts=8", "--flash"], "experts", 8),
      (["--zero", "--flash"], "zero", True), (["--save-state=x"], "save_state", "x"),
      (["--resume-state=x", "--zero"], "resume_state", "x"), (["--profile=x"], "profile", "x"),
-     (["--step-stats", "--flash"], "step_stats", True)],
+     (["--step-stats", "--flash"], "step_stats", True), (["--fused"], "fused", True),
+     (["--fused", "--pregather"], "pregather", True),
+     (["--fused", "--timings-json=x"], "timings_json", "x")],
     ids=["bf16", "bf16_flash", "bf16_sp1_flash", "bf16_flash_remat", "sp_impl_ulysses", "tp",
          "sp2", "pp", "pp_microbatches", "pp_stages", "experts", "zero", "save_state",
-         "resume_state", "profile", "step_stats"],
+         "resume_state", "profile", "step_stats", "fused", "fused_pregather",
+         "fused_timings_json"],
 )
 def test_vit_cli_accepts_ported_flags(flags, dest, value):
     """--bf16 is ported (the flash kernel's bf16 mode) and composes with
     --flash, --remat and the degree-1 ring; --sp N, --sp-impl, --tp,
     --pp, --pp-microbatches, --pp-stages, --experts, --zero,
-    --save-state, --resume-state, --profile and --step-stats are taken
-    with the JAX CLI's defaults."""
+    --save-state, --resume-state, --profile, --step-stats, --fused,
+    --pregather and --timings-json are taken with the JAX CLI's
+    defaults."""
     assert getattr(vit_parser().parse_args(flags), dest) == value
     defaults = vit_parser().parse_args([])
     assert (defaults.sp, defaults.sp_impl, defaults.tp) == (None, "ring", None)
@@ -312,6 +307,45 @@ def test_vit_cli_accepts_ported_flags(flags, dest, value):
             defaults.zero) == (False, 2, 2, 0, False)
     assert (defaults.save_state, defaults.resume_state, defaults.profile,
             defaults.step_stats) == (None, None, None, False)
+    assert (defaults.fused, defaults.pregather, defaults.timings_json) == (False, False, None)
+
+
+def test_vit_cli_takes_every_flag_of_the_jax_cli():
+    """The root vit_mnist.py's flags minus the port's: none left, and the
+    shared flags' defaults are JAX's."""
+    import vit_mnist as jax_cli  # noqa: PLC0415 -- the root JAX CLI, imported here only
+
+    jax_flags = {o for a in jax_cli.build_parser()._actions for o in a.option_strings}
+    port_flags = {o for a in vit_parser()._actions for o in a.option_strings}
+    assert jax_flags - port_flags == set()
+    assert vars(jax_cli.build_parser().parse_args([])) == vars(vit_parser().parse_args([]))
+
+
+@pytest.mark.parametrize(
+    "flags, accepted",
+    [(["--pregather"], False), (["--timings-json=x"], False),
+     (["--fused", "--dry-run", "--timings-json=x"], False), (["--fused", "--sp", "2"], False),
+     (["--fused", "--tp", "2"], False), (["--fused", "--pp"], False),
+     (["--fused", "--experts", "8"], False), (["--fused", "--flash"], False),
+     (["--fused", "--zero", "--remat"], True), (["--fused", "--dry-run", "--pregather"], True),
+     (["--fused", "--bf16", "--timings-json=x"], True)],
+    ids=["pregather_alone", "timings_alone", "timings_dry_run", "sp", "tp", "pp", "experts",
+         "flash", "zero_remat", "dry_run_pregather", "bf16_timings"],
+)
+def test_vit_fused_truth_table_is_jax(flags, accepted):
+    """Each refusal of a fused combination exits with the JAX CLI's text,
+    and each combination JAX takes the port takes, with the same modes."""
+    import vit_mnist as jax_cli  # noqa: PLC0415 -- the root JAX CLI, imported here only
+
+    def resolve(cli, parser):
+        try:
+            return cli(parser.parse_args(flags))
+        except SystemExit as e:
+            return str(e)
+
+    got = resolve(resolve_vit_modes, vit_parser())
+    assert got == resolve(jax_cli.resolve_mode_flags, jax_cli.build_parser())
+    assert isinstance(got, tuple) == accepted
 
 
 SERVING_FLEET_FLAGS = [

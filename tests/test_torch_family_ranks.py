@@ -3,7 +3,8 @@
 ``--resume-reshard`` against the JAX package, and the checks of those
 modes that need no JAX.
 
-:func:`fused_epoch_ranks` is ``tests/test_torch_fused.py``'s rank program.
+:func:`fused_epoch_ranks` is ``tests/test_torch_fused.py``'s rank program,
+:func:`fused_vit_ranks` ``tests/test_torch_fused_vit.py``'s.
 ``tests/test_torch_ep.py``, ``test_torch_zero.py``,
 ``test_torch_pp_vit.py``, ``test_torch_cnn_mp.py`` and
 ``test_torch_elastic.py`` run :func:`family_tasks` on every rank of a
@@ -28,7 +29,7 @@ from pytorch_mnist_ddp_tpu_torch.models.net import Net
 from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
 from pytorch_mnist_ddp_tpu_torch.ops.adadelta import AdadeltaState, adadelta_init
 from pytorch_mnist_ddp_tpu_torch.ops.flash_attention import select_attention
-from pytorch_mnist_ddp_tpu_torch.parallel import ep, fused, mesh, pp, pp_vit, tp
+from pytorch_mnist_ddp_tpu_torch.parallel import ep, fused, fused_vit, mesh, pp, pp_vit, tp
 from pytorch_mnist_ddp_tpu_torch.parallel.ddp import (
     TrainState,
     make_eval_step,
@@ -85,6 +86,37 @@ def fused_epoch_ranks(world, state: dict, images: np.ndarray, labels: np.ndarray
                                use_pallas=pallas_opt, world=world)
         losses = run.epoch(epoch, 1.0, perm=perm)
         out[name] = {"losses": losses.numpy(), "step": train_state.step,
+                     "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+    return out
+
+
+def fused_vit_ranks(world, state: dict, cfg: dict, train: tuple, test: tuple, perms: list,
+                    batch: int, lrs: list) -> dict:
+    """The ViT ``ViTConfig(**cfg)`` from ``state`` through the fused run of
+    ``parallel/fused_vit.py`` on this rank, every rank on the data axis
+    (``--fused``), plain and with ZeRO-1 accumulators (``--zero``): epoch
+    e + 1 on ``perms[e]`` in JAX's layout at ``lrs[e]``, ``batch`` rows a
+    rank, each followed by the evaluation.  Returns per run the gathered
+    losses ``[epochs, steps, ranks]``, the eval totals ``[epochs, 2]``,
+    the step and the state."""
+    torch.set_num_threads(1)
+    grid = make_rank_grid([], world)
+    out = {}
+    for name in ("plain", "zero"):
+        model = _vit(state, ViTConfig(**cfg))
+        params = dict(model.named_parameters())
+        opt = zero_init(params, grid.data) if name == "zero" else adadelta_init(params)
+        train_state = TrainState(opt=opt)
+        shard = {"shard": grid.coords[0], "num_shards": grid.num_data}
+        run = fused_vit.make_fused_vit_run(
+            model, train_state, DataLoader(*train, batch, "cpu", **shard),
+            DataLoader(*test, batch, "cpu", shuffle=False, mask_padding=True, **shard), grid)
+        losses, evals = [], []
+        for e, (perm, lr) in enumerate(zip(perms, lrs), start=1):
+            losses.append(run.train.epoch(e, lr, perm=perm).numpy())
+            evals.append(fused.eval_totals(run.eval(model).numpy()))
+        out[name] = {"losses": np.stack(losses), "evals": np.asarray(evals),
+                     "step": train_state.step,
                      "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
     return out
 

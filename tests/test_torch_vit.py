@@ -184,17 +184,18 @@ def test_bf16_vit_forward_and_grads_match_jax(config, flash, remat):
 
 
 def test_vit_refuses_variants_not_ported():
-    """The MoE variant is ported (``ViT(num_experts=E)`` builds and its
-    forward returns ``(log_probs, aux)``, ``tests/test_torch_moe.py``);
-    the variants still not ported, the fused whole-run with its options,
-    are refused by the CLI (the state archives, ``--profile`` and
-    ``--step-stats`` are ported: ``tests/test_torch_vit_state.py``,
-    ``test_torch_profiling.py``)."""
+    """No variant is left to refuse: the MoE variant is ported
+    (``ViT(num_experts=E)`` builds and its forward returns ``(log_probs,
+    aux)``, ``tests/test_torch_moe.py``), and so is the fused whole-run
+    with its options (``tests/test_torch_fused_vit.py``), which the CLI
+    takes with the JAX CLI's defaults."""
     logp, aux = ViT(ViTConfig(num_experts=4))(torch.zeros(2, 28, 28, 1))
     assert logp.shape == (2, 10) and aux.shape == ()
-    for flag in ("--fused", "--pregather", "--timings-json=x"):
-        with pytest.raises(SystemExit):
-            vit_mnist.build_parser().parse_args([flag])
+    for flag, dest, value in (("--fused", "fused", True), ("--pregather", "pregather", True),
+                              ("--timings-json=x", "timings_json", "x")):
+        args = vit_mnist.build_parser().parse_args([flag])
+        want = jax_cli.build_parser().parse_args([flag])
+        assert getattr(args, dest) == getattr(want, dest) == value
 
 
 @pytest.fixture(scope="module")
