@@ -168,7 +168,21 @@ Phases, one JSON line each:
                 --syncbn --pallas-opt equal to their per-batch runs (two
                 gloo ranks sharing the card refused with the NCCL
                 ValueError: in the ddp phase's gloo world); (e) 100
-                replayed steps under torch.profiler;
+                replayed steps under torch.profiler, and the trace_attr
+                twin (``python -m pytorch_mnist_ddp_tpu_torch.tools.
+                trace_attr``) over that window's Chrome trace without its
+                sleep-kernel prefix: its busy time (the card's streams'
+                union) within 1% of the union of the profiler's own device
+                records, its kernel time (each op on its own stream,
+                summed) within 1% of key_averages' device total, row 3 in
+                its table once a replay, its categories and top ops
+                printed;
+9c. step_attr  — the step_attr twin (``python -m
+                pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench``) in a
+                process of its own at --batch 200 --steps 300 --reps 3:
+                each of its ten rungs one CUDA graph over 300 iterations,
+                every rung a number, none skipped; its full rung beside
+                9b (e)'s replayed step (a reading);
 10. ddp       — mnist_ddp on the card: an NCCL world of one through the
                 launcher (--nproc_per_node=1, --batch-size 200 --pallas-opt
                 --save-model, one epoch; this script is the rank program, so
@@ -231,7 +245,8 @@ Phases, one JSON line each:
                 of one through the launcher, its lines and archive the
                 per-batch epoch's; (c) tools/vit_bench.py --mode fused
                 --epochs 1, one JSON line with mfu in (0, 1); (d)
-                VIT_FUSED_PROFILE_STEPS replays under torch.profiler; no
+                VIT_FUSED_PROFILE_STEPS replays under torch.profiler and
+                the trace_attr twin over that window, as in 9b (e); no
                 kernel of the table launched;
 15. vit_profile — where a ViT step's time goes: 10 steps, plain, --flash,
                 --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
@@ -315,27 +330,43 @@ Phases, one JSON line each:
                 restart on the reference CNN at full width with
                 --pallas-opt, on 19's IDX set (20-step epochs at batch
                 64), TF32 off: (a) two epochs with --telemetry-dir,
-                --save-state and --checkpoint-every-steps 7; (b) the same
-                run with --chaos kill:step:after=13 in a process of its
-                own exits 137, and --resume-state gives (a)'s final
-                archive array for array, the two runs' step events
-                (epoch, step, loss) (a)'s; (c) kill:ckpt_save:after=1
-                exits 137 with only the .prev rotation, which resumes to
-                (a); (d) --loss-guard under nan:step:after=5 equals (a)
-                (torch.equal), one train_anomalies_total{kind="nan"},
-                row 3 launched once more than in (a); (e) the launcher
-                with --nprocs 1 --restart-budget 1 over mnist_ddp
-                --batch-size 200 in an NCCL world of one killed by
-                kill:step:rank=0:after=9 exits 0 with one restart
-                (launch_restarts_total 1, rank_death and gang_restart
-                events, both incarnations' rendezvous attempts) and the
-                final archive of an uninterrupted run; (f) one --fused
-                --pallas-opt --telemetry-dir epoch: the counters equal the
-                steps and samples, one host read; readings: ms a step of
-                the guarded, telemetered run beside the flagless one (both
-                before the child processes start), a snapshot's device
-                time, checkpoint_write_seconds, the restart's wall
-                seconds;
+                --save-state and --checkpoint-every-steps 7; (b) the
+                same run with --chaos kill:step:after=13 in a process of
+                its own exits 137, and --resume-state in this process
+                gives (a)'s final archive array for array and model
+                (torch.equal), the two runs' step events (epoch, step,
+                loss) (a)'s, row 3 launched once a resumed step; (c)
+                kill:ckpt_save:after=1 exits 137 with only the .new and
+                .prev files, and .prev resumes to (a); (d) --loss-guard
+                under nan:step:after=5 equals (a) (torch.equal), one
+                train_anomalies_total{kind="nan"}, row 3 launched once
+                more than in (a); (e) the train_chaos twin (``python -m
+                pytorch_mnist_ddp_tpu_torch.tools.train_chaos --device
+                cuda``) in two processes of their own, started before 19
+                and running beside it and this phase: single-device at
+                --synthetic 768 --epochs 2 --checkpoint-every-steps 3
+                --kill-steps 4,save --nan-step 5 (its trainers killed at
+                step 4 and inside the checkpoint publish, the .prev
+                rotation resumed, and a NaN step healed, each ending on
+                the uninterrupted run's archive bit for bit), and
+                --distributed --nproc 1 --chaos kill:step:rank=0:after=4
+                (an NCCL world of one through the launcher gang-restarted
+                from its mid-epoch archive, escalated at
+                --restart-budget 0, and that archive resumed under
+                --elastic); each exits 0 with every round PASS, and the
+                files it leaves are read again here: the mid-save kill's
+                exactly state.npz.new + state.npz.prev, the step-4 kill's
+                killed and resumed step events together the baseline's,
+                the gang's launcher events exactly [rank_death,
+                gang_restart], launch_restarts_total 1, and two
+                rendezvous of a world of one; (f) one --fused --pallas-opt
+                --telemetry-dir epoch: the counters equal the steps and
+                samples, one host read; readings: ms a step of the
+                guarded, telemetered run beside the flagless one (the
+                twin's processes may still run), a snapshot's device
+                time, checkpoint_write_seconds, the killed runs' and the
+                twin's wall seconds, the phase's wait for the twin and its
+                lines;
 21. compile   — the startup path (compile/: the kernel-library store
                 behind --aot-cache, Programs, the startup overlap) on a
                 store made fresh under the work directory, in processes
@@ -444,8 +475,9 @@ and are not counted) and over 18 (the ranks' processes and the epoch;
 the references apart); flash_attention and adadelta again over 19 (the
 ranks' and the launcher's processes included; the uninterrupted runs the
 resumed ones are held to apart); adadelta again over 20 (this process's
-runs; the killed processes and the launcher's rank count nothing, the
-flagless and uninterrupted references apart); int8_head and adadelta
+runs, the resumed ones included; the killed processes and the
+train_chaos twin's trainers, which run no --pallas-opt, count nothing;
+the flagless reference apart); int8_head and adadelta
 again over 21 (counted by its processes; the flagless runs apart);
 int8_head again over 22 (each backend process's own count, written to a
 file by LAUNCH_COUNTER_SITE; a SIGKILLed process loses its last 50 ms;
@@ -531,6 +563,15 @@ PROFILE_MARGIN_S = 0.1
 # of the device records it made.
 LAUNCH_EVENTS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
 SLEEP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+ROW3_KERNEL = "adadelta_kernel"  # csrc/adadelta.cu's, as a trace names it
+# step_attr phase: the ladder at the benchmark's batch, one epoch of steps
+STEP_ATTR_ARGS = ["--batch", "200", "--steps", "300", "--reps", "3"]
+# The trace_attr twin over a window's trace: its main line's busy time
+# against the profiler's own device total, the ops it lists, those a
+# phase line prints.
+TRACE_ATTR_BUSY_RTOL = 0.01
+TRACE_ATTR_TOP = 40
+TRACE_ATTR_ROWS = 15
 # vit_profile phase: a ViT step holds ~960 device and ~7,000 host events,
 # and reading a 100-step window back took ~50 s a way (PR 12); 20 steps
 # give the same per-step readings.  The windows are readings, and reading
@@ -758,9 +799,21 @@ FUSED_PROFILE_STEPS = 100
 # vit_fused phase: (a) as fused's, (d) profiled replays
 VIT_FUSED_CAPTURED = 20
 VIT_FUSED_PROFILE_STEPS = 10
-# resilience phase: the checkpoint cadence and (b)'s kill, in steps
+# resilience phase: the checkpoint cadence and (b)'s kill, in steps; the
+# train_chaos twin's two runs, each with the rounds it must print PASS
+# for, in order (the gang rounds in an NCCL world of one: two NCCL ranks
+# cannot share the card), and the cadence and kill step its single run
+# takes
 RESILIENCE_CKPT = 7
 RESILIENCE_KILL_AFTER = 13
+CHAOS_CKPT, CHAOS_KILL = 3, 4
+CHAOS_RUNS = {
+    "single": (["--synthetic", "768", "--epochs", "2", "--checkpoint-every-steps",
+                str(CHAOS_CKPT), "--kill-steps", f"{CHAOS_KILL},save", "--nan-step", "5"],
+               (f"kill@step{CHAOS_KILL}", "kill@ckpt_save", "nan@step5")),
+    "world_of_one": (["--distributed", "--nproc", "1", "--chaos", "kill:step:rank=0:after=4"],
+                     ("gang-kill[kill:step:rank=0:after=4]", "gang-budget0", "reshard-resume")),
+}
 # serving_stack: the registry's second version and the --syncbn archive,
 # seeded (CPU scans: int8 top-1 margin ~0.14 on the parity slice for v2,
 # bf16 margin ~0.13 for the BN model, against gate errors of ~0.004)
@@ -1517,15 +1570,22 @@ def adadelta_times(torch, np) -> dict[str, dict]:
     return out
 
 
-def profile_window(torch, window, step_once, find: str | None = None) -> dict:
+def profile_window(torch, window, step_once, find: str | None = None,
+                   trace_path: str | None = None) -> dict:
     """Wall and device-busy time per step of ``step_once(x, y, w)`` over the
-    batches of ``window`` under torch.profiler, with the top device ops;
+    batches of ``window`` under torch.profiler;
     with ``find``, also the ops whose name holds it (``found``: calls and
     microseconds per call, on the device and on the host).  The steps'
     records alone are counted, and the wall time is theirs:
     ``prefix_records_lost`` says how many of the sleep kernels' records
     the profiler dropped, ``launches_without_a_device_record`` how many of
-    the steps' launches lost theirs."""
+    the steps' launches lost theirs.  ``device_busy_us`` is key_averages'
+    device total (the sum of the device records' times) and
+    ``device_union_us`` the time the device was busy (their union: cuDNN
+    runs some convolutions on streams of its own beside the step's).
+    With ``trace_path``, the same profiler's Chrome trace is exported
+    there for the trace_attr twin, whose table takes the place of the top
+    device ops (``top_device_ops``, given without it)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1539,6 +1599,8 @@ def profile_window(torch, window, step_once, find: str | None = None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(PROFILE_MARGIN_S)
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     device_us, kernels, top, found, uneven, prefix = 0.0, 0, [], {}, {}, 0
     for evt in prof.key_averages():
         if evt.device_type.name == "CUDA" and SLEEP_KERNEL in evt.key:
@@ -1567,20 +1629,88 @@ def profile_window(torch, window, step_once, find: str | None = None) -> dict:
     first = next((i + 1 for i, (a, b) in enumerate(zip(launches, launches[1:]))
                   if b[0] - a[0] > PROFILE_MARGIN_S * 5e5), 0)
     recorded = {e.id for e in events if e.device_type.name == "CUDA"}
+    # the time the device was busy: the union of the steps' device records
+    # (kernels of two streams may run at once; key_averages sums them)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type.name == "CUDA" and SLEEP_KERNEL not in e.name)
+    union_us, end = 0.0, -math.inf
+    for a, b in spans:
+        union_us += max(0.0, b - max(a, end))
+        end = max(end, b)
     lost = [i for i, (_, cid) in enumerate(launches[first:]) if cid not in recorded]
     steps = len(window)
     extra = {} if find is None else {"found": found}
+    if trace_path is None:
+        extra["top_device_ops"] = [{"name": k, "ms_per_step": us / 1e3 / steps, "count": c}
+                                   for us, k, c in top[:6]]
     return {**extra,
         "prefix_records_lost": PROFILE_PREFIX_KERNELS - prefix,
         "launches_without_a_device_record": len(lost), "lost_launch_positions": lost[:8],
         "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+        "device_busy_us": device_us, "device_union_us": union_us,
         "device_busy_ms_per_step": device_us / 1e3 / steps if device_us else None,
         "device_idle_share": 1 - device_us / 1e6 / wall if device_us else None,
         "device_ops_per_step": kernels / steps,
         "uneven_device_ops": uneven,
-        "top_device_ops": [{"name": k, "ms_per_step": us / 1e3 / steps, "count": c}
-                           for us, k, c in top[:6]],
     }
+
+
+def attribute_window(trace_path: str, profile: dict, workdir: str, env: dict) -> dict:
+    """The trace_attr twin (``python -m pytorch_mnist_ddp_tpu_torch.tools.
+    trace_attr``) over the Chrome trace of a :func:`profile_window`, its
+    sleep-kernel prefix left out (a copy of the trace without those
+    records): the tool's JSON, with ``busy_vs_profiler`` the relative gap
+    between its main line's busy time (the card's streams, as one
+    timeline) and the time the same profiler's own device records cover
+    in the window, and ``kernel_vs_profiler`` that between the tool's
+    kernel time (each op's time on its own stream, summed) and
+    key_averages' device total, which counts twice the time in which two
+    streams' kernels ran at once (the tool's ``concurrent_s``); both must
+    stay within TRACE_ATTR_BUSY_RTOL."""
+    import os
+
+    with open(trace_path) as f:
+        trace = json.load(f)
+    trace["traceEvents"] = [e for e in trace.get("traceEvents", [])
+                            if not (e.get("cat") == "kernel"
+                                    and SLEEP_KERNEL in e.get("name", ""))]
+    steps_path = trace_path.replace(".pt.trace.json", ".steps.pt.trace.json")
+    with open(steps_path, "w") as f:
+        json.dump(trace, f)
+    del trace
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.trace_attr", steps_path,
+         "--top", str(TRACE_ATTR_TOP)],
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"trace_attr exited {proc.returncode}: {proc.stdout[-2000:]} "
+          f"{proc.stderr[-2000:]}")
+    attr = json.loads(proc.stdout)
+    want = profile["device_union_us"] / 1e6
+    attr["busy_vs_profiler"] = abs(attr["busy_s"] - want) / want
+    attr["profiler_device_busy_s"] = want
+    summed = profile["device_busy_us"] / 1e6
+    attr["key_averages_device_s"] = summed
+    attr["kernel_vs_profiler"] = abs(attr["kernel_s"] - summed) / summed
+    attr["trace_bytes"] = os.path.getsize(trace_path)
+    check(attr["busy_vs_profiler"] <= TRACE_ATTR_BUSY_RTOL,
+          f"trace_attr: busy_s {attr['busy_s']} on {attr['thread']} against the profiler's "
+          f"{want} s (other lines {attr['other_op_lines']})")
+    check(attr["kernel_vs_profiler"] <= TRACE_ATTR_BUSY_RTOL,
+          f"trace_attr: kernel_s {attr['kernel_s']} on {attr['thread']} against "
+          f"key_averages' {summed} s")
+    return attr
+
+
+def attribution_table(attr: dict) -> dict:
+    """The part of a trace_attr JSON that a phase line prints: the main
+    line, busy and span, the categories, and the top TRACE_ATTR_ROWS ops
+    with their names cut to 120 characters."""
+    keep = ("process", "thread", "op_events", "overlap_events", "span_s", "busy_s",
+            "gap_share", "busy_vs_profiler", "profiler_device_busy_s", "kernel_s",
+            "concurrent_s", "concurrent_share", "concurrent_events", "kernel_vs_profiler",
+            "key_averages_device_s", "other_op_lines", "trace_bytes", "by_category")
+    return {**{k: attr[k] for k in keep},
+            "top_ops": [{**o, "op": o["op"][:120]} for o in attr["top_ops"][:TRACE_ATTR_ROWS]]}
 
 
 def loader_batches(torch):
@@ -2662,9 +2792,11 @@ def vit_fused_phase(torch, np, workdir: str) -> dict:
     for _ in range(fused.WARMUP_STEPS + 10):  # the capture, then a few replays
         run.step()
     torch.cuda.synchronize()
+    trace_path = os.path.join(workdir, "vit_fused_d.pt.trace.json")
     profile = profile_window(torch, [(None, None, None)] * VIT_FUSED_PROFILE_STEPS,
-                             lambda *_: run.step())
+                             lambda *_: run.step(), trace_path=trace_path)
     check(run.replays == 10 + VIT_FUSED_PROFILE_STEPS, f"vit_fused (d): {run.replays} replays")
+    attr = attribute_window(trace_path, profile, workdir, env)
     launched = {k: v - start[k] for k, v in counts().items()}
     check(not any(launched.values()), f"vit_fused: a kernel of the table launched: {launched}")
     record = {
@@ -2678,7 +2810,8 @@ def vit_fused_phase(torch, np, workdir: str) -> dict:
                 "cut_per_batch_train_seconds": per_batch["timings"]["epoch_train_s"],
                 "nccl_world_of_one_zero": {**same_nccl, "process_seconds": zero_s}},
         "vit_bench": {**row, "process_seconds": bench_s},
-        "profile_replay": profile, "launches": launched,
+        "profile_replay": profile, "trace_attr_replay": attribution_table(attr),
+        "launches": launched,
         "in_process_seconds_before_the_wait": in_process_s,
         "seconds": time.perf_counter() - t_phase}
     emit(record)
@@ -4155,14 +4288,47 @@ def train_state_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     return launches, references
 
 
-def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
+@contextlib.contextmanager
+def chaos_runs(workdir: str):
+    """The train_chaos twin's CHAOS_RUNS, started together in processes of
+    their own under ``workdir`` (one intra-op thread each: they share the
+    host with the phases they run beside), each the leader of a process
+    group: yields ``{name: future of waited_process's tuple}``; on the way
+    out every group still running (its trainers too) is killed."""
+    import os
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cmd = [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.train_chaos",
+           "--device", "cuda"]
+    procs, runs = [], {}
+    with ThreadPoolExecutor(len(CHAOS_RUNS)) as pool:
+        try:
+            for name, (flags, _) in CHAOS_RUNS.items():
+                t0 = time.perf_counter()
+                procs.append(subprocess.Popen(
+                    [*cmd, *flags, "--workdir", os.path.join(workdir, name)], cwd=workdir,
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                    start_new_session=True))
+                runs[name] = pool.submit(waited_process, procs[-1], t0)
+            yield runs
+        finally:
+            for proc in procs:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+
+
+def resilience_phase(torch, np, workdir: str, chaos_dir: str,
+                     runs: dict) -> tuple[dict, dict]:
     """The resilience phase (module docstring, 20).  Returns the path's
     adadelta launches (this process's runs) and, apart, those of the
-    references; the caller zeroes the counters first.  The flagless and
-    the guarded runs go first, alone on the card, for the ms-a-step
-    readings; then the three runs that must die or restart start together
+    references; the caller zeroes the counters first.  ``runs`` are (e)
+    as :func:`chaos_runs` started them under ``chaos_dir``.  The flagless
+    and the guarded runs go first; then (b) and (c), which must die, start
     in processes of their own, and the other runs in this process go on
-    meanwhile."""
+    meanwhile; the phase waits for (e) at its end."""
     import os
 
     from pytorch_mnist_ddp_tpu_torch.obs import Registry, read_events
@@ -4186,6 +4352,11 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         for k, v in run["launches"].items():
             references[k] += v
 
+    def step_events(*dirs):
+        return [(e["epoch"], e["step"], e["loss"]) for d in dirs
+                for e in read_events(os.path.join(d, "events-rank0.jsonl"))
+                if e["event"] == "step"]
+
     # the same two epochs flagless (a reference), and (d): the guard heals a
     # poisoned step (held to (a) below)
     flagless = fit_run(two)
@@ -4196,17 +4367,14 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     snapshot_ms = median_ms(torch, lambda: snapshot(guarded["model"], guarded["state"]),
                             runs=20)
 
-    procs, pool = {}, ThreadPoolExecutor(3)
+    # (b) and (c) die in processes of their own; (e), the train_chaos
+    # twin, runs meanwhile (started before train_state)
+    procs, pool = {}, ThreadPoolExecutor(2)
     for name, cmd in (
             ("b", [*cli, *two, *ckpt, "--save-state", at("b.npz"), "--telemetry-dir",
                    at("b_tel"), "--chaos", f"kill:step:after={RESILIENCE_KILL_AFTER}"]),
             ("c", [*cli, *two, *ckpt, "--save-state", at("c.npz"), "--chaos",
-                   "kill:ckpt_save:after=1"]),
-            ("e", [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
-                   "--nprocs", "1", "--restart-budget", "1", f"--master_port={free_port()}",
-                   "--telemetry-dir", at("e_tel"), "-m", "pytorch_mnist_ddp_tpu_torch.mnist_ddp",
-                   *two, "--batch-size", str(DDP_BATCH), "--save-state", at("e.npz"),
-                   "--checkpoint-every-steps", "5", "--chaos", "kill:step:rank=0:after=9"])):
+                   "kill:ckpt_save:after=1"])):
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
@@ -4217,8 +4385,7 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     base = fit_run([*two, *ckpt, "--telemetry-dir", at("a_tel"), "--save-state", at("a.npz")],
                    registry=reg_a)
     steps = base["state"].step
-    a_steps = [(e["epoch"], e["step"], e["loss"])
-               for e in read_events(at("a_tel", "events-rank0.jsonl")) if e["event"] == "step"]
+    a_steps = step_events(at("a_tel"))
     ok, record = {}, {}
     ok["a_baseline"] = {
         "steps": steps == 2 * VIT_PAR_STEPS == len(a_steps),
@@ -4250,19 +4417,17 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
         "one_host_read_an_epoch": fused["timings"]["host_syncs"] == 1,
         "delta_once_a_step": fused["launches"]["adadelta_delta"] == f_steps == VIT_PAR_STEPS}
 
-    # the processes: (b) and (c) died at their fault points, (e) restarted
+    # (b) and (c) died at their fault points
     outs = {name: done.result() for name, done in procs.items()}
     pool.shutdown()
-    for name, want in (("b", 137), ("c", 137), ("e", 0)):
-        check(outs[name][0] == want, f"resilience ({name}) exited {outs[name][0]}, not "
-                                     f"{want}: {outs[name][2][-2000:]}")
+    for name in ("b", "c"):
+        check(outs[name][0] == 137, f"resilience ({name}) exited {outs[name][0]}, not 137: "
+                                    f"{outs[name][2][-2000:]}")
 
-    # (b) the killed run resumed from its archive
+    # (b) the killed run resumed from its archive in this process
     resumed_b = fit_run([*two, *ckpt, "--save-state", at("b.npz"), "--resume-state",
                          at("b.npz"), "--telemetry-dir", at("b_tel_resumed")])
-    b_steps = [(e["epoch"], e["step"], e["loss"])
-               for d in ("b_tel", "b_tel_resumed")
-               for e in read_events(at(d, "events-rank0.jsonl")) if e["event"] == "step"]
+    b_steps = step_events(at("b_tel"), at("b_tel_resumed"))
     kill = RESILIENCE_KILL_AFTER
     cursor = kill // RESILIENCE_CKPT * RESILIENCE_CKPT
     ok["b_kill_resume"] = {
@@ -4278,24 +4443,46 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
     ok["c_kill_in_save"] = {
         "only_prev_and_new": c_files == ["c.npz.new", "c.npz.prev"],
         "archive_equal_a": same_archive(np, at("c.npz"), at("a.npz")),
-        "equal_a": all(same_run(torch, resumed_c, base).values())}
+        "equal_a": all(same_run(torch, resumed_c, base).values()),
+        "resumed_steps": resumed_c["launches"]["adadelta_delta"] == steps - RESILIENCE_CKPT}
 
-    # (e) the gang restart against an uninterrupted run at batch 200
-    e_ref = fit_run([*two, "--batch-size", str(DDP_BATCH), "--save-state", at("e_ref.npz")])
-    as_reference(e_ref)
-    launcher_prom = open(at("e_tel", "launcher.prom")).read().splitlines()
-    events_e = [e["event"] for e in read_events(at("e_tel", "events-launcher.jsonl"))]
-    restart = [e for e in read_events(at("e_tel", "events-launcher.jsonl"))
-               if e["event"] == "gang_restart"]
-    rdzv = [e["attempts"] for e in read_events(at("e_tel", "events-rdzv-rank0.jsonl"))
+    # (e) the twin's verdicts: exit 0 and every scheduled round PASS; then
+    # the files its rounds left, read again
+    t_wait = time.perf_counter()
+    twin = {name: done.result() for name, done in runs.items()}
+    chaos_record = {"waited_seconds": time.perf_counter() - t_wait}
+    for name, (_, rounds) in CHAOS_RUNS.items():
+        rc, out, err, wall = twin[name]
+        verdicts = [ln for ln in out.splitlines() if ln.startswith(("PASS ", "FAIL "))]
+        ok[f"e_train_chaos_{name}"] = {
+            "exit_0": rc == 0,
+            "every_round_pass": len(verdicts) == len(rounds) and all(
+                ln == f"PASS {r}" or ln.startswith(f"PASS {r}: ")
+                for ln, r in zip(verdicts, rounds))}
+        chaos_record[name] = {"exit": rc, "wall_seconds": wall, "stdout": out.splitlines(),
+                              "stderr_tail": err[-1500:] if rc else ""}
+    single = functools.partial(os.path.join, chaos_dir, "single")
+    in_save = sorted(f for f in os.listdir(single("kill@ckpt_save"))
+                     if f.startswith("state.npz"))
+    killed = step_events(single(f"kill@step{CHAOS_KILL}", "tel_killed"))
+    resumed = step_events(single(f"kill@step{CHAOS_KILL}", "tel_resumed"))
+    twin_base = step_events(single("baseline", "tel"))
+    ok["e_train_chaos_single"].update({
+        "mid_save_only_prev_and_new": in_save == ["state.npz.new", "state.npz.prev"],
+        "killed_and_resumed_step_events_baseline": killed == twin_base[:CHAOS_KILL]
+        and resumed == twin_base[CHAOS_KILL // CHAOS_CKPT * CHAOS_CKPT:]})
+    gang = functools.partial(os.path.join, chaos_dir, "world_of_one", "dist_kill", "tel")
+    launcher_events = [e["event"] for e in read_events(gang("events-launcher.jsonl"))]
+    rdzv = [e for e in read_events(gang("events-rdzv-rank0.jsonl"))
             if e["event"] == "rendezvous" and e["ok"]]
-    ok["e_gang_restart"] = {
-        "one_restart": "launch_restarts_total 1" in launcher_prom,
-        "events": events_e == ["rank_death", "gang_restart"],
-        "two_incarnations_formed": len(rdzv) == 2,
-        "archive_equal_uninterrupted": same_archive(np, at("e.npz"), at("e_ref.npz")),
-        "distributed_world_of_one": outs["e"][1].count(
-            "| distributed init (rank 0): env://, local rank:0, world size:1") == 2}
+    ok["e_train_chaos_world_of_one"].update({
+        "launcher_events": launcher_events == ["rank_death", "gang_restart"],
+        "one_restart": "launch_restarts_total 1" in open(gang("launcher.prom")).read().splitlines(),
+        "two_incarnations_of_a_world_of_one": [e["world"] for e in rdzv] == [1, 1]})
+    chaos_record["rendezvous_attempts_by_incarnation"] = [e["attempts"] for e in rdzv]
+    chaos_record["gang_restart_downtime_s"] = [
+        e.get("downtime_s") for e in read_events(gang("events-launcher.jsonl"))
+        if e["event"] == "gang_restart"]
 
     checkpoint_write = reg_a.histogram("checkpoint_write_seconds")
     launches = {k: v - refs0[k] - references[k] for k, v in af.LAUNCHES.items()}
@@ -4305,10 +4492,8 @@ def resilience_phase(torch, np, workdir: str) -> tuple[dict, dict]:
                              "telemetry_checkpoint_beside_processes": ms_a_step(base, 1)},
         "snapshot_device_ms": snapshot_ms,
         "checkpoint_write_seconds": checkpoint_write.values(),
-        "restart_wall_seconds": {"launcher": outs["e"][3],
-                                 "downtime_s": restart[0]["downtime_s"] if restart else None},
-        "rendezvous_attempts_by_incarnation": rdzv,
         "killed_wall_seconds": {"b": outs["b"][3], "c": outs["c"][3]},
+        "train_chaos": chaos_record,
         "fused_epoch_wall_s": fused["timings"]["epoch_wall_s"],
         "launches_by_leg": {"a": base["launches"], "d": guarded["launches"],
                             "f": fused["launches"], "b_resumed": resumed_b["launches"],
@@ -4819,8 +5004,10 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
     per-batch runs at --train-limit (two gloo ranks sharing the card are
     refused with the NCCL ValueError in the ddp phase's gloo world, which
     the same ranks serve).  (e) FUSED_PROFILE_STEPS replays
-    under torch.profiler.  Returns the adadelta launches of the fused and
-    prefetching paths and, apart, those of the references."""
+    under torch.profiler, and the trace_attr twin over that window's
+    Chrome trace (row 3 once a replay in its table).  Returns the adadelta
+    launches of the fused and prefetching paths and, apart, those of the
+    references, and (e)'s profile."""
     import itertools
     import os
 
@@ -5008,9 +5195,16 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
         run.step()
     torch.cuda.synchronize()
     window = dict(af.LAUNCHES)
+    trace_path = os.path.join(workdir, "fused_e.pt.trace.json")
     profile = profile_window(torch, [(None, None, None)] * FUSED_PROFILE_STEPS,
-                             lambda *_: run.step(), find="adadelta")
+                             lambda *_: run.step(), find="adadelta", trace_path=trace_path)
     counted = since(window)["adadelta_delta"]
+    # the trace_attr twin over the same window: row 3 once a replay in its table
+    attr = attribute_window(trace_path, profile, workdir, env)
+    row3_ops = [o for o in attr["top_ops"] if ROW3_KERNEL in o["op"]]
+    row3 = sum(o["count"] for o in row3_ops)
+    check(row3 == FUSED_PROFILE_STEPS, f"fused (e): trace_attr lists row 3 {row3} times in "
+          f"{FUSED_PROFILE_STEPS} replays: {attribution_table(attr)}")
     add(path, since(before))
     # the counts of replays are worked out from the capture; the device's
     # own record shows that the graph launches the kernel once a replay
@@ -5024,12 +5218,54 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
           f"device record, {profile['prefix_records_lost']} of the prefix's lost)")
     local = since(start)
     emit({"phase": "fused", "captured_vs_eager": captured, "cli": cli, "prefetch": prefetch,
-          "mnist_ddp": ddp, "profile_pallas_opt": profile, "launches": path,
-          "reference_launches": references, "seconds": time.perf_counter() - t_phase})
+          "mnist_ddp": ddp, "profile_pallas_opt": profile,
+          "trace_attr_pallas_opt": {**attribution_table(attr), "row3_count": row3,
+                                    "row3_us_per_replay": 1e6 * sum(o["time_s"] for o in row3_ops)
+                                    / FUSED_PROFILE_STEPS},
+          "launches": path, "reference_launches": references,
+          "seconds": time.perf_counter() - t_phase})
     check(all(local[k] == path[k] + references[k]
               - sum(rank0[n]["launches"][k] for n in rank0 if n != "backend")
               for k in local), f"fused phase launched {local} in this process outside its legs")
-    return path, references
+    return path, references, profile
+
+
+def step_attr_phase(torch, fused_profile: dict, smi: str) -> dict:
+    """The step_attr twin (``python -m pytorch_mnist_ddp_tpu_torch.tools.
+    step_attr_bench``) on the card at STEP_ATTR_ARGS, in a process of its
+    own: exit 0, one JSON line, every rung of its RUNG_NAMES a number and
+    none skipped or partial.  Its ``full`` rung is printed beside the
+    fused CNN's replayed --pallas-opt step of fused (e) (batch 64), a
+    reading, not a check.  No kernel of the table runs on its path."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench import RUNG_NAMES
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    before = dict(af.LAUNCHES)
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench",
+         *STEP_ATTR_ARGS], cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"step_attr exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    row = json.loads(lines[0])
+    missing = [name for name in RUNG_NAMES if not isinstance(row.get(name), (int, float))]
+    check(not missing and "partial" not in row and "skipped" not in row,
+          f"step_attr: rungs not measured {missing}: {row}")
+    check(af.LAUNCHES == before, "step_attr launched a kernel in this process")
+    record = {"phase": "step_attr", "nvidia_smi": smi, "args": STEP_ATTR_ARGS, "ladder": row,
+              "full_us_per_step_batch_200": row["full"],
+              "fused_replay_pallas_opt_batch_64": {
+                  "wall_us_per_step": 1e3 * fused_profile["wall_ms_per_step"],
+                  "device_busy_us_per_step": 1e3 * fused_profile["device_busy_ms_per_step"]},
+              "rung_log": proc.stderr.strip().splitlines()[-len(RUNG_NAMES):],
+              "seconds": time.perf_counter() - t_phase}
+    emit(record)
+    return record
 
 
 def http_post(url: str, data: bytes, ctype: str = "application/json") -> tuple[int, bytes, str]:
@@ -7213,9 +7449,14 @@ def main() -> int:
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
     with tempfile.TemporaryDirectory() as workdir:
-        fused_launches, fused_references = fused_phase(torch, np, workdir, per_batch_run)
+        fused_launches, fused_references, fused_profile = fused_phase(torch, np, workdir,
+                                                                      per_batch_run)
     del per_batch_run
     check(fused_launches["adadelta_delta"] > 0, "the fused path never launched adadelta_delta")
+
+    # 9c. step_attr: the step ladder on the card, alone; no kernel of the
+    # table on its path (the plain per-leaf update)
+    step_attr_phase(torch, fused_profile, smi)
 
     # 10. the data-parallel path; the data-parallel step's adadelta
     # counts, the ranks' processes' included, and apart those of the
@@ -7278,21 +7519,25 @@ def main() -> int:
     # 19. train_state: the ViT's archives, --elastic, --resume-reshard,
     # mnist_ddp --tp/--pp, --profile; rows 3-5 counted on its path (the
     # ranks' processes included), the references apart
-    for k in fa.LAUNCHES:
-        fa.LAUNCHES[k] = 0
-    for k in af.LAUNCHES:
-        af.LAUNCHES[k] = 0
-    with tempfile.TemporaryDirectory() as workdir:
-        state_launches, state_references = train_state_phase(torch, np, workdir)
-    for k in ("flash_fwd", "flash_partial", "adadelta_delta"):
-        check(state_launches[k] > 0, f"the train_state path never launched {k}")
+    # 20 (e), the train_chaos twin's runs, start first: they run beside
+    # train_state in processes of their own (no kernel of the table on
+    # their path), and resilience waits for them
+    with tempfile.TemporaryDirectory() as chaos_dir, chaos_runs(chaos_dir) as runs:
+        for k in fa.LAUNCHES:
+            fa.LAUNCHES[k] = 0
+        for k in af.LAUNCHES:
+            af.LAUNCHES[k] = 0
+        with tempfile.TemporaryDirectory() as workdir:
+            state_launches, state_references = train_state_phase(torch, np, workdir)
+        for k in ("flash_fwd", "flash_partial", "adadelta_delta"):
+            check(state_launches[k] > 0, f"the train_state path never launched {k}")
 
-    # 20. resilience: the runtime, telemetry and the gang restart; row 3
-    # counted over this process's runs, the references apart
-    for k in af.LAUNCHES:
-        af.LAUNCHES[k] = 0
-    with tempfile.TemporaryDirectory() as workdir:
-        res_launches, res_references = resilience_phase(torch, np, workdir)
+        # 20. resilience: the runtime, telemetry and the gang restart; row 3
+        # counted over this process's runs, the references apart
+        for k in af.LAUNCHES:
+            af.LAUNCHES[k] = 0
+        with tempfile.TemporaryDirectory() as workdir:
+            res_launches, res_references = resilience_phase(torch, np, workdir, chaos_dir, runs)
     check(res_launches["adadelta_delta"] > 0, "the resilience path never launched "
           "adadelta_delta")
 

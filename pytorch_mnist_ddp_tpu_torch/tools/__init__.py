@@ -10,7 +10,13 @@
   generator and checks its budget table;
 - ``python -m pytorch_mnist_ddp_tpu_torch.tools.vit_bench``: one JSON row
   of a ViT CLI run (the JAX package's ``tools/vit_bench.py``): wall clock,
-  accuracy, and for ``--fused`` the ``--timings-json`` attribution and MFU.
+  accuracy, and for ``--fused`` the ``--timings-json`` attribution and MFU;
+- ``.tools.train_chaos``: kill -> resume -> bit-exact with real trainer
+  and launcher processes; ``.tools.trace_attr``: a torch.profiler Chrome
+  trace distilled to a per-category, per-op table; ``.tools.step_attr_bench``:
+  a ladder of CNN step variants, each one CUDA graph; ``.tools.perf_report
+  --telemetry DIR``: the summary of a ``--telemetry-dir`` directory (the
+  JAX package's tools of the same names).
 
 None imports torch at module level: ``serve_loadgen --url`` drives a
 remote endpoint without it.

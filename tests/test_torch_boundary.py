@@ -671,7 +671,9 @@ def test_a_flagless_run_builds_no_runtime_and_no_sink_and_reads_no_more(monkeypa
 
 # -- the operator tools (tools/serve_loadgen.py, tools/slo_gate.py) ------------
 
-TOOL_MODULES = ("tools/__init__.py", "tools/serve_loadgen.py", "tools/slo_gate.py")
+TOOL_MODULES = ("tools/__init__.py", "tools/serve_loadgen.py", "tools/slo_gate.py",
+                "tools/train_chaos.py", "tools/trace_attr.py", "tools/step_attr_bench.py",
+                "tools/perf_report.py")
 _PARSE_ARGS = argparse.ArgumentParser.parse_args
 
 
@@ -759,3 +761,79 @@ def test_the_tools_write_under_build_loadgen_and_leave_the_bench_files(tmp_path,
     assert (tmp_path / gate["trajectory"]).exists()
     assert {p.name: p.read_bytes() for p in ROOT.glob("BENCH_*.json")} == tracked
     assert serve_loadgen.REPORT_DIR == os.path.join("build", "loadgen")
+
+
+# -- the training tools' twins (train_chaos, trace_attr, step_attr_bench,
+# perf_report --telemetry) ----------------------------------------------------
+
+# Each twin's flags are the JAX tool's, plus --device where it starts work
+# on a device.
+TRAINING_TOOLS = {"train_chaos": {"--device"}, "trace_attr": set(),
+                  "step_attr_bench": {"--device"}, "perf_report": set()}
+
+
+def _jax_tool_parser(name: str, monkeypatch) -> argparse.ArgumentParser:
+    """The parser the JAX tool's main builds, stopped at its parse."""
+    import importlib.util  # noqa: PLC0415
+
+    spec = importlib.util.spec_from_file_location(f"jax_{name}", ROOT / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    seen = {}
+
+    def stop(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(SystemExit):
+        module.main()
+    monkeypatch.undo()
+    return seen["parser"]
+
+
+def _flags(parser: argparse.ArgumentParser) -> dict[str, object]:
+    """Every option string (and positional dest) with its default."""
+    out = {}
+    for action in parser._actions:
+        if isinstance(action, argparse._HelpAction):
+            continue
+        for name in action.option_strings or [action.dest]:
+            out[name] = action.default
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(TRAINING_TOOLS))
+def test_training_tool_flags_are_the_jax_tool_s(name, monkeypatch):
+    import importlib  # noqa: PLC0415
+
+    port = _flags(importlib.import_module(
+        f"pytorch_mnist_ddp_tpu_torch.tools.{name}").build_parser())
+    jax_flags = _flags(_jax_tool_parser(name, monkeypatch))
+    extra = TRAINING_TOOLS[name]
+    assert set(port) == set(jax_flags) | extra
+    assert {k: port[k] for k in jax_flags} == jax_flags
+    for flag in extra:
+        assert port[flag] == "cuda"
+
+
+def test_training_tools_run_with_jax_poisoned(tmp_path):
+    """The twins' CPU paths in a process where jax, flax and the JAX
+    package cannot be imported."""
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN_ROOTS!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from pytorch_mnist_ddp_tpu_torch.tools import (perf_report, step_attr_bench,\n"
+        "                                               trace_attr, train_chaos)\n"
+        f"assert trace_attr.main([{str(tmp_path)!r}]) == 1\n"
+        f"assert perf_report.main(['--telemetry', {str(tmp_path)!r}]) == 1\n"
+        "assert perf_report.main([]) == 2\n"
+        "assert step_attr_bench.main(['--device', 'cpu']) == 1\n"
+        "assert train_chaos.build_parser().parse_args([]).device == 'cuda'\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')\n"
+        "            and sys.modules[m] is not None]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr

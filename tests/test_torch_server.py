@@ -474,7 +474,10 @@ def test_503_504_500_map_as_in_jax(engine):
             while not injector.fired_counts()["hang:launch:for=5"]:
                 assert time.perf_counter() < deadline
                 time.sleep(0.005)
-            data = wire.encode_request(_raw(1, seed=25).astype(np.float32), deadline_ms=50)
+            # a deadline that outlives the 503 probe below but not the 5 s
+            # hang: the request cannot expire (and free its slot) before
+            # the probe arrives, and still times out behind the hang
+            data = wire.encode_request(_raw(1, seed=25).astype(np.float32), deadline_ms=1000)
             status504 = []
             queued = threading.Thread(target=lambda: status504.append(
                 _post_raw(srv.url, data, wire.WIRE_REQUEST_TYPE)[0]))
@@ -486,6 +489,12 @@ def test_503_504_500_map_as_in_jax(engine):
             queued.join(timeout=10)
         held.join(timeout=10)
         assert status504 == [504]
+        # the worker counts the expiry when it reaches the request, once the
+        # hang is over: wait for it, then hold the count to exactly one
+        until = time.perf_counter() + 10
+        while (srv.metrics.snapshot()["requests"]["timed_out"] < 1
+               and time.perf_counter() < until):
+            time.sleep(0.01)
         assert srv.metrics.snapshot()["requests"]["timed_out"] == 1
     finally:
         srv.stop()
