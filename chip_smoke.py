@@ -8,12 +8,23 @@ Phases, one JSON line each:
 
 1. env        — the card (nvidia-smi name and power limit), torch and CUDA
                 versions, TF32 off;
+1b. synthetic_cache — XDG_CACHE_HOME names a directory this script makes
+                (and removes at the end); every process it starts inherits
+                it.  The synthetic train and test sets are built cold into
+                the port's disk cache (data/mnist.py ``_synthetic_cached``)
+                and loaded warm, equal array for array; the seconds of each
+                are readings (the warm read comes from the page cache);
 2. build      — every kernel under pytorch_mnist_ddp_tpu_torch/csrc/, one
                 nvcc per source, all started together, loaded as the
                 wrappers do at first use; ptxas's registers, spills and
                 target per kernel (each must be sm_90a); int8_head's
                 cluster size at each timed n and how many such clusters
                 the card runs at once (cudaOccupancyMaxActiveClusters);
+2b. lint      — both passes of the port lint (``python -m
+                pytorch_mnist_ddp_tpu_torch.analysis --fail-on-warning
+                --json``, then with ``--concurrency``) over the package, in
+                processes of their own started before the build: each
+                exits 0 with no finding; the waivers they count printed;
 3. kernel     — each kernel against its plain PyTorch version on the card:
                 int8_head equal bit for bit (torch.equal) at the row counts
                 the serving ladder gives it, a row-tile boundary (16, 17),
@@ -129,6 +140,15 @@ Phases, one JSON line each:
                 against the whole-bucket forward, ms a 128-row batch
                 beside the dp engine's (or the family's single-device
                 forward's) on the same card;
+5e. sharded_bench — the sharded_bench twin (``python -m
+                pytorch_mnist_ddp_tpu_torch.tools.sharded_bench --device
+                cuda``, SHARDED_BENCH_ARGS) in a process of its own,
+                started here and read after 9: exit 0, its structural pin
+                (fake engines) PASS, every real rung's pool (over
+                ``[cuda:0] * 8``) passed its parity gates with 0 compiles
+                added after warmup, and no int8_head launch (f32 only; its
+                own counter, LAUNCH_COUNTER_SITE).  Each rung's wall time
+                is a reading: the shards run one after another on the card;
 6. train_step — 20 train steps from one set of weights on fixed batches,
                 dropout off, deterministic cuDNN, three times: the plain
                 update, the fused kernel (per-parameter state) and the
@@ -453,7 +473,14 @@ Phases, one JSON line each:
                 open-loop 100 requests/s), with its kill round: lost 0,
                 transport errors 0, the front's compiles 0 in every rung,
                 the killed backend replaced with compiles 0, and every
-                backend process a store hit with 0 nvcc builds.
+                backend process a store hit with 0 nvcc builds; (d) the
+                lock tracer's witness: the load generator in a process of
+                its own under JAXLINT_LOCKWATCH=1 (two int8 replicas,
+                --int8-impl pallas, off D, an open loop with --chaos
+                LOCKWATCH_CHAOS): exit 0, the "lock acquisition order
+                acyclic" line, and in its --prom-dump a nonzero
+                lock_acquisitions_total{site=} for each of
+                LOCKWATCH_SITES.
                 Readings: (b)'s closed-loop rate and p50/p99 and the
                 per-class p50/p99 with QoS off and on; (c)'s requests/s
                 and p50/p99 at 1 and 2 backends and the replacement's
@@ -483,7 +510,8 @@ int8_head again over 22 (each backend process's own count, written to a
 file by LAUNCH_COUNTER_SITE; a SIGKILLed process loses its last 50 ms;
 a SIGTERMed one's must equal its telemetry's int8 rungs, gate and int8
 batches; the reference engine apart); int8_head again over 23 ((b)'s in
-this process, (a)'s and (c)'s processes' own counts as in 22).
+this process, (a)'s and (c)'s processes' own counts as in 22; (d)'s own
+count apart, as the lockwatch witness's).
 Latencies, seconds per epoch and images/s are smoke readings of this
 script's own work, not a benchmark.  Any failure exits non-zero; so does a host
 without a CUDA device.
@@ -883,6 +911,20 @@ LOADGEN_MIX = "interactive=0.8,batch=0.2"
 LOADGEN_FLEET_RATE = 100.0  # (c) offered requests/s at 1 and 2 backends
 LOADGEN_FLEET_REQUESTS = 400
 LOADGEN_PROC_TIMEOUT_S = 400
+# loadgen (d): the lock tracer's witness.  The chaos schedule is the
+# loadgen tests' chaos round (r1's first three launches fail, its circuit
+# opens and the supervisor restarts it); the sites are the pool stack's
+# that every request passes through.
+LOCKWATCH_CHAOS = "fail:launch:r1:count=3"
+LOCKWATCH_ARGS = ["--replicas", "2", "--open-loop", "--rate", "100", "--requests", "80",
+                  "--chaos", LOCKWATCH_CHAOS, "--chaos-stall-timeout", "2.0"]
+LOCKWATCH_SITES = ("batcher.pending", "batcher.inflight", "router.replicas",
+                   "circuit.breaker", "qos.queue", "buckets.staging")
+# sharded_bench (5e): the twin at a reduced --requests: its fake pin's dp1
+# rung serves 12 x 3 batches of 40 ms
+SHARDED_BENCH_ARGS = ["--device", "cuda", "--requests", "12"]
+SHARDED_BENCH_TIMEOUT_S = 600
+LINT_TIMEOUT_S = 300
 
 
 _CLOCK = {"last": time.perf_counter()}
@@ -1717,9 +1759,9 @@ def loader_batches(torch):
     """One epoch of the synthetic train set's batches of 64 on the card,
     and the seconds the loader took for it."""
     from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
-    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import _synthetic_cached
 
-    images, labels = synthetic_mnist("train")
+    images, labels = _synthetic_cached("train")
     loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1977,7 +2019,7 @@ def ddp_profile(torch, np) -> dict:
     import torch.distributed as dist
 
     from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
-    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import _synthetic_cached
     from pytorch_mnist_ddp_tpu_torch.models.net import Net
     from pytorch_mnist_ddp_tpu_torch.parallel.ddp import make_train_state, make_train_step
     from pytorch_mnist_ddp_tpu_torch.parallel.distributed import (
@@ -1986,7 +2028,7 @@ def ddp_profile(torch, np) -> dict:
     )
     from pytorch_mnist_ddp_tpu_torch.utils.rng import split_streams
 
-    images, labels = synthetic_mnist("train")
+    images, labels = _synthetic_cached("train")
     batches = list(DataLoader(images, labels, DDP_BATCH, torch.device("cuda"), seed=1).epoch(1))
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": str(free_port())}
@@ -2646,7 +2688,7 @@ def vit_fused_phase(torch, np, workdir: str) -> dict:
 
     from pytorch_mnist_ddp_tpu_torch import vit_mnist
     from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
-    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import _synthetic_cached, synthetic_mnist
     from pytorch_mnist_ddp_tpu_torch.models.vit import ViT, ViTConfig
     from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
@@ -2679,7 +2721,7 @@ def vit_fused_phase(torch, np, workdir: str) -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
     try:
         # (a) captured against eager, from the same weights on the same batches
-        images, labels = synthetic_mnist("train")
+        images, labels = _synthetic_cached("train")
         loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
         test_images, test_labels = synthetic_mnist("test", 1000)
         test_loader = DataLoader(test_images, test_labels, 1000, torch.device("cuda"),
@@ -2783,7 +2825,7 @@ def vit_fused_phase(torch, np, workdir: str) -> dict:
     check(0 < row.get("mfu", 0) < 1, f"vit_fused (c): vit_bench's row {row}")
 
     # (d) where a replayed step's time goes, alone on the card
-    images, labels = synthetic_mnist("train")
+    images, labels = _synthetic_cached("train")
     loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
     model = ViT(generator=torch.Generator().manual_seed(SEED)).cuda()
     run = make_fused_vit_run(model, TrainState(opt=adadelta_init(dict(model.named_parameters()))),
@@ -5012,7 +5054,7 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
     import os
 
     from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
-    from pytorch_mnist_ddp_tpu_torch.data.mnist import synthetic_mnist
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import _synthetic_cached, synthetic_mnist
     from pytorch_mnist_ddp_tpu_torch.models.net import Net
     from pytorch_mnist_ddp_tpu_torch.obs.registry import Registry
     from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
@@ -5035,7 +5077,7 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
         return {k: af.LAUNCHES[k] - before[k] for k in before}
 
     # (a) captured against eager
-    images, labels = synthetic_mnist("train")
+    images, labels = _synthetic_cached("train")
     loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
     seed = split_streams(1)["dropout"]
     steps = fused.WARMUP_STEPS + FUSED_CAPTURED
@@ -5184,7 +5226,7 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
            "gloo_two_ranks": "refused in the ddp phase's gloo world (fused_refused)"}
 
     # (e) where a replayed step's time goes
-    images, labels = synthetic_mnist("train")
+    images, labels = _synthetic_cached("train")
     loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1)
     net = Net(torch.Generator().manual_seed(SEED)).cuda()
     run = fused.FusedEpoch(net, make_train_state(net, use_pallas=True), loader,
@@ -6663,14 +6705,8 @@ def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
 
     t_phase = time.perf_counter()
     at = functools.partial(os.path.join, workdir)
-    here = os.path.dirname(os.path.abspath(__file__))
     counter_dir = at("launch_counter")
-    os.makedirs(counter_dir)
-    with open(os.path.join(counter_dir, "sitecustomize.py"), "w") as f:
-        f.write(LAUNCH_COUNTER_SITE)
-    path = [here, counter_dir, *filter(None, [os.environ.get("PYTHONPATH")])]
-    env = no_nvcc_env({**os.environ, "CHIP_SMOKE_LAUNCH_DIR": counter_dir,
-                       "PYTHONPATH": os.pathsep.join(path)}, at("no_toolkit"))
+    env = no_nvcc_env(counter_env(counter_dir), at("no_toolkit"))
 
     def text(path: str) -> str:
         with open(path, errors="replace") as f:
@@ -6917,12 +6953,7 @@ def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
         # Row 1 on the path: each backend process's own counter, and beside
         # it what the process's telemetry (one run_id a process) implies,
         # its int8 rungs and gate and the int8 batches it served
-        counts = {}
-        for entry in os.listdir(counter_dir):
-            kind, _, pid = entry.partition(".")
-            if kind == "int8_head" and pid.isdigit():
-                with open(os.path.join(counter_dir, entry)) as f:
-                    counts[int(pid)] = int(f.read())
+        counts = counted_launches(counter_dir)
         killed = {stopped, pids["b1"]}  # (c)'s stopped b0 and (b)'s b1
         processes, unpaired = {}, {}
         for n, names_n in ((1, ["b0"]), (FLEET_BACKENDS, names)):
@@ -6987,12 +7018,14 @@ def fleet_phase(torch, np, workdir: str, store: str) -> tuple[dict, dict]:
     return launches, references
 
 
-def loadgen_phase(torch, np, workdir: str, store: str, smi: str, device: str = "cuda") -> dict:
-    """The loadgen phase (module docstring, 23): the SLO gate (a) and the
-    fleet sweep (c) in processes of their own, started together, and
-    meanwhile (b) in this process.  Returns row 1's launches on the path:
-    (b)'s from ops/int8_head.LAUNCHES, (a)'s and (c)'s from each process's
-    own counter (LAUNCH_COUNTER_SITE)."""
+def loadgen_phase(torch, np, workdir: str, store: str, smi: str,
+                  device: str = "cuda") -> tuple[dict, dict]:
+    """The loadgen phase (module docstring, 23): the SLO gate (a), the
+    fleet sweep (c) and the lockwatch witness (d) in processes of their
+    own, started together, and meanwhile (b) in this process.  Returns row
+    1's launches on the path: (b)'s from ops/int8_head.LAUNCHES, (a)'s and
+    (c)'s from each process's own counter (LAUNCH_COUNTER_SITE); and apart
+    (d)'s, from its own counter."""
     import contextlib
     import io
     import os
@@ -7005,12 +7038,7 @@ def loadgen_phase(torch, np, workdir: str, store: str, smi: str, device: str = "
     here = os.path.dirname(os.path.abspath(__file__))
     reports = os.path.join(here, "build", "loadgen")
     counter_dir = at("launch_counter")
-    os.makedirs(counter_dir)
-    with open(os.path.join(counter_dir, "sitecustomize.py"), "w") as f:
-        f.write(LAUNCH_COUNTER_SITE)
-    path = [here, counter_dir, *filter(None, [os.environ.get("PYTHONPATH")])]
-    env = no_nvcc_env({**os.environ, "CHIP_SMOKE_LAUNCH_DIR": counter_dir,
-                       "PYTHONPATH": os.pathsep.join(path)}, at("no_toolkit"))
+    env = no_nvcc_env(counter_env(counter_dir), at("no_toolkit"))
     int8 = ["--device", device, "--dtype", "int8", "--int8-impl", "pallas", "--aot-cache", store]
 
     def text(path: str) -> str:
@@ -7023,10 +7051,11 @@ def loadgen_phase(torch, np, workdir: str, store: str, smi: str, device: str = "
 
     procs: dict[str, dict] = {}
 
-    def start(name: str, argv: list[str]) -> None:
+    def start(name: str, argv: list[str], proc_env: dict = env) -> None:
         handle = open(at(f"{name}.log"), "w")
-        procs[name] = {"proc": subprocess.Popen([sys.executable, "-m", *argv], cwd=here, env=env,
-                                                stdout=handle, stderr=subprocess.STDOUT),
+        procs[name] = {"proc": subprocess.Popen([sys.executable, "-m", *argv], cwd=here,
+                                                env=proc_env, stdout=handle,
+                                                stderr=subprocess.STDOUT),
                        "handle": handle, "log": at(f"{name}.log"), "t0": time.perf_counter()}
 
     def finish(name: str) -> int | None:
@@ -7045,6 +7074,9 @@ def loadgen_phase(torch, np, workdir: str, store: str, smi: str, device: str = "
     ok: dict = {}
     record: dict = {"nvidia_smi": smi}
     launches = {"int8_head": 0}
+    lockwatch_counter = at("lockwatch_counter")
+    lockwatch_env = {**no_nvcc_env(counter_env(lockwatch_counter), at("no_toolkit")),
+                     "JAXLINT_LOCKWATCH": "1"}
     try:
         start("gate", ["pytorch_mnist_ddp_tpu_torch.tools.slo_gate", "--device", device,
                        "--workdir", at("gate"), "--keep"])
@@ -7054,6 +7086,10 @@ def loadgen_phase(torch, np, workdir: str, store: str, smi: str, device: str = "
                         "--requests", str(LOADGEN_FLEET_REQUESTS),
                         "--fleet-base-port", str(free_ports(2)),
                         "--telemetry-dir", at("fleet_tel")])
+        start("lockwatch", ["pytorch_mnist_ddp_tpu_torch.tools.serve_loadgen", *int8,
+                            *LOCKWATCH_ARGS, "--prom-dump", at("lockwatch.prom"),
+                            "--report", at("lockwatch.json")], lockwatch_env)
+        procs["lockwatch"]["exit"] = exit_clock(procs["lockwatch"]["proc"])
 
         # (b) in this process: the pool's closed-loop rate, then the tail
         # A/B at 1.2 times it, so the queue stays deep
@@ -7168,26 +7204,264 @@ def loadgen_phase(torch, np, workdir: str, store: str, smi: str, device: str = "
 
         # Row 1 on the path: (b) in this process, and each other process's
         # own counter (the gate's loadgens serve f32 and launch none)
-        counts = {}
-        for entry in os.listdir(counter_dir):
-            kind, _, pid = entry.partition(".")
-            if kind == "int8_head" and pid.isdigit():
-                with open(os.path.join(counter_dir, entry)) as f:
-                    counts[int(pid)] = int(f.read())
+        counts = counted_launches(counter_dir)
         launches["int8_head"] = launches_b + sum(counts.values())
         record["int8_head"] = {"b_in_process": launches_b, "by_process": counts}
         ok["launches"] = {"fleet_backends_counted": sum(counts.values()) > 0}
+
+        # (d) the lockwatch witness, waited on
+        witness = lockwatch_witness(finish("lockwatch"), procs["lockwatch"],
+                                    at("lockwatch.prom"), lockwatch_counter, smi)
     finally:
         for name in procs:
             finish(name)
     emit({"phase": "loadgen", "checks": ok, "record": record, "launches": launches,
           "seconds": time.perf_counter() - t_phase})
+    emit(witness)
     for name, checks in ok.items():
         check(all(checks.values()), f"loadgen {name}: {checks}")
-    return launches
+    check(all(witness["checks"].values()), f"lockwatch witness: {witness['checks']}")
+    return launches, witness["launches"]
+
+
+def lockwatch_witness(rc: int | None, proc: dict, prom_path: str, counter_dir: str,
+                      smi: str) -> dict:
+    """The lockwatch line (loadgen (d)) from the witness process's exit
+    code, log, --prom-dump and launch counter."""
+    with open(proc["log"], errors="replace") as f:
+        log = f.read()
+    try:
+        with open(prom_path) as f:
+            prom = f.read()
+    except OSError:
+        prom = ""
+    sites = {}
+    for line in prom.splitlines():
+        if line.startswith("lock_acquisitions_total{"):
+            site = line.split('site="', 1)[1].split('"', 1)[0]
+            sites[site] = float(line.rsplit(" ", 1)[1])
+    holds = {}
+    for line in prom.splitlines():
+        if line.startswith("lock_hold_seconds_sum{"):
+            holds[line.split('site="', 1)[1].split('"', 1)[0]] = float(line.rsplit(" ", 1)[1])
+    counts = counted_launches(counter_dir)
+    proc["exit"]["thread"].join()
+    checks = {"exit_0": rc == 0,
+              "acyclic_line": "lockwatch: lock acquisition order acyclic" in log,
+              "no_cycle": "LOCK ORDER CYCLE" not in log,
+              "pool_sites_counted": all(sites.get(site, 0) > 0 for site in LOCKWATCH_SITES),
+              "row1_launched": sum(counts.values()) > 0}
+    record = {"phase": "lockwatch", "nvidia_smi": smi, "args": LOCKWATCH_ARGS,
+              "checks": checks, "lock_acquisitions": sites, "lock_hold_seconds_sum": holds,
+              "launches": {"int8_head": sum(counts.values())}, "by_process": counts,
+              "seconds": proc["exit"]["t_end"] - proc["t0"]}
+    if not all(checks.values()):
+        record["log_tail"] = log[-3000:]
+    return record
+
+
+def synthetic_cache_phase(np) -> None:
+    """The synthetic_cache phase (module docstring, 1b): each split built
+    cold into the port's disk cache under XDG_CACHE_HOME, then loaded warm."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.data import mnist
+    from pytorch_mnist_ddp_tpu_torch.utils.cache_dir import cache_root
+
+    t_phase = time.perf_counter()
+    cold, warm = {}, {}
+    for split in ("train", "test"):
+        t0 = time.perf_counter()
+        built = mnist._synthetic_cached(split)
+        cold[split] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = mnist._synthetic_cached(split)
+        warm[split] = time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in zip(built, loaded)),
+              f"the cached {split} set is not the set built")
+    directory = cache_root("torch", "synthetic")
+    files = sorted(os.listdir(directory))
+    check(files == [f"{split}-s1234-v{mnist._SYNTH_VERSION}.npz" for split in ("test", "train")],
+          f"cache files {files}")
+    emit({"phase": "synthetic_cache", "dir": directory, "files": files,
+          "cold_build_s": cold, "warm_load_s": warm,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def exit_clock(proc) -> dict:
+    """``{"t_end": ...}`` once ``proc`` has exited, set by a thread that
+    waits on it: the process's own wall time, however late it is read."""
+    clock: dict = {}
+
+    def wait() -> None:
+        proc.wait()
+        clock["t_end"] = time.perf_counter()
+
+    clock["thread"] = threading.Thread(target=wait, daemon=True)
+    clock["thread"].start()
+    return clock
+
+
+def lint_start() -> dict:
+    """Both passes of the port lint in processes of their own (2b)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    runs = {}
+    for name, flags in (("default", []), ("concurrency", ["--concurrency"])):
+        runs[name] = {"t0": time.perf_counter(), "proc": subprocess.Popen(
+            [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.analysis", "--fail-on-warning",
+             "--json", *flags], cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)}
+        runs[name]["exit"] = exit_clock(runs[name]["proc"])
+        BACKGROUND.append(runs[name]["proc"])
+    return runs
+
+
+def lint_finish(runs: dict) -> None:
+    """Wait for :func:`lint_start`'s passes; each must exit 0 with no
+    finding.  Emits the lint line (2b)."""
+    t_phase = min(run["t0"] for run in runs.values())
+    passes = {}
+    for name, run in runs.items():
+        try:
+            out, err = run["proc"].communicate(timeout=LINT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            run["proc"].kill()
+            out, err = run["proc"].communicate()
+        run["exit"]["thread"].join()
+        seconds = run["exit"]["t_end"] - run["t0"]
+        try:
+            report = json.loads(out)
+        except ValueError:
+            report = {}
+        passes[name] = {"exit": run["proc"].returncode, "errors": report.get("errors"),
+                        "warnings": report.get("warnings"), "findings": report.get("findings"),
+                        "waivers": report.get("suppressed"), "seconds": seconds}
+        if run["proc"].returncode != 0 or not report:
+            passes[name]["stderr_tail"] = err[-2000:]
+    # the passes run beside the build: the phase's seconds are the longer pass's
+    emit({"phase": "lint", "passes": passes, "seconds": max(p["seconds"] for p in passes.values()),
+          "read_after_s": time.perf_counter() - t_phase})
+    for name, p in passes.items():
+        check(p["exit"] == 0 and p["errors"] == 0 and p["warnings"] == 0 and not p["findings"],
+              f"the port lint's {name} pass: {p}")
+
+
+def counter_env(counter_dir: str) -> dict:
+    """This process's environment for a child whose int8_head launches
+    LAUNCH_COUNTER_SITE writes under ``counter_dir`` (made here)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(counter_dir)
+    with open(os.path.join(counter_dir, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_COUNTER_SITE)
+    path = [here, counter_dir, *filter(None, [os.environ.get("PYTHONPATH")])]
+    return {**os.environ, "CHIP_SMOKE_LAUNCH_DIR": counter_dir,
+            "PYTHONPATH": os.pathsep.join(path)}
+
+
+def counted_launches(counter_dir: str) -> dict[int, int]:
+    """Each process's int8_head launches, as LAUNCH_COUNTER_SITE wrote them."""
+    import os
+
+    counts = {}
+    for entry in os.listdir(counter_dir):
+        kind, _, pid = entry.partition(".")
+        if kind == "int8_head" and pid.isdigit():
+            with open(os.path.join(counter_dir, entry)) as f:
+                counts[int(pid)] = int(f.read())
+    return counts
+
+
+def sharded_bench_start(workdir: str) -> dict:
+    """The sharded_bench twin in a process of its own (5e)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = os.path.join(workdir, "sharded_bench.log")
+    handle = open(log, "w")
+    report = os.path.join(workdir, "BENCH_sharded.json")
+    counter_dir = os.path.join(workdir, "launch_counter")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.sharded_bench",
+         *SHARDED_BENCH_ARGS, "--report", report], cwd=here, env=counter_env(counter_dir),
+        stdout=handle, stderr=subprocess.STDOUT)
+    BACKGROUND.append(proc)
+    return {"proc": proc, "handle": handle, "log": log, "report": report,
+            "counter_dir": counter_dir, "t0": time.perf_counter(), "exit": exit_clock(proc)}
+
+
+def sharded_bench_finish(run: dict, smi: str) -> None:
+    """Wait for :func:`sharded_bench_start`'s process and check what it
+    wrote (5e)."""
+    try:
+        rc = run["proc"].wait(timeout=max(1.0, SHARDED_BENCH_TIMEOUT_S
+                                          - (time.perf_counter() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        run["proc"].kill()
+        rc = run["proc"].wait()
+    run["exit"]["thread"].join()
+    seconds = run["exit"]["t_end"] - run["t0"]
+    run["handle"].close()
+    with open(run["log"], errors="replace") as f:
+        log = f.read()
+    try:
+        with open(run["report"]) as f:
+            report = json.load(f)
+    except (OSError, ValueError):
+        report = {"structural_pin": {}, "real_sweep": []}
+    pin, sweep = report["structural_pin"], report["real_sweep"]
+    launches = counted_launches(run["counter_dir"])
+    ok = {"exit_0": rc == 0, "pass_line": "SHARDED BENCH: PASS" in log,
+          "pin_passed": bool(pin.get("passed")),
+          "every_plan_ran": [r["replica_shapes"] for r in sweep] == [
+              "dp,dp,dp,dp", "tp4", "tp4,dp,dp,dp,dp", "ep2,ep2", "pp2,pp2"],
+          "every_rung_passed": bool(sweep) and all(r["passed"] for r in sweep),
+          "no_compile_added": bool(sweep) and all(r["additional_compiles"] == 0
+                                                  for r in sweep),
+          "no_int8_head_launch": sum(launches.values()) == 0}
+    record = {"phase": "sharded_bench", "nvidia_smi": smi, "args": SHARDED_BENCH_ARGS,
+              "checks": ok, "seconds": seconds,
+              "pin": {k: pin.get(k) for k in ("service_ms", "requests", "tp4_win_vs_dp1",
+                                              "min_win", "passed")},
+              "pin_wall_s": {k: r["wall_s"] for k, r in (pin.get("rungs") or {}).items()},
+              "real_rungs": [{k: r[k] for k in ("replica_shapes", "devices", "wall_s",
+                                                "warmup_compiles", "additional_compiles",
+                                                "parity", "passed")} for r in sweep]}
+    if not all(ok.values()):
+        record["log_tail"] = log[-3000:]
+    emit(record)
+    check(all(ok.values()), f"sharded_bench: {ok}")
+
+
+# Processes started to run beside later phases (2b, 5e): main() kills any
+# still running when the script ends, whatever ended it.
+BACKGROUND: list = []
 
 
 def main() -> int:
+    """Run every phase in a work directory of this run's own, removed at
+    the end: XDG_CACHE_HOME points into it (the synthetic set's disk cache,
+    for this process and every process it starts)."""
+    import os
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.environ["XDG_CACHE_HOME"] = os.path.join(workdir, "cache")
+    try:
+        return run_phases(workdir)
+    finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_phases(run_dir: str) -> int:
     import os
 
     import torch
@@ -7227,7 +7501,12 @@ def main() -> int:
           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                    "matmul": torch.backends.cuda.matmul.allow_tf32}})
 
-    # 2. build: one nvcc per source, all started together
+    # 1b. the synthetic set's disk cache: built cold, loaded warm
+    synthetic_cache_phase(np)
+
+    # 2. build: one nvcc per source, all started together; 2b's lint passes
+    # run beside it
+    lint_runs = lint_start()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.sources())) as pool:
         list(pool.map(_build.library, _build.sources()))
@@ -7242,6 +7521,7 @@ def main() -> int:
           "int8_head_plan_by_n": {n: {key: p[key] for key in ("cluster", "grid", "smem",
                                                              "max_clusters", "waves")}
                                   for n, p in head_plans.items()}})
+    lint_finish(lint_runs)
 
     # 3. kernel against its plain version, at the ladder's row counts
     state = Net(torch.Generator().manual_seed(SEED)).state_dict()
@@ -7428,6 +7708,12 @@ def main() -> int:
     # device list; f32 only, so no kernel of the table runs on this path
     sharded_phase(torch, np, smi)
 
+    # 5e. the sharded_bench twin in a process of its own, beside 6-9 (f32
+    # only: its own counter must stay at 0)
+    bench_dir = os.path.join(run_dir, "sharded_bench")
+    os.makedirs(bench_dir)
+    bench_run = sharded_bench_start(bench_dir)
+
     # 6-9. the training path; adadelta launch counts cover these four
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
@@ -7442,6 +7728,7 @@ def main() -> int:
     for k, v in train_launches.items():
         check(v > 0, f"the training path never launched {k}")
     check(by_phase["resume"]["adadelta_delta"] > 0, "no delta kernel launch on restored state")
+    sharded_bench_finish(bench_run, smi)
 
     # 9b. fused: the fused path and the prefetch; their adadelta launches
     # (the launcher rank's included) counted on their own, the per-batch
@@ -7556,8 +7843,8 @@ def main() -> int:
         fleet_launches, fleet_references = fleet_phase(torch, np, os.path.join(workdir, "fleet"),
                                                        os.path.join(workdir, "aot"))
         ih.LAUNCHES = 0
-        loadgen_launches = loadgen_phase(torch, np, os.path.join(workdir, "loadgen"),
-                                         os.path.join(workdir, "aot"), smi)
+        loadgen_launches, lockwatch_launches = loadgen_phase(
+            torch, np, os.path.join(workdir, "loadgen"), os.path.join(workdir, "aot"), smi)
     check(fleet_launches["int8_head"] > 0, "the fleet path never launched int8_head")
     check(loadgen_launches["int8_head"] > 0, "the loadgen path never launched int8_head")
     top = by_n[str(TIMED_ROWS[-1])]
@@ -7567,13 +7854,14 @@ def main() -> int:
         "replaces": "pytorch_mnist_ddp_tpu/ops/pallas_infer.py:61",
         "launches": (launches + stack_launches["int8_head"] + pool_launches["int8_head"]
                      + comp_launches["int8_head"] + fleet_launches["int8_head"]
-                     + loadgen_launches["int8_head"]),
+                     + loadgen_launches["int8_head"] + lockwatch_launches["int8_head"]),
         "launches_by_phase": {"engine_server": launches,
                               "serving_stack": stack_launches["int8_head"],
                               "pool": pool_launches["int8_head"],
                               "compile": comp_launches["int8_head"],
                               "fleet": fleet_launches["int8_head"],
-                              "loadgen": loadgen_launches["int8_head"]},
+                              "loadgen": loadgen_launches["int8_head"],
+                              "lockwatch": lockwatch_launches["int8_head"]},
         "serving_stack_reference_launches": stack_references["int8_head"],
         "pool_reference_launches": pool_references["int8_head"],
         "fleet_reference_launches": fleet_references["int8_head"],

@@ -7,8 +7,12 @@
    byte-identical to the JAX package's ``synthetic_mnist`` for the same
    arguments (numpy only).  A notice is printed once.
 
-Neither download nor a disk cache of the synthetic set is kept: the port
-runs on hosts without a network, and the set builds in seconds.
+The synthetic set is built once per (split, seed, generator version) and
+kept as an npz under ``$XDG_CACHE_HOME|~/.cache/tpu_mnist_ddp/torch/
+synthetic`` (``utils/cache_dir.py``): later processes load it instead of
+building it, as the JAX package does with its own files (the port keeps
+its own subdirectory and never reads theirs).  No download is tried: the
+port runs on hosts without a network.
 """
 
 from __future__ import annotations
@@ -142,6 +146,42 @@ def synthetic_mnist(
     return images, labels
 
 
+# Bump when synthetic_mnist's algorithm or defaults change, so stale disk
+# caches regenerate instead of silently serving pre-change data.
+_SYNTH_VERSION = 2
+
+
+def _synthetic_cached(split: str, seed: int = 1234) -> tuple[np.ndarray, np.ndarray]:
+    """Disk-cached synthetic dataset: generated once per (split, seed,
+    generator version), then loaded from the npz on later runs (startup is
+    part of the timed wall clock, as in the reference's mnist_ddp.py).  A
+    corrupt file is regenerated; an unwritable cache directory serves from
+    memory."""
+    from ..utils.cache_dir import cache_root
+
+    n = 60000 if split == "train" else 10000
+    path = os.path.join(
+        cache_root("torch", "synthetic"), f"{split}-s{seed}-v{_SYNTH_VERSION}.npz"
+    )
+    if os.path.exists(path):
+        try:
+            with np.load(path) as z:
+                images, labels = z["images"], z["labels"]
+            if images.shape == (n, 28, 28) and labels.shape == (n,):
+                return images, labels
+        except Exception:
+            pass  # corrupt cache: regenerate below
+    images, labels = synthetic_mnist(split, seed=seed)
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + f".{os.getpid()}.tmp.npz"
+        np.savez(tmp, images=images, labels=labels)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # read-only cache dir: serve from memory
+    return images, labels
+
+
 _synthetic_notice_printed = False
 
 
@@ -160,7 +200,7 @@ def load_mnist_arrays(
             if not _synthetic_notice_printed:
                 print(SYNTHETIC_NOTICE)
                 _synthetic_notice_printed = True
-            images, labels = synthetic_mnist(split)
+            images, labels = _synthetic_cached(split)
             return images, labels, "synthetic"
         arrays[kind] = parse_idx(raw)
     if len(arrays["images"]) != len(arrays["labels"]):

@@ -117,8 +117,11 @@ class PreemptionHandler:
             os.close(r)
             self._pipe = self._reader = None
             self._installed = False
-        if self._timer is not None:
-            # An in-process caller outlives the "preemption": the timer
-            # must not kill it grace_s later.
-            self._timer.cancel()
-            self._timer = None
+        # An in-process caller outlives the "preemption": the timer must
+        # not kill it grace_s later.  Taken under the lock _arm() holds, so
+        # a timer armed by the wakeup thread is never left running; the
+        # handlers are restored by now, so no handler re-enters the lock.
+        with self._lock:
+            timer, self._timer = self._timer, None
+        if timer is not None:
+            timer.cancel()

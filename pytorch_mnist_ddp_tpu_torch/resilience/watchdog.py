@@ -28,6 +28,8 @@ from __future__ import annotations
 import threading
 import time
 
+from ..analysis.lockwatch import make_lock
+
 
 class StepWatchdog:
     def __init__(self, timeout_s: float, on_stall, poll_s: float | None = None) -> None:
@@ -36,7 +38,7 @@ class StepWatchdog:
         self.timeout_s = float(timeout_s)
         self.on_stall = on_stall
         self.poll_s = float(poll_s) if poll_s else max(timeout_s / 4.0, 0.01)
-        self._lock = threading.Lock()
+        self._lock = make_lock("watchdog.heartbeat")
         self._window_start: float | None = None  # None: suspended
         self._beats = 0
         self._reported_window = -1  # the beat index already reported

@@ -78,6 +78,7 @@ import time
 
 import numpy as np
 
+from ..analysis.lockwatch import make_lock
 from ..models.net import INPUT_SHAPE
 from ..obs.spans import span
 from .buckets import StagingPool, segment_ids
@@ -126,7 +127,7 @@ class PendingRequest:
         self.completed_by: str | None = None
         self._copies = 1
         self._event = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = make_lock("batcher.pending")
         self._value: np.ndarray | None = None
         self._error: BaseException | None = None
 
@@ -357,7 +358,7 @@ class MicroBatcher:
         # Packed-split reassembly (completion worker only): id(request)
         # -> [request, out buffer, rows filled].
         self._assembly: dict[int, list] = {}
-        self._inflight_lock = threading.Lock()
+        self._inflight_lock = make_lock("batcher.inflight")
         self._inflight = 0
         # The supervisor's health signals (serving/pool.py): launched
         # batches not yet read back (the oldest one's age) and the current
@@ -366,7 +367,7 @@ class MicroBatcher:
         self.consecutive_launch_failures = 0
         self._aborted = threading.Event()
         self._closed = threading.Event()
-        self._stop_lock = threading.Lock()
+        self._stop_lock = make_lock("batcher.stop")
         self._worker: threading.Thread | None = None
         self._completer: threading.Thread | None = None
 
@@ -401,13 +402,13 @@ class MicroBatcher:
             if not drain:
                 self._flush_rejected()
             if self._worker is not None:
-                self._worker.join()
+                self._worker.join()  # jaxlint: disable=JL021 -- the join IS the drain: stop() holds _stop_lock exactly so concurrent stops serialize behind worker exit; admission is already closed, so the wait is bounded
                 self._worker = None
             # Every launched batch is enqueued by now; the sentinel lands
             # after them, so the join proves the window drained.
             if self._completer is not None:
                 self._completions.put(None)
-                self._completer.join()
+                self._completer.join()  # jaxlint: disable=JL021 -- stop-path serialization, same contract as the dispatch-worker join above; the sentinel just enqueued guarantees exit
                 self._completer = None
             # A submit racing stop() can land after the worker exited.
             self._flush_rejected()

@@ -13,11 +13,12 @@ host-to-device copy of a batch can run asynchronously.
 
 from __future__ import annotations
 
-import threading
 from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..analysis.lockwatch import make_lock
 
 # Default ladder ceiling: 1, 2, 4, ..., 128.
 DEFAULT_MAX_BUCKET = 128
@@ -131,7 +132,7 @@ class StagingPool:
             raise ValueError(f"need >= 1 staging slot per bucket, got {slots}")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.slots = slots
-        self._cond = threading.Condition()
+        self._cond = make_lock("buckets.staging", kind="condition")
         self._free: dict[int, list[torch.Tensor]] = {
             b: [
                 torch.zeros((b, *item_shape), dtype=torch.float32, pin_memory=pin)

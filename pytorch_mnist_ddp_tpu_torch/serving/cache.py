@@ -30,6 +30,8 @@ import hashlib
 import threading
 from collections import OrderedDict
 
+from ..analysis.lockwatch import make_lock
+
 # claim() outcomes (also the serving_cache_total{outcome=} label values).
 HIT = "hit"
 MISS = "miss"
@@ -114,7 +116,7 @@ class ResponseCache:
         self.sink = sink
         self.scope = scope
         self._generation = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.response")
         self._done: OrderedDict[tuple, object] = OrderedDict()
         self._pending: dict[tuple, Flight] = {}
         if metrics is not None:

@@ -20,7 +20,7 @@ Transitions land on the ``serving_circuit_state{replica=}`` gauge and as
 
 from __future__ import annotations
 
-import threading
+from ..analysis.lockwatch import make_lock
 
 # Circuit states, and the numeric encoding the serving_circuit_state
 # gauge exports: 0 = closed (healthy), 1 =
@@ -60,7 +60,7 @@ class CircuitBreaker:
         self._consecutive_failures = 0
         self._trial_inflight = 0
         self._trial_passed = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("circuit.breaker")
         self._sink = sink
         self._gauge = (
             registry.gauge(

@@ -92,12 +92,12 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
-import threading
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from ..analysis.lockwatch import make_lock
 from ..compile import ExecutableStore, Program
 from ..compile.service import timed
 from ..data.transforms import normalize
@@ -330,7 +330,7 @@ class InferenceEngine:
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         # Warmup rungs run, ever: a pool's restart or add must run none.
         self.rungs_run = 0
-        self._late_build = threading.Lock()  # a rung built on a request's path
+        self._late_build = make_lock("engine.late_build")  # a rung built on a request's path
         if self.device.type == "cuda":
             # cuDNN runs f32 convolutions in TF32 by default (about three
             # decimal digits), which would put the f32 variant — the
@@ -946,7 +946,7 @@ class InferenceEngine:
             staged, bucket = self._staging.stage([chunk])
             try:
                 result = self.launch(staged, len(chunk), dtype=dtype)
-                outs.append(result.wait()[: len(chunk)].copy())
+                outs.append(result.wait()[: len(chunk)].copy())  # jaxlint: disable=JL009 -- serial direct-call path: each chunk is read inline by contract; the overlapped read lives in the batcher's completion worker
             finally:
                 self._staging.release(staged, bucket)
         out = outs[0] if len(outs) == 1 else np.concatenate(outs)

@@ -54,6 +54,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..analysis.lockwatch import make_lock
 from ..liveness import (
     BackoffLadder,
     Heartbeat,
@@ -132,11 +133,11 @@ class Backend:
         self.polled_compiles: int | None = None
         self.polled_at: float | None = None
         self.front_inflight = 0
-        self._inflight_lock = threading.Lock()
+        self._inflight_lock = make_lock("fleet.backend.inflight")
         self._ewma_s: float | None = None
         self._pool_size = pool_size
         self._idle: list[http.client.HTTPConnection] = []
-        self._conn_lock = threading.Lock()
+        self._conn_lock = make_lock("fleet.backend.conn")
 
     @property
     def url(self) -> str:
@@ -376,7 +377,7 @@ class FleetRouter:
         self.policy = policy
         self.default_timeout_s = float(default_timeout_s)
         self._rr = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("fleet.router")
 
     # -- ordering (serving/router.py's shapes, over backends) -----------------
 
@@ -1080,7 +1081,7 @@ class Fleet:
         self.backends: list[Backend] = []
         self.retired: list[Backend] = []
         self._seq = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("fleet.members")
         self.supervisor: FleetSupervisor | None = None
         self.autoscaler: FleetAutoscaler | None = None
         self._poller: threading.Thread | None = None

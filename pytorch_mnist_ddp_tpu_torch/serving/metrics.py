@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import time
 
+from ..analysis import lockwatch
 from ..obs.registry import Registry, percentile
 
 HEDGE_OUTCOMES = ("won", "lost", "cancelled")
@@ -66,6 +67,10 @@ class ServingMetrics:
 
     def __init__(self, reservoir: int = 8192, registry: Registry | None = None):
         self.registry = registry if registry is not None else Registry()
+        # Under JAXLINT_LOCKWATCH=1 the traced-lock acquisition counters
+        # (lock_acquisitions_total{site=}, lock_hold_seconds) land in the
+        # same registry as the serving series; no-op otherwise.
+        lockwatch.attach(self.registry)
         self._reservoir = reservoir
         self._t0 = time.perf_counter()
         self._requests = {

@@ -58,6 +58,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from ..analysis.lockwatch import make_lock
 from ..compile import ExecutableStore
 from ..liveness import BackoffLadder
 from .batcher import MicroBatcher
@@ -497,8 +498,8 @@ class EnginePool:
         self.supervisor: ReplicaSupervisor | None = None
         self._batcher_kwargs: dict = {}
         self._sink = None
-        self._add_lock = threading.Lock()
-        self._rung_lock = threading.Lock()
+        self._add_lock = make_lock("pool.add")
+        self._rung_lock = make_lock("pool.rung")
 
     # -- construction helpers ---------------------------------------------------
 
@@ -507,7 +508,7 @@ class EnginePool:
         """Read the checkpoint ONCE on the host; each replica places it."""
         from ..utils.checkpoint import load_inference_state
 
-        return cls(load_inference_state(path), **kwargs)
+        return cls(load_inference_state(path), **kwargs)  # jaxlint: disable=JL022 -- pre-registry CLI surface (--checkpoint without --registry); digest ownership stays with the operator
 
     @classmethod
     def from_seed(cls, seed: int = 1, **kwargs) -> "EnginePool":

@@ -30,9 +30,10 @@ order as the JAX package's queue.  Standard library only.
 from __future__ import annotations
 
 import queue
-import threading
 import time
 from collections import deque
+
+from ..analysis.lockwatch import make_lock
 
 # Priority order, most latency-sensitive first.  The names are the label
 # values on every per-class metric family, so keep them short and stable.
@@ -84,7 +85,7 @@ class QoSQueue:
         # service share have been used this cycle.
         self._wrr_class = 0
         self._wrr_served = 0
-        self._cond = threading.Condition()
+        self._cond = make_lock("qos.queue", kind="condition")
 
     # -- sizes -----------------------------------------------------------------
 

@@ -28,10 +28,10 @@ swap, rollback) is :class:`~.rollout.RolloutController`.
 from __future__ import annotations
 
 import os
-import threading
 
 import torch
 
+from ..analysis.lockwatch import make_lock
 from ..utils.checkpoint import (
     load_inference_state,
     load_registry_manifest,
@@ -99,7 +99,7 @@ class ModelRegistry:
     def __init__(self, directory: str, sink=None):
         self.directory = os.path.abspath(directory)
         self._sink = sink
-        self._lock = threading.Lock()
+        self._lock = make_lock("registry.manifest")
         self._default_model: str | None = None
         self._models: dict[str, dict] = {}
         if os.path.exists(registry_manifest_path(self.directory)):

@@ -38,8 +38,8 @@ events.
 from __future__ import annotations
 
 import hashlib
-import threading
 
+from ..analysis.lockwatch import make_lock
 from .circuit import CIRCUIT_OPEN, CircuitBreaker
 from .engine import VERSION_SEP
 from .registry import RegistryError
@@ -136,7 +136,7 @@ class RolloutController:
         self.divergence_budget = (
             None if divergence_budget is None else float(divergence_budget)
         )
-        self._lock = threading.Lock()
+        self._lock = make_lock("rollout.state")
         entry = registry.resolve()
         self._model = entry.model
         self._version = entry.version

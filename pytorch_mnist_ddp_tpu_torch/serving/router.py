@@ -50,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..analysis.lockwatch import make_lock
 from .batcher import MicroBatcher, PendingRequest, RejectedError
 from .circuit import CIRCUIT_CLOSED, CIRCUIT_HALF_OPEN, CircuitBreaker
 from .qos import DEFAULT_QOS
@@ -265,7 +266,7 @@ class HedgeManager:
         self.min_samples = min_samples
         self.digest_refresh_s = digest_refresh_s
         self._entries: list[_HedgeEntry] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("router.hedge")
         self._p99: dict[str, tuple[float, float | None]] = {}  # qos -> (t, p99)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -462,7 +463,7 @@ class Router:
         self.metrics = metrics
         self._registry = registry
         self._sink = sink
-        self._lock = threading.Lock()
+        self._lock = make_lock("router.replicas")
         self._rr = 0
         self._breaker_kwargs = dict(
             failure_threshold=failure_threshold,

@@ -100,7 +100,7 @@ def single_device_model(kind: str, state, vit_cfg: ViTConfig | None):
     the CPU (what the parity gate's reference runs)."""
     model = (ViT(vit_cfg, generator=torch.Generator()) if kind in ("vtp", "ep")
              else Net(torch.Generator()))
-    model.load_state_dict(state)
+    model.load_state_dict(state)  # jaxlint: disable=JL022 -- nn.Module.load_state_dict of the replica's own resolved weights into the parity gate's CPU reference: no file is read and no served weight changes
     return model.eval().requires_grad_(False)
 
 

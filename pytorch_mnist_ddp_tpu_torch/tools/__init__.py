@@ -16,7 +16,10 @@
   trace distilled to a per-category, per-op table; ``.tools.step_attr_bench``:
   a ladder of CNN step variants, each one CUDA graph; ``.tools.perf_report
   --telemetry DIR``: the summary of a ``--telemetry-dir`` directory (the
-  JAX package's tools of the same names).
+  JAX package's tools of the same names);
+- ``.tools.sharded_bench``: the sharded structural pin (fake engines through
+  the batcher and router) and the replica-shape sweep of real pools over
+  one device (the JAX package's ``tools/sharded_bench.py``).
 
 None imports torch at module level: ``serve_loadgen --url`` drives a
 remote endpoint without it.

@@ -88,8 +88,9 @@ drives ``serving/fleet.py``: real backend processes on one
 
 Every report defaults to a path under ``build/loadgen/`` (relative to the
 working directory), so a run never overwrites the JAX tool's committed
-``BENCH_*.json`` files.  ``JAXLINT_LOCKWATCH=1`` is refused (exit 2): the
-port has no runtime lock-order tracer yet.
+``BENCH_*.json`` files.  Under ``JAXLINT_LOCKWATCH=1`` the serving
+stack's locks are traced (``analysis/lockwatch.py``), and the run fails
+(``rc or 3``) when the observed acquisition order has a cycle.
 
 Usage::
 
@@ -115,8 +116,6 @@ import urllib.request
 # Every report's default directory, relative to the working directory:
 # the JAX tool's defaults would overwrite its committed BENCH_*.json.
 REPORT_DIR = os.path.join("build", "loadgen")
-
-LOCKWATCH_ENV = "JAXLINT_LOCKWATCH"
 
 
 def _write_json(path: str, doc) -> None:
@@ -1918,7 +1917,7 @@ def _spin_registry_serve(args):
     base_seed = args.seed or 1
     for i, seed in enumerate((base_seed, base_seed + 1), start=1):
         path = os.path.join(regdir, f"v{i}.pt")
-        save_state_dict(model_state_dict(Net(torch.Generator().manual_seed(seed))), path)
+        save_state_dict(model_state_dict(Net(torch.Generator().manual_seed(seed))), path)  # jaxlint: disable=JL014 -- bounded two-version publish, not a step loop
         registry.publish("mnist", f"v{i}", path, make_default=(i == 1))
     entry = registry.resolve()
     engine = InferenceEngine(
@@ -2549,7 +2548,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    refusal = _lockwatch_gate() or _replica_plan_refusal(args.replica_shapes, args.device)
+    refusal = _replica_plan_refusal(args.replica_shapes, args.device)
     if refusal:
         print(refusal)
         return 2
@@ -2752,20 +2751,21 @@ def main(argv: list[str] | None = None) -> int:
     return chaos_rc
 
 
-def _lockwatch_gate() -> str | None:
-    """The JAX tool checks its runtime lock-order tracer after the load
-    under ``JAXLINT_LOCKWATCH=1``.  The port has no such tracer yet (the
-    counterpart of the JAX package's ``analysis/lockwatch.py``, ROADMAP.md
-    item 20), so the flag is refused before anything runs: a gate that
-    passed silently would claim a check nobody made."""
-    value = os.environ.get(LOCKWATCH_ENV, "").strip().lower()
-    if value in ("", "0", "false", "no", "off"):
-        return None
-    return (
-        f"error: {LOCKWATCH_ENV}={value} asks for the runtime lock-order "
-        "check, and the port has no lock tracer yet (ROADMAP.md item 20, "
-        "the port's counterpart of analysis/lockwatch.py); unset it"
-    )
+def _lockwatch_gate(rc: int) -> int:
+    """Under JAXLINT_LOCKWATCH=1, fail the run if the traced locks
+    recorded a lock-order cycle — the runtime half of JL019, checked
+    against REAL serving traffic after the load completes."""
+    from ..analysis import lockwatch
+
+    if not lockwatch.enabled():
+        return rc
+    try:
+        lockwatch.assert_acyclic()
+    except lockwatch.LockOrderError as e:
+        print(f"LOCK ORDER CYCLE: {e}", file=sys.stderr)
+        return rc or 3
+    print("lockwatch: lock acquisition order acyclic")
+    return rc
 
 
 def _replica_plan_refusal(spec: str | None, device: str | None) -> str | None:
@@ -2784,4 +2784,4 @@ def _replica_plan_refusal(spec: str | None, device: str | None) -> str | None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_lockwatch_gate(main()))

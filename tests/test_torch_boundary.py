@@ -673,7 +673,7 @@ def test_a_flagless_run_builds_no_runtime_and_no_sink_and_reads_no_more(monkeypa
 
 TOOL_MODULES = ("tools/__init__.py", "tools/serve_loadgen.py", "tools/slo_gate.py",
                 "tools/train_chaos.py", "tools/trace_attr.py", "tools/step_attr_bench.py",
-                "tools/perf_report.py")
+                "tools/perf_report.py", "tools/sharded_bench.py")
 _PARSE_ARGS = argparse.ArgumentParser.parse_args
 
 
@@ -837,3 +837,61 @@ def test_training_tools_run_with_jax_poisoned(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sharded_bench_flags_are_the_jax_tool_s(monkeypatch):
+    """JAX's flags and defaults plus ``--device``; the report goes under
+    ``build/sharded/`` so the tracked ``BENCH_sharded.json`` stays JAX's.
+    The JAX tool sets ``XLA_FLAGS`` and ``JAX_PLATFORMS`` when it loads:
+    both are restored."""
+    from pytorch_mnist_ddp_tpu_torch.tools import sharded_bench  # noqa: PLC0415
+
+    for name in ("XLA_FLAGS", "JAX_PLATFORMS"):
+        monkeypatch.setenv(name, os.environ.get(name, ""))
+    jax_flags = _flags(_jax_tool_parser("sharded_bench", monkeypatch))
+    port = _flags(sharded_bench.build_parser())
+    assert set(port) == set(jax_flags) | {"--device"} and port["--device"] == "cuda"
+    assert {k: v for k, v in port.items() if k not in ("--device", "--report")} == {
+        k: v for k, v in jax_flags.items() if k != "--report"}
+    assert jax_flags["--report"] == "BENCH_sharded.json"
+    assert port["--report"] == os.path.join("build", "sharded", "BENCH_sharded.json")
+
+
+# -- the port lint (analysis/) and the synthetic cache (utils/cache_dir.py) ----
+
+LINT_AND_CACHE = sorted(str(p.relative_to(PKG)) for p in (PKG / "analysis").glob("*.py")) + [
+    "utils/cache_dir.py"]
+
+
+def test_the_lint_and_the_cache_join_the_scans():
+    """Both scans above walk the package, the lint and the cache helper
+    included; the lint imports no torch anywhere (the fleet front, which
+    imports no torch, builds its locks through it)."""
+    scanned = {str(p.relative_to(PKG)) for p in PORT_FILES if PKG in p.parents}
+    assert set(LINT_AND_CACHE) <= scanned and len(LINT_AND_CACHE) == 7
+    for name in LINT_AND_CACHE:
+        roots = {n.split(".")[0] for n in _absolute_imports(PKG / name)}
+        assert not roots & set(FORBIDDEN_ROOTS + ("torch", "numpy")), (name, roots)
+
+
+def test_the_lint_runs_with_torch_jax_and_the_reference_poisoned(tmp_path):
+    fixture = tmp_path / "fixture.py"
+    fixture.write_text(
+        "import torch\n\npredict = torch.compile(lambda x: x)\n\n"
+        "def serve(batches):\n    for b in batches:\n        predict(b).cpu()\n")
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN_ROOTS + ('torch',)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from pytorch_mnist_ddp_tpu_torch.analysis.__main__ import main\n"
+        f"assert main([{str(fixture)!r}, '--fail-on-warning']) == 1\n"
+        f"assert main([{str(fixture)!r}, '--concurrency', '--fail-on-warning']) == 0\n"
+        "import pytorch_mnist_ddp_tpu_torch.analysis as lint\n"
+        "assert lint.make_lock('boundary.site') is not None\n"
+        "assert not [m for m, v in sys.modules.items()\n"
+        "            if m.split('.')[0] in ('torch', 'jax', 'flax') and v is not None]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "JL009" in proc.stdout

@@ -13,7 +13,9 @@ serve_loadgen.py``) against the JAX package's ``tools/serve_loadgen.py``.
   ``--fleet-sweep --fleet-fake`` meet their verdicts.
 - Refusals: each of the JAX parser's conflicts, exited as the JAX tool
   exits; a sharded ``--replica-shapes`` plan needing more devices than
-  the CPU's one (the JAX planner's error) and ``JAXLINT_LOCKWATCH=1``.
+  the CPU's one (the JAX planner's error).
+- ``JAXLINT_LOCKWATCH=1``: the JAX tool's gate after the run (the acyclic
+  line, ``rc or 3`` on a cycle).
 
 One intra-op thread; buckets of at most 8 rows, a few dozen requests a
 round.
@@ -26,6 +28,7 @@ import importlib.util
 import json
 import pathlib
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -229,6 +232,7 @@ ROUNDS = {
                     "--hostpath-report", "{d}/r.json"],
     "devicepath_ab": ["--devicepath-ab", "--open-loop", "--rate", "300", "--requests", "60",
                       "--replicas", "2", "--fill-wait-ms", "30", "--timeout-ms", "15000",
+                      "--concurrency", "64",
                       "--devicepath-p99-slack", "2.0", "--hostpath-report", "{d}/r.json"],
     "replicas_sweep": ["--replicas-sweep", "1,2", "--requests", "16", "--concurrency", "4",
                        "--scaleout-report", "{d}/r.json"],
@@ -281,8 +285,27 @@ def _round_verdict(case: str, report: dict) -> None:
         assert scale["scaled_up"] and scale["drained_back"] and scale["lost"] == 0
 
 
+def _backlogged(monkeypatch, service_s: float = 0.04) -> None:
+    """Each batch takes a fixed ``service_s`` before it launches: two
+    replicas then serve 8 rows per 40 ms each, about half the rows the
+    open loop offers (300 requests/s of 1-4 rows).  With the client's cap
+    on outstanding requests above the round's 60, every request is sent on
+    its seeded schedule, and every batch after a replica's first forms
+    from a backlog: what a batch holds follows the arrival order, not how
+    the host schedules the client's and the server's threads."""
+    launch = InferenceEngine.launch
+
+    def slowed(self, *args, **kwargs):
+        time.sleep(service_s)
+        return launch(self, *args, **kwargs)
+
+    monkeypatch.setattr(InferenceEngine, "launch", slowed)
+
+
 @pytest.mark.parametrize("case", sorted(ROUNDS))
-def test_each_round_meets_its_verdict(tmp_path, capsys, case):
+def test_each_round_meets_its_verdict(tmp_path, capsys, monkeypatch, case):
+    if case == "devicepath_ab":
+        _backlogged(monkeypatch)
     argv = [a.format(d=tmp_path) for a in ROUNDS[case]]
     if "--buckets" not in argv:
         argv += ["--buckets", "4,8", "--max-request", "4"]
@@ -375,9 +398,30 @@ def test_a_sharded_replica_shape_is_refused(capsys, spec):
 
 
 def test_lockwatch_is_refused_not_passed(capsys, monkeypatch):
+    """The JAX tool's gate, ported: silent with the tracer off; after a
+    traced run, the acyclic line and the run's own exit code; on a seeded
+    lock-order cycle, ``rc or 3`` and the cycle named."""
+    from pytorch_mnist_ddp_tpu_torch.analysis import lockwatch
+
+    monkeypatch.delenv("JAXLINT_LOCKWATCH", raising=False)
+    assert port._lockwatch_gate(0) == 0 and port._lockwatch_gate(1) == 1
+    assert capsys.readouterr() == ("", "")
     monkeypatch.setenv("JAXLINT_LOCKWATCH", "1")
-    assert port.main([*CPU, "--requests", "2"]) == 2
-    out = capsys.readouterr().out
-    assert "JAXLINT_LOCKWATCH=1" in out and "item 20" in out
-    monkeypatch.setenv("JAXLINT_LOCKWATCH", "0")
-    assert port._lockwatch_gate() is None
+    lockwatch.watch().reset()
+    try:
+        rc = port.main([*CPU, "--requests", "6", "--buckets", "4,8", "--max-request", "4"])
+        assert rc == 0
+        assert lockwatch.watch().counts().get("batcher.pending", 0) > 0
+        capsys.readouterr()
+        assert port._lockwatch_gate(rc) == rc
+        assert capsys.readouterr().out == "lockwatch: lock acquisition order acyclic\n"
+        a, b = lockwatch.make_lock("test.a"), lockwatch.make_lock("test.b")
+        with a, b:
+            pass
+        with b, a:
+            pass
+        assert port._lockwatch_gate(0) == 3 and port._lockwatch_gate(1) == 1
+        err = capsys.readouterr().err
+        assert "LOCK ORDER CYCLE" in err and "test.a -> test.b -> test.a" in err
+    finally:
+        lockwatch.watch().reset()
