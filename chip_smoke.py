@@ -40,8 +40,9 @@ Phases, one JSON line each:
                 odd shapes, q/k/v one element off alignment, d = 128, and
                 long ones, with the share of the gate each quantity uses; at
                 the longest, kernel and plain version against the fold in
-                f64; in bf16 at the ViT's and the long shapes and one
-                element off; at d = 160 and 256 in both dtypes;
+                f64; in bf16 and in f16 (outputs within an f16 ulp) at the
+                ViT's and the long shapes and one element off; at d = 160
+                and 256 in f32 and bf16;
 4. engine     — InferenceEngine.from_seed on the card (f32 + int8),
                 bucketed and packed: warmup, the int8 parity gate, f32
                 against the CPU model, int8 predictions through the kernel;
@@ -149,6 +150,22 @@ Phases, one JSON line each:
                 added after warmup, and no int8_head launch (f32 only; its
                 own counter, LAUNCH_COUNTER_SITE).  Each rung's wall time
                 is a reading: the shards run one after another on the card;
+5f. native_loader — the port's native data-loader core
+                (data/native.py, pytorch_mnist_ddp_tpu_torch/csrc/
+                fastloader.cpp, built with g++ at first use): the library
+                built and loaded (not numpy; the build's seconds a
+                reading); one epoch of the synthetic train set's batches
+                of 64 torch.equal on the card, native against the library
+                hidden (numpy), at --prefetch-depth 0 and 2, values,
+                dtypes and strides; the loader's seconds an epoch both
+                ways in turns (native, numpy, numpy, native) at each
+                depth, and the host's assembly alone at batch 64, 200 and
+                1000, readings, beside what reading
+                /sys/devices/system/cpu/online costs (the core's thread
+                count, asked from 256 rows up).  Every training phase
+                below that runs a per-batch loader in this process must
+                count native batches (data/native.py CALLS, by phase, at
+                the end);
 6. train_step — 20 train steps from one set of weights on fixed batches,
                 dropout off, deterministic cuDNN, three times: the plain
                 update, the fused kernel (per-parameter state) and the
@@ -271,10 +288,11 @@ Phases, one JSON line each:
 15. vit_profile — where a ViT step's time goes: 10 steps, plain, --flash,
                 --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
                 torch.profiler;
-16. times     — flash_attention in both modes and both dtypes, its plain
-                version and scaled_dot_product_attention (and the backend
-                it picks) in the same dtype, at the ViT's and long shapes
-                and at d = 160 and 256;
+16. times     — flash_attention in both modes and in f32 and bf16, its
+                plain version and scaled_dot_product_attention (and the
+                backend it picks) in the same dtype, at the ViT's and long
+                shapes and at d = 160 and 256; in f16 at the ViT's and the
+                long shapes;
                 beside them the share of the bound, the ratio to SDPA and
                 (f32) the CUDA-core bound, and a one-element add_ as launch
                 floor;
@@ -701,6 +719,10 @@ FLASH_RTOL, FLASH_ATOL = 1e-5, 1e-6
 # so some p round apart: measured at most 0.49 of this gate, max |diff| of
 # the output 2^-8 (NVIDIA H100 80GB HBM3, 700.00 W).
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 2.0 ** -8
+# f16, the same contract: the f16 output and a / l within about one f16 ulp
+# (10 mantissa bits: 2^-10 relative, 2^-11 absolute), the f32 quantities at
+# the f32 gate.
+FLASH_F16_RTOL, FLASH_F16_ATOL = 2.0 ** -10, 2.0 ** -11
 # head_dim past 128, the kernel's slab loop, in both dtypes.  The scores
 # sum d products, and both f32 versions round along them, so their
 # difference grows with d: past d = 128 the f32 gate is multiplied by d / 64
@@ -1755,6 +1777,117 @@ def attribution_table(attr: dict) -> dict:
             "top_ops": [{**o, "op": o["op"][:120]} for o in attr["top_ops"][:TRACE_ATTR_ROWS]]}
 
 
+@contextlib.contextmanager
+def numpy_assembly():
+    """The loader's host batches assembled by numpy: data/native.py's
+    library hidden, as on a host without a compiler."""
+    from pytorch_mnist_ddp_tpu_torch.data import native
+
+    saved = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        yield
+    finally:
+        native.get_lib = saved
+
+
+def native_status() -> dict:
+    """data/native.py's status, which must be the library loaded."""
+    from pytorch_mnist_ddp_tpu_torch.data import native
+
+    status = native.status()
+    check(status["state"] == "loaded", f"the native data loader is not in use: {status}")
+    return status
+
+
+def native_batches() -> int:
+    """Batches the native core has gathered in this process so far."""
+    from pytorch_mnist_ddp_tpu_torch.data import native
+
+    return native.CALLS["gather_normalize"]
+
+
+NATIVE_BY_PHASE: dict[str, int] = {}
+
+
+def native_counted(phase: str, since: int) -> int:
+    """Record the native batches since ``since`` under ``phase``; returns
+    the count now (the next phase's start)."""
+    now = native_batches()
+    NATIVE_BY_PHASE[phase] = now - since
+    return now
+
+
+def native_loader_phase(torch) -> None:
+    """The native core built and loaded, its batches torch.equal to numpy's
+    on the card at prefetch depths 0 and 2, and the loader's and the host
+    assembly's seconds an epoch both ways, in turns."""
+    from pytorch_mnist_ddp_tpu_torch.data import native
+    from pytorch_mnist_ddp_tpu_torch.data.loader import DataLoader
+    from pytorch_mnist_ddp_tpu_torch.data.mnist import _synthetic_cached
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    load_s = time.perf_counter() - t0
+    status = native_status()
+    images, labels = _synthetic_cached("train")
+
+    def epoch(depth: int, use_native: bool) -> tuple[list, float, int]:
+        loader = DataLoader(images, labels, 64, torch.device("cuda"), seed=1,
+                            prefetch_depth=depth)
+        before = native_batches()
+        with contextlib.nullcontext() if use_native else numpy_assembly():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches = list(loader.epoch(1))
+            torch.cuda.synchronize()
+        return batches, time.perf_counter() - t0, native_batches() - before
+
+    seconds: dict = {}
+    for depth in (0, 2):
+        runs = {}
+        for use_native in (True, False, False, True):
+            batches, secs, counted = epoch(depth, use_native)
+            check(counted == (len(batches) if use_native else 0),
+                  f"depth {depth}, native {use_native}: {counted} native batches of "
+                  f"{len(batches)}")
+            seconds.setdefault(f"depth_{depth}", {}).setdefault(
+                "native" if use_native else "numpy", []).append(secs)
+            runs.setdefault(use_native, batches)
+        nat, ref = runs[True], runs[False]
+        check(len(nat) == len(ref), f"depth {depth}: {len(nat)} native batches, {len(ref)} numpy")
+        for i, (a, b) in enumerate(zip(nat, ref)):
+            check(all(x.dtype == y.dtype and x.stride() == y.stride() and torch.equal(x, y)
+                      for x, y in zip(a, b)),
+                  f"depth {depth}: native batch {i} differs from numpy's")
+        del runs, nat, ref
+    # The host's assembly alone (gather, normalize, pad; no copy to the
+    # card) at the CLI's batch, mnist_ddp's 200 and the test loader's 1000
+    # (the core's threaded path), in the same turns.
+    assembly: dict = {}
+    for batch_size in (64, 200, 1000):
+        loader = DataLoader(images, labels, batch_size, torch.device("cuda"), seed=1)
+        for use_native in (True, False, False, True):
+            with contextlib.nullcontext() if use_native else numpy_assembly():
+                t0 = time.perf_counter()
+                for _ in loader._host_batches(1):
+                    pass
+            assembly.setdefault(f"batch_{batch_size}", {}).setdefault(
+                "native" if use_native else "numpy", []).append(time.perf_counter() - t0)
+    # What std::thread::hardware_concurrency costs on this host: glibc reads
+    # this file (the core asks only from 256 rows up).
+    t0 = time.perf_counter()
+    for _ in range(200):
+        with open("/sys/devices/system/cpu/online") as f:
+            f.read()
+    online_read_us = 1e6 * (time.perf_counter() - t0) / 200
+    emit({"phase": "native_loader", "status": status, "build_or_load_s": load_s,
+          "batches_an_epoch": len(batches), "equal_to_numpy": "torch.equal, dtype, stride",
+          "loader_seconds_per_epoch": seconds, "host_assembly_seconds_per_epoch": assembly,
+          "sys_cpu_online_read_us": online_read_us,
+          "order": "native, numpy, numpy, native at each depth and batch size"})
+
+
 def loader_batches(torch):
     """One epoch of the synthetic train set's batches of 64 on the card,
     and the seconds the loader took for it."""
@@ -2427,12 +2560,16 @@ def flash_f64_errors(torch, state, q, k, v, results: dict, scale: float = 1.0) -
 
 def flash_kernel_phase(torch, np) -> dict[str, dict[str, float]]:
     """Both modes against the plain version at every shape, in f32 and in
-    bf16; the partial mode from the empty and from a random state, and in
-    place.  Returns the worst error per kernel name and dtype."""
+    bf16, and in f16 at the ViT's, the long and the offset shapes; the
+    partial mode from the empty and from a random state, and in place.
+    Returns the worst error per kernel name and dtype."""
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    worst = {name: {"float32": 0.0, "bfloat16": 0.0} for name in ("flash_fwd", "flash_partial")}
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    half_gates = {bf16: dict(rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL),
+                  f16: dict(rtol=FLASH_F16_RTOL, atol=FLASH_F16_ATOL)}
+    worst = {name: {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
+             for name in ("flash_fwd", "flash_partial")}
     cases = ([(kind, shape, True, 0, f32) for kind, shape in FLASH_MAIN.items()]
              + [("odd", shape, True, 0, f32) for shape in FLASH_ODD]
              + [("odd_contiguous", FLASH_ODD[-1], False, 0, f32)]
@@ -2442,6 +2579,9 @@ def flash_kernel_phase(torch, np) -> dict[str, dict[str, float]]:
              + [("bf16 " + kind, shape, True, 0, bf16) for kind, shape in FLASH_MAIN.items()]
              + [("bf16 long", shape, True, 0, bf16) for shape in FLASH_LONG]
              + [("bf16 offset", shape, True, 1, bf16) for shape in FLASH_OFFSET]
+             + [("f16 " + kind, shape, True, 0, f16) for kind, shape in FLASH_MAIN.items()]
+             + [("f16 long", shape, True, 0, f16) for shape in FLASH_LONG]
+             + [("f16 offset", shape, True, 1, f16) for shape in FLASH_OFFSET]
              + [(f"{dt_name}d={shape[3]}", shape, True, 0, dt)
                 for shape in FLASH_WIDE_D for dt_name, dt in (("", f32), ("bf16 ", bf16))]
              + [(f"{dt_name}parallel", shape, True, 0, dt)
@@ -2451,12 +2591,11 @@ def flash_kernel_phase(torch, np) -> dict[str, dict[str, float]]:
         b, t, h, d = shape
         where = f"{kind} {'x'.join(map(str, shape))}"
         dt = str(dtype).split(".")[-1]
-        # bf16 outputs within about one bf16 ulp; f32 ones (and past d = 128
-        # scaled by d / 64) at the f32 gate
+        # bf16 and f16 outputs within about one ulp of their type; f32 ones
+        # (and past d = 128 scaled by d / 64) at the f32 gate
         scale = d / 64 if d > 128 else 1.0
         f32_gate = dict(rtol=scale * FLASH_RTOL, atol=scale * FLASH_ATOL)
-        out_gate = (dict(rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL) if dtype == bf16
-                    else f32_gate)
+        out_gate = half_gates.get(dtype, f32_gate)
         q, k, v = flash_inputs(torch, np, shape, i, strided, offset, dtype)
         out, lse = fa.flash_fwd(q, k, v)
         ref_out, ref_lse = fa.flash_fwd_reference(q, k, v)
@@ -2498,7 +2637,9 @@ def flash_kernel_phase(torch, np) -> dict[str, dict[str, float]]:
           "gate": {"float32": {"rtol": FLASH_RTOL, "atol": FLASH_ATOL,
                                "past_d_128": "times d / 64"},
                    "bfloat16": {"out, a/l": {"rtol": FLASH_BF16_RTOL, "atol": FLASH_BF16_ATOL},
-                                "lse, m, l": "the float32 gate"}},
+                                "lse, m, l": "the float32 gate"},
+                   "float16": {"out, a/l": {"rtol": FLASH_F16_RTOL, "atol": FLASH_F16_ATOL},
+                               "lse, m, l": "the float32 gate"}},
           "partial_held_as": "m, l, a / l (raw a recorded: it sums t unnormalized terms)",
           "share_of_gate": "max |kernel - plain| / (atol + rtol |plain|) per quantity; 1 fails",
           "by_shape": report, "vs_f64 (random state; share of the case's f32 gate)": vs_f64})
@@ -2888,24 +3029,24 @@ def vit_profile_phase(torch) -> None:
     emit({"phase": "vit_profile", **report})
 
 
-def flash_bound(mode: str, shape, bf16: bool = False) -> tuple[float, str, float]:
+def flash_bound(mode: str, shape, half: bool = False) -> tuple[float, str, float]:
     """Least time (ms) for one call: q, k, v read once and out + lse written
     once (fwd), or q, k, v and the f32 state read once and the state written
     once (partial), against the 4*b*h*t^2*d operations of the two products.
     f32 inputs: the products run as 3xTF32 (three TF32 passes per product at
     the tensor cores' rate), the cheapest route on the card to f32-accurate
-    products, since one TF32 pass misses the f32 gate.  bf16 inputs (2
-    bytes an element; lse and the state stay f32): one bf16 pass at 989
-    TFLOP/s.  Also returns the bound with the products on the f32 CUDA
-    cores (ms)."""
+    products, since one TF32 pass misses the f32 gate.  bf16 or f16 inputs
+    (``half``: 2 bytes an element; lse and the state stay f32): one pass at
+    989 TFLOP/s, the tensor cores' dense rate for both.  Also returns the
+    bound with the products on the f32 CUDA cores (ms)."""
     b, t, h, d = shape
     n, rows = b * t * h * d, b * h * t
-    elem = 2 if bf16 else 4
+    elem = 2 if half else 4
     out = elem * n + 4 * rows if mode == "flash_fwd" else 4 * 2 * (2 * rows + n)
     nbytes = elem * 3 * n + out
     ops = 4 * b * h * t * t * d
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / BF16_OPS_PER_S if bf16 else 3 * ops / TF32_OPS_PER_S
+    t_ops = ops / BF16_OPS_PER_S if half else 3 * ops / TF32_OPS_PER_S
     f32_ms = 1e3 * max(t_bytes, ops / F32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", f32_ms
 
@@ -2939,7 +3080,8 @@ def sdpa_backend(torch, q, k, v) -> str:
 def flash_times(torch, np) -> dict[str, dict]:
     """Both modes, their plain versions and scaled_dot_product_attention at
     the ViT's shapes and the long ones, in f32 and in bf16 (rows named
-    "bf16 ..."), back to back (warm)."""
+    "bf16 ..."), and in f16 at the ViT's and the long shapes (rows named
+    "f16 ..."), back to back (warm)."""
     import torch.nn.functional as F
 
     from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
@@ -2950,13 +3092,14 @@ def flash_times(torch, np) -> dict[str, dict]:
     library_backends = {}
     shapes = (list(FLASH_MAIN.items()) + [("long", shape) for shape in FLASH_LONG]
               + [(f"d={shape[3]}", shape) for shape in FLASH_WIDE_D])
-    shapes = [(kind, shape, False) for kind, shape in shapes] + [
-        ("bf16 " + kind, shape, True) for kind, shape in shapes]
-    for i, (kind, shape, bf16) in enumerate(shapes):
+    f16_shapes = list(FLASH_MAIN.items()) + [("long", shape) for shape in FLASH_LONG]
+    shapes = ([(kind, shape, torch.float32) for kind, shape in shapes]
+              + [("bf16 " + kind, shape, torch.bfloat16) for kind, shape in shapes]
+              + [("f16 " + kind, shape, torch.float16) for kind, shape in f16_shapes])
+    for i, (kind, shape, dtype) in enumerate(shapes):
         b, t, h, d = shape
         where = f"{kind} {'x'.join(map(str, shape))}"
-        q, k, v = flash_inputs(torch, np, shape, 100 + i,
-                               dtype=torch.bfloat16 if bf16 else torch.float32)
+        q, k, v = flash_inputs(torch, np, shape, 100 + i, dtype=dtype)
         m, l, a = fa.flash_ring_state(b, h, t, d, "cuda")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -2972,7 +3115,8 @@ def flash_times(torch, np) -> dict[str, dict]:
                               lambda: fa.flash_partial_reference(m, l, a, q, k, v)),
         }
         for mode, (kernel, plain) in calls.items():
-            bound_ms, bound_by, f32_bounds[mode][where] = flash_bound(mode, shape, bf16)
+            bound_ms, bound_by, f32_bounds[mode][where] = flash_bound(
+                mode, shape, dtype != torch.float32)
             ms = median_ms(torch, kernel)
             out[mode][where] = {"ms": ms, "plain_ms": median_ms(torch, plain),
                                 "library_ms": library_ms, "bound_ms": bound_ms,
@@ -2988,7 +3132,7 @@ def flash_times(torch, np) -> dict[str, dict]:
                      "in the inputs' dtype (the normalized output; for flash_partial the fold "
                      "from the empty state normalized), warm",
           "bound": "max(bytes / 3.35 TB/s, 3 x 4bht^2d / 495 TFLOP/s TF32); "
-                   "bf16: max(bytes / 3.35 TB/s, 4bht^2d / 989 TFLOP/s)",
+                   "bf16 and f16: max(bytes / 3.35 TB/s, 4bht^2d / 989 TFLOP/s)",
           "library_backends": library_backends})
     return out
 
@@ -7714,14 +7858,22 @@ def run_phases(run_dir: str) -> int:
     os.makedirs(bench_dir)
     bench_run = sharded_bench_start(bench_dir)
 
+    # 5f. the native data loader: built, byte-equal to numpy, timed; the
+    # training phases' native batches counted from here, by phase
+    native_loader_phase(torch)
+    n_native = native_batches()
+
     # 6-9. the training path; adadelta launch counts cover these four
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
     by_phase = {"train_step": train_step_phase(torch, np)}
     by_phase["train"], per_batch_run = train_phase(torch)
+    n_native = native_counted("train", n_native)
     with tempfile.TemporaryDirectory() as workdir:
         by_phase["resume"], f32_epoch_s = resume_phase(torch, workdir, per_batch_run)
+    n_native = native_counted("resume", n_native)
     by_phase["cnn_variants"] = cnn_variants_phase(torch, np, f32_epoch_s)
+    n_native = native_counted("cnn_variants", n_native)
     train_launches = dict(af.LAUNCHES)
     check(train_launches == {k: sum(p[k] for p in by_phase.values()) for k in train_launches},
           f"adadelta launches {train_launches} outside the four training phases")
@@ -7739,6 +7891,7 @@ def run_phases(run_dir: str) -> int:
         fused_launches, fused_references, fused_profile = fused_phase(torch, np, workdir,
                                                                       per_batch_run)
     del per_batch_run
+    n_native = native_counted("fused", n_native)
     check(fused_launches["adadelta_delta"] > 0, "the fused path never launched adadelta_delta")
 
     # 9c. step_attr: the step ladder on the card, alone; no kernel of the
@@ -7752,6 +7905,7 @@ def run_phases(run_dir: str) -> int:
         af.LAUNCHES[k] = 0
     with tempfile.TemporaryDirectory() as workdir:
         ddp_launches, ddp_references = ddp_phase(torch, np, workdir)
+    n_native = native_counted("ddp", n_native)
     check(ddp_launches["adadelta_delta"] > 0, "the data-parallel path never launched "
           "adadelta_delta")
 
@@ -7760,7 +7914,9 @@ def run_phases(run_dir: str) -> int:
     by_n, _ = head_times(torch, fc1, fc2, feats)
     head_shapes = head_shape_times(torch, np)
     ada_times = adadelta_times(torch, np)
+    n_native = native_batches()
     train_profile_phase(torch, np)
+    n_native = native_counted("train_profile", n_native)
 
     # 13 + 14. the ViT training path; flash launch counts cover these two
     for k in fa.LAUNCHES:
@@ -7768,6 +7924,7 @@ def run_phases(run_dir: str) -> int:
     vit_step_launches, vit_step_bf16 = vit_step_phase(torch, np)
     with tempfile.TemporaryDirectory() as workdir:
         vit_fit_launches, vit_fit_bf16, sp1_cut = vit_train_phase(torch, np, workdir)
+    n_native = native_counted("vit_train", n_native)
     vit_bf16_launches = {k: vit_step_bf16[k] + vit_fit_bf16[k] for k in vit_step_bf16}
     vit_launches = dict(fa.LAUNCHES)
     check(vit_launches == {k: vit_step_launches[k] + vit_fit_launches[k] for k in vit_launches},
@@ -7779,9 +7936,11 @@ def run_phases(run_dir: str) -> int:
     # 14b. vit_fused: the ViT's --fused; no kernel of the table on its path
     with tempfile.TemporaryDirectory() as workdir:
         vit_fused_phase(torch, np, workdir)
+    n_native = native_counted("vit_fused", n_native)
 
     # 15. where a ViT step's time goes; 16. flash attention times
     vit_profile_phase(torch)
+    n_native = native_counted("vit_profile", n_native)
     flash_t = flash_times(torch, np)
 
     # 17. vit_parallel: (a) the ring's hops in one process (comparison
@@ -7792,6 +7951,7 @@ def run_phases(run_dir: str) -> int:
         fa.LAUNCHES[k] = 0
     with tempfile.TemporaryDirectory() as workdir:
         par_launches, par_references = vit_parallel_phase(torch, np, workdir, sp1_cut)
+    n_native = native_counted("vit_parallel", n_native)
     for k, v in par_launches.items():
         check(v > 0, f"the ViT's parallel path never launched {k}")
 
@@ -7801,6 +7961,7 @@ def run_phases(run_dir: str) -> int:
         fa.LAUNCHES[k] = 0
     with tempfile.TemporaryDirectory() as workdir:
         fam_launches, fam_references = vit_family_phase(torch, np, workdir)
+    n_native = native_counted("vit_family", n_native)
     check(fam_launches["flash_fwd"] > 0, "the vit_family path never launched flash_fwd")
 
     # 19. train_state: the ViT's archives, --elastic, --resume-reshard,
@@ -7816,6 +7977,7 @@ def run_phases(run_dir: str) -> int:
             af.LAUNCHES[k] = 0
         with tempfile.TemporaryDirectory() as workdir:
             state_launches, state_references = train_state_phase(torch, np, workdir)
+        n_native = native_counted("train_state", n_native)
         for k in ("flash_fwd", "flash_partial", "adadelta_delta"):
             check(state_launches[k] > 0, f"the train_state path never launched {k}")
 
@@ -7825,8 +7987,13 @@ def run_phases(run_dir: str) -> int:
             af.LAUNCHES[k] = 0
         with tempfile.TemporaryDirectory() as workdir:
             res_launches, res_references = resilience_phase(torch, np, workdir, chaos_dir, runs)
+        native_counted("resilience", n_native)
     check(res_launches["adadelta_delta"] > 0, "the resilience path never launched "
           "adadelta_delta")
+    for phase, n in NATIVE_BY_PHASE.items():
+        check(n > 0, f"the {phase} phase's loaders gathered no native batch")
+    emit({"phase": "native_batches_by_phase", "by_phase": NATIVE_BY_PHASE,
+          "status": native_status()})
 
     # 21. compile: the startup path, a fresh kernel-library store; rows 1
     # and 3 counted by its processes, the flagless references apart.

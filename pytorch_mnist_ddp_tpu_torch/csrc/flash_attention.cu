@@ -1,7 +1,7 @@
 // Flash attention on the tensor cores, f32-accurate for f32 inputs and in
-// the Pallas kernel's bf16 contract for bf16 ones: the online-softmax fold of
-// q against streamed k/v tiles, one launch for a whole attention call or one
-// ring hop.
+// the Pallas kernel's 2-byte contract for bf16 and f16 ones: the
+// online-softmax fold of q against streamed k/v tiles, one launch for a
+// whole attention call or one ring hop.
 //
 // Replaces both TPU kernels of pytorch_mnist_ddp_tpu/ops/pallas_attention.py,
 // which share one body (_fold_block):
@@ -27,9 +27,11 @@
 //     l     = l * exp(m - m_new) + sum_j p_j  (the f32 p, never rounded)
 //     acc   = acc * exp(m - m_new) + sum_j P_j v_j
 //
-// where P = p for f32 inputs and P = bf16(p) (round to nearest even) for bf16
-// ones, as _fold_block rounds p to v.dtype before P.V; the bf16 output is
-// acc / l (IEEE division) rounded to bf16.
+// where P = p for f32 inputs and P = bf16(p) or f16(p) (round to nearest
+// even) for bf16 or f16 ones, as _fold_block rounds p to v.dtype before P.V;
+// the 2-byte output is acc / l (IEEE division) rounded to the input dtype.
+// Scores are f32 in every dtype: products of bf16 or f16 values are exact in
+// f32.
 //
 // Layouts (JAX's, nothing padded): q, k, v [b, t, h, d] of one dtype, given by
 // their (b, t, h) element strides with stride 1 along d, so the q/k/v views
@@ -49,23 +51,24 @@
 // plain f32 version's, and l, held to rtol 1e-5, inherits m's error.  So the
 // small terms accumulate apart from hi.hi and join it once per tile
 // (chip_smoke.py's kernel phase holds kernel and plain version against f64).
-// Three passes at 495 TFLOP/s bound the call at 0.21 ms.  bf16: one
+// Three passes at 495 TFLOP/s bound the call at 0.21 ms.  bf16 and f16: one
 // m16n8k16 pass per product at 989 TFLOP/s, 0.035 ms.  At the ViT's shapes
 // (t = 16, d = 16) the call moves 0.5-16 MB and does 0.07-1 Gflop: launch
 // latency and bytes bound it (0.2-5 us).
 //
 // Design.
 // - Products: mma.sync with f32 accumulators, m16n8k8 TF32 for f32 inputs,
-//   m16n8k16 bf16 for bf16 ones (not wgmma: its TF32 B operand must be
-//   K-major, which V is not, and its 64-row tiles would leave three quarters
-//   idle at t = 16).  A warp owns 16 query rows: their q stays in registers
-//   as A fragments.  f32: split at use, k and v split at the fragment load;
+//   m16n8k16 bf16 or f16 for bf16 or f16 ones, one tiling for both (not
+//   wgmma: its TF32 B operand must be K-major, which V is not, and its
+//   64-row tiles would leave three quarters idle at t = 16).  A warp owns
+//   16 query rows: their q stays in registers as A fragments.  f32: split at use, k and v split at the fragment load;
 //   within each 8-wide k-step the reduction index is permuted (fragment
 //   column c <-> element 2c, c + 4 <-> 2c + 1; a sum does not care), so a k
-//   fragment is one 8-byte shared load.  In both dtypes P goes from the
+//   fragment is one 8-byte shared load.  In every dtype P goes from the
 //   score accumulators (C layout) to the A operand of P.V in registers, with
-//   no shuffle or shared-memory round trip (bf16: two n-tiles of scores,
-//   rounded pairwise by __float22bfloat162_rn, make one k-step's A).
+//   no shuffle or shared-memory round trip (2-byte: two n-tiles of scores,
+//   rounded pairwise by __float22bfloat162_rn or __float22half2_rn, make
+//   one k-step's A).
 // - Softmax in the C layout: each thread holds two rows (g, g + 8); row max
 //   reduces over the four lanes of a quad with shuffles, the row sum l is
 //   kept per thread and reduced once at the end.  Each key tile's P.V goes
@@ -76,8 +79,8 @@
 //   in shared memory: cp.async of tile kt + 1 is issued before tile kt's
 //   products.  16-byte copies where k/v bases and strides are 16-byte
 //   aligned and d fills whole 16-byte chunks, else one element at a time (4-
-//   byte cp.async for f32; a 2-byte load and store for bf16, which cp.async
-//   cannot copy); keys past t_kv and columns past d are zero-filled, so every
+//   byte cp.async for f32; a 2-byte load and store for bf16 and f16, which
+//   cp.async cannot copy); keys past t_kv and columns past d are zero-filled, so every
 //   loop runs a fixed count over d rounded up to 16/32/64/128.
 // - Small t (tq <= 16, the ViT): a warp takes one whole (b*h) head and a
 //   block of 4 warps four heads, each warp with its own k/v buffer and
@@ -101,6 +104,7 @@
 // the next tile's Q K^T is the next step.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,13 +122,20 @@ constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 enum Mode { FWD = 0, PARTIAL = 1 };
-enum DType { F32 = 0, BF16 = 1 };
+enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 
-using bf16 = uint16_t;  // bf16 bits: no arithmetic is done on them as such
+// The 2-byte dtypes as bits: no arithmetic is done on them as such.  f16 is
+// a type of its own (not a second uint16_t), so that the templates below
+// tell the two apart where they differ: the mma's operand type and the
+// rounding of p and of the output.
+using bf16 = uint16_t;
+enum class f16 : uint16_t {};
 
 template <typename T> __host__ __device__ constexpr bool is_bf16() {
   return std::is_same<T, bf16>::value;
 }
+// bf16 or f16: the tiling, the loads and the fragment layouts are the same.
+template <typename T> __host__ __device__ constexpr bool is_2byte() { return sizeof(T) == 2; }
 
 struct Params {
   const void* q;
@@ -173,6 +184,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One m16n8k16 pass of T's operand type (bf16 or f16), f32 accumulators.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (is_bf16<T>()) {
+    mma_bf16(c, a, b0, b1);
+  } else {
+    mma_f16(c, a, b0, b1);
+  }
+}
+
 // a . b in 3xTF32, a given split, b = (b0, b1) split here: big += hi.hi,
 // small += lo.hi + hi.lo.  The tensor cores do not round each accumulation
 // to nearest, and an addend loses bits against a large accumulator, so the
@@ -188,15 +218,22 @@ __device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4], const u
   mma_tf32(big, ah, bh0, bh1);
 }
 
-// Two bf16 as one mma operand register, lo in the low half.
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+// Two 2-byte values as one mma operand register, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(T lo, T hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
 
-// (lo, hi) rounded to bf16, to nearest even.
+// (lo, hi) rounded to T (bf16 or f16), to nearest even.
+template <typename T>
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  const __nv_bfloat162 r = __float22bfloat162_rn(make_float2(lo, hi));
-  return *reinterpret_cast<const uint32_t*>(&r);
+  if constexpr (is_bf16<T>()) {
+    const __nv_bfloat162 r = __float22bfloat162_rn(make_float2(lo, hi));
+    return *reinterpret_cast<const uint32_t*>(&r);
+  } else {
+    const __half2 r = __float22half2_rn(make_float2(lo, hi));
+    return *reinterpret_cast<const uint32_t*>(&r);
+  }
 }
 
 // One element (or VEC of them, 16 bytes) from global into shared memory;
@@ -213,7 +250,7 @@ __device__ __forceinline__ void copy_elems(T* dst, const T* src, bool valid) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                  "r"(valid ? 4 : 0) : "memory");
   } else {
-    static_assert(BYTES == 2, "a bf16 element");
+    static_assert(BYTES == 2, "a bf16 or f16 element");
     *dst = valid ? *src : T(0);  // cp.async copies 4 bytes at least
   }
 }
@@ -242,11 +279,11 @@ __device__ __forceinline__ void group_sync() {
 
 // Shared-memory row pitches (elements) against bank conflicts.  f32: k's is
 // 8 mod 16 (a warp's 8-byte fragment loads), v's 4 mod 8 (its 4-byte ones).
-// bf16: both 8 mod 16 (k's 4-byte loads, rows g; v's 2-byte loads, rows 2tg),
-// and a multiple of 16 bytes for the 16-byte copies.
+// bf16 and f16: both 8 mod 16 (k's 4-byte loads, rows g; v's 2-byte loads,
+// rows 2tg), and a multiple of 16 bytes for the 16-byte copies.
 template <typename T, int DMAX> __host__ __device__ constexpr int kpitch() { return DMAX + 8; }
 template <typename T, int DMAX> __host__ __device__ constexpr int vpitch() {
-  return is_bf16<T>() ? DMAX + 8 : DMAX + 4;
+  return is_2byte<T>() ? DMAX + 8 : DMAX + 4;
 }
 
 // Issue the copies of key rows [k0, k0 + BK) of k and v, columns
@@ -283,17 +320,16 @@ __device__ __forceinline__ void load_slab(T* dst, int pitch, const T* base, long
 
 // q's columns [c0, c0 + DMAX) of rows r0, r1 as the A fragments of QK^T,
 // zero past d.  f32: per 8-wide k-step (row, 2tg) (row, 2tg + 1) per row,
-// the permuted reduction index; bf16: per 16-wide k-step the m16n8k16 A
-// layout, (row, 2tg..2tg+1) and (row, 2tg+8..2tg+9).
-template <typename T, int DMAX> struct QFrag;
+// the permuted reduction index; bf16 and f16: per 16-wide k-step the
+// m16n8k16 A layout, (row, 2tg..2tg+1) and (row, 2tg+8..2tg+9).
+template <typename T, int DMAX> struct QFrag { uint32_t f[DMAX / 16][4]; };  // 2-byte
 template <int DMAX> struct QFrag<float, DMAX> { float f[DMAX / 8][4]; };
-template <int DMAX> struct QFrag<bf16, DMAX> { uint32_t f[DMAX / 16][4]; };
 
 template <typename T, int DMAX>
 __device__ __forceinline__ void load_q(QFrag<T, DMAX>& qf, const T* qb, long long sqt, int r0,
                                        int r1, bool in0, bool in1, int d, int c0, int tg) {
-  if constexpr (is_bf16<T>()) {
-    auto at = [&](int r, bool in, int c) -> bf16 { return in && c < d ? qb[r * sqt + c] : bf16(0); };
+  if constexpr (is_2byte<T>()) {
+    auto at = [&](int r, bool in, int c) -> T { return in && c < d ? qb[r * sqt + c] : T(0); };
 #pragma unroll
     for (int ks = 0; ks < DMAX / 16; ++ks) {
       const int c = c0 + ks * 16 + 2 * tg;
@@ -320,14 +356,14 @@ template <typename T, int NT, int DMAX>
 __device__ __forceinline__ void scores(float (&s)[NT][4], const QFrag<T, DMAX>& qf, const T* Ks,
                                        int g, int tg) {
   constexpr int KP = kpitch<T, DMAX>();
-  if constexpr (is_bf16<T>()) {
+  if constexpr (is_2byte<T>()) {
 #pragma unroll
     for (int ks = 0; ks < DMAX / 16; ++ks) {
       const T* kr = Ks + g * KP + ks * 16 + 2 * tg;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const uint32_t* kw = reinterpret_cast<const uint32_t*>(kr + nt * 8 * KP);
-        mma_bf16(s[nt], qf.f[ks], kw[0], kw[4]);  // columns 2tg.. and 2tg + 8..
+        mma16<T>(s[nt], qf.f[ks], kw[0], kw[4]);  // columns 2tg.. and 2tg + 8..
       }
     }
   } else {
@@ -416,22 +452,22 @@ __device__ __forceinline__ void pv(float (&o)[DMAX / 8][4], const float (&s)[NT]
 #pragma unroll
       for (int e = 0; e < 4; ++e) ot[n][e] = 0.f;
     }
-    if constexpr (is_bf16<T>()) {
-      // P's C fragments of key n-tiles 2j and 2j + 1, rounded to bf16, are
+    if constexpr (is_2byte<T>()) {
+      // P's C fragments of key n-tiles 2j and 2j + 1, rounded to T, are
       // the A fragment of k-step j: a0 = keys 2tg, 2tg + 1 of row r0, a1 of
       // row r1, a2 = keys 2tg + 8, 2tg + 9 of row r0, a3 of row r1; b0 = v
       // rows 16j + 2tg, 16j + 2tg + 1 of column g, b1 rows 16j + 2tg + 8, + 9.
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
-        const uint32_t a[4] = {pack_rn(s[2 * j][0], s[2 * j][1]),
-                               pack_rn(s[2 * j][2], s[2 * j][3]),
-                               pack_rn(s[2 * j + 1][0], s[2 * j + 1][1]),
-                               pack_rn(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const uint32_t a[4] = {pack_rn<T>(s[2 * j][0], s[2 * j][1]),
+                               pack_rn<T>(s[2 * j][2], s[2 * j][3]),
+                               pack_rn<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+                               pack_rn<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
         const T* vr = Vs + (j * 16 + 2 * tg) * VP + g;
 #pragma unroll
         for (int n = 0; n < OCH; ++n) {
           const int col = (c0 + n) * 8;
-          mma_bf16(ot[n], a, pack(vr[col], vr[VP + col]),
+          mma16<T>(ot[n], a, pack(vr[col], vr[VP + col]),
                    pack(vr[8 * VP + col], vr[9 * VP + col]));
         }
       }
@@ -482,6 +518,9 @@ __device__ __forceinline__ void store_out(float* dst, float acc, float l) {
 }
 __device__ __forceinline__ void store_out(bf16* dst, float acc, float l) {
   *dst = __bfloat16_as_ushort(__float2bfloat16_rn(l > 0.f ? __fdiv_rn(acc, l) : 0.f));
+}
+__device__ __forceinline__ void store_out(f16* dst, float acc, float l) {
+  *dst = static_cast<f16>(__half_as_ushort(__float2half_rn(l > 0.f ? __fdiv_rn(acc, l) : 0.f)));
 }
 
 // The rows' state at the start: m, l (on lane tg == 0 only: l is summed over
@@ -760,8 +799,8 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15)
 
 }  // namespace
 
-// C entry point for ctypes.  dtype 0: q, k, v and out float32; 1: bfloat16
-// (the state and lse are float32 either way).  mode 0 writes out and lse
+// C entry point for ctypes.  dtype 0: q, k, v and out float32; 1: bfloat16;
+// 2: float16 (the state and lse are float32 in every dtype).  mode 0 writes out and lse
 // (the state pointers may be null); mode 1 reads m_in, l_in, a_in and writes
 // m_out, l_out, a_out, which may be the same buffers (out and lse may be
 // null).  Strides are in elements.  The Python wrapper checks devices,
@@ -776,7 +815,7 @@ extern "C" int flash_attention_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (d < 1 || tq < 1 || tkv < 1 || (mode != FWD && mode != PARTIAL) ||
-      (dtype != F32 && dtype != BF16)) {
+      (dtype != F32 && dtype != BF16 && dtype != F16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long bh = (long long)batch * heads;
@@ -784,11 +823,13 @@ extern "C" int flash_attention_launch(
   if (bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte copies need every k/v row start 16-byte aligned and d to fill
   // whole 16-byte chunks.
-  const long long vec = dtype == BF16 ? 8 : 4;
+  const long long vec = dtype == F32 ? 4 : 8;
   const bool wide = d % vec == 0 && aligned16(k) && aligned16(v) &&
                     (skb | skt | skh | svb | svt | svh) % vec == 0;
   const Params p{q, k, v, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
                  static_cast<int>(bh), heads, tq, tkv, d, mode, scale, out, lse,
                  m_in, l_in, a_in, m_out, l_out, a_out};
-  return dtype == BF16 ? dispatch<bf16>(p, wide, stream) : dispatch<float>(p, wide, stream);
+  if (dtype == BF16) return dispatch<bf16>(p, wide, stream);
+  if (dtype == F16) return dispatch<f16>(p, wide, stream);
+  return dispatch<float>(p, wide, stream);
 }

@@ -10,8 +10,11 @@ divides by the real count).  ``batch_size`` is per rank.  The sampler's
 padding duplicates keep weight 1 by default, as torch's
 ``DistributedSampler`` trains on them; ``mask_padding`` gives them weight
 0, so that an evaluation counts each sample once.  Each batch is
-normalized on the host with numpy, copied into pinned memory and sent to
-the device with a ``non_blocking`` copy on the consumer's stream.
+gathered and normalized on the host by the native core
+(``data/native.py``: C++ through ctypes, which releases the interpreter
+for the call, bit for bit numpy's ``normalize``; numpy itself only where
+no compiler is found), copied into pinned memory and sent to the device
+with a ``non_blocking`` copy on the consumer's stream.
 ``prefetch_depth`` batches (2 by default, as in the JAX package) are
 assembled ahead of the consumer by a thread (``data/prefetch.py``);
 ``prefetch_depth <= 0`` assembles them inline.  The batches are the same
@@ -54,6 +57,7 @@ import torch
 
 from ..parallel.sampler import epoch_indices, per_rank_count
 from ..serving.faults import fault_point
+from . import native
 from .prefetch import DevicePrefetcher
 from .transforms import normalize
 
@@ -87,6 +91,7 @@ class DataLoader:
         if not 0 <= shard < num_shards:
             raise ValueError(f"shard {shard} out of range for {num_shards} shards")
         self.images = images
+        self._labels_raw = labels  # the native label gather reads uint8
         self.labels = labels.astype(np.int64)
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -128,8 +133,13 @@ class DataLoader:
         bs = self.batch_size
         start = (b * self.num_shards + self.shard) * bs
         take = idx[start : start + bs]
-        x = normalize(self.images[take])
-        y = self.labels[take]
+        # native writes [b, 28, 28]; the channel axis is added as numpy's
+        # normalize adds it (stride 0), so both paths give one layout
+        x = native.gather_normalize(self.images, take)
+        x = normalize(self.images[take]) if x is None else x[..., None]
+        y = native.gather_labels(self._labels_raw, take)
+        if y is None:
+            y = self.labels[take]
         if self.mask_padding:
             w = valid[start : start + bs].astype(np.float32)
         else:

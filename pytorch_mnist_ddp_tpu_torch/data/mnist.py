@@ -1,25 +1,34 @@
 """MNIST arrays: local IDX files, else the deterministic synthetic set.
 
 1. If the four IDX files (raw or ``.gz``) exist under ``$MNIST_DATA_DIR``
-   or ``root``, parse them.
-2. Else build the synthetic MNIST-like set: same shapes, dtypes and
-   cardinality (60k/10k uint8 28x28, 10 classes), learnable by the CNN,
-   byte-identical to the JAX package's ``synthetic_mnist`` for the same
-   arguments (numpy only).  A notice is printed once.
+   or ``root``, parse them (``data/native.py``'s parser where it is
+   built).  Each file's raw bytes are checked against the canonical
+   SHA-256 goldens, as the JAX package checks them: a set whose files all
+   match is ``"idx"``; one that misses is still loaded, its digest printed
+   on stderr, and labelled ``"idx-unverified"``, so that an accuracy says
+   which task produced it.
+2. Else, with ``allow_synthetic`` (the default), build the synthetic
+   MNIST-like set: same shapes, dtypes and cardinality (60k/10k uint8
+   28x28, 10 classes), learnable by the CNN, byte-identical to the JAX
+   package's ``synthetic_mnist`` for the same arguments (numpy only).  A
+   notice is printed once.  Without it a missing file raises.
 
 The synthetic set is built once per (split, seed, generator version) and
 kept as an npz under ``$XDG_CACHE_HOME|~/.cache/tpu_mnist_ddp/torch/
 synthetic`` (``utils/cache_dir.py``): later processes load it instead of
 building it, as the JAX package does with its own files (the port keeps
-its own subdirectory and never reads theirs).  No download is tried: the
-port runs on hosts without a network.
+its own subdirectory and never reads theirs).  No download is tried, where
+the JAX package tries the canonical mirrors first: the port runs on hosts
+without a network.
 """
 
 from __future__ import annotations
 
 import gzip
+import hashlib
 import os
 import struct
+import sys
 
 import numpy as np
 
@@ -29,6 +38,36 @@ _FILES = {
     ("test", "images"): "t10k-images-idx3-ubyte",
     ("test", "labels"): "t10k-labels-idx1-ubyte",
 }
+
+# Golden SHA-256 digests of the four raw (uncompressed) IDX files of the
+# canonical MNIST distribution: the JAX package's, byte for byte.
+_SHA256 = {
+    "train-images-idx3-ubyte":
+        "ba891046e6505d7aadcbbe25680a0738ad16aec93bde7f9b65e87a2fc25776db",
+    "train-labels-idx1-ubyte":
+        "65a50cbbf4e906d70832878ad85ccda5333a97f0f4c3dd2ef09a8a9eef7101c5",
+    "t10k-images-idx3-ubyte":
+        "1bf45877962fd391f7abb20534a30fd2203d0865309fec5f87d576dbdbefdcb1",
+    "t10k-labels-idx1-ubyte":
+        "b7e25cb63ef54da8d0fd3b0d8a38b9aaad06962e663b5d202cb1b7098e54aaf9",
+}
+
+
+def verify_idx_digest(filename: str, raw: bytes) -> bool:
+    """True iff ``raw`` matches the golden SHA-256 for ``filename``.  On a
+    mismatch both digests go to stderr, so that a wrong golden or a corrupt
+    file can be told apart from the run's log alone."""
+    golden = _SHA256.get(filename)
+    digest = hashlib.sha256(raw).hexdigest()
+    if digest == golden:
+        return True
+    print(
+        f"warning: {filename} SHA-256 {digest} does not match golden "
+        f"{golden}; loading anyway with provenance 'idx-unverified'",
+        file=sys.stderr,
+    )
+    return False
+
 
 _IMAGE_MAGIC = 2051
 _LABEL_MAGIC = 2049
@@ -42,7 +81,14 @@ SYNTHETIC_NOTICE = (
 def parse_idx(raw: bytes) -> np.ndarray:
     """Parse an IDX buffer (big-endian header): images ``[n, rows, cols]``
     or labels ``[n]``, uint8.  Raises ``ValueError`` on a bad magic, bad
-    dimensions or a truncated payload."""
+    dimensions or a truncated payload.  The native parser
+    (``data/native.py``) takes it where it is built, and its errors
+    propagate; numpy's code below otherwise."""
+    from . import native
+
+    parsed = native.parse_idx_native(raw)
+    if parsed is not None:
+        return parsed
     if len(raw) < 8:
         raise ValueError("truncated IDX header")
     magic, = struct.unpack(">i", raw[:4])
@@ -186,34 +232,45 @@ _synthetic_notice_printed = False
 
 
 def load_mnist_arrays(
-    root: str = "./data", split: str = "train"
+    root: str = "./data", split: str = "train", allow_synthetic: bool = True
 ) -> tuple[np.ndarray, np.ndarray, str]:
     """``(images uint8 [N, 28, 28], labels uint8 [N], source)`` for a
-    split, ``source`` being ``"idx"`` or ``"synthetic"``.  ``$MNIST_DATA_DIR``
-    overrides ``root``."""
+    split, ``source`` being ``"idx"``, ``"idx-unverified"`` (a file misses
+    its golden digest) or ``"synthetic"``.  ``$MNIST_DATA_DIR`` overrides
+    ``root``.  With a file missing, ``allow_synthetic=False`` raises
+    ``FileNotFoundError`` naming it."""
     global _synthetic_notice_printed
     root = os.environ.get("MNIST_DATA_DIR", root)
     arrays = {}
+    source = "idx"
     for kind in ("images", "labels"):
-        raw = _read_maybe_gz(os.path.join(root, _FILES[(split, kind)]))
+        filename = _FILES[(split, kind)]
+        raw = _read_maybe_gz(os.path.join(root, filename))
         if raw is None:
+            if not allow_synthetic:
+                raise FileNotFoundError(
+                    f"MNIST file {filename} not found in {root} (no download is tried)"
+                )
             if not _synthetic_notice_printed:
                 print(SYNTHETIC_NOTICE)
                 _synthetic_notice_printed = True
             images, labels = _synthetic_cached(split)
             return images, labels, "synthetic"
+        if not verify_idx_digest(filename, raw):
+            source = "idx-unverified"
         arrays[kind] = parse_idx(raw)
     if len(arrays["images"]) != len(arrays["labels"]):
         raise ValueError("image/label count mismatch")
-    return arrays["images"], arrays["labels"], "idx"
+    return arrays["images"], arrays["labels"], source
 
 
 class MNIST:
     """One split as raw uint8 arrays; the loader normalizes per batch."""
 
-    def __init__(self, root: str = "./data", train: bool = True) -> None:
+    def __init__(self, root: str = "./data", train: bool = True,
+                 allow_synthetic: bool = True) -> None:
         self.images, self.labels, self.source = load_mnist_arrays(
-            root, "train" if train else "test"
+            root, "train" if train else "test", allow_synthetic
         )
 
     def __len__(self) -> int:

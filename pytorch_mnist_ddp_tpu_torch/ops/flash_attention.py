@@ -14,30 +14,31 @@ one launch of ``csrc/flash_attention.cu`` with a mode flag:
   kernel aliases them.  Reached from :func:`flash_block_update`, the
   ``--sp --flash`` ring (``parallel/sp.py``).
 
-q, k and v keep JAX's ``[b, t, h, d]`` layout, share one dtype (float32
-or bfloat16) and are passed by their (b, t, h) strides with stride 1 along
-d: the ViT hands in the q/k/v views of its head-major qkv projection, and a
-copy of each would cost as much traffic as the kernel itself at the ViT's
-shapes.  Nothing is padded; the kernel copies k/v 16 bytes at a time where
+q, k and v keep JAX's ``[b, t, h, d]`` layout, share one dtype (float32,
+bfloat16 or float16) and are passed by their (b, t, h) strides with stride
+1 along d: the ViT hands in the q/k/v views of its head-major qkv
+projection, and a copy of each would cost as much traffic as the kernel
+itself at the ViT's shapes.  Nothing is padded; the kernel copies k/v 16 bytes at a time where
 their bases and strides allow, else one element at a time, and takes any
 d >= 1 (past 128 columns it loops over the output in 128-column slabs).
-The softmax state (m, l, a) and lse are float32 in both dtypes; the output
-takes the input dtype.  float16 is refused: the JAX package's kernel would
-take it, but no path of the repo runs it (ROADMAP queue 3).
+The softmax state (m, l, a) and lse are float32 in every dtype; the output
+takes the input dtype.
 
-The kernel follows the Pallas kernel's ``_fold_block``, which for bf16
-inputs is not ``ops/attention.py``'s ``block_update``: scores accumulate in
-float32 from the bf16 inputs, ``l`` sums the unrounded float32 ``p``, and
-``p`` is rounded to bf16 (to nearest even) only for P·V; the output is
-``acc / l`` cast to bf16.  The plain versions :func:`flash_fwd_reference`
+The kernel follows the Pallas kernel's ``_fold_block``, which for a 2-byte
+dtype (bf16 or f16) is not ``ops/attention.py``'s ``block_update``: scores
+accumulate in float32 from the 2-byte inputs (their products are exact in
+float32), ``l`` sums the unrounded float32 ``p``, and ``p`` is rounded to the
+inputs' dtype (to nearest even) only for P·V; the output is ``acc / l``
+cast to that dtype.  The plain versions :func:`flash_fwd_reference`
 and :func:`flash_partial_reference` are written to that contract
 (:func:`kernel_fold`); for float32 it coincides with ``block_update``.
 f32 products run on the tensor cores as 3xTF32 (each operand split into
 two TF32 halves, three ``mma.sync`` passes, the two small terms accumulated
-apart from the large one); bf16 ones as one bf16 ``mma.sync`` pass.  The
+apart from the large one); bf16 and f16 ones as one ``mma.sync`` pass of
+their type.  The
 kernel is checked only on the card: ``chip_smoke.py`` holds it to the plain
-versions (f32 quantities within rtol 1e-5 / atol 1e-6, bf16 outputs within
-a bf16 ulp), records the share of the gate each quantity uses, and holds
+versions (f32 quantities within rtol 1e-5 / atol 1e-6, bf16 and f16
+outputs within an ulp of their type), records the share of the gate each quantity uses, and holds
 kernel and plain version against the fold in f64 at t = 8192.
 ``tests/test_torch_attention.py`` models the split in numpy on the CPU to
 show why one TF32 pass would not do; it runs no kernel.
@@ -73,25 +74,22 @@ from .attention import (
 # Kernel launches by mode (one per launch; the CPU path does not count).
 LAUNCHES = {"flash_fwd": 0, "flash_partial": 0}
 _MODES = {"flash_fwd": 0, "flash_partial": 1}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the kernel's dtype codes
 _MAX_BLOCK = 128  # key block rows of the blockwise backward (JAX's _block)
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """q ``[b, tq, h, d]``, k and v ``[b, tk, h, d]``, all float32 or all
-    bfloat16, one cuda or cpu device; on cuda, stride 1 along d.  Returns
-    the device type."""
+    """q ``[b, tq, h, d]``, k and v ``[b, tk, h, d]``, all float32, all
+    bfloat16 or all float16, one cuda or cpu device; on cuda, stride 1
+    along d.  Returns the device type."""
     device = q.device
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash attention runs on cuda or cpu, got {device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype == torch.float16:
-            raise ValueError(f"{name} is float16, which is not ported: flash attention takes "
-                             "float32 or bfloat16")
         if t.dtype not in _DTYPES:
-            raise ValueError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+            raise ValueError(f"{name} must be float32, bfloat16 or float16, got {t.dtype}")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}: q, k and v share one dtype")
         if t.dim() != 4:
@@ -159,8 +157,8 @@ def _launch(mode: str, q, k, v, out=None, lse=None, state_in=(None,) * 3,
 def kernel_fold(acc: BlockAcc, q, k, v, round_p: bool = True) -> BlockAcc:
     """One unmasked fold of ``(k, v)`` into ``acc`` in the Pallas kernel's
     contract (``_fold_block``): scores in float32 from the inputs (products
-    of bf16 values are exact in float32), ``l`` from the unrounded float32
-    ``p``, and ``p`` rounded to the inputs' dtype only for P·V
+    of bf16 or f16 values are exact in float32), ``l`` from the unrounded
+    float32 ``p``, and ``p`` rounded to the inputs' dtype only for P·V
     (``round_p``; without it, JAX's ``_partial_ref``).  For float32 inputs
     this is ``block_update`` op for op."""
     scale = softmax_scale(q.shape[-1], q.device)

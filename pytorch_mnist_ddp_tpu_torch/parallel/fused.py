@@ -61,7 +61,7 @@ import torch
 import torch.distributed as dist
 
 from ..data.loader import DataLoader
-from ..data.transforms import MNIST_MEAN, MNIST_STD
+from ..data.transforms import SCALE, SHIFT
 from ..ops import adadelta_flat
 from .ddp import TrainState, dropout_seed_of, make_forward_eval_step, make_step_body
 from .distributed import DistState
@@ -81,8 +81,8 @@ def normalize_dev(x_u8: torch.Tensor) -> torch.Tensor:
     0; the convolutions may sum in another order for another layout)."""
     on = {"dtype": torch.float32, "device": x_u8.device}
     # Filled on the device (a copy from the host could not be captured).
-    scale = torch.full((), float(np.float32(1.0 / (255.0 * MNIST_STD))), **on)
-    shift = torch.full((), float(np.float32(-MNIST_MEAN / MNIST_STD)), **on)
+    scale = torch.full((), float(SCALE), **on)
+    shift = torch.full((), float(SHIFT), **on)
     x = x_u8.to(torch.float32).mul(scale).add(shift)
     return x.as_strided((*x.shape, 1), (*x.stride(), 0))
 

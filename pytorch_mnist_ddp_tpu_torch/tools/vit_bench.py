@@ -123,7 +123,8 @@ def summarize(args, stdout: str, stderr: str, wall: float, n_chips: int, cards_v
         "batch_size_per_shard": args.batch_size,
         "global_batch": args.batch_size * n_chips,
         # the fused modes overwrite this from the timings' own label
-        "dataset": "synthetic" if "synthetic MNIST-like data" in out else "idx",
+        "dataset": ("synthetic" if "synthetic MNIST-like data" in out
+                    else "idx-unverified" if "idx-unverified" in out else "idx"),
         "subprocess_wall_s": round(wall, 2),
         "epoch1_test_accuracy": round(100.0 * int(accs[0][0]) / int(accs[0][1]), 2),
         "final_test_accuracy": round(100.0 * int(accs[-1][0]) / int(accs[-1][1]), 2),

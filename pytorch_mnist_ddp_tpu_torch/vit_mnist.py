@@ -487,7 +487,8 @@ def run_fused(args, device: torch.device, model: ViT, state: TrainState, grid: R
       (training, evaluation and the read), summed over the epochs, less
       ``compile_s``, which the first epoch's window holds; the prints
       between epochs stay out, as JAX prints after its one call;
-    - ``dataset``: the loader's ``"idx"``/``"synthetic"`` label.
+    - ``dataset``: the data set's ``"idx"``/``"idx-unverified"``/
+      ``"synthetic"`` label.
 
     ``--step-stats`` prints nothing here, as in JAX: there is no step on
     the host to time."""

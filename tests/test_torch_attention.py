@@ -335,9 +335,7 @@ def test_wrappers_check_their_inputs():
     q, k, v = _t(*_qkv(SHAPES[0], 15))
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
-    with pytest.raises(ValueError, match="float16, which is not ported"):
-        fa.flash_fwd(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         fa.flash_fwd(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="share one dtype"):
         fa.flash_fwd(q, k.bfloat16(), v.bfloat16())
@@ -349,51 +347,62 @@ def test_wrappers_check_their_inputs():
         fa.flash_partial(m, l, a, q, k, v)
 
 
-# ------------------------------------------------- bf16 and wide heads
+# ------------------------------------- bf16, f16 and wide heads
 
-BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -8)
+# The 2-byte dtypes, each case run in both: (torch dtype, jax dtype).
+HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16), "float16": (torch.float16, jnp.float16)}
+# Outputs within one ulp of their type: 2^-7 relative for bf16 (2^-8
+# absolute), 2^-10 for f16 (2^-11); the f32 quantities (lse, m, l) at the
+# forward gate.
+HALF_TOL = {"bfloat16": dict(rtol=2.0 ** -7, atol=2.0 ** -8),
+            "float16": dict(rtol=2.0 ** -10, atol=2.0 ** -11)}
 JAX_BF16_GATE = dict(rtol=2e-2, atol=2e-2)  # tests/test_flash.py, against the f32 oracle
 # bf16 gradients: one bf16 ulp relative, and 1e-3 absolute for the
 # gradient elements that sum a few terms of either sign (measured: at most
 # 0.66 of this gate, max |diff| 2^-8, at t = 300 where the two forwards'
-# bf16 outputs differ; 0.002 of it at t = 16).
+# bf16 outputs differ; 0.002 of it at t = 16).  f16 gradients: one f16 ulp
+# relative and the same 1e-3 absolute (measured on the CPU: at most 0.10 of
+# the bf16 gate, max |diff| 2^-11).
 BF16_GRAD_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
+HALF_GRAD_TOL = {"bfloat16": BF16_GRAD_TOL, "float16": dict(rtol=2.0 ** -10, atol=1e-3)}
 WIDE_SHAPES = [(2, 16, 4, 160), (1, 40, 2, 256)]  # head_dim past 128: the kernel's slab loop
 BF16_SHAPES = SHAPES + WIDE_SHAPES
 BF16_IDS = ["x".join(map(str, s)) for s in BF16_SHAPES]
+half_dtypes = pytest.mark.parametrize("dt", list(HALF))
 
 
-def _bf16(*arrays):
-    """f32 arrays rounded to bf16 values (to nearest even), kept as f32."""
-    return tuple(np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+def _half(dt, *arrays):
+    """f32 arrays rounded to ``dt``'s values (to nearest even), kept as f32."""
+    return tuple(np.asarray(jnp.asarray(a).astype(HALF[dt][1]).astype(jnp.float32))
                  for a in arrays)
 
 
-def _tb(*arrays, grad=False):
-    return tuple(torch.tensor(a).bfloat16().requires_grad_(grad) for a in arrays)
+def _th(dt, *arrays, grad=False):
+    return tuple(torch.tensor(a).to(HALF[dt][0]).requires_grad_(grad) for a in arrays)
 
 
-def _jb(*arrays):
-    return tuple(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
+def _jh(dt, *arrays):
+    return tuple(jnp.asarray(a).astype(HALF[dt][1]) for a in arrays)
 
 
+@half_dtypes
 @pytest.mark.parametrize("shape", BF16_SHAPES, ids=BF16_IDS)
-def test_bf16_flash_forward_and_lse_match_jax_kernel(shape):
-    """bf16 q/k/v: the port's (out, lse) against the Pallas kernel in
-    interpret mode, and the output within JAX's bf16 gate of the f32 oracle
-    on the unrounded inputs."""
+def test_half_flash_forward_and_lse_match_jax_kernel(shape, dt):
+    """bf16 or f16 q/k/v: the port's (out, lse) against the Pallas kernel
+    in interpret mode, and the output within JAX's bf16 gate of the f32
+    oracle on the unrounded inputs."""
     q32, k32, v32 = _qkv(shape, 4)
-    q, k, v = _bf16(q32, k32, v32)
+    q, k, v = _half(dt, q32, k32, v32)
     b, t, h, d = shape
-    out, lse = fa.flash_fwd(*_tb(q, k, v))
-    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    jout, jlse = pa._flash_fwd_res(*_jb(q, k, v))
-    assert jout.dtype == jnp.bfloat16
-    np.testing.assert_allclose(out.float().numpy(), np.asarray(jout, np.float32), **BF16_TOL)
+    out, lse = fa.flash_fwd(*_th(dt, q, k, v))
+    assert out.dtype == HALF[dt][0] and lse.dtype == torch.float32
+    jout, jlse = pa._flash_fwd_res(*_jh(dt, q, k, v))
+    assert jout.dtype == HALF[dt][1] and jlse.dtype == jnp.float32
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(jout, np.float32), **HALF_TOL[dt])
     np.testing.assert_allclose(lse.numpy().reshape(b * h, t), np.asarray(jlse), **FWD_TOL)
     oracle = np.asarray(jatt.full_attention(*_j(q32, k32, v32)))
     np.testing.assert_allclose(out.float().numpy(), oracle, **JAX_BF16_GATE)
-    assert torch.equal(fa.flash_attention(*_tb(q, k, v)), out)
+    assert torch.equal(fa.flash_attention(*_th(dt, q, k, v)), out)
 
 
 @pytest.mark.parametrize("shape", WIDE_SHAPES, ids=["x".join(map(str, s)) for s in WIDE_SHAPES])
@@ -425,63 +434,70 @@ def test_wide_head_flash_matches_jax_kernel(shape):
 BF16_PARTIAL_SHAPES = PARTIAL_SHAPES + [(1, 40, 2, 256)]
 
 
+@half_dtypes
 @pytest.mark.parametrize("start", ["empty", "random"])
 @pytest.mark.parametrize("shape", BF16_PARTIAL_SHAPES,
                          ids=["x".join(map(str, s)) for s in BF16_PARTIAL_SHAPES])
-def test_bf16_partial_update_matches_jax_kernel(shape, start):
-    """bf16 q/k/v folded into the f32 state, in place, against the JAX
-    partial kernel in interpret mode: m and l at the forward gate, a / l
-    (the output the ring finalizes to) at the bf16 gate."""
-    q, k, v = _bf16(*_qkv(shape, 6))
+def test_half_partial_update_matches_jax_kernel(shape, start, dt):
+    """bf16 or f16 q/k/v folded into the f32 state, in place, against the
+    JAX partial kernel in interpret mode: m and l at the forward gate, a / l
+    (the output the ring finalizes to) at the gate of the inputs' dtype."""
+    q, k, v = _half(dt, *_qkv(shape, 6))
     b, t, h, d = shape
     if start == "empty":
         state = tuple(x.numpy() for x in fa.flash_ring_state(b, h, t, d))
     else:
         state = _random_state(b, h, t, d, 7)
     tp, dp = pa.flash_pad_len(t), pa.flash_lane_pad(d)
-    jq, jk, jv = (pa.flash_fold_pad(x, tp) for x in _jb(q, k, v))
+    jq, jk, jv = (pa.flash_fold_pad(x, tp) for x in _jh(dt, q, k, v))
     want = pa._flash_partial(*_jax_state(*state, tp, dp), jq, jk, jv, t, 1.0 / float(d) ** 0.5,
                              interpret=True)
+    assert all(x.dtype == jnp.float32 for x in want)
     wm, wl, wa = _from_jax_state(want, b, h, t, d)
     tstate = _t(*state)
-    got = fa.flash_partial(*tstate, *_tb(q, k, v), inplace=True)
+    got = fa.flash_partial(*tstate, *_th(dt, q, k, v), inplace=True)
     assert all(g is s for g, s in zip(got, tstate))
     assert all(x.dtype == torch.float32 for x in got)
     np.testing.assert_allclose(got.m.numpy(), wm, **FWD_TOL)
     np.testing.assert_allclose(got.l.numpy(), wl, **FWD_TOL)
-    np.testing.assert_allclose((got.o / got.l[..., None]).numpy(), wa / wl[..., None], **BF16_TOL)
+    np.testing.assert_allclose((got.o / got.l[..., None]).numpy(), wa / wl[..., None],
+                               **HALF_TOL[dt])
 
 
+@half_dtypes
 @pytest.mark.parametrize("shape", [(2, 16, 4, 16), (1, 300, 2, 64), (2, 16, 4, 160)],
                          ids=["2x16x4x16", "1x300x2x64", "2x16x4x160"])
-def test_bf16_attention_gradients_match_jax(shape):
-    """bf16 gradients of flash_attention against jax.grad of JAX's (both
-    backwards run in f32 from the upcast inputs and the bf16 output, and
-    return bf16)."""
-    q, k, v = _bf16(*_qkv(shape, 5))
-    cot = _bf16(np.random.RandomState(9).randn(*shape).astype(np.float32))[0]
+def test_half_attention_gradients_match_jax(shape, dt):
+    """bf16 or f16 gradients of flash_attention against jax.grad of JAX's
+    (both backwards run in f32 from the upcast inputs and the 2-byte
+    output, and return the inputs' dtype)."""
+    q, k, v = _half(dt, *_qkv(shape, 5))
+    cot = _half(dt, np.random.RandomState(9).randn(*shape).astype(np.float32))[0]
     want = jax.grad(lambda q, k, v: (pa.flash_attention(q, k, v).astype(jnp.float32) * cot).sum(),
-                    argnums=(0, 1, 2))(*_jb(q, k, v))
-    tq, tk, tv = _tb(q, k, v, grad=True)
+                    argnums=(0, 1, 2))(*_jh(dt, q, k, v))
+    tq, tk, tv = _th(dt, q, k, v, grad=True)
     (fa.flash_attention(tq, tk, tv).float() * torch.tensor(cot)).sum().backward()
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
-        assert got.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
-        np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32), **BF16_GRAD_TOL)
+        assert got.dtype == HALF[dt][0] and w.dtype == HALF[dt][1]
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32),
+                                   **HALF_GRAD_TOL[dt])
 
 
+@half_dtypes
 @pytest.mark.parametrize("shape", [(2, 16, 4, 16), (1, 40, 2, 8)], ids=["2x16x4x16", "1x40x2x8"])
-def test_bf16_flash_block_update_vjp_matches_jax(shape):
-    """flash_block_update's recompute backward on bf16 q/k/v (through the
-    port of JAX's _partial_ref: f32 from the upcast inputs, p unrounded)
-    against jax.vjp of the JAX package's; q/k/v cotangents come back bf16."""
-    q, k, v = _bf16(*_qkv(shape, 10))
+def test_half_flash_block_update_vjp_matches_jax(shape, dt):
+    """flash_block_update's recompute backward on bf16 or f16 q/k/v
+    (through the port of JAX's _partial_ref: f32 from the upcast inputs, p
+    unrounded) against jax.vjp of the JAX package's; q/k/v cotangents come
+    back in the inputs' dtype."""
+    q, k, v = _half(dt, *_qkv(shape, 10))
     b, t, h, d = shape
     state = _random_state(b, h, t, d, 11)
     rng = np.random.RandomState(12)
     cots = [rng.randn(b, h, t).astype(np.float32), rng.randn(b, h, t).astype(np.float32),
             rng.randn(b, h, t, d).astype(np.float32)]
     tp, dp = pa.flash_pad_len(t), pa.flash_lane_pad(d)
-    jq, jk, jv = (pa.flash_fold_pad(x, tp) for x in _jb(q, k, v))
+    jq, jk, jv = (pa.flash_fold_pad(x, tp) for x in _jh(dt, q, k, v))
     scale = 1.0 / float(d) ** 0.5
     _, vjp = jax.vjp(lambda m, l, a, q3, k3, v3: pa.flash_block_update(m, l, a, q3, k3, v3, t, scale),
                      *_jax_state(*state, tp, dp), jq, jk, jv)
@@ -492,8 +508,8 @@ def test_bf16_flash_block_update_vjp_matches_jax(shape):
         jc.append(jnp.asarray(lane0))
     jc.append(jnp.asarray(np.pad(cots[2].reshape(b * h, t, d), ((0, 0), (0, tp - t), (0, dp - d)))))
     jm, jl, ja, jgq, jgk, jgv = vjp(tuple(jc))
-    assert jgq.dtype == jnp.bfloat16
-    inputs = _t(*state, grad=True) + _tb(q, k, v, grad=True)
+    assert jgq.dtype == HALF[dt][1]
+    inputs = _t(*state, grad=True) + _th(dt, q, k, v, grad=True)
     torch.autograd.backward(fa.flash_block_update(*inputs), _t(*cots))
     want = [np.asarray(jm)[:, :t, 0].reshape(b, h, t), np.asarray(jl)[:, :t, 0].reshape(b, h, t),
             np.asarray(ja)[:, :t, :d].reshape(b, h, t, d)]
@@ -501,40 +517,42 @@ def test_bf16_flash_block_update_vjp_matches_jax(shape):
         assert x.grad.dtype == torch.float32
         np.testing.assert_allclose(x.grad.numpy(), w, **GRAD_TOL)
     for x, g3 in zip(inputs[3:], (jgq, jgk, jgv)):
-        assert x.grad.dtype == torch.bfloat16
+        assert x.grad.dtype == HALF[dt][0]
         w = np.asarray(g3, np.float32)[:, :t, :d].reshape(b, h, t, d).transpose(0, 2, 1, 3)
-        np.testing.assert_allclose(x.grad.float().numpy(), w, **BF16_GRAD_TOL)
+        np.testing.assert_allclose(x.grad.float().numpy(), w, **HALF_GRAD_TOL[dt])
 
 
-def test_bf16_kernel_contract_rounds_p_and_sums_l_unrounded():
-    """In bf16 the kernel's plain version is _fold_block's contract, held to
-    a numpy model of it: scores in f32 from the bf16 inputs, l summed from
-    the unrounded p, p rounded to bf16 only for P.V, the output rounded to
-    bf16.  It is not the plain attention's (block_update rounds the scores
-    to bf16 and never p): the two must not be merged by mistake."""
+@half_dtypes
+def test_half_kernel_contract_rounds_p_and_sums_l_unrounded(dt):
+    """In bf16 and f16 the kernel's plain version is _fold_block's
+    contract, held to a numpy model of it: scores in f32 from the 2-byte
+    inputs, l summed from the unrounded p, p rounded to the inputs' dtype
+    only for P.V, the output rounded to it.  It is not the plain
+    attention's (block_update rounds the scores to the inputs' dtype and
+    never p): the two must not be merged by mistake."""
     shape = (2, 16, 4, 16)
-    q, k, v = _bf16(*_qkv(shape, 21))
+    q, k, v = _half(dt, *_qkv(shape, 21))
     b, t, h, d = shape
     scale = np.float32(fa._scale(d))
     s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64))
-    s = s.astype(np.float32) * scale  # products of bf16 values are exact in f32
+    s = s.astype(np.float32) * scale  # products of 2-byte values are exact in f32
     m = s.max(axis=-1)
     p = np.exp(s - m[..., None])
     l_unrounded = p.sum(axis=-1)
-    p16 = _bf16(p)[0]
+    p16 = _half(dt, p)[0]
     out_model = np.einsum("bhqk,bkhd->bhqd", p16, v) / l_unrounded[..., None]
-    out_model = _bf16(out_model.transpose(0, 2, 1, 3).astype(np.float32))[0]
+    out_model = _half(dt, out_model.transpose(0, 2, 1, 3).astype(np.float32))[0]
 
-    state = fa.flash_partial(*fa.flash_ring_state(b, h, t, d), *_tb(q, k, v))
+    state = fa.flash_partial(*fa.flash_ring_state(b, h, t, d), *_th(dt, q, k, v))
     np.testing.assert_allclose(state.l.numpy(), l_unrounded, **FWD_TOL)
     l_rounded = p16.sum(axis=-1)
-    assert (np.abs(state.l.numpy() - l_rounded) > 1e-5 * l_rounded).any()  # l is not sum(bf16(p))
-    out, lse = fa.flash_fwd(*_tb(q, k, v))
-    np.testing.assert_allclose(out.float().numpy(), out_model, **BF16_TOL)
+    assert (np.abs(state.l.numpy() - l_rounded) > 1e-5 * l_rounded).any()  # l is not sum(dt(p))
+    out, lse = fa.flash_fwd(*_th(dt, q, k, v))
+    np.testing.assert_allclose(out.float().numpy(), out_model, **HALF_TOL[dt])
     np.testing.assert_allclose(lse.numpy(), m + np.log(l_unrounded), **FWD_TOL)
     # Without rounding p the model lands elsewhere, and so does block_update.
     out_unrounded = np.einsum("bhqk,bkhd->bhqd", p, v) / l_unrounded[..., None]
-    out_unrounded = _bf16(out_unrounded.transpose(0, 2, 1, 3).astype(np.float32))[0]
+    out_unrounded = _half(dt, out_unrounded.transpose(0, 2, 1, 3).astype(np.float32))[0]
     assert (out_unrounded != out_model).any()
-    dense = att.full_attention(*_tb(q, k, v)).float().numpy()
+    dense = att.full_attention(*_th(dt, q, k, v)).float().numpy()
     assert (dense != out.float().numpy()).any()

@@ -456,7 +456,7 @@ def test_every_jax_lock_site_is_a_port_site():
     port_sites = _make_lock_sites(PORT)
     assert len(jax_sites) == 17
     assert {s: port_sites.get(s) for s in jax_sites} == jax_sites
-    assert set(port_sites) - set(jax_sites) == {"pool.rung", "engine.late_build"}
+    assert set(port_sites) - set(jax_sites) == {"pool.rung", "engine.late_build", "native.build"}
     # The obs registry's lock stays plain: attach() must not trace itself.
     assert "make_lock" not in (PORT / "obs" / "registry.py").read_text()
 

@@ -97,7 +97,9 @@ def test_parse_idx_matches_jax():
 
 
 def test_local_idx_files_take_precedence(tmp_path, monkeypatch):
-    """Gzip files in $MNIST_DATA_DIR load as they are; no notice."""
+    """Gzip files in $MNIST_DATA_DIR load as they are, with no synthetic
+    notice; their bytes miss the canonical digests, so the set is
+    "idx-unverified", as the JAX package labels it."""
     rng = np.random.RandomState(1)
     arrays = {"images": rng.randint(0, 256, (7, 28, 28)).astype(np.uint8),
               "labels": rng.randint(0, 10, 7).astype(np.uint8)}
@@ -106,7 +108,7 @@ def test_local_idx_files_take_precedence(tmp_path, monkeypatch):
             f.write(_idx(kind, arrays[kind]))
     monkeypatch.setenv("MNIST_DATA_DIR", str(tmp_path))
     ds = port_mnist.MNIST(root="/nonexistent", train=False)
-    assert ds.source == "idx" and len(ds) == 7
+    assert ds.source == "idx-unverified" and len(ds) == 7
     assert np.array_equal(ds.images, arrays["images"])
     assert np.array_equal(ds.labels, arrays["labels"])
 
