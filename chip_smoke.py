@@ -215,11 +215,34 @@ Phases, one JSON line each:
                 its table once a replay, its categories and top ops
                 printed;
 9c. step_attr  — the step_attr twin (``python -m
-                pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench``) in a
-                process of its own at --batch 200 --steps 300 --reps 3:
-                each of its ten rungs one CUDA graph over 300 iterations,
-                every rung a number, none skipped; its full rung beside
-                9b (e)'s replayed step (a reading);
+                pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench``) at
+                --batch 200 --steps 300 --reps 3, in a process of its own
+                (this script's ``--ladders``, which calls the twin's main
+                once a ladder, then 9d's variants): each of its ten rungs
+                one CUDA graph over 300 iterations, every rung a number,
+                none skipped; its full rung beside 9b (e)'s replayed step
+                (a reading); its line written as
+                build/perf/bench_r1_stepattr_f32.json;
+9d. perf_report — the verdict half of the perf_report twin over the
+                artifacts in build/perf/ (``tools/perf_report.py``
+                ``ARTIFACT_DIR``): the variant ladders of LADDER_VARIANTS
+                (--bf16 --only full; --conv-impl im2col_c1 and im2col
+                --only full,fwd; --batch 1000 --steps 60 --only
+                full,fwd_bwd), run after 9c's in its process with nothing
+                else on the card, each exit 0 with its rungs numbers and
+                none partial, and that process launching no kernel of the
+                table; the f32 ladder and the batch-1000 one promoted by
+                the window_promote twin's ``rungs`` rule onto
+                bench_r1_stepattr.json and bench_r1_stepattr_b1000.json;
+                9b (e)'s trace_attr JSON as bench_r1_attr.json.  ``python
+                -m pytorch_mnist_ddp_tpu_torch.tools.perf_report
+                --no-write`` exits 0 and prints the ten rung rows at the
+                promoted ladder's values, the nine attribution rows, the
+                reconstructed run_s and the pregather, fwd+bwd, bf16, both
+                conv, batch-scaling and trace verdicts; run again without
+                --no-write it prints the same block below its header and
+                appends exactly what it printed to build/perf/PERF.md; the
+                verdict lines are printed as readings;
 10. ddp       — mnist_ddp on the card: an NCCL world of one through the
                 launcher (--nproc_per_node=1, --batch-size 200 --pallas-opt
                 --save-model, one epoch; this script is the rank program, so
@@ -238,7 +261,8 @@ Phases, one JSON line each:
                 one rank's own f32 orders; then --zero and --zero --syncbn
                 on the two ranks, bit for bit the plain data-parallel
                 steps they shard, and --zero in an NCCL world of one
-                through the launcher equal to the plain run (model, lines,
+                through the launcher (its processes beside the first
+                world's and the gloo ranks') equal to the plain run (model, lines,
                 --save-state archive), archives crossing between --zero and
                 plain runs resumed equal (the plain archive under --zero
                 in this process);
@@ -285,7 +309,7 @@ Phases, one JSON line each:
                 VIT_FUSED_PROFILE_STEPS replays under torch.profiler and
                 the trace_attr twin over that window, as in 9b (e); no
                 kernel of the table launched;
-15. vit_profile — where a ViT step's time goes: 10 steps, plain, --flash,
+15. vit_profile — where a ViT step's time goes: 5 steps, plain, --flash,
                 --sp 1 --allow-degree-1 --flash and --bf16 --flash, under
                 torch.profiler;
 16. times     — flash_attention in both modes and in f32 and bf16, its
@@ -612,6 +636,22 @@ SLEEP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 ROW3_KERNEL = "adadelta_kernel"  # csrc/adadelta.cu's, as a trace names it
 # step_attr phase: the ladder at the benchmark's batch, one epoch of steps
 STEP_ATTR_ARGS = ["--batch", "200", "--steps", "300", "--reps", "3"]
+# perf_report phase: the JAX watcher's ladder variants (tools/tunnel_watch.sh),
+# the conv ladders cut to the rungs its verdict reads, each written as
+# bench_r1_stepattr_<name>.json; the _run one promoted by `rungs`.
+LADDER_VARIANTS = {
+    "bf16": ["--bf16", "--only", "full"],
+    "im2col_c1": ["--conv-impl", "im2col_c1", "--only", "full,fwd"],
+    "im2col": ["--conv-impl", "im2col", "--only", "full,fwd"],
+    "b1000_run": ["--batch", "1000", "--steps", "60", "--only", "full,fwd_bwd"],
+}
+# The verdicts the artifacts above must produce, one each, by the ways
+# each may start: the pregather, the fwd+bwd share, bf16, both conv
+# lowerings, batch scaling, the trace.
+VERDICT_STARTS = (("Input path verdict: ", "**Flip to pregather**: "),
+                  ("The step is ", "fwd+bwd is only "), ("bf16 ladder: ",),
+                  ("conv ladder (im2col_c1): ",), ("conv ladder (im2col): ",),
+                  ("Batch-scaling: ",), ("Trace: device busy ",))
 # The trace_attr twin over a window's trace: its main line's busy time
 # against the profiler's own device total, the ops it lists, those a
 # phase line prints.
@@ -621,10 +661,11 @@ TRACE_ATTR_ROWS = 15
 # vit_profile phase: a ViT step holds ~960 device and ~7,000 host events,
 # and reading a 100-step window back took ~50 s a way (PR 12); 20 steps
 # give the same per-step readings.  The windows are readings, and reading
-# them back is most of their phases' time, so 10 ViT steps (20 before),
-# and 20 CNN steps in train_profile and ddp (100, then 40 before; cut when
-# the sharded phase came), keep the time.
-VIT_PROFILE_STEPS = 10
+# them back is most of their phases' time, so 5 ViT steps (20, then 10
+# before; cut when the perf_report phase came), and 20 CNN steps in
+# train_profile and ddp (100, then 40 before; cut when the sharded phase
+# came), keep the time.
+VIT_PROFILE_STEPS = 5
 # train_profile's determinism cost: the --pallas-opt steps over this many
 # of an epoch's batches, with and without deterministic cuDNN, in turns
 # (300 before the fleet phase came; a reading).
@@ -1719,7 +1760,8 @@ def profile_window(torch, window, step_once, find: str | None = None,
     }
 
 
-def attribute_window(trace_path: str, profile: dict, workdir: str, env: dict) -> dict:
+def attribute_window(trace_path: str, profile: dict, workdir: str, env: dict,
+                     out: str | None = None) -> dict:
     """The trace_attr twin (``python -m pytorch_mnist_ddp_tpu_torch.tools.
     trace_attr``) over the Chrome trace of a :func:`profile_window`, its
     sleep-kernel prefix left out (a copy of the trace without those
@@ -1730,7 +1772,8 @@ def attribute_window(trace_path: str, profile: dict, workdir: str, env: dict) ->
     kernel time (each op's time on its own stream, summed) and
     key_averages' device total, which counts twice the time in which two
     streams' kernels ran at once (the tool's ``concurrent_s``); both must
-    stay within TRACE_ATTR_BUSY_RTOL."""
+    stay within TRACE_ATTR_BUSY_RTOL.  With ``out``, the tool also writes
+    its JSON there (``--out``)."""
     import os
 
     with open(trace_path) as f:
@@ -1744,7 +1787,7 @@ def attribute_window(trace_path: str, profile: dict, workdir: str, env: dict) ->
     del trace
     proc = subprocess.run(
         [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.trace_attr", steps_path,
-         "--top", str(TRACE_ATTR_TOP)],
+         "--top", str(TRACE_ATTR_TOP), *(["--out", out] if out else [])],
         cwd=workdir, env=env, capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"trace_attr exited {proc.returncode}: {proc.stdout[-2000:]} "
           f"{proc.stderr[-2000:]}")
@@ -2197,8 +2240,8 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     mnist_cnn.pt (module. keys) torch.equal to mnist.py's fit() with the
     same flags in this process; then, once every process of the phase has
     ended, a profiled window of the same step in an NCCL world of one here.
-    (2) Two ranks sharing the card over gloo (their processes run beside
-    (1)'s),
+    (2) Two ranks sharing the card over gloo (their processes, and the
+    --zero launcher leg's, run beside (1)'s),
     DDP_STEPS fixed steps three ways (plain, --pallas-opt, --syncbn
     --pallas-opt): the ranks equal; within the CPU trajectory gates of a
     one-rank run at twice the batch over the same global batches, after
@@ -2228,7 +2271,8 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     start = dict(af.LAUNCHES)
 
     # (1) the launcher, --nproc_per_node=1: an NCCL world of one; (2)'s two
-    # gloo ranks start beside it, and fit()'s reference runs here meanwhile
+    # gloo ranks and the --zero launcher leg start beside it, and fit()'s
+    # reference runs here meanwhile
     counts = os.path.join(workdir, "counts")
     flags = ["--batch-size", str(DDP_BATCH), "--epochs", "1", "--pallas-opt"]
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2239,6 +2283,21 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
          "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
          "--ddp-rank", counts, *flags, "--save-model"],
         cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    zdir = os.path.join(workdir, "zero")
+    os.makedirs(zdir)
+    zflags = ["--batch-size", str(DDP_BATCH), "--epochs", "1", "--train-limit",
+              str(DDP_ZERO_LIMIT)]
+    arch = {name: os.path.join(zdir, f"{name}.npz")
+            for name in ("plain", "zero", "zero_resumed_plain", "plain_resumed_zero",
+                         "plain_resumed_plain")}
+    zcounts = os.path.join(zdir, "counts_save")
+    zproc = subprocess.Popen(
+        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
+         "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
+         "--ddp-rank", zcounts, *zflags, "--zero", "--save-model", "--save-state",
+         arch["zero"]],
+        cwd=zdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    BACKGROUND.append(zproc)
     images, labels = synthetic_mnist("train", DDP_STEPS * 2 * DDP_RANK_BATCH)
     xs = normalize(images).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH, 28, 28, 1)
     ys = labels.astype(np.int64).reshape(DDP_STEPS, 2 * DDP_RANK_BATCH)
@@ -2261,8 +2320,13 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
         p.kill()
         p.join(timeout=10)
     gloo_s = time.perf_counter() - t_gloo
+    zrc, zout, zerr, _ = waited_process(zproc, t0)
     check(not alive and [p.exitcode for p in procs] == [0, 0],
           f"gloo ranks exited {[p.exitcode for p in procs]}")
+    check(zrc == 0, f"--zero launcher leg save exited {zrc}: {zerr[-2000:]}")
+    with open(zcounts + ".rank0") as f:
+        zrank = json.load(f)
+    zlines = [ln for ln in zout.splitlines() if ln.startswith(("Train Epoch", "Test set"))]
     check(rc == 0, f"launcher leg exited {rc}: {stderr[-2000:]}")
     with open(counts + ".rank0") as f:
         rank0 = json.load(f)
@@ -2398,34 +2462,13 @@ def ddp_phase(torch, np, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
                                               for r in ranks),
                    "finite": bool(torch.isfinite(a["losses"]).all())}}
 
-    # --zero in an NCCL world of one through the launcher, against the plain
-    # run in this process: the model and the archive equal, and archives
-    # crossing between --zero and plain runs resume equal (the plain
-    # archive resumed under --zero in this process, a world of one)
-    zdir = os.path.join(workdir, "zero")
-    os.makedirs(zdir)
-    zflags = ["--batch-size", str(DDP_BATCH), "--epochs", "1", "--train-limit",
-              str(DDP_ZERO_LIMIT)]
-    arch = {name: os.path.join(zdir, f"{name}.npz")
-            for name in ("plain", "zero", "zero_resumed_plain", "plain_resumed_zero",
-                         "plain_resumed_plain")}
+    # --zero in an NCCL world of one through the launcher (started beside
+    # (1)), against the plain run in this process: the model and the
+    # archive equal, and archives crossing between --zero and plain runs
+    # resume equal (the plain archive resumed under --zero in this process,
+    # a world of one)
     before = dict(af.LAUNCHES)
     plain_run = fit_run([*zflags, "--save-state", arch["plain"]])
-
-    def zero_launcher(tag, *extra):
-        out = os.path.join(zdir, f"counts_{tag}")
-        proc = subprocess.run(
-            [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.parallel.launch",
-             "--nproc_per_node=1", f"--master_port={free_port()}", os.path.abspath(__file__),
-             "--ddp-rank", out, *zflags, "--zero", *extra],
-            cwd=zdir, env=env, capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"--zero launcher leg {tag} exited {proc.returncode}: "
-                                    f"{proc.stderr[-2000:]}")
-        with open(out + ".rank0") as f:
-            return json.load(f), [ln for ln in proc.stdout.splitlines()
-                                  if ln.startswith(("Train Epoch", "Test set"))]
-
-    zrank, zlines = zero_launcher("save", "--save-model", "--save-state", arch["zero"])
     # the plain archive resumed under --zero, in this process (a world of one)
     from pytorch_mnist_ddp_tpu_torch.mnist_ddp import build_parser as ddp_parser
     from pytorch_mnist_ddp_tpu_torch.trainer import fit
@@ -5171,7 +5214,8 @@ def fused_rank_program(argv: list[str]) -> int:
     return 0
 
 
-def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
+def fused_phase(torch, np, workdir: str, per_batch: dict,
+                attr_out: str) -> tuple[dict, dict, dict]:
     """The fused path (``--fused``, ``parallel/fused.py``) and the
     prefetch (``--prefetch-depth``) on the card, TF32 off, deterministic
     cuDNN.  (a) WARMUP_STEPS eager and FUSED_CAPTURED replayed steps of
@@ -5191,9 +5235,10 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
     refused with the NCCL ValueError in the ddp phase's gloo world, which
     the same ranks serve).  (e) FUSED_PROFILE_STEPS replays
     under torch.profiler, and the trace_attr twin over that window's
-    Chrome trace (row 3 once a replay in its table).  Returns the adadelta
-    launches of the fused and prefetching paths and, apart, those of the
-    references, and (e)'s profile."""
+    Chrome trace (row 3 once a replay in its table), its JSON written to
+    ``attr_out``.  Returns the adadelta launches of the fused and
+    prefetching paths and, apart, those of the references, and (e)'s
+    profile."""
     import itertools
     import os
 
@@ -5386,7 +5431,7 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
                              lambda *_: run.step(), find="adadelta", trace_path=trace_path)
     counted = since(window)["adadelta_delta"]
     # the trace_attr twin over the same window: row 3 once a replay in its table
-    attr = attribute_window(trace_path, profile, workdir, env)
+    attr = attribute_window(trace_path, profile, workdir, env, out=attr_out)
     row3_ops = [o for o in attr["top_ops"] if ROW3_KERNEL in o["op"]]
     row3 = sum(o["count"] for o in row3_ops)
     check(row3 == FUSED_PROFILE_STEPS, f"fused (e): trace_attr lists row 3 {row3} times in "
@@ -5416,42 +5461,174 @@ def fused_phase(torch, np, workdir: str, per_batch: dict) -> tuple[dict, dict]:
     return path, references, profile
 
 
-def step_attr_phase(torch, fused_profile: dict, smi: str) -> dict:
-    """The step_attr twin (``python -m pytorch_mnist_ddp_tpu_torch.tools.
-    step_attr_bench``) on the card at STEP_ATTR_ARGS, in a process of its
-    own: exit 0, one JSON line, every rung of its RUNG_NAMES a number and
-    none skipped or partial.  Its ``full`` rung is printed beside the
-    fused CNN's replayed --pallas-opt step of fused (e) (batch 64), a
-    reading, not a check.  No kernel of the table runs on its path."""
+def ladders_program(argv: list[str]) -> int:
+    """``chip_smoke.py --ladders OUT``: the step_attr twin's main
+    (``python -m pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench``) once
+    a ladder in this one process, the f32 ladder at STEP_ATTR_ARGS first,
+    then LADDER_VARIANTS: each ladder's JSON line into
+    ``OUT/bench_r1_stepattr_<name>.json``, its rung log beside it
+    (``.err``).  Prints one JSON object: each ladder's exit code and
+    seconds, and this process's launches of the table's kernels."""
     import os
 
     from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.ops import flash_attention as fa
+    from pytorch_mnist_ddp_tpu_torch.ops import int8_head as ih
+    from pytorch_mnist_ddp_tpu_torch.tools import step_attr_bench
+
+    out = argv[0]
+    ladders = {"f32": STEP_ATTR_ARGS, **LADDER_VARIANTS}
+    done = {}
+    for name, args in ladders.items():
+        path = os.path.join(out, f"bench_r1_stepattr_{name}")
+        t0 = time.perf_counter()
+        with open(path + ".json", "w") as f, open(path + ".err", "w") as e, \
+                contextlib.redirect_stdout(f), contextlib.redirect_stderr(e):
+            rc = step_attr_bench.main(args)
+        done[name] = {"rc": rc, "seconds": time.perf_counter() - t0}
+    print(json.dumps({"ladders": done, "launches": {**af.LAUNCHES, **fa.LAUNCHES,
+                                                    "int8_head": ih.LAUNCHES}}))
+    return 0
+
+
+def step_attr_phase(torch, fused_profile: dict, smi: str) -> dict:
+    """The step_attr twin on the card at STEP_ATTR_ARGS, then 9d's
+    variants, in one process of their own (:func:`ladders_program`) that
+    writes their lines in the perf_report twin's ARTIFACT_DIR: exit 0,
+    the f32 ladder one JSON line, every rung of its RUNG_NAMES a number
+    and none skipped or partial.  Its ``full`` rung is printed beside the fused CNN's replayed
+    --pallas-opt step of fused (e) (batch 64), a reading, not a check.
+    This phase's seconds are the process's less the variants'; returns the
+    process's report for 9d."""
+    import os
+
+    from pytorch_mnist_ddp_tpu_torch.ops import adadelta_flat as af
+    from pytorch_mnist_ddp_tpu_torch.tools.perf_report import ARTIFACT_DIR as out
     from pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench import RUNG_NAMES
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
     before = dict(af.LAUNCHES)
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.step_attr_bench",
-         *STEP_ATTR_ARGS], cwd=here, env=env, capture_output=True, text=True, timeout=600)
-    lines = proc.stdout.strip().splitlines()
-    check(proc.returncode == 0 and len(lines) == 1,
-          f"step_attr exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    os.makedirs(out, exist_ok=True)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ladders", out],
+                          cwd=here, env=env, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"the ladders' process exited {proc.returncode}: {proc.stdout[-2000:]} "
+          f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    path = os.path.join(out, "bench_r1_stepattr_f32")
+    with open(path + ".json") as f:
+        lines = f.read().strip().splitlines()
+    with open(path + ".err") as f:
+        rung_log = f.read().strip().splitlines()
+    check(report["ladders"]["f32"]["rc"] == 0 and len(lines) == 1,
+          f"step_attr exited {report['ladders']['f32']['rc']}: {lines[-3:]} {rung_log[-20:]}")
     row = json.loads(lines[0])
     missing = [name for name in RUNG_NAMES if not isinstance(row.get(name), (int, float))]
     check(not missing and "partial" not in row and "skipped" not in row,
           f"step_attr: rungs not measured {missing}: {row}")
     check(af.LAUNCHES == before, "step_attr launched a kernel in this process")
+    variants_s = sum(report["ladders"][name]["seconds"] for name in LADDER_VARIANTS)
     record = {"phase": "step_attr", "nvidia_smi": smi, "args": STEP_ATTR_ARGS, "ladder": row,
               "full_us_per_step_batch_200": row["full"],
               "fused_replay_pallas_opt_batch_64": {
                   "wall_us_per_step": 1e3 * fused_profile["wall_ms_per_step"],
                   "device_busy_us_per_step": 1e3 * fused_profile["device_busy_ms_per_step"]},
-              "rung_log": proc.stderr.strip().splitlines()[-len(RUNG_NAMES):],
-              "seconds": time.perf_counter() - t_phase}
+              "rung_log": rung_log[-len(RUNG_NAMES):],
+              "ladder_seconds": report["ladders"]["f32"]["seconds"],
+              "seconds": time.perf_counter() - t_phase - variants_s}
     emit(record)
-    return record
+    return report
+
+
+def perf_report_phase(ladders: dict, fused_attr: str, smi: str) -> None:
+    """9d: the verdict half of the perf_report twin over its ARTIFACT_DIR,
+    where 9c's process wrote the ladders, as the module docstring says.
+    The phase's seconds include the variant ladders' own."""
+    import os
+    import shutil
+
+    from pytorch_mnist_ddp_tpu_torch.tools import perf_report, window_promote
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = perf_report.ARTIFACT_DIR
+    check(not any(ladders["launches"].values()),
+          f"the ladders' process launched a kernel of the table: {ladders['launches']}")
+    variants = {}
+    for name, args in LADDER_VARIANTS.items():
+        with open(os.path.join(out, f"bench_r1_stepattr_{name}.json")) as f:
+            lines = f.read().strip().splitlines()
+        rc = ladders["ladders"][name]["rc"]
+        check(rc == 0 and len(lines) == 1, f"ladder {name} exited {rc}: {lines[-3:]}")
+        row = json.loads(lines[0])
+        wanted = args[args.index("--only") + 1].split(",")
+        missing = [k for k in wanted if not isinstance(row.get(k), (int, float))]
+        check(not missing and "partial" not in row and "skipped" not in row,
+              f"ladder {name}: rungs not measured {missing}: {row}")
+        variants[name] = {**{k: row[k] for k in wanted}, "batch": row["batch"],
+                          "steps": row["steps"], "compute_dtype": row["compute_dtype"],
+                          "conv_impl": row["conv_impl"],
+                          "seconds": ladders["ladders"][name]["seconds"]}
+    promoted = {
+        "stepattr": window_promote.promote_rungs(
+            os.path.join(out, "bench_r1_stepattr_f32.json"),
+            os.path.join(out, "bench_r1_stepattr.json")),
+        "stepattr_b1000": window_promote.promote_rungs(
+            os.path.join(out, "bench_r1_stepattr_b1000_run.json"),
+            os.path.join(out, "bench_r1_stepattr_b1000.json"))}
+    shutil.copy(fused_attr, os.path.join(out, "bench_r1_attr.json"))
+    with open(os.path.join(out, "bench_r1_stepattr.json")) as f:
+        ladder = json.load(f)
+
+    def report(*argv):
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytorch_mnist_ddp_tpu_torch.tools.perf_report", *argv],
+            cwd=here, capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                                                "")})
+        check(proc.returncode == 0, f"perf_report {argv} exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        return proc.stdout
+
+    printed = report("--no-write")
+    text = printed.splitlines()
+    check(text[0].startswith("### Window analysis — ")
+          and text[0].endswith(f"({ladder['device_kind']}; artifacts bench_r1_*)"),
+          f"perf_report's header: {text[0]}")
+    rungs = [ln for ln in text if ln.startswith("| ") and ln.split(" | ")[0][2:] in
+             window_promote.RUNG_NAMES]
+    want = [f"| {k} | {ladder[k]:,.1f} |" for k in (
+        "empty_scan", "gather_norm", "gather_epoch", "fwd", "fwd_bwd", "full_nodrop", "full",
+        "full_nogather", "full_pregather", "eval")]
+    check(rungs == want, f"perf_report's rung rows {rungs} against the promoted ladder {want}")
+    table = text.index("| Attribution | µs/step |")
+    attribution = text[table + 2:table + 11]
+    check(len(attribution) == 9 and all(ln.endswith(" µs |") for ln in attribution)
+          and text[table + 11] == "", f"perf_report's attribution rows: {attribution}")
+    check(any(ln.startswith("Reconstructed run_s from the ladder: ") for ln in text),
+          "perf_report: no reconstructed run_s")
+    verdicts = [ln[2:] for ln in text if ln.startswith("- ")]
+    check(len(verdicts) == len(VERDICT_STARTS)
+          and all(sum(v.startswith(starts) for v in verdicts) == 1 for starts in VERDICT_STARTS),
+          f"perf_report's verdicts: {verdicts}")
+    perf_md = os.path.join(out, "PERF.md")
+    kept = ""
+    if os.path.exists(perf_md):
+        with open(perf_md) as f:
+            kept = f.read()
+    written = report()
+    check(written.splitlines()[1:] == text[1:],
+          "perf_report without --no-write printed another block")
+    with open(perf_md) as f:
+        check(f.read() == kept + "\n" + written, "PERF.md did not gain exactly the block")
+    emit({"phase": "perf_report", "nvidia_smi": smi, "variants": variants,
+          "promoted": promoted, "verdicts": verdicts,
+          "reconstructed": next(ln for ln in text if ln.startswith("Reconstructed")),
+          "block_lines": len(text), "perf_md_bytes": len(kept) + 1 + len(written),
+          "seconds": time.perf_counter() - t_phase + sum(v["seconds"]
+                                                         for v in variants.values())})
 
 
 def http_post(url: str, data: bytes, ctype: str = "application/json") -> tuple[int, bytes, str]:
@@ -7887,16 +8064,20 @@ def run_phases(run_dir: str) -> int:
     # references apart
     for k in af.LAUNCHES:
         af.LAUNCHES[k] = 0
+    fused_attr = os.path.join(run_dir, "fused_e_attr.json")
     with tempfile.TemporaryDirectory() as workdir:
         fused_launches, fused_references, fused_profile = fused_phase(torch, np, workdir,
-                                                                      per_batch_run)
+                                                                      per_batch_run, fused_attr)
     del per_batch_run
     n_native = native_counted("fused", n_native)
     check(fused_launches["adadelta_delta"] > 0, "the fused path never launched adadelta_delta")
 
-    # 9c. step_attr: the step ladder on the card, alone; no kernel of the
-    # table on its path (the plain per-leaf update)
-    step_attr_phase(torch, fused_profile, smi)
+    # 9c. step_attr: the step ladder on the card, alone, then 9d's variant
+    # ladders in its process; no kernel of the table on their path (the
+    # plain per-leaf update).  9d. perf_report: the verdict over them and
+    # fused (e)'s attribution, in the artifact directory the twin reads
+    ladders = step_attr_phase(torch, fused_profile, smi)
+    perf_report_phase(ladders, fused_attr, smi)
 
     # 10. the data-parallel path; the data-parallel step's adadelta
     # counts, the ranks' processes' included, and apart those of the
@@ -8104,4 +8285,6 @@ if __name__ == "__main__":
         sys.exit(compile_cli_program(sys.argv[2:]))
     if sys.argv[1:2] == ["--compile-serve"]:
         sys.exit(compile_serve_program(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ladders"]:
+        sys.exit(ladders_program(sys.argv[2:]))
     sys.exit(main())

@@ -14,9 +14,12 @@
 - ``.tools.train_chaos``: kill -> resume -> bit-exact with real trainer
   and launcher processes; ``.tools.trace_attr``: a torch.profiler Chrome
   trace distilled to a per-category, per-op table; ``.tools.step_attr_bench``:
-  a ladder of CNN step variants, each one CUDA graph; ``.tools.perf_report
-  --telemetry DIR``: the summary of a ``--telemetry-dir`` directory (the
-  JAX package's tools of the same names);
+  a ladder of CNN step variants, each one CUDA graph; ``.tools.perf_report``:
+  the verdict over the ladders and the trace attribution under
+  ``build/perf/``, and with ``--telemetry DIR`` the summary of a
+  ``--telemetry-dir`` directory; ``.tools.window_promote``: the rules that
+  keep a recorded ladder or row the best across runs (the JAX package's
+  tools of the same names);
 - ``.tools.sharded_bench``: the sharded structural pin (fake engines through
   the batcher and router) and the replica-shape sweep of real pools over
   one device (the JAX package's ``tools/sharded_bench.py``).

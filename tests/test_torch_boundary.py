@@ -673,7 +673,7 @@ def test_a_flagless_run_builds_no_runtime_and_no_sink_and_reads_no_more(monkeypa
 
 TOOL_MODULES = ("tools/__init__.py", "tools/serve_loadgen.py", "tools/slo_gate.py",
                 "tools/train_chaos.py", "tools/trace_attr.py", "tools/step_attr_bench.py",
-                "tools/perf_report.py", "tools/sharded_bench.py")
+                "tools/perf_report.py", "tools/sharded_bench.py", "tools/window_promote.py")
 _PARSE_ARGS = argparse.ArgumentParser.parse_args
 
 
@@ -764,7 +764,7 @@ def test_the_tools_write_under_build_loadgen_and_leave_the_bench_files(tmp_path,
 
 
 # -- the training tools' twins (train_chaos, trace_attr, step_attr_bench,
-# perf_report --telemetry) ----------------------------------------------------
+# perf_report, window_promote) ----------------------------------------------
 
 # Each twin's flags are the JAX tool's, plus --device where it starts work
 # on a device.
@@ -825,10 +825,15 @@ def test_training_tools_run_with_jax_poisoned(tmp_path):
         f"for name in {FORBIDDEN_ROOTS!r}:\n"
         "    sys.modules[name] = None\n"
         "from pytorch_mnist_ddp_tpu_torch.tools import (perf_report, step_attr_bench,\n"
-        "                                               trace_attr, train_chaos)\n"
+        "                                               trace_attr, train_chaos,\n"
+        "                                               window_promote)\n"
         f"assert trace_attr.main([{str(tmp_path)!r}]) == 1\n"
         f"assert perf_report.main(['--telemetry', {str(tmp_path)!r}]) == 1\n"
-        "assert perf_report.main([]) == 2\n"
+        f"perf_report.ARTIFACT_DIR = {str(tmp_path)!r}\n"
+        "assert perf_report.main([]) == 1\n"
+        f"assert window_promote.main(['rungs', {str(tmp_path / 'a.json')!r},\n"
+        f"                            {str(tmp_path / 'b.json')!r}]) == 0\n"
+        "assert window_promote.main([]) == 2\n"
         "assert step_attr_bench.main(['--device', 'cpu']) == 1\n"
         "assert train_chaos.build_parser().parse_args([]).device == 'cuda'\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')\n"

@@ -1,7 +1,9 @@
-"""The port's ``tools/perf_report.py --telemetry`` (``python -m
+"""The port's ``tools/perf_report.py`` (``python -m
 pytorch_mnist_ddp_tpu_torch.tools.perf_report``) held against the JAX
-package's ``tools/perf_report.py``: for the same events directory both
-``summarize_telemetry`` functions return the same text.
+package's ``tools/perf_report.py``, both halves.
+
+``--telemetry``: for the same events directory both ``summarize_telemetry``
+functions return the same text.
 
 The directories: the synthetic events of ``tests/test_compile.py``
 (startup), ``tests/test_faults.py`` (pool resilience),
@@ -10,7 +12,15 @@ The directories: the synthetic events of ``tests/test_compile.py``
 flagless and with a healed NaN step and periodic checkpoints; what the
 port's serving CLI writes at ``--warmup-only``; all of them in one
 directory; and what the JAX trainer writes (``tests/test_obs.py``'s
-run).  One intra-op thread.
+run).
+
+The verdict: for each set of artifacts (the ladder alone, with the trace
+attribution, a warm row that reconciles and one that does not, the bf16
+and conv ladders, the batch-1000 ladder latency- and compute-bound, a
+partial ladder, two rounds, no ladder) both ``build_report`` functions
+return the same text under one clock; so do they over what the step_attr
+and trace_attr twins print on the CPU, promoted by the window_promote
+twin; and the CLI writes only beside its artifacts.  One intra-op thread.
 """
 
 from __future__ import annotations
@@ -180,13 +190,6 @@ def test_an_empty_directory_and_the_cli(tmp_path, capsys):
     assert capsys.readouterr().out == JAX.summarize_telemetry(d) + "\n"
 
 
-def test_the_verdict_half_waits_for_the_benchmark(capsys):
-    assert perf_report.main([]) == 2
-    assert perf_report.main(["--no-write"]) == 2
-    err = capsys.readouterr().err.splitlines()
-    assert len(err) == 2 and "no benchmark yet" in err[0]
-
-
 def test_jax_trainer_directory_gives_jax_text(tmp_path, monkeypatch):
     """A directory the JAX trainer wrote (tests/test_obs.py's run; its
     compiled fast path at its documented fallback, as in
@@ -221,3 +224,236 @@ def test_jax_trainer_directory_gives_jax_text(tmp_path, monkeypatch):
     with contextlib.redirect_stdout(io.StringIO()):
         jax_fit(args, DistState(devices=jax.devices()[:1]))
     assert "steps: 1" in _same_text(str(tel))
+
+
+# -- the verdict half (build_report, main without --telemetry) -----------------
+
+# A whole ladder in µs a step, as the step_attr twin prints it on the card.
+LADDER = {"metric": "step_attr_us", "backend": "gpu", "device_kind": "NVIDIA H100 80GB HBM3",
+          "steps": 300, "batch": 200, "compute_dtype": "float32", "conv_impl": "conv",
+          "empty_scan": 1.21, "gather_norm": 28.13, "gather_epoch": 24.62, "fwd": 425.6,
+          "fwd_bwd": 1183.75, "full_nodrop": 1295.84, "full": 1277.43,
+          "full_nogather": 1266.41, "full_pregather": 1352.29, "eval": 1286.73,
+          "compile_s": {"full": 1.4}}
+# JAX's test's ladder: five rungs, nothing of the pregather or dropout.
+PARTIAL = {"metric": "step_attr_us", "device_kind": "test", "steps": 300, "batch": 200,
+           "full": 830.0, "fwd_bwd": 700.0, "eval": 900.0, "empty_scan": 5.0,
+           "gather_norm": 30.0}
+# Input-bound: fwd+bwd under 80% of the step, the pregather 17% faster.
+OVERHEAD = {**LADDER, "fwd": 210.0, "fwd_bwd": 400.0, "full_pregather": 1060.0}
+ATTR = {"metric": "trace_attribution", "process": "GPU 0", "thread": "streams 7, 20",
+        "span_s": 0.059641, "busy_s": 0.052083, "gap_share": 0.127, "kernel_s": 0.05574,
+        "by_category": {"convolution": {"time_s": 0.0158, "count": 1700, "share_of_busy": 0.283},
+                        "matmul": {"time_s": 0.0153, "count": 1400, "share_of_busy": 0.274}}}
+
+
+def _row(**keys):
+    return {"metric": "step_attr_us", "device_kind": "NVIDIA H100 80GB HBM3", "steps": 300,
+            "batch": 200, **keys}
+
+
+# name -> ({file: row}, a phrase the report must hold, or None for no report)
+ARTIFACT_SETS = {
+    "ladder": ({"bench_r1_stepattr.json": LADDER}, "Input path verdict: pregather wins only"),
+    "with_attr": ({"bench_r1_stepattr.json": LADDER, "bench_r1_attr.json": ATTR},
+                  "Trace: device busy 0.052083s over 0.059641s span"),
+    "warm_reconciles": ({"bench_r1_stepattr.json": LADDER,
+                         "bench_r1_warm.json": {"run_s": 8.41, "cache": "warm"}},
+                        "— reconciles (0.94×)"),
+    "warm_does_not_reconcile": ({"bench_r1_stepattr.json": LADDER,
+                                 "bench_r1_warm.json": {"run_s": 21.7, "cache": "cold"}},
+                                "DOES NOT reconcile"),
+    "bf16": ({"bench_r1_stepattr.json": LADDER,
+              "bench_r1_stepattr_bf16.json": _row(compute_dtype="bfloat16", full=1004.2)},
+             "bf16 ladder: full 1,004.2 µs vs f32 1,277.4 µs (+21%)."),
+    "conv_c1_wins_im2col_not": (
+        {"bench_r1_stepattr.json": LADDER,
+         "bench_r1_stepattr_im2col_c1.json": _row(conv_impl="im2col_c1", full=1150.0,
+                                                  fwd=380.5),
+         "bench_r1_stepattr_im2col.json": _row(conv_impl="im2col", full=1250.0, fwd=440.0)},
+        "conv ladder (im2col): full 1,250.0 µs vs native-conv 1,277.4 µs (+2%); fwd 440.0 "
+        "vs 425.6 µs — keep the native conv."),
+    "conv_im2col_wins_c1_not": (
+        {"bench_r1_stepattr.json": LADDER,
+         "bench_r1_stepattr_im2col_c1.json": _row(conv_impl="im2col_c1", full=1390.0),
+         "bench_r1_stepattr_im2col.json": _row(conv_impl="im2col", full=900.0, fwd=300.0)},
+        "— flip `--conv-impl` after an end-to-end `bench.py --conv-impl` row confirms"),
+    "b1000_latency_bound": ({"bench_r5_stepattr.json": PARTIAL,
+                             "bench_r5_stepattr_b1000.json": {"metric": "step_attr_us",
+                                                              "batch": 1000, "steps": 60,
+                                                              "full": 1100.0}},
+                            "per-op/latency overhead"),
+    "b1000_compute_bound": ({"bench_r5_stepattr.json": PARTIAL,
+                             "bench_r5_stepattr_b1000.json": {"metric": "step_attr_us",
+                                                              "batch": 1000, "steps": 60,
+                                                              "full": 3800.0}},
+                            "bandwidth/compute-bound"),
+    "partial_ladder": ({"bench_r5_stepattr.json": PARTIAL},
+                       "| input (pregather alternative) | — |"),
+    "overhead_bound_pregather_flips": ({"bench_r1_stepattr.json": OVERHEAD},
+                                       "**Flip to pregather**: the pregather step is 17% faster"),
+    "newer_round_shadows_older": (
+        {"bench_r4_stepattr.json": PARTIAL,
+         "bench_r4_stepattr_bf16.json": _row(full=600.0),
+         "bench_r4_attr.json": ATTR,
+         "bench_r12_stepattr.json": LADDER,
+         "bench_r12_warm.json": {"run_s": 8.0, "cache": "warm"}},
+        "artifacts bench_r12_*"),
+    "everything": ({"bench_r1_stepattr.json": OVERHEAD, "bench_r1_attr.json": ATTR,
+                    "bench_r1_warm.json": {"run_s": 8.41, "cache": "warm"},
+                    "bench_r1_stepattr_bf16.json": _row(full=1004.2),
+                    "bench_r1_stepattr_im2col_c1.json": _row(full=1150.0, fwd=380.5),
+                    "bench_r1_stepattr_im2col.json": _row(full=1250.0),
+                    "bench_r1_stepattr_b1000.json": _row(batch=1000, steps=60, full=2400.0)},
+                   "see the attribution rows above"),
+    "no_ladder": ({"bench_r1_attr.json": ATTR, "bench_r1_stepattr_bf16.json": _row(full=9.0),
+                   "bench_r1_warm.json": {"run_s": 8.0}}, None),
+    "ladder_without_full": ({"bench_r1_stepattr.json": {**PARTIAL, "full": None}}, None),
+    "unparseable_ladder": ({"bench_r1_stepattr.json": "{not json"}, None),
+}
+
+
+@pytest.fixture
+def artifacts(tmp_path, monkeypatch):
+    """A directory both tools read (the port's ARTIFACT_DIR, the JAX tool's
+    REPO), and one clock for both."""
+    import time
+    import types
+
+    d = tmp_path / "perf"
+    d.mkdir()
+    monkeypatch.setattr(perf_report, "ARTIFACT_DIR", str(d))
+    monkeypatch.setattr(JAX, "REPO", str(d))
+    clock = types.SimpleNamespace(strftime=time.strftime,
+                                  gmtime=lambda *a: time.gmtime(1_800_000_000))
+    monkeypatch.setattr(perf_report, "time", clock)
+    monkeypatch.setattr(JAX, "time", clock)
+    return d
+
+
+def _put_artifacts(d: pathlib.Path, files: dict) -> None:
+    for name, row in files.items():
+        (d / name).write_text(row if isinstance(row, str) else json.dumps(row))
+
+
+@pytest.mark.parametrize("name", sorted(ARTIFACT_SETS))
+def test_the_verdict_is_jax_s_text(name, artifacts):
+    files, phrase = ARTIFACT_SETS[name]
+    _put_artifacts(artifacts, files)
+    got, want = perf_report.build_report(), JAX.build_report()
+    if phrase is None:
+        assert got is None and want is None
+        return
+    assert got is not None and got.splitlines() == want.splitlines()
+    assert phrase in got, got
+    header = got.splitlines()[0]
+    prefix = min(files, key=lambda f: (-int(f.split("_")[1][1:]), f)).split("_")[:2]
+    assert header == (f"### Window analysis — 2027-01-15T08:00:00Z "
+                      f"({files['_'.join(prefix) + '_stepattr.json']['device_kind']}; "
+                      f"artifacts {'_'.join(prefix)}_*)")
+
+
+def _tracked_digests() -> dict:
+    import hashlib
+
+    paths = sorted(ROOT.glob("BENCH_*.json")) + [ROOT / "docs" / "PERF.md"]
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest() for p in paths}
+
+
+def test_the_cli_writes_only_under_its_artifact_dir(artifacts, capsys, monkeypatch):
+    """Without a ladder: exit 1 and JAX's stderr line.  ``--no-write``
+    prints only; without it ``PERF.md`` beside the artifacts gains exactly
+    the printed block.  No tracked file changes."""
+    before = _tracked_digests()
+    assert len(before) > 1
+    assert perf_report.main([]) == 1
+    port_err = capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", ["perf_report.py", "--no-write"])
+    assert JAX.main() == 1
+    assert port_err.err == capsys.readouterr().err != ""
+    assert port_err.out == ""
+    _put_artifacts(artifacts, ARTIFACT_SETS["everything"][0])
+    assert perf_report.main(["--no-write"]) == 0
+    printed = capsys.readouterr().out
+    assert printed == perf_report.build_report() + "\n"
+    assert not (artifacts / "PERF.md").exists()
+    assert perf_report.main([]) == 0
+    assert capsys.readouterr().out == printed
+    assert (artifacts / "PERF.md").read_text() == "\n" + printed
+    assert perf_report.main([]) == 0
+    assert (artifacts / "PERF.md").read_text() == 2 * ("\n" + printed)
+    assert _tracked_digests() == before
+    assert perf_report.ARTIFACT_DIR == str(artifacts)
+
+
+def test_the_artifact_dir_is_the_checkout_s_build_perf():
+    """build/ is untracked (.gitignore); the protocol constants are JAX's."""
+    assert perf_report.ARTIFACT_DIR == str(ROOT / "build" / "perf")
+    assert "build/" in (ROOT / ".gitignore").read_text().splitlines()
+    assert (perf_report.TRAIN_STEPS, perf_report.EVAL_BATCHES, perf_report.EPOCHS) == (
+        JAX.TRAIN_STEPS, JAX.EVAL_BATCHES, JAX.EPOCHS)
+
+
+def _on_a_stream(trace_path: pathlib.Path, out: pathlib.Path) -> None:
+    """The host ops of a CPU trace recast as kernels on one CUDA stream of
+    device 0, as a card's trace carries its device work."""
+    data = json.loads(trace_path.read_text())
+    gpu, stream = 0, 7
+    events = [{"ph": "M", "name": "process_labels", "pid": gpu, "tid": 0,
+               "args": {"labels": "GPU 0"}},
+              {"ph": "M", "name": "thread_name", "pid": gpu, "tid": stream,
+               "args": {"name": f"stream {stream} "}}]
+    events += [{**e, "cat": "kernel", "pid": gpu, "tid": stream}
+               for e in data["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    out.write_text(json.dumps({"schemaVersion": 1, "traceEvents": events}))
+
+
+def test_real_producers_through_the_promotion_give_jax_s_text(artifacts, tmp_path, capsys):
+    """The step_attr twin's own lines (the ladder on the CPU, a batch
+    variant and a bf16 one) and the trace_attr twin's JSON over a real CPU
+    profiler trace of training steps, promoted by the window_promote twin
+    as the artifacts are on the card: both reports print the same text.
+    A CPU trace has no device line, so the twin's error JSON is one
+    attribution; the same ops recast onto a stream are the other."""
+    from pytorch_mnist_ddp_tpu_torch.models.net import Net
+    from pytorch_mnist_ddp_tpu_torch.tools import step_attr_bench, trace_attr, window_promote
+    from pytorch_mnist_ddp_tpu_torch.utils.profiling import trace
+
+    small = ["--device", "cpu", "--allow-cpu", "--steps", "2", "--batch", "8",
+             "--eval-batch", "16", "--eval-steps", "1", "--reps", "1"]
+    runs = {"f32": [], "b1000": ["--batch", "40", "--only", "full,fwd_bwd"],
+            "bf16": ["--bf16", "--only", "full"]}
+    for name, extra in runs.items():
+        assert step_attr_bench.main(small + extra) == 0
+        (tmp_path / f"{name}.json").write_text(capsys.readouterr().out)
+    ladder = json.loads((tmp_path / "f32.json").read_text())
+    assert window_promote.count_rungs(ladder) == 10 and ladder["device_kind"] == "cpu"
+    for name, dst in (("f32", "stepattr"), ("b1000", "stepattr_b1000")):
+        assert window_promote.main(["rungs", str(tmp_path / f"{name}.json"),
+                                    str(artifacts / f"bench_r1_{dst}.json")]) == 0
+        assert capsys.readouterr().out.startswith("stepattr promoted")
+    (artifacts / "bench_r1_stepattr_bf16.json").write_bytes(
+        (tmp_path / "bf16.json").read_bytes())
+
+    net = Net(torch.Generator().manual_seed(0))
+    x = torch.randn(8, 28, 28, 1)
+    with trace(str(tmp_path / "trace"), "cpu"):
+        for _ in range(2):
+            net(x).sum().backward()
+    (cpu_trace,) = (tmp_path / "trace").glob("*.pt.trace.json")
+    _on_a_stream(cpu_trace, tmp_path / "stream.pt.trace.json")
+    texts = {}
+    for name, path, rc in (("cpu_trace", cpu_trace, 1),
+                           ("on_a_stream", tmp_path / "stream.pt.trace.json", 0)):
+        assert trace_attr.main([str(path), "--out", str(tmp_path / f"{name}.json")]) == rc
+        (artifacts / "bench_r1_attr.json").write_text(capsys.readouterr().out)
+        got = perf_report.build_report()
+        assert got == JAX.build_report()
+        texts[name] = got
+    assert "Trace:" not in texts["cpu_trace"]
+    assert "Trace: device busy" in texts["on_a_stream"]
+    for text in texts.values():
+        assert text.splitlines()[0].endswith("(cpu; artifacts bench_r1_*)")
+        assert sum(line.startswith("| ") and "|---|" not in line
+                   for line in text.splitlines()) == 2 + 10 + 9
+        assert "bf16 ladder: full" in text and "Batch-scaling:" in text
